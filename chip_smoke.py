@@ -27,6 +27,29 @@ Phases, each of which raises on failure:
               explicitly: int8-domain logits bitwise equal, float-domain
               logits within 10% of the logit scale (24 bf16 layers carry
               the kernels' different summation order).
+5. paged-kernel - the paged_attention kernel against its plain version at
+              the serve shape (8 slots, 8 KV heads x 2 grouped queries,
+              hd 128, pages of 16, 32 windows, bf16, a pool of 257 pages
+              in random order) and at ragged cases: positions on page
+              edges and 0, slots sharing a page, a null page full of
+              garbage, hd 64 with 4 grouped queries.  m within
+              1e-5 * max(1, |m|), acc and l within 1e-4 of their per-row
+              maximum.  Prints its time per call beside the bound (live
+              context and full table) and the plain version's time.
+6. sched    - three continuous schedulers on one bursty trace at full
+              width (base3 / float, 8 slots, chunk 8, capacity 512, pages
+              of 16): the dense Scheduler, the PagedScheduler on the named
+              gather path, and the PagedScheduler with fused_attn='auto',
+              which must resolve the paged_attn kernel.  The counts are
+              zeroed just before each run and read just after.  Checks:
+              the fused run launched paged_attention once per layer per
+              decode step run; gather tokens equal the dense ones; fused
+              tokens equal the gather ones, or every first divergence is a
+              near tie (top-2 logit margin <= 2% of the logit scale);
+              host_transfers == chunks; resident paged KV peak <= half of
+              the dense pool; prefix hit rate > 0.  Then one chunk of a
+              fused scheduler runs under
+              torch.cuda.set_sync_debug_mode("error").
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -46,8 +69,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, data sheet
 PEAK_OPS_PER_S = {"float": 989e12,         # bf16 tensor cores, dense
                   "int8": 1979e12}         # int8 tensor cores, dense
+PEAK_F32_OPS_PER_S = 67e12               # f32 outside the tensor cores
 ARCH = "internlm2-1.8b"
 BATCH, PROMPT, MAX_NEW, CAPACITY = 8, 128, 32, 256
+# paged serving: slots, chunk, per-request capacity, page size
+SLOTS, CHUNK, SCHED_CAPACITY, PAGE = 8, 8, 512, 16
+NEAR_TIE = 0.02               # fused vs gather: top-2 margin / logit scale
 FLOAT_TOL = 1e-4              # kernel vs plain, relative to max|y|
 MODEL_FLOAT_TOL = 0.1         # logits, relative to max|logit|
 SPIN_CYCLES = 2_000_000       # ~1 ms at the H100's 1.98 GHz clock
@@ -367,6 +394,326 @@ def kernel_summary(cases, runs, cfg):
     return out
 
 
+def paged_operands(torch, np, dev, slots, kvh, rep, hd, ps, windows, pos,
+                   seed, garbage):
+    """q (pre-scaled), a pool of 1 + slots*windows pages in random order,
+    tables naming each slot's live pages (the rest point at the null
+    page 0), and slot 2 sharing the last slot's first page.  With
+    ``garbage`` the null page holds large finite values."""
+    from repro_torch.kernels import paged_attention as pa
+    rng = np.random.default_rng(seed)
+    num_pages = 1 + slots * windows
+    q = rng.standard_normal((slots, kvh, rep, hd)) / np.sqrt(hd)
+    k = rng.standard_normal((num_pages, ps, kvh, hd))
+    v = rng.standard_normal((num_pages, ps, kvh, hd))
+    if garbage:
+        k[0] = 3e4 * rng.choice([-1.0, 1.0], size=k[0].shape)
+        v[0] = 3e4 * rng.choice([-1.0, 1.0], size=v[0].shape)
+    ids = rng.permutation(np.arange(1, num_pages))
+    table = np.zeros((slots, windows), np.int32)
+    for i, p in enumerate(pos):
+        n = min(-(-p // ps), windows)
+        table[i, :n] = ids[i * windows: i * windows + n]
+    if slots > 2:
+        table[2, 0] = table[-1, 0]
+
+    def t(a, dtype):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+    kv = pa.PagedAttentionKV(t(k, torch.bfloat16), t(v, torch.bfloat16),
+                             t(table, torch.int32),
+                             t(np.asarray(pos), torch.int32))
+    return t(q, torch.bfloat16), kv
+
+
+def stats_error(torch, got, want):
+    """(ok, max abs error) of (acc, m, l) against the plain version's:
+    m within 1e-5 * max(1, |m|), acc and l within 1e-4 of their per-row
+    maximum."""
+    acc, m, l = got
+    acc_r, m_r, l_r = want
+    ok = (bool(((m - m_r).abs() <= 1e-5 * m_r.abs().clamp(min=1.0)).all())
+          and bool(((l - l_r).abs() <= 1e-4 * l_r.abs()).all())
+          and bool(((acc - acc_r).abs() <= 1e-4 * acc_r.abs().amax(
+              dim=-1, keepdim=True)).all()))
+    err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    return ok, err
+
+
+def paged_bytes_ops(s, kvh, rep, hd, windows, positions):
+    """Bytes and f32 operations of one paged read: the K and V rows of
+    `positions` context positions (bf16), q, the page table and pos in;
+    acc, m and l out; two multiply-adds per position, query and lane."""
+    moved = (2 * 2 * positions * kvh * hd + 2 * s * kvh * rep * hd
+             + 4 * s * windows + 4 * s
+             + 4 * s * kvh * rep * hd + 2 * 4 * s * kvh * rep)
+    return moved, 4 * positions * kvh * rep * hd
+
+
+def phase_paged_kernel(torch, np, cfg):
+    """The paged_attention kernel vs its plain version on the card."""
+    from repro_torch.kernels import paged_attention as pa
+    dev = torch.device("cuda")
+    kvh, hd = cfg.num_kv_heads, cfg.hd
+    rep = cfg.num_heads // kvh
+    windows = SCHED_CAPACITY // PAGE
+    cases = [("serve ragged, garbage null page", SLOTS, kvh, rep, hd, PAGE,
+              windows, [0, 1, 15, 16, 17, 511, 512, 700], True),
+             ("hd 64, rep 4", 5, 2, 4, 64, PAGE, 8, [0, 5, 16, 64, 128],
+              True),
+             ("pages of 5, hd 40 (unaligned rows)", 7, 3, 1, 40, 5, 7,
+              [0, 1, 4, 5, 6, 34, 35], True)]
+    worst = 0.0
+    for i, (name, *shape, pos, garbage) in enumerate(cases):
+        q, kv = paged_operands(torch, np, dev, *shape, pos=pos, seed=i,
+                               garbage=garbage)
+        got = pa.paged_attention(q, kv)
+        torch.cuda.synchronize()
+        ok, err = stats_error(torch, got, pa.paged_attention_torch(q, kv))
+        check(ok, f"paged_attention disagrees with its plain version at "
+                  f"{name}: max abs error {err}")
+        clean = kv._replace(k_pages=kv.k_pages.clone(),
+                            v_pages=kv.v_pages.clone())
+        clean.k_pages[0] = 0
+        clean.v_pages[0] = 0
+        live = kv.pos > 0
+        check(all(torch.equal(a[live], b[live]) for a, b in
+                  zip(got, pa.paged_attention(q, clean))),
+              f"the null page leaks into a live slot at {name}")
+        print(f"[paged-kernel] {name}: ok, max abs error {err:.3g}")
+    # timed at the serve shape, realistic data (no garbage)
+    pos = [0, 1, 15, 16, 17, 511, 512, 256]
+    q, kv = paged_operands(torch, np, dev, SLOTS, kvh, rep, hd, PAGE,
+                           windows, pos, seed=9, garbage=False)
+    got = pa.paged_attention(q, kv)
+    ok, worst = stats_error(torch, got, pa.paged_attention_torch(q, kv))
+    check(ok, f"paged_attention disagrees at the timed case ({worst})")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    live = sum(min(p, windows * PAGE) for p in pos)
+    moved, ops = paged_bytes_ops(SLOTS, kvh, rep, hd, windows, live)
+    moved_full, ops_full = paged_bytes_ops(SLOTS, kvh, rep, hd, windows,
+                                           SLOTS * windows * PAGE)
+    t_live = max(moved / HBM_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S) * 1e3
+    t_full = max(moved_full / HBM_BYTES_PER_S,
+                 ops_full / PEAK_F32_OPS_PER_S) * 1e3
+    rec = dict(
+        shape=dict(slots=SLOTS, kv_heads=kvh, rep=rep, hd=hd, page=PAGE,
+                   windows=windows, pool_pages=1 + SLOTS * windows, pos=pos,
+                   dtype="bf16"),
+        max_abs_err=worst,
+        ms=time_ms(torch, lambda: pa.paged_attention(q, kv), 50, flush),
+        plain_ms=time_ms(torch, lambda: pa.paged_attention_torch(q, kv), 10,
+                         flush),
+        bound_ms=t_live,
+        bound_by=("bytes" if moved / HBM_BYTES_PER_S
+                  >= ops / PEAK_F32_OPS_PER_S else "operations"),
+        bound_full_table_ms=t_full, bytes_live=moved, bytes_full=moved_full,
+        library_ms=None,
+        library_reason="no PyTorch call returns the unnormalised flash "
+                       "statistics (acc, m, l) of a paged context")
+    rec["ms_per_step"] = rec["ms"] * cfg.num_layers
+    print("[paged-kernel] " + json.dumps(rec))
+    return rec
+
+
+def sched_requests(np, cfg, seed):
+    """The bursty trace: 2 bursts of 8; in each, 7 short requests share a
+    128-token system prompt followed by 16-48 tokens of their own
+    (max_new 16-32), and one long request has a 384-token prompt
+    (max_new 32)."""
+    from repro_torch.serve import bursty_arrivals
+    arrivals = bursty_arrivals(16, bursts=2, gap_s=0.25, seed=seed)
+    rng = np.random.default_rng(seed)
+    system = [rng.integers(0, cfg.vocab_size, 128) for _ in range(2)]
+    specs = []
+    for i, arrival in enumerate(arrivals):
+        if i % 8 == 7:
+            prompt, max_new = rng.integers(0, cfg.vocab_size, 384), 32
+        else:
+            own = rng.integers(0, cfg.vocab_size, int(rng.integers(16, 49)))
+            prompt = np.concatenate([system[i // 8], own])
+            max_new = int(rng.integers(16, 33))
+        specs.append((i, prompt.astype(np.int32), max_new, arrival))
+    return specs
+
+
+def make_scheduler(kind, model, params, cim):
+    from repro_torch.serve import PagedScheduler, Scheduler
+    if kind == "dense":
+        return Scheduler(model, params, capacity=SCHED_CAPACITY,
+                         slots=SLOTS, chunk=CHUNK, cim=cim, device="cuda")
+    return PagedScheduler(model, params, capacity=SCHED_CAPACITY,
+                          slots=SLOTS, chunk=CHUNK, page_size=PAGE, cim=cim,
+                          fused_attn="auto" if kind == "fused" else False,
+                          device="cuda")
+
+
+def first_divergence(torch, model, params, cim, prompt, want, got):
+    """Where two token lists of one request first differ: the step, and
+    the top-2 margin and scale of the logits there, taken by feeding
+    `want`'s tokens through the dense decode."""
+    j = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
+    tokens = torch.as_tensor(prompt[None], device="cuda")
+    logits, state = model.prefill(params, tokens, SCHED_CAPACITY, cim=cim)
+    for t in want[:j]:
+        logits, state = model.decode(
+            params, torch.tensor([[t]], device="cuda"), state, cim=cim)
+    top = logits[0, -1].float().topk(2).values
+    scale = logits[0, -1].float().abs().max().item()
+    return dict(step=j, margin=(top[0] - top[1]).item(), scale=scale,
+                want=want[j], got=got[j])
+
+
+def phase_sched(torch, np, cfg, model, params):
+    """Dense, gather and fused schedulers on one trace; returns records."""
+    from repro_torch.core.cim_linear import CIMConfig
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.serve import Request, latency_stats
+    cim = CIMConfig(mode="ternary", packing="base3", domain="float")
+    specs = sched_requests(np, cfg, seed=21)
+    runs, tokens = {}, {}
+    for kind in ("dense", "gather", "fused"):
+        eng = make_scheduler(kind, model, params, cim)
+        if kind == "fused":
+            check(eng.attn_plan is not None
+                  and eng.attn_plan.backend == "paged_attn",
+                  f"fused_attn='auto' resolved {eng.attn_plan} on the card")
+        for uid, prompt, max_new, arrival in specs:
+            eng.submit(Request(uid=uid, prompt=prompt, max_new=max_new,
+                               arrival_s=arrival))
+        rounds = []
+        serve_round = eng._serve_round
+
+        def timed(elapsed, serve_round=serve_round, rounds=rounds):
+            t = time.monotonic()
+            serve_round(elapsed)
+            rounds.append(time.monotonic() - t)
+        eng._serve_round = timed
+        torch.cuda.synchronize()
+        tm.reset_launches()
+        pa.reset_launches()
+        t0 = time.monotonic()
+        done = eng.run()
+        wall = time.monotonic() - t0
+        launches = {**tm.LAUNCHES, **pa.LAUNCHES}
+        steps_launched = eng.chunk * eng.chunks_run
+        paged = kind != "dense"
+        rec = dict(
+            kind=kind, requests=len(done),
+            generated_tokens=eng.generated_tokens, wall_s=wall,
+            tok_per_s=eng.generated_tokens / wall,
+            p50_s=latency_stats(done)["p50_s"],
+            p99_s=latency_stats(done)["p99_s"],
+            decode_ms_per_step=sum(rounds) * 1e3 / steps_launched,
+            chunks=eng.chunks_run, host_transfers=eng.host_transfers,
+            decode_steps=eng.decode_steps, steps_launched=steps_launched,
+            slot_occupancy=eng.slot_occupancy,
+            kv_bytes_pool=eng.kv_bytes(),
+            kv_bytes_resident_peak=(eng.kv_bytes_resident_peak if paged
+                                    else eng.kv_bytes()),
+            pages_in_use_peak=eng.allocator.peak_in_use if paged else None,
+            prefix_hit_rate=eng.prefix_hit_rate if paged else None,
+            attn_backend=(eng.attn_plan.backend
+                          if paged and eng.attn_plan else None),
+            launches=launches)
+        print("[sched] " + json.dumps(rec))
+        runs[kind] = rec
+        tokens[kind] = {r.uid: [int(t) for t in r.out_tokens] for r in done}
+        check(len(done) == len(specs) and all(
+            len(r.out_tokens) == r.max_new for r in done),
+            f"{kind}: a request is missing tokens")
+        check(eng.host_transfers == eng.chunks_run,
+              f"{kind}: {eng.host_transfers} host transfers for "
+              f"{eng.chunks_run} chunks")
+        check(launches["ternary_matmul"] > 0,
+              f"{kind}: ternary_matmul never launched")
+        want = cfg.num_layers * steps_launched if kind == "fused" else 0
+        check(launches["paged_attention"] == want,
+              f"{kind}: paged_attention launched "
+              f"{launches['paged_attention']} times, expected {want}")
+        del eng
+    dense_peak = runs["dense"]["kv_bytes_resident_peak"]
+    for kind in ("gather", "fused"):
+        peak = runs[kind]["kv_bytes_resident_peak"]
+        check(peak <= dense_peak / 2,
+              f"{kind}: resident KV peak {peak} is not <= half the dense "
+              f"pool's {dense_peak}")
+        check(runs[kind]["prefix_hit_rate"] > 0, f"{kind}: no prefix hit")
+    prompts = {uid: prompt for uid, prompt, _, _ in specs}
+    bad = [u for u in prompts if tokens["gather"][u] != tokens["dense"][u]]
+    if bad:
+        for u in bad:
+            print("[sched] gather != dense " + json.dumps(
+                dict(uid=u, **first_divergence(
+                    torch, model, params, cim, prompts[u],
+                    tokens["dense"][u], tokens["gather"][u]))))
+    check(not bad, f"gather tokens differ from dense for requests {bad}")
+    mism = [u for u in prompts if tokens["fused"][u] != tokens["gather"][u]]
+    ties = []
+    for u in mism:
+        d = dict(uid=u, **first_divergence(torch, model, params, cim,
+                                           prompts[u], tokens["gather"][u],
+                                           tokens["fused"][u]))
+        print("[sched] fused != gather " + json.dumps(d))
+        ties.append(d)
+    total = sum(len(t) for t in tokens["gather"].values())
+    agree = sum(a == b for u in prompts
+                for a, b in zip(tokens["gather"][u], tokens["fused"][u]))
+    parity = dict(fused_identical=not mism, mismatched_requests=mism,
+                  argmax_agreement=agree / total,
+                  largest_margin_at_mismatch=max(
+                      (d["margin"] / d["scale"] for d in ties), default=None))
+    print("[sched] fused vs gather " + json.dumps(parity))
+    check(all(d["margin"] <= NEAR_TIE * d["scale"] for d in ties),
+          f"fused tokens differ from gather beyond a near tie: {ties}")
+    return runs, parity
+
+
+def phase_sync_free_chunk(torch, np, cfg, model, params):
+    """One chunk of a fused PagedScheduler under
+    set_sync_debug_mode('error'): the chunk loop holds no host sync (its
+    single transfer comes after the guarded call)."""
+    from repro_torch.core.cim_linear import CIMConfig
+    from repro_torch.serve import Request
+    cim = CIMConfig(mode="ternary", packing="base3", domain="float")
+    eng = make_scheduler("fused", model, params, cim)
+    for uid, prompt, max_new, _ in sched_requests(np, cfg, seed=22)[:SLOTS]:
+        check(eng.try_admit(Request(uid=uid, prompt=prompt,
+                                    max_new=max_new)), "admission refused")
+    eng._upload_page_table()
+    run_chunk = eng._run_chunk
+
+    def guarded():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return run_chunk()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    eng._run_chunk = guarded
+    eng.step_round(lambda: 0.0)
+    check(eng.host_transfers == 1 == eng.chunks_run,
+          "the guarded round did not make exactly one transfer")
+    print("[sched] one fused chunk ran under sync_debug_mode('error')")
+
+
+def kernel_summary_paged(paged, runs):
+    return dict(
+        name="paged_attention", route="cuda",
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:96",
+        launches=runs["fused"]["launches"]["paged_attention"],
+        max_abs_err=paged["max_abs_err"], ms=paged["ms"],
+        plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
+        bound_by=paged["bound_by"], library_ms=None,
+        library_reason=paged["library_reason"],
+        bound_full_table_ms=paged["bound_full_table_ms"],
+        ms_per_decode_step=paged["ms_per_step"],
+        launches_per_decode_step=runs["fused"]["launches"]["paged_attention"]
+        // runs["fused"]["steps_launched"],
+        workload="one layer's read at the serve shape: 8 slots x 8 KV heads "
+                 "x 2 queries, hd 128, 32 pages of 16, bf16")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -402,16 +749,24 @@ def main() -> int:
     del params
     runs = phase_serve(torch, np, cfg, model, packed)
     parity = phase_parity(torch, np, cfg, model, packed["base3"])
+    del packed["trit2"]
+    paged = phase_paged_kernel(torch, np, cfg)
+    sched, sched_parity = phase_sched(torch, np, cfg, model,
+                                      packed["base3"])
+    phase_sync_free_chunk(torch, np, cfg, model, packed["base3"])
 
     details = dict(card=card, device=torch.cuda.get_device_name(0),
                    cases=cases, serve=runs, parity=parity,
+                   paged_kernel=paged, sched=sched,
+                   sched_parity=sched_parity,
                    seconds=time.monotonic() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     print(f"[done] {details['seconds']:.1f} s")
     print(card)
-    print(json.dumps({"kernels": kernel_summary(cases, runs, cfg)}))
+    print(json.dumps({"kernels": kernel_summary(cases, runs, cfg)
+                      + [kernel_summary_paged(paged, sched)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

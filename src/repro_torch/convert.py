@@ -16,12 +16,15 @@ from typing import Any
 import numpy as np
 import torch
 
+from . import resolve_device
 from .kernels.ops import PackedTernary
 
 
-def to_tensor(a: Any, device="cpu") -> torch.Tensor:
+def to_tensor(a: Any, device="cuda") -> torch.Tensor:
     """A numpy array (bfloat16 from ``ml_dtypes`` included) -> tensor of
-    the same dtype and values on `device`."""
+    the same dtype and values on `device` (``cuda`` unless the caller
+    asks for ``cpu``)."""
+    device = resolve_device(device)
     a = np.array(a)                  # a writable, contiguous copy
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(
@@ -35,8 +38,10 @@ def _is_packed(x: Any) -> bool:
     return not isinstance(x, np.ndarray) and hasattr(x, "mode")
 
 
-def params_from_reference(tree: Any, device="cpu") -> Any:
-    """The reference's (numpy) params tree -> the port's params dict."""
+def params_from_reference(tree: Any, device="cuda") -> Any:
+    """The reference's (numpy) params tree -> the port's params dict on
+    `device` (``cuda`` unless the caller asks for ``cpu``)."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_reference(v, device) for k, v in tree.items()}
     if _is_packed(tree):

@@ -24,19 +24,22 @@ class CIMConfig:
     packing: str = "base3"         # base3 | trit2
     backend: str = "auto"          # any registered kernel backend
     domain: str = "float"          # float | int8
+    kv_layout: str = "dense"       # dense | paged: serving KV layout
 
     def resolve(self, platform: str) -> "CIMConfig":
         """Pin 'auto' against the backend registry for `platform` (the
-        device type the engine runs on); raises on an incapable backend,
-        so a bad request fails at construction.  (The reference resolves
-        once per phase to route its device-fidelity path, which is not
-        ported: both phases would resolve alike here.)"""
-        from ..kernels.plan import check_choice, resolve_backend
+        device type the engine runs on) and the config's KV layout;
+        raises on an incapable backend, so a bad request fails at
+        construction.  (The reference resolves once per phase to route
+        its device-fidelity path, which is not ported: both phases would
+        resolve alike here.)"""
+        from ..kernels.plan import KV_LAYOUTS, check_choice, resolve_backend
         check_choice("cim mode", self.mode, MODES)
+        check_choice("kv layout", self.kv_layout, KV_LAYOUTS)
         if self.mode != "ternary":
             return self
         spec = resolve_backend("ternary", self.backend, self.domain,
-                               self.packing, platform)
+                               self.packing, platform, self.kv_layout)
         return dataclasses.replace(self, backend=spec.name)
 
 

@@ -8,6 +8,16 @@
           named.
   ref   - the oracles (kernels/ref.py), priority 10.
 
+The matmul backends are layout-agnostic (the paged pool's gather and
+scatter wrap around the matmuls), so they declare both KV layouts.  The
+paged-attention read registers two backends for ``op='attention'``,
+``kv_layout='paged'``, float domain:
+
+  paged_attn       - the hand-written kernel (kernels/paged_attention.py),
+                     platform cuda, priority 100.
+  paged_attn_torch - its plain version (the gather oracle), cpu and cuda,
+                     priority 50; on the card it runs only when named.
+
 There is no fallback between them: a backend that cannot run a request
 raises.
 """
@@ -16,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from . import ops, ref
+from . import paged_attention as pa
 from . import ternary_matmul as tm
 from .plan import BackendSpec, register_backend
 
@@ -60,7 +71,8 @@ def _run_ref(plan, x, w):
 
 
 _ALL = dict(ops=frozenset({"ternary"}), domains=frozenset({"float", "int8"}),
-            packings=frozenset({"base3", "trit2"}))
+            packings=frozenset({"base3", "trit2"}),
+            kv_layouts=frozenset({"dense", "paged"}))
 
 register_backend(BackendSpec(name="cuda", platforms=frozenset({"cuda"}),
                              priority=100, runner=_run_cuda, **_ALL))
@@ -69,3 +81,26 @@ register_backend(BackendSpec(name="torch",
                              priority=50, runner=_run_torch, **_ALL))
 register_backend(BackendSpec(name="ref", platforms=frozenset({"cpu", "cuda"}),
                              priority=10, runner=_run_ref, **_ALL))
+
+
+def _run_paged_attn(plan, q, kv):
+    return pa.paged_attention(q, kv)
+
+
+def _run_paged_attn_torch(plan, q, kv):
+    return pa.paged_attention_torch(q, kv)
+
+
+# attention has no packed operand: every packing a model runs under is
+# admissible
+_ATTN = dict(ops=frozenset({"attention"}), domains=frozenset({"float"}),
+             packings=frozenset({"base3", "trit2"}),
+             kv_layouts=frozenset({"paged"}))
+
+register_backend(BackendSpec(name="paged_attn",
+                             platforms=frozenset({"cuda"}), priority=100,
+                             runner=_run_paged_attn, **_ATTN))
+register_backend(BackendSpec(name="paged_attn_torch",
+                             platforms=frozenset({"cpu", "cuda"}),
+                             priority=50, runner=_run_paged_attn_torch,
+                             **_ATTN))

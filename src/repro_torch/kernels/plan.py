@@ -1,16 +1,22 @@
-"""Capability-based execution planning for the ternary matmul.
+"""Capability-based execution planning for the kernel layer.
 
-Every packed matmul resolves once into a frozen, hashable
-:class:`ExecutionPlan` (what to compute, and which backend computes it)
-and runs through :func:`execute`.  Backends declare their capabilities
-in a :class:`BackendSpec`; ``backend='auto'`` picks the highest-priority
-backend that supports the request on the operand's platform, and an
-explicit backend that lacks a capability raises.
+Every packed matmul, and every paged-attention read, resolves once into
+a frozen, hashable :class:`ExecutionPlan` (what to compute, and which
+backend computes it) and runs through :func:`execute`.  Backends declare
+their capabilities in a :class:`BackendSpec`; ``backend='auto'`` picks
+the highest-priority backend that supports the request on the operand's
+platform, and an explicit backend that lacks a capability raises.
 
 The platform is the operand's device type (``cpu`` or ``cuda``), passed
 in by the caller: there is no global probe.  On a CUDA tensor ``auto``
-resolves to the hand-written ``cuda`` backend only; the plain ``torch``
-backend runs there only when it is named.
+resolves to a hand-written kernel only (``cuda`` for the ternary op,
+``paged_attn`` for attention); the plain versions run there only when
+named.
+
+``kv_layout`` names the KV-cache layout the serving loop feeds a plan
+from (``dense`` slot caches or the ``paged`` page pool); backends
+declare the layouts they can be planned under, so paged serving is a
+registered capability, not a keyword threaded through call sites.
 """
 from __future__ import annotations
 
@@ -18,10 +24,11 @@ import dataclasses
 import functools
 from typing import Any, Callable, Optional
 
-OPS = ("ternary",)
+OPS = ("ternary", "attention")
 DOMAINS = ("float", "int8")
 PACKINGS = ("base3", "trit2")
 PLATFORMS = ("cpu", "cuda")
+KV_LAYOUTS = ("dense", "paged")
 
 PLAN_CACHE_SIZE = 4096
 
@@ -34,9 +41,9 @@ def check_choice(kind: str, value: Any, choices) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPlan:
-    """A resolved matmul: produced by :func:`plan_matmul`, consumed by
-    :func:`execute`."""
-    op: str
+    """A resolved matmul or attention read: produced by
+    :func:`plan_matmul`, consumed by :func:`execute`."""
+    op: str                       # ternary | attention
     backend: str                  # resolved name, never 'auto'
     domain: str                   # float | int8
     packing: str                  # base3 | trit2
@@ -44,6 +51,7 @@ class ExecutionPlan:
     k: int
     n: int
     platform: str                 # cpu | cuda
+    kv_layout: str = "dense"      # dense | paged
 
     @property
     def shape(self) -> tuple:
@@ -60,11 +68,13 @@ class BackendSpec:
     platforms: frozenset
     priority: int
     runner: Callable
+    kv_layouts: frozenset = frozenset({"dense"})
 
     def supports(self, op: str, domain: str, packing: str,
-                 platform: str) -> bool:
+                 platform: str, kv_layout: str = "dense") -> bool:
         return (op in self.ops and domain in self.domains
-                and packing in self.packings and platform in self.platforms)
+                and packing in self.packings and platform in self.platforms
+                and kv_layout in self.kv_layouts)
 
 
 _REGISTRY: dict[str, BackendSpec] = {}
@@ -104,24 +114,28 @@ def platform_of(x) -> str:
 
 def resolve_backend(op: str = "ternary", backend: str = "auto",
                     domain: str = "float", packing: str = "base3",
-                    platform: str = "cuda") -> BackendSpec:
+                    platform: str = "cuda",
+                    kv_layout: str = "dense") -> BackendSpec:
     """'auto' picks the highest-priority capable backend on `platform`;
     an explicit name is checked against its declared capabilities."""
     _ensure_builtin_backends()
     check_choice("platform", platform, PLATFORMS)
+    check_choice("kv layout", kv_layout, KV_LAYOUTS)
     if backend in (None, "auto"):
         cands = [s for s in _REGISTRY.values()
-                 if s.supports(op, domain, packing, platform)]
+                 if s.supports(op, domain, packing, platform, kv_layout)]
         if not cands:
             raise ValueError(
                 f"no registered backend supports op={op!r} "
-                f"domain={domain!r} packing={packing!r} on platform "
-                f"{platform!r}; registered: {backend_names()}")
+                f"domain={domain!r} packing={packing!r} "
+                f"kv_layout={kv_layout!r} on platform {platform!r}; "
+                f"registered: {backend_names()}")
         return max(cands, key=lambda s: s.priority)
     spec = get_backend(backend)
     for kind, value, have in (("op", op, spec.ops),
                               ("domain", domain, spec.domains),
                               ("packing mode", packing, spec.packings),
+                              ("kv layout", kv_layout, spec.kv_layouts),
                               ("platform", platform, spec.platforms)):
         if value not in have:
             raise ValueError(
@@ -141,44 +155,52 @@ def shape_of(x, w) -> tuple:
 
 
 @functools.lru_cache(maxsize=PLAN_CACHE_SIZE)
-def _resolve(op, m, k, n, backend, domain, packing,
-             platform) -> ExecutionPlan:
+def _resolve(op, m, k, n, backend, domain, packing, platform,
+             kv_layout) -> ExecutionPlan:
     check_choice("op", op, OPS)
     check_choice("domain", domain, DOMAINS)
     check_choice("packing mode", packing, PACKINGS)
-    spec = resolve_backend(op, backend, domain, packing, platform)
+    spec = resolve_backend(op, backend, domain, packing, platform,
+                           kv_layout)
     return ExecutionPlan(op=op, backend=spec.name, domain=domain,
                          packing=packing, m=m, k=k, n=n,
-                         platform=platform)
+                         platform=platform, kv_layout=kv_layout)
 
 
 def plan_matmul(shape, cfg: Any = None, *, platform: str,
                 op: str = "ternary",
                 backend: Optional[str] = None,
                 domain: Optional[str] = None,
-                packing: Optional[str] = None) -> ExecutionPlan:
-    """Resolve a plan for an (M, K, N) matmul on `platform`.  ``cfg`` is
-    any object with ``backend``/``domain``/``packing`` attributes (a
-    ``CIMConfig``); explicit keywords override it."""
+                packing: Optional[str] = None,
+                kv_layout: Optional[str] = None) -> ExecutionPlan:
+    """Resolve a plan for an (M, K, N) problem on `platform`.  ``cfg`` is
+    any object with ``backend``/``domain``/``packing``/``kv_layout``
+    attributes (a ``CIMConfig``); explicit keywords override it.  An
+    attention plan's shape is ``(S*KV*rep, hd, W*page_size)``: every
+    slot's grouped queries against the per-slot page capacity."""
     m, k, n = (int(s) for s in shape)
     if cfg is not None:
         backend = backend if backend is not None else cfg.backend
         domain = domain if domain is not None else cfg.domain
         packing = packing if packing is not None else cfg.packing
+        kv_layout = kv_layout if kv_layout is not None else cfg.kv_layout
     _ensure_builtin_backends()
     return _resolve(op, m, k, n, "auto" if backend is None else backend,
                     "float" if domain is None else domain,
-                    "base3" if packing is None else packing, platform)
+                    "base3" if packing is None else packing, platform,
+                    "dense" if kv_layout is None else kv_layout)
 
 
 def execute(plan: ExecutionPlan, x, w):
-    """Run a resolved plan: ``x (..., K) @ w -> (..., N)``.  The operands
-    must match the plan's shape, packing and platform."""
+    """Run a resolved plan: ``x (..., K) @ w -> (..., N)`` for a ternary
+    plan, ``(acc, m, l)`` of the queries ``x`` against a
+    ``PagedAttentionKV`` ``w`` for an attention plan.  The operands must
+    match the plan's shape, packing and platform."""
     got = shape_of(x, w)
     if got != plan.shape:
         raise ValueError(f"operand shape {got} does not match plan "
                          f"{plan.shape}; call plan_matmul for this shape")
-    if w.mode != plan.packing:
+    if plan.op == "ternary" and w.mode != plan.packing:
         raise ValueError(f"weight packing {w.mode!r} does not match plan "
                          f"packing {plan.packing!r}")
     if platform_of(x) != plan.platform:

@@ -21,6 +21,7 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
     dtype: Any = torch.bfloat16
+    kv_cache_dtype: str = ""       # "" (= dtype); "int8" is not ported yet
 
     @property
     def hd(self) -> int:

@@ -6,6 +6,13 @@ layer axis (``ln1``, ``ln2``, ``wq``, ``wk``, ``wv``, ``wo``, ``w1``,
 ``w2``, ``w3``).  Packed weights are ``PackedTernary`` with the same
 leading axis; the layer loop slices it.  Every weight matmul goes
 through ``layers.dense`` and so through the CIM modes.
+
+Decode comes in three forms: ``decode`` over a dense cache whose position
+is a host int (the bucket engine) or a ``(B,)`` device tensor (the
+continuous ``Scheduler``'s slot pool, each row at its own position);
+``decode_paged``, which gathers every slot's pages into that dense layout
+(``paged_kv.slot_view``); and ``decode_paged_fused``, whose attention
+read takes the page table itself (``kernels.paged_attention``).
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ class TransformerLM:
         if cfg.family != "dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (dense only)")
+        if cfg.kv_cache_dtype == "int8":
+            raise NotImplementedError("int8 KV caches are not ported yet")
         self.cfg = cfg
         self.param_specs = self._param_specs()
 
@@ -95,41 +104,106 @@ class TransformerLM:
         return dense(x, params["unembed"], cim), state
 
     def _decode_read_layers(self, params, x, state, cim):
-        """The decode layer loop: each layer reads its (stale) cache plus
-        the fresh token, then its new k/v are written in place at the
-        current position.  The reference collects every layer's k/v and
-        writes them once after the loop; here each layer writes its own
-        cache right after reading it, which no later read sees, so every
-        value is the same."""
+        """The read-only decode layer loop: each layer attends over its
+        (stale) cache plus the fresh token.  Returns x and every layer's
+        new k/v, (L, B, KV, hd) each, for one write after the loop, as
+        the reference's scan does.  ``state`` is the dense cache or a
+        paged gather view (same layout)."""
         cfg = self.cfg
-        pos = state["pos"]
-        cap = state["k"].shape[2]
-        # past capacity the write lands on the last slot, as the
-        # reference's clamped dynamic_update_slice does; the slot is a
-        # host int, so the write needs no copy to the device
-        slot = min(pos, cap - 1)
         blocks = params["blocks"]
+        kts, vts = [], []
         for i in range(cfg.num_layers):
             wl = _layer(blocks, i)
-            cache = attn.KVCache(state["k"][i], state["v"][i], pos)
+            cache = attn.KVCache(state["k"][i], state["v"][i], state["pos"])
             out, kt, vt = attn.decode_attention_read(
                 rms_norm(x, wl["ln1"], cfg.norm_eps), wl, cfg, cache, cim)
             x = x + out
             x = x + self._mlp(rms_norm(x, wl["ln2"], cfg.norm_eps), wl, cim)
-            state["k"][i, :, slot] = kt[:, 0]
-            state["v"][i, :, slot] = vt[:, 0]
-        return x
+            kts.append(kt[:, 0])
+            vts.append(vt[:, 0])
+        return x, torch.stack(kts), torch.stack(vts)
 
     def decode(self, params: dict, token: torch.Tensor, state: dict,
                cim=None) -> tuple[torch.Tensor, dict]:
-        """One-token step: token (B, 1) -> logits (B, 1, V).  Updates the
-        cache in place and advances ``state['pos']``."""
+        """One-token step: token (B, 1) -> logits (B, 1, V).  Writes the
+        new k/v into the cache in place and advances ``state['pos']``: a
+        host int (every row at one position) or a (B,) device tensor
+        (each row at its own).  Past capacity the write lands on the
+        last slot, as the reference's clamped dynamic_update_slice does;
+        a host position stays on the host, a device one on the device."""
         cfg = self.cfg
         x = params["embed"][token.long()].to(cfg.dtype)
-        x = self._decode_read_layers(params, x, state, cim)
-        state["pos"] = state["pos"] + 1
+        x, kts, vts = self._decode_read_layers(params, x, state, cim)
+        pos = state["pos"]
+        cap = state["k"].shape[2]
+        if isinstance(pos, torch.Tensor):
+            rows = torch.arange(pos.shape[0], device=pos.device)
+            slot = torch.clamp(pos, max=cap - 1).long()
+            state["k"][:, rows, slot] = kts
+            state["v"][:, rows, slot] = vts
+        else:
+            slot = min(pos, cap - 1)
+            state["k"][:, :, slot] = kts
+            state["v"][:, :, slot] = vts
+        state["pos"] = pos + 1
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return dense(x, params["unembed"], cim), state
+
+    @property
+    def supports_paged_kv(self) -> bool:
+        """The dense family's full-cache read-then-write decode pages
+        cleanly (the reference also excludes cross-attention and
+        sliding-window models, which are not ported)."""
+        return True
+
+    def decode_paged(self, params: dict, tokens: torch.Tensor, pool,
+                     page_table: torch.Tensor, pos: torch.Tensor, cim=None
+                     ) -> tuple:
+        """One-token decode of every slot against the page pool through
+        the gather: ``paged_kv.slot_view`` copies each slot's pages into
+        the dense layout, then the read-only layer loop runs on it.
+        tokens (S, 1), page_table (S, W), pos (S,).  Returns (logits
+        (S, 1, V), kts (L, S, KV, hd), vts) in the compute dtype, for
+        ``paged_kv.append_tokens``."""
+        from . import paged_kv
+        cfg = self.cfg
+        view = paged_kv.slot_view(pool, page_table, pos)
+        x = params["embed"][tokens.long()].to(cfg.dtype)
+        x, kts, vts = self._decode_read_layers(params, x, view, cim)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return dense(x, params["unembed"], cim), kts, vts
+
+    def decode_paged_fused(self, params: dict, tokens: torch.Tensor, pool,
+                           page_table: torch.Tensor, pos: torch.Tensor,
+                           cim=None, attn_plan=None) -> tuple:
+        """One-token decode of every slot straight off the page pool: each
+        layer's attention read runs the planned executor (``attn_plan``,
+        an ``op='attention'`` plan) on that layer's raw pages through the
+        page table.  tokens (S,), page_table (S, W) int32, pos (S,)
+        int32.  Returns (logits (S, 1, V), kts (L, S, KV, hd), vts) in
+        the compute dtype, for ``paged_kv.append_tokens``."""
+        if attn_plan is None:
+            raise ValueError("decode_paged_fused needs a resolved "
+                             "attention plan (PagedScheduler resolves "
+                             "one per pool geometry)")
+        from . import paged_kv
+        cfg = self.cfg
+        k_pages, v_pages = paged_kv.raw_pool_view(pool)
+        x = params["embed"][tokens[:, None].long()].to(cfg.dtype)
+        blocks = params["blocks"]
+        kts, vts = [], []
+        for i in range(cfg.num_layers):
+            wl = _layer(blocks, i)
+            out, kt, vt = attn.paged_decode_attention_read(
+                rms_norm(x, wl["ln1"], cfg.norm_eps), wl, cfg, k_pages[i],
+                v_pages[i], page_table, pos, attn_plan, cim)
+            x = x + out
+            x = x + self._mlp(rms_norm(x, wl["ln2"], cfg.norm_eps), wl, cim)
+            kts.append(kt)
+            vts.append(vt)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return (dense(x, params["unembed"], cim), torch.stack(kts),
+                torch.stack(vts))
 
 
 def build(cfg: ModelConfig) -> Any:

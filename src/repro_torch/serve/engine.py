@@ -18,17 +18,36 @@ Two decode loops give identical tokens:
 
 ``host_transfers`` counts device-to-host syncs, so the one-transfer-per-
 bucket contract is testable.
+
+Continuous batching (:class:`Scheduler`): a persistent pool of ``slots``
+decode lanes whose device state (KV, position, live mask, per-slot
+budgets) survives across scheduling rounds.  Each round runs one chunk
+of ``chunk`` batched decode steps, every slot at its own position, then
+makes ONE device-to-host transfer (``host_transfers == chunks_run``);
+the host retires finished slots from it and prefills arrived requests
+into the freed slots.  The reference's chunk loop exits as soon as no
+slot is live; a host-side exit test would cost a sync every step, so
+this loop runs all ``chunk`` steps and counts on the device the steps
+that began with a live slot (``steps``) and the live slot-steps
+(``occ``).  Dead and empty slots keep decoding into scratch.
+:class:`PagedScheduler` keeps the KV in a paged, prefix-shared pool
+(``models/paged_kv.py``) and reads it through the ``paged_attention``
+kernel.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from ..models import paged_kv
+
+_LOG = logging.getLogger("repro_torch.serve.engine")
 
 
 def greedy_sample(logits: torch.Tensor) -> torch.Tensor:
@@ -112,6 +131,31 @@ class _EngineBase:
         logits, state = self.model.prefill(self.params, tokens,
                                            self.capacity, cim=self.cim)
         return greedy_sample(logits), state
+
+    def _arrival_pump(self, clock, sleep, try_admit, busy, serve_round):
+        """The arrival loop of trace serving, shared by every driver:
+        sort the queue by (arrival_s, uid), offer arrived requests to
+        ``try_admit(req, now)`` (False defers, e.g. no free slot), sleep
+        to the next arrival when nothing is ``busy()``, otherwise run one
+        ``serve_round(elapsed)``, which stamps ``latency_s`` as
+        ``elapsed() - arrival_s`` (queue wait included)."""
+        pending = sorted(self.queue, key=lambda r: (r.arrival_s, r.uid))
+        self.queue = []
+        t0 = clock()
+        elapsed = lambda: clock() - t0     # noqa: E731
+        while pending or busy():
+            now = elapsed()
+            while pending and pending[0].arrival_s <= now:
+                if not try_admit(pending[0], now):
+                    break
+                pending.pop(0)
+            if not busy():
+                delay = pending[0].arrival_s - elapsed()
+                if delay > 0:
+                    sleep(delay)
+                continue
+            serve_round(elapsed)
+        return self.completed
 
 
 class ServeEngine(_EngineBase):
@@ -213,3 +257,450 @@ class ServeEngine(_EngineBase):
                 r.latency_s = dt
                 self.completed.append(r)
         return self.completed
+
+    def run_trace(self, clock=time.monotonic, sleep=time.sleep
+                  ) -> list[Request]:
+        """Replay arrival-stamped requests through the bucket driver (the
+        shared ``_arrival_pump``): a request becomes visible at its
+        ``arrival_s``, and each round serves ONE bucket of what has
+        arrived, so arrivals join only at bucket boundaries."""
+        run_bucket = (self._run_bucket_device if self.on_device_loop
+                      else self._run_bucket_legacy)
+
+        def admit(req, now):
+            self.queue.append(req)
+            return True
+
+        def serve_round(elapsed):
+            reqs = self._next_bucket()
+            # a request waits until its bucket starts serving
+            admit_t = elapsed()
+            for r in reqs:
+                r.admit_s = admit_t
+            run_bucket(reqs)
+            done_t = elapsed()
+            for r in reqs:
+                r.done = True
+                r.latency_s = done_t - r.arrival_s
+                self.completed.append(r)
+
+        return self._arrival_pump(clock, sleep, admit,
+                                  lambda: bool(self.queue), serve_round)
+
+
+class Scheduler(_EngineBase):
+    """Continuous-batching scheduler over a persistent slot pool.
+
+    ``slots`` decode lanes live on the device across rounds.  The KV pool
+    is ``(L, slots, capacity, KV, hd)`` with a ``(slots,)`` device
+    position, so slots at different positions decode in one batched
+    step (the reference vmaps a batch-1 decode over slots).  Each round
+    runs one chunk of ``chunk`` decode steps and ONE device-to-host
+    transfer, retires finished slots from it, and the arrival pump
+    prefills arrived requests into freed slots before the next round.
+    Admission is FIFO by ``arrival_s`` (then uid).  ``decode_steps``,
+    ``steps_run`` and ``occupied_slot_steps`` equal the reference's on
+    the same requests.
+
+    The pump API (``free_slots`` / ``is_busy`` / ``try_admit`` /
+    ``step_round``) lets a caller own the arrival loop.  The reference's
+    device-fidelity hooks (fault-injected weights, drift, restore-scrub)
+    are not ported: this scheduler serves exact weights only.
+    """
+
+    def __init__(self, model, params, capacity: int = 512, slots: int = 8,
+                 chunk: int = 8, cim=None, clock=time.monotonic,
+                 sleep=time.sleep, device="cuda"):
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {chunk}")
+        super().__init__(model, params, capacity, cim, device)
+        self.slots = slots
+        self.chunk = chunk
+        self._clock = clock
+        self._sleep = sleep
+        dev = self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        # control lanes, shared by the dense and paged pools
+        self.tok = torch.zeros((slots,), **i32)
+        self.live = torch.zeros((slots,), dtype=torch.bool, device=dev)
+        self.made = torch.zeros((slots,), **i32)
+        self.fresh = torch.zeros((slots,), dtype=torch.bool, device=dev)
+        self.max_new_row = torch.ones((slots,), **i32)
+        self.eos_row = torch.full((slots,), -1, **i32)
+        self.pos = torch.zeros((slots,), **i32)
+        # host bookkeeping
+        self._slot_req: list[Optional[Request]] = [None] * slots
+        self.chunks_run = 0
+        self.decode_steps = 0
+        self.occupied_slot_steps = 0
+        self._init_pool()
+
+    def _init_pool(self) -> None:
+        cache = self.model.init_cache(self.slots, self.capacity,
+                                      self.device)
+        self.pool = {"k": cache["k"], "v": cache["v"]}
+
+    def kv_bytes(self) -> int:
+        """Device bytes of the KV pool.  The dense pool is always fully
+        resident: every slot holds its full capacity."""
+        return sum(t.numel() * t.element_size() for t in self.pool.values())
+
+    def kv_bytes_resident(self) -> int:
+        return self.kv_bytes()
+
+    def _arm_slot(self, slot: int, req: Request, tok0: torch.Tensor,
+                  pos: int) -> None:
+        """Arm a slot's control lanes for a freshly prefilled request, on
+        the device (tok0 is emitted by the next chunk's prologue).  The
+        initial-liveness rule is the bucket loop's: tok0 is token 1."""
+        self.tok[slot] = tok0[0]
+        self.made[slot] = 1
+        if req.max_new > 1:
+            self.live[slot] = tok0[0] != req.eos_id
+        else:
+            self.live[slot] = False
+        self.fresh[slot] = True
+        self.max_new_row[slot] = req.max_new
+        self.eos_row[slot] = req.eos_id
+        self.pos[slot] = pos
+
+    def _admit(self, req: Request, slot: int) -> bool:
+        """Prefill one request and overwrite slot `slot` of the pool with
+        its state: the whole slot, so nothing of the last occupant
+        remains."""
+        tok0, st = self._prefill([req])
+        self.steps_run += 1
+        self.pool["k"][:, slot] = st["k"][:, 0]
+        self.pool["v"][:, slot] = st["v"][:, 0]
+        self._arm_slot(slot, req, tok0, len(req.prompt))
+        self._slot_req[slot] = req
+        return True
+
+    def _decode_step(self, tok: torch.Tensor, live: torch.Tensor
+                     ) -> torch.Tensor:
+        """One batched decode step of every slot at its own position;
+        returns the sampled tokens (slots,)."""
+        state = {"k": self.pool["k"], "v": self.pool["v"], "pos": self.pos}
+        logits, state = self.model.decode(self.params, tok[:, None], state,
+                                          cim=self.cim)
+        self.pos = state["pos"]
+        return greedy_sample(logits)
+
+    def _run_chunk(self) -> tuple:
+        """Advance the pool one chunk on the device, with no host sync;
+        returns (buf (slots, chunk+1), cnt, steps, occ) device tensors.
+        Fresh slots emit their prefill token at buf[:, 0]; live slots
+        append at buf[slot, cnt[slot]]."""
+        p, dev = self.slots, self.device
+        buf = torch.zeros((p, self.chunk + 1), dtype=torch.int32,
+                          device=dev)
+        buf[:, 0] = torch.where(self.fresh, self.tok, 0)
+        cnt = self.fresh.to(torch.int32)
+        steps = torch.zeros((), dtype=torch.int32, device=dev)
+        occ = torch.zeros((), dtype=torch.int32, device=dev)
+        tok, live, made = self.tok, self.live, self.made
+        for _ in range(self.chunk):
+            steps += live.any().to(torch.int32)
+            occ += live.sum(dtype=torch.int32)
+            tok = self._decode_step(tok, live)
+            at = cnt[:, None].long()
+            buf.scatter_(1, at, torch.where(live, tok,
+                                            buf.gather(1, at)[:, 0])[:, None])
+            step = live.to(torch.int32)
+            cnt = cnt + step
+            made = made + step
+            live = live & (made < self.max_new_row) & (tok != self.eos_row)
+        self.tok, self.live, self.made = tok, live, made
+        return buf, cnt, steps, occ
+
+    def _retire_slot(self, slot: int) -> None:
+        """Host bookkeeping when a slot's request completes (the paged
+        scheduler also returns the slot's pages)."""
+        self._slot_req[slot] = None
+
+    def _serve_round(self, elapsed) -> None:
+        """One scheduling round: one chunk on the device, then ONE
+        transfer carrying the tokens, counts, live mask, steps and
+        occupancy."""
+        occupied = [i for i, r in enumerate(self._slot_req)
+                    if r is not None]
+        buf, cnt, steps, occ = self._run_chunk()
+        self.fresh = torch.zeros_like(self.fresh)
+        p, c = self.slots, self.chunk + 1
+        out = self._device_get(torch.cat(
+            [buf, cnt[:, None], self.live[:, None].to(torch.int32),
+             steps.expand(p)[:, None], occ.expand(p)[:, None]], dim=1))
+        self.chunks_run += 1
+        self.decode_steps += int(out[0, c + 2])
+        self.steps_run += int(out[0, c + 2])
+        self.occupied_slot_steps += int(out[0, c + 3])
+        done_t = elapsed()
+        for s in occupied:
+            req = self._slot_req[s]
+            req.out_tokens.extend(int(t) for t in out[s, : int(out[s, c])])
+            if not out[s, c + 1]:             # retire: the slot is free
+                req.done = True               # for the next admission
+                req.latency_s = done_t - req.arrival_s
+                self.completed.append(req)
+                self._retire_slot(s)
+
+    # ---------------------------------------------------- external pump
+
+    def free_slots(self) -> list[int]:
+        return [i for i, r in enumerate(self._slot_req) if r is None]
+
+    def is_busy(self) -> bool:
+        return any(r is not None for r in self._slot_req)
+
+    def try_admit(self, req: Request, now: float = 0.0) -> bool:
+        """Offer one request to the first free slot; False defers it (no
+        free slot, or, paged, its pages cannot be reserved yet).  Stamps
+        ``admit_s`` on success."""
+        free = self.free_slots()
+        if not free:
+            return False
+        if not self._admit(req, free[0]):
+            return False
+        req.admit_s = now
+        return True
+
+    def step_round(self, elapsed) -> None:
+        """Run ONE scheduling round (one chunk, exactly one transfer);
+        ``elapsed()`` is the caller's serve clock."""
+        self._serve_round(elapsed)
+
+    def run(self) -> list[Request]:
+        """Serve the whole queue continuously through the shared arrival
+        pump; returns completed requests."""
+        return self._arrival_pump(self._clock, self._sleep, self.try_admit,
+                                  self.is_busy, self._serve_round)
+
+    @property
+    def slot_occupancy(self) -> float:
+        """Fraction of (slot x decode-step) cells that held a live
+        request."""
+        total = self.slots * self.decode_steps
+        return self.occupied_slot_steps / total if total else 0.0
+
+
+class PagedScheduler(Scheduler):
+    """Continuous batching over a paged, prefix-shared KV page pool.
+
+    The scheduling semantics and the one-transfer-per-chunk contract are
+    the :class:`Scheduler`'s, but resident KV scales with the tokens
+    held, not ``slots x capacity``:
+
+      * the device pool holds ``num_pages`` pages shared by all slots;
+        a host page table maps each slot's positions onto pages, and is
+        uploaded again only after admission or retire edits it;
+      * admission reserves every page a request can touch (prompt plus
+        its decode budget) all-or-nothing, so a request that does not
+        fit is deferred (FIFO) rather than failing mid-decode;
+      * full prompt pages whose token prefix already resides in the pool
+        are mapped shared (refcounted, read-only) instead of written
+        again (always: the reference's ``share_prefix=False`` is not
+        ported);
+      * retiring a slot drops its references; a page returns to the free
+        list with its last reference.
+
+    A ternary CIM config is re-resolved with ``kv_layout='paged'``.
+    ``capacity`` bounds one request's prompt plus budget (rounded up to a
+    page multiple); ``num_pages`` defaults to the dense-pool equivalent.
+
+    ``fused_attn`` selects the decode read.  ``'auto'`` (the default)
+    and ``True`` both resolve an ``op='attention'`` plan for the pool's
+    device and read the pages through it: the ``paged_attn`` kernel on
+    the card, its plain version on the CPU.  The reference's reasons for
+    ``'auto'`` to decline the fused read (interpret mode, sharded pools,
+    MoE routing) do not arise here, and int8-KV pools are not ported, so
+    the two differ only in their error message when no backend is
+    capable.  ``False`` names the ``slot_view`` gather path, and the
+    scheduler logs that it was named.
+    """
+
+    def __init__(self, model, params, capacity: int = 512, slots: int = 8,
+                 chunk: int = 8, page_size: int = 16,
+                 num_pages: Optional[int] = None, cim=None,
+                 clock=time.monotonic, sleep=time.sleep,
+                 fused_attn="auto", device="cuda"):
+        if not model.supports_paged_kv:
+            raise ValueError(f"{type(model).__name__} does not support "
+                             f"paged KV; use the dense-pool Scheduler")
+        if page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if fused_attn not in (True, False, "auto"):
+            raise ValueError(f"fused_attn must be True, False or 'auto', "
+                             f"got {fused_attn!r}")
+        capacity = -(-capacity // page_size) * page_size
+        self.page_size = page_size
+        self.pages_per_slot = capacity // page_size
+        self.num_pages = (1 + slots * self.pages_per_slot
+                          if num_pages is None else num_pages)
+        self.fused_attn = fused_attn
+        if cim is not None:
+            cim = dataclasses.replace(cim, kv_layout="paged")
+        super().__init__(model, params, capacity=capacity, slots=slots,
+                         chunk=chunk, cim=cim, clock=clock, sleep=sleep,
+                         device=device)
+
+    def _resolve_attn_plan(self):
+        """The attention plan for this pool's geometry and device, or
+        None for the named gather path.  The plan shape is the problem
+        the chunk loop runs each step: every slot's grouped queries
+        (``S*KV*rep`` rows) of head dim ``hd`` against the per-slot page
+        capacity ``W*page_size``."""
+        if self.fused_attn is False:
+            _LOG.info("PagedScheduler: fused_attn=False names the "
+                      "slot_view gather path")
+            return None
+        from ..kernels import plan_matmul
+        cfg = self.model.cfg
+        shape = (self.slots * cfg.num_heads, cfg.hd,
+                 self.pages_per_slot * self.page_size)
+        try:
+            return plan_matmul(shape, platform=self.device.type,
+                               op="attention", domain="float",
+                               kv_layout="paged")
+        except ValueError as e:
+            raise ValueError(f"fused_attn={self.fused_attn!r} but no "
+                             f"backend reads the paged pool: {e}") from e
+
+    def _init_pool(self) -> None:
+        self.attn_plan = self._resolve_attn_plan()
+        self.pool = paged_kv.init_page_pool(self.model.cfg, self.num_pages,
+                                            self.page_size, self.device)
+        self.allocator = paged_kv.PageAllocator(self.num_pages,
+                                                self.page_size)
+        # host page tables; entries past a slot's reservation stay 0 (the
+        # null page, masked by position)
+        self._page_table = np.zeros((self.slots, self.pages_per_slot),
+                                    np.int32)
+        self._page_table_dev = None
+        self._slot_pages: list[list] = [[] for _ in range(self.slots)]
+
+    # ------------------------------------------------------- accounting
+
+    def kv_bytes(self) -> int:
+        """Allocated device bytes of the page pool."""
+        return self.pool.nbytes
+
+    def kv_bytes_resident(self) -> int:
+        """Bytes of the pages currently holding live KV."""
+        return self.allocator.pages_in_use * self.pool.page_bytes
+
+    @property
+    def kv_bytes_resident_peak(self) -> int:
+        return self.allocator.peak_in_use * self.pool.page_bytes
+
+    @property
+    def pages_in_use(self) -> int:
+        return self.allocator.pages_in_use
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        return self.allocator.prefix_hit_rate
+
+    # -------------------------------------------------------- admission
+
+    def _admit(self, req: Request, slot: int) -> bool:
+        ps = self.page_size
+        s_len = len(req.prompt)
+        # positions written: 0..S-1 (prefill) and S..S+max_new-2 (decode
+        # feeds tok0 first; the last sampled token is never fed)
+        last_pos = s_len + req.max_new - 2 if req.max_new >= 2 else \
+            s_len - 1
+        n_total = last_pos // ps + 1
+        if n_total > self.pages_per_slot:
+            raise ValueError(
+                f"request uid={req.uid} needs {n_total} pages (prompt "
+                f"{s_len} + max_new {req.max_new}) but capacity "
+                f"{self.capacity} holds {self.pages_per_slot} per slot")
+        if n_total > self.num_pages - 1:
+            # deferring would spin forever: even an empty pool cannot
+            # satisfy this reservation
+            raise ValueError(
+                f"request uid={req.uid} needs {n_total} pages but the pool "
+                f"holds {self.num_pages - 1} usable pages (num_pages="
+                f"{self.num_pages}, page 0 reserved); size num_pages to "
+                f"cover one worst-case request")
+        prompt_np = np.asarray(req.prompt, dtype=np.int32)
+        n_share = s_len // ps                  # full prompt pages
+        pages: list = [None] * n_total
+        keys = [paged_kv.prefix_key(prompt_np, j, ps)
+                for j in range(n_share)]
+        shared = []
+        for j, key in enumerate(keys):
+            pid = self.allocator.lookup_prefix(key)
+            if pid is not None:
+                pages[j] = pid
+                shared.append(j)
+        missing = [j for j in range(n_total) if pages[j] is None]
+        fresh_ids = self.allocator.alloc(len(missing))
+        if fresh_ids is None:
+            # pool exhausted: roll back the prefix references and their
+            # statistics (the deferred retry looks them up again)
+            self.allocator.release([pages[j] for j in shared])
+            self.allocator.prefix_hits -= len(shared)
+            self.allocator.prefix_lookups -= n_share
+            return False
+        for j, pid in zip(missing, fresh_ids):
+            pages[j] = pid
+            if j < n_share:
+                self.allocator.register_prefix(keys[j], pid)
+        tok0, st = self._prefill([req])
+        self.steps_run += 1
+        hit = set(shared)
+        write_src = [j for j in range(-(-s_len // ps)) if j not in hit]
+        if write_src:
+            paged_kv.write_prompt_pages(
+                self.pool, st,
+                torch.tensor([pages[j] for j in write_src],
+                             dtype=torch.int32, device=self.device),
+                torch.tensor(write_src, dtype=torch.int32,
+                             device=self.device))
+        self._arm_slot(slot, req, tok0, s_len)
+        self._page_table[slot] = 0
+        self._page_table[slot, :n_total] = pages
+        self._page_table_dev = None
+        self._slot_pages[slot] = pages
+        self._slot_req[slot] = req
+        return True
+
+    # ------------------------------------------------------ chunk round
+
+    def _upload_page_table(self) -> None:
+        """Copy the host page table to the device if an admission or a
+        retire edited it since the last upload."""
+        if self._page_table_dev is None:
+            self._page_table_dev = torch.from_numpy(
+                self._page_table.copy()).to(self.device)
+
+    def _decode_step(self, tok: torch.Tensor, live: torch.Tensor
+                     ) -> torch.Tensor:
+        table = self._page_table_dev
+        if self.attn_plan is not None:
+            logits, kts, vts = self.model.decode_paged_fused(
+                self.params, tok, self.pool, table, self.pos, cim=self.cim,
+                attn_plan=self.attn_plan)
+        else:
+            logits, kts, vts = self.model.decode_paged(
+                self.params, tok[:, None], self.pool, table, self.pos,
+                cim=self.cim)
+        # dead slots write to the null page
+        paged_kv.append_tokens(self.pool, kts.transpose(0, 1),
+                               vts.transpose(0, 1), table, self.pos, live)
+        self.pos = self.pos + 1
+        return greedy_sample(logits)
+
+    def _run_chunk(self) -> tuple:
+        self._upload_page_table()
+        return super()._run_chunk()
+
+    def _retire_slot(self, slot: int) -> None:
+        self.allocator.release(self._slot_pages[slot])
+        self._slot_pages[slot] = []
+        self._page_table[slot] = 0
+        self._page_table_dev = None
+        self._slot_req[slot] = None

@@ -9,7 +9,11 @@ with
 Bars: float domain within 1e-5 of max|y| for single matmuls and 1e-4 of
 the logit scale for f32 smoke-model forwards (summation order only);
 int8 domain bitwise for both; the bucket ServeEngine keeps one host
-transfer per bucket.
+transfer per bucket.  The paged-attention kernel: ``m`` within
+1e-5 * max(1, |m|), ``acc`` and ``l`` within 1e-4 of their per-row
+maximum (the kernel sums page by page, the plain version in one pass),
+and the null page adds exactly nothing to a live slot.  The schedulers:
+the fused read gives the gather's tokens, one host transfer per chunk.
 """
 import dataclasses
 
@@ -20,9 +24,10 @@ import torch
 from repro_torch import configs
 from repro_torch.core.cim_linear import CIMConfig, ternarize_params
 from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ternary_matmul as tm
 from repro_torch.models import registry
-from repro_torch.serve import Request, ServeEngine
+from repro_torch.serve import PagedScheduler, Request, Scheduler, ServeEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -130,3 +135,120 @@ def test_serve_engine_on_the_card(dev):
         out[backend] = {r.uid: r.out_tokens for r in done}
     assert out["cuda"] == out["torch"]
     assert [len(out["cuda"][i]) for i in range(4)] == [4, 5, 6, 7]
+
+
+def _paged_operands(dev, dtype, slots, kvh, rep, hd, ps, windows, pos,
+                    seed):
+    """q, a pool of pages in random order with garbage in the null page,
+    tables covering each slot's live positions (the rest point at page
+    0), and slot 2 (where there is one) sharing the last slot's first
+    page."""
+    rng = np.random.default_rng(seed)
+    num_pages = 1 + slots * windows
+    q = rng.standard_normal((slots, kvh, rep, hd)) / np.sqrt(hd)
+    k = rng.standard_normal((num_pages, ps, kvh, hd))
+    v = rng.standard_normal((num_pages, ps, kvh, hd))
+    k[0] = 3e4 * rng.choice([-1.0, 1.0], size=k[0].shape)
+    v[0] = 3e4 * rng.choice([-1.0, 1.0], size=v[0].shape)
+    ids = rng.permutation(np.arange(1, num_pages))
+    table = np.zeros((slots, windows), np.int32)
+    for i, p in enumerate(pos):
+        n = min(-(-p // ps), windows)
+        table[i, :n] = ids[i * windows: i * windows + n]
+    if slots > 2:
+        table[2, 0] = table[-1, 0]
+    t = lambda a, d: torch.as_tensor(a, dtype=d, device=dev)  # noqa: E731
+    kv = pa.PagedAttentionKV(t(k, dtype), t(v, dtype),
+                             t(table, torch.int32),
+                             t(np.asarray(pos), torch.int32))
+    return t(q, dtype), kv
+
+
+def _close_stats(got, want):
+    acc, m, l = got
+    acc_r, m_r, l_r = want
+    assert bool(((m - m_r).abs()
+                 <= 1e-5 * m_r.abs().clamp(min=1.0)).all())
+    assert bool(((l - l_r).abs() <= 1e-4 * l_r.abs()).all())
+    scale = acc_r.abs().amax(dim=-1, keepdim=True)
+    assert bool(((acc - acc_r).abs() <= 1e-4 * scale).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kvh,rep,hd,ps,windows,pos", [
+    (8, 2, 128, 16, 32, [0, 1, 15, 16, 17, 511, 512, 700]),
+    (2, 4, 64, 16, 8, [0, 5, 64, 128]),
+    (3, 1, 40, 5, 7, [0, 1, 4, 5, 6, 34, 35]),
+    (1, 8, 128, 1, 9, [0, 1, 8, 9]),
+])
+def test_paged_attention_kernel_matches_plain_version(dev, dtype, kvh, rep,
+                                                      hd, ps, windows, pos):
+    q, kv = _paged_operands(dev, dtype, len(pos), kvh, rep, hd, ps, windows,
+                            pos, seed=hd + ps)
+    before = pa.LAUNCHES["paged_attention"]
+    got = pa.paged_attention(q, kv)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES["paged_attention"] == before + 1
+    _close_stats(got, pa.paged_attention_torch(q, kv))
+    # the null page's garbage adds exactly nothing to a live slot
+    clean = kv._replace(k_pages=kv.k_pages.clone(),
+                        v_pages=kv.v_pages.clone())
+    clean.k_pages[0] = 0
+    clean.v_pages[0] = 0
+    live = kv.pos > 0
+    for a, b in zip(got, pa.paged_attention(q, clean)):
+        assert torch.equal(a[live], b[live])
+
+
+def test_paged_attention_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    q, kv = _paged_operands(dev, torch.bfloat16, 2, 2, 2, 64, 4, 3, [1, 9],
+                            seed=1)
+    with pytest.raises(TypeError, match="int32"):
+        pa.paged_attention(q, kv._replace(pos=kv.pos.long()))
+    with pytest.raises(TypeError, match="differ"):
+        pa.paged_attention(q.float(), kv)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           kv)
+    big, kvb = _paged_operands(dev, torch.float32, 1, 1, 8, 256, 4, 2, [3],
+                               seed=2)
+    with pytest.raises(ValueError, match="accumulator lanes"):
+        pa.paged_attention(big, kvb)
+
+
+def test_paged_schedulers_on_the_card(dev):
+    """The smoke model, f32, base3 weights: the fused read (through the
+    kernel, launched once per layer per decode step run) gives the
+    gather's tokens, which are the dense scheduler's, one host transfer
+    per chunk each."""
+    cfg, model, params = _smoke(dev, "base3")
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, cfg.vocab_size, size=8)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size,
+                                                    size=n)])
+               for n in (0, 3, 6, 9, 1)]
+    cim = CIMConfig(mode="ternary", packing="base3")
+    out = {}
+    for name in ("dense", "gather", "fused"):
+        if name == "dense":
+            eng = Scheduler(model, params, capacity=32, slots=3, chunk=3,
+                            cim=cim, device=dev)
+        else:
+            eng = PagedScheduler(model, params, capacity=32, slots=3,
+                                 chunk=3, page_size=4, cim=cim,
+                                 fused_attn=(name == "fused"),
+                                 device=dev)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new=3 + i))
+        pa.reset_launches()
+        done = eng.run()
+        assert eng.host_transfers == eng.chunks_run
+        launched = cfg.num_layers * eng.chunk * eng.chunks_run
+        assert pa.LAUNCHES["paged_attention"] == (
+            launched if name == "fused" else 0)
+        if name == "fused":
+            assert eng.attn_plan.backend == "paged_attn"
+            assert eng.prefix_hit_rate > 0
+        out[name] = {r.uid: r.out_tokens for r in done}
+    assert out["fused"] == out["gather"] == out["dense"]
+    assert [len(out["fused"][i]) for i in range(5)] == [3, 4, 5, 6, 7]

@@ -77,7 +77,8 @@ def _jitted(dtype):
 def _run_both(weights, packing, domain, dtype):
     _, tm = _models(dtype)
     jparams = _reference_params(dtype, weights)
-    tparams = params_from_reference(jax.tree.map(np.asarray, jparams))
+    tparams = params_from_reference(jax.tree.map(np.asarray, jparams),
+                                    device="cpu")
     if packing is None:
         jcim = tcim = None
     else:
@@ -127,7 +128,8 @@ def test_smoke_logits_match_reference_bf16(weights, packing, domain):
 
 def test_ternarize_params_packs_what_the_reference_packs():
     tparams = params_from_reference(
-        jax.tree.map(np.asarray, _reference_params("f32", "float")))
+        jax.tree.map(np.asarray, _reference_params("f32", "float")),
+        device="cpu")
     for packing in ("base3", "trit2"):
         jp = _reference_params("f32", packing)
         tp = ternarize_params(tparams, CIMConfig(mode="ternary",
@@ -170,6 +172,6 @@ def test_attend_refuses_the_flash_range():
 
 def test_to_tensor_keeps_bf16_bits():
     x = np.asarray(jnp.asarray([1.5, -2.25, 3e-3], jnp.bfloat16))
-    t = to_tensor(x)
+    t = to_tensor(x, device="cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.float().numpy(), x.astype(np.float32))

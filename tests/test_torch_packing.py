@@ -36,7 +36,7 @@ def test_pack_weights_bytes_identical(mode, dtype, shape):
     w = _weights(shape, seed=sum(shape))
     wj = jnp.asarray(w).astype(jdt)
     want = jops.pack_weights(wj, mode)
-    got = ops.pack_weights(to_tensor(np.asarray(wj)), mode)
+    got = ops.pack_weights(to_tensor(np.asarray(wj), device="cpu"), mode)
     assert got.mode == mode
     assert got.data.dtype == torch.uint8 and got.scale.dtype == torch.float32
     np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
@@ -59,7 +59,8 @@ def test_quantize_acts_int8_bitwise(dtype, shape):
     x[0] = 0.0                       # a zero row takes scale 1.0
     xj = jnp.asarray(x).astype(jdt)
     want_i, want_s = jops.quantize_acts_int8(xj)
-    got_i, got_s = ops.quantize_acts_int8(to_tensor(np.asarray(xj)))
+    got_i, got_s = ops.quantize_acts_int8(
+        to_tensor(np.asarray(xj), device="cpu"))
     assert got_i.dtype == torch.int8 and got_s.dtype == torch.float32
     np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
     np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))

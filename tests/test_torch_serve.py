@@ -45,7 +45,8 @@ def _setup():
     jm, tm = jregistry.build(jcfg), registry.build(tcfg)
     jparams = jternarize(jax.jit(jm.init)(jax.random.key(3)),
                          JCIMConfig(mode="ternary", packing="base3"))
-    tparams = params_from_reference(jax.tree.map(np.asarray, jparams))
+    tparams = params_from_reference(jax.tree.map(np.asarray, jparams),
+                                    device="cpu")
     rng = np.random.default_rng(9)
     prompts = [rng.integers(0, 512, size=n).astype(np.int32)
                for n in LENGTHS]
