@@ -50,6 +50,25 @@ Phases, each of which raises on failure:
               the dense pool; prefix hit rate > 0.  Then one chunk of a
               fused scheduler runs under
               torch.cuda.set_sync_debug_mode("error").
+7. cim-kernel - the cim_mac kernel against its plain version (the macro
+              model) on the card, bitwise: every K x N of the model at
+              M = 8, every one but the unembedding at M = 1024, and ragged
+              cases (K % 16 != 0, M = 1, N off the tile, 3 x 5 and 1 x 1
+              trit planes, adc_bits 3/4/5/8, all groups saturating).
+              Prints the kernel's median time per call, its bound and the
+              plain version's time.
+8. exact    - macro-exact inference (CIMConfig(mode="exact")) through the
+              bucket ServeEngine at full width on the bf16 float weights
+              of the same seeded init: 8 requests of 128 prompt tokens, 16
+              new tokens each, counts zeroed just before the run.  Checks:
+              the engine resolved cuda; cim_mac launched 169 times per
+              forward (1 prefill + the decode steps run) and no ternary
+              kernel did; one host transfer; every token there.  Then one
+              prefill and two decode steps with the cuda backend and with
+              the plain torch backend named: logits bitwise equal.  Prints
+              the prefill time, the decode ms per step beside its
+              ternarize, encode and kernel device times, tok/s, and the
+              greedy-token agreement with the float-mode model.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -78,6 +97,7 @@ NEAR_TIE = 0.02               # fused vs gather: top-2 margin / logit scale
 FLOAT_TOL = 1e-4              # kernel vs plain, relative to max|y|
 MODEL_FLOAT_TOL = 0.1         # logits, relative to max|logit|
 SPIN_CYCLES = 2_000_000       # ~1 ms at the H100's 1.98 GHz clock
+EXACT_NEW = 16               # new tokens per request in the exact phase
 KERNEL_NAMES = {"float": "ternary_matmul", "int8": "ternary_matmul_int8"}
 REPLACES = {"float": "src/repro/kernels/ternary_matmul.py:144",
             "int8": "src/repro/kernels/ternary_matmul.py:202"}
@@ -714,6 +734,230 @@ def kernel_summary_paged(paged, runs):
                  "x 2 queries, hd 128, 32 pages of 16, bf16")
 
 
+def trit_planes(torch, gen, shape, dev):
+    return torch.randint(-1, 2, shape, generator=gen, device=dev,
+                         dtype=torch.int8)
+
+
+def cim_bytes_ops(qi, qw, m, k, n):
+    """Bytes (the trit planes in once, the int32 output out once) and
+    operations (two per multiply-add of every plane pair) of one MAC."""
+    return qi * m * k + qw * k * n + 4 * m * n, 2 * qi * qw * m * k * n
+
+
+def phase_cim_kernel(torch, cfg):
+    """The cim_mac kernel vs its plain version, bitwise; returns the
+    per-shape records at the model's shapes."""
+    from repro_torch.kernels import cim_mac as cm
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ragged = [(5, 5, 8, 37, 131, 5), (5, 5, 1, 1000, 300, 5),
+              (3, 5, 13, 1000, 67, 4), (1, 1, 9, 16, 3, 3),
+              (5, 5, 70, 100, 259, 8), (5, 3, 2, 48, 513, 4),
+              (5, 5, 1024, 200, 130, 3)]
+    for qi, qw, m, k, n, bits in ragged:
+        x = trit_planes(torch, gen, (qi, m, k), dev)
+        w = trit_planes(torch, gen, (qw, k, n), dev)
+        check(torch.equal(cm.cim_mac(x, w, bits), cm.cim_mac_torch(x, w, bits)),
+              f"cim_mac {(qi, qw, m, k, n, bits)} is not bitwise")
+    for bits in (4, 5):                        # every full group saturates
+        x = torch.ones((5, 8, 2040), dtype=torch.int8, device=dev)
+        w = -torch.ones((5, 2040, 300), dtype=torch.int8, device=dev)
+        got = cm.cim_mac(x, w, bits)
+        c = 2**bits - 1
+        check(torch.equal(got, cm.cim_mac_torch(x, w, bits))
+              and int(got[0, 0]) == (127 * (16 - c) + max(-8, 8 - c)) * 121**2,
+              f"cim_mac all-saturating case at {bits} bits")
+    print("[cim-kernel] ragged and saturating cases are bitwise equal")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    cases = []
+    for name, k, n, per_forward in layer_shapes(cfg):
+        w = trit_planes(torch, gen, (5, k, n), dev)
+        for m in ((8,) if name == "unembed" else (8, BATCH * PROMPT)):
+            x = trit_planes(torch, gen, (5, m, k), dev)
+            got, want = cm.cim_mac(x, w), cm.cim_mac_torch(x, w)
+            torch.cuda.synchronize()
+            moved, ops = cim_bytes_ops(5, 5, m, k, n)
+            rec = dict(kernel="cim_mac", weight=name, m=m, k=k, n=n,
+                       per_forward=per_forward,
+                       max_abs_err=(got - want).abs().max().item(),
+                       ok=bool(torch.equal(got, want)),
+                       ms=time_ms(torch, lambda: cm.cim_mac(x, w), 10, flush),
+                       plain_ms=time_ms(torch, lambda: cm.cim_mac_torch(x, w),
+                                        2, flush),
+                       bytes=moved, ops=ops, **bound(moved, ops, "int8"))
+            cases.append(rec)
+            print("[cim-kernel] " + json.dumps(rec))
+            check(rec["ok"], f"cim_mac disagrees with its plain version: "
+                             f"{rec}")
+            del x, got, want
+        del w
+    return cases
+
+
+def exact_split_ms(torch, cfg, params, cim_cases, flush):
+    """Device ms of one exact-mode decode step's parts: ternarizing every
+    float weight, encoding every dense() input, and the cim_mac kernel,
+    each part timed per weight shape and multiplied by its count."""
+    from repro_torch.core.ternary import encode_inputs, ternarize
+    blocks = params["blocks"]
+    weights = {"wq,wo": blocks["wq"][0], "wk,wv": blocks["wk"][0],
+               "w1,w3": blocks["w1"][0], "w2": blocks["w2"][0],
+               "unembed": params["unembed"]}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    split = dict(ternarize_ms=0.0, encode_ms=0.0, kernel_ms=0.0)
+    for name, k, n, per_forward in layer_shapes(cfg):
+        w = weights[name]
+        x = torch.randn((BATCH, k), generator=gen, device="cuda",
+                        dtype=cfg.dtype)
+        split["ternarize_ms"] += per_forward * time_ms(
+            torch, lambda: ternarize(w), 3, flush)
+        split["encode_ms"] += per_forward * time_ms(
+            torch, lambda: encode_inputs(x), 5, flush)
+        split["kernel_ms"] += per_forward * next(
+            c["ms"] for c in cim_cases if c["weight"] == name and c["m"] == 8)
+    return split
+
+
+def phase_exact(torch, np, cfg, model, params, cim_cases):
+    """Macro-exact serving at full width, then cuda-vs-torch logits."""
+    import dataclasses
+    from repro_torch.core.cim_linear import CIMConfig
+    from repro_torch.kernels import cim_mac as cm
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.serve import Request, ServeEngine
+    per_forward = sum(c[3] for c in layer_shapes(cfg))
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, cfg.vocab_size, size=PROMPT)
+               for _ in range(BATCH)]
+    tokens, rec = {}, {}
+    for mode in ("exact", "float"):
+        cim = CIMConfig(mode="exact") if mode == "exact" else None
+        eng = ServeEngine(model, params, capacity=CAPACITY, max_batch=BATCH,
+                          cim=cim, device="cuda")
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new=EXACT_NEW))
+        torch.cuda.synchronize()
+        cm.reset_launches()
+        tm.reset_launches()
+        t0 = time.monotonic()
+        done = eng.run()
+        wall = time.monotonic() - t0
+        launches = {**cm.LAUNCHES, **tm.LAUNCHES}
+        tokens[mode] = {r.uid: [int(t) for t in r.out_tokens] for r in done}
+        check(eng.host_transfers == 1,
+              f"{mode}: {eng.host_transfers} host transfers for 1 bucket")
+        check(len(done) == BATCH and all(
+            len(r.out_tokens) == EXACT_NEW
+            and all(0 <= t < cfg.padded_vocab for t in r.out_tokens)
+            for r in done), f"{mode}: a request is missing tokens")
+        if mode == "exact":
+            check(eng.cim.backend == "cuda",
+                  f"exact mode resolved {eng.cim.backend!r} on the card")
+            # the prefill and the loop's max_new - 1 decode steps, all
+            # with a live row (steps_run counts the prefill too)
+            forwards = 1 + (EXACT_NEW - 1)
+            check(eng.steps_run == forwards,
+                  f"steps_run {eng.steps_run}, expected {forwards}")
+            check(launches["cim_mac"] == per_forward * forwards,
+                  f"cim_mac launched {launches['cim_mac']} times, expected "
+                  f"{per_forward} x {forwards}")
+            check(launches["ternary_matmul"] == 0
+                  and launches["ternary_matmul_int8"] == 0,
+                  f"a ternary kernel launched in exact mode: {launches}")
+            rec.update(requests=len(done),
+                       generated_tokens=eng.generated_tokens,
+                       steps=eng.steps_run,
+                       host_transfers=eng.host_transfers,
+                       launches=launches, wall_s=wall,
+                       tok_per_s=eng.generated_tokens / wall)
+        else:
+            rec["float_tok_per_s"] = eng.generated_tokens / wall
+        del eng
+    total = BATCH * EXACT_NEW
+    rec["greedy_agreement_with_float"] = sum(
+        a == b for u in tokens["exact"]
+        for a, b in zip(tokens["exact"][u], tokens["float"][u])) / total
+
+    cim = CIMConfig(mode="exact", backend="cuda")
+    batch = torch.as_tensor(np.stack(prompts), device="cuda")
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    logits, state = model.prefill(params, batch, CAPACITY, cim=cim)
+    torch.cuda.synchronize()
+    rec["prefill_ms"] = (time.monotonic() - t) * 1e3
+    check(bool(torch.isfinite(logits).all()), "non-finite exact logits")
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    steps = 4
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    for _ in range(steps):
+        logits, state = model.decode(params, tok, state, cim=cim)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    rec["decode_step_ms"] = (time.monotonic() - t) * 1e3 / steps
+    del state
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    rec["decode_step_device_ms"] = exact_split_ms(torch, cfg, params,
+                                                  cim_cases, flush)
+    del flush
+
+    # cuda backend vs the plain torch backend: bitwise logits
+    small = torch.as_tensor(np.stack(prompts[:2]), device="cuda")
+    logits = {}
+    for backend in ("cuda", "torch"):
+        cim_b = dataclasses.replace(cim, backend=backend)
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        lg, state = model.prefill(params, small, CAPACITY, cim=cim_b)
+        out = [lg]
+        for _ in range(2):
+            lg, state = model.decode(params, lg[:, -1].argmax(
+                -1, keepdim=True), state, cim=cim_b)
+            out.append(lg)
+        torch.cuda.synchronize()
+        rec[f"parity_{backend}_s"] = time.monotonic() - t
+        logits[backend] = torch.stack([o.float() for o in out])
+        del state
+    a, b = logits["cuda"], logits["torch"]
+    rec["parity"] = dict(bitwise=bool(torch.equal(a, b)),
+                         max_abs_err=(a - b).abs().max().item(),
+                         logit_scale=b.abs().max().item())
+    print("[exact] " + json.dumps(rec))
+    check(rec["parity"]["bitwise"],
+          f"exact-mode logits differ between cuda and torch: "
+          f"{rec['parity']}")
+    return rec
+
+
+def kernel_summary_cim(cases, exact, cfg):
+    """cim_mac over one exact-mode decode step (M = 8, every weight at its
+    multiplicity), with the launches of the exact serve run."""
+    step = [c for c in cases if c["m"] == 8]
+    prefill = [c for c in cases if c["m"] > 8 or c["weight"] == "unembed"]
+
+    def total(recs, key):
+        return sum(c[key] * c["per_forward"] for c in recs)
+    return dict(
+        name="cim_mac", route="cuda", source="src/repro_torch/csrc/cim_mac.cu",
+        replaces="src/repro/kernels/cim_mac.py:29",
+        launches=exact["launches"]["cim_mac"],
+        max_abs_err=max(c["max_abs_err"] for c in cases),
+        ms=total(step, "ms"), plain_ms=total(step, "plain_ms"),
+        **bound(total(step, "bytes"), total(step, "ops"), "int8"),
+        library_ms=None,
+        library_reason="no PyTorch call clips each 16-row group's MAC "
+                       "before the shift-and-add",
+        prefill_ms=total(prefill, "ms"),
+        prefill_plain_ms=total(prefill, "plain_ms"),
+        prefill_bound_ms=bound(total(prefill, "bytes"), total(prefill, "ops"),
+                               "int8")["bound_ms"],
+        launches_per_forward=sum(c["per_forward"] for c in step),
+        workload=f"one exact-mode decode step of {cfg.name}: "
+                 f"{sum(c['per_forward'] for c in step)} MACs of 5 x 5 trit "
+                 f"planes at M=8; prefill_* at M={BATCH * PROMPT}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -754,19 +998,27 @@ def main() -> int:
     sched, sched_parity = phase_sched(torch, np, cfg, model,
                                       packed["base3"])
     phase_sync_free_chunk(torch, np, cfg, model, packed["base3"])
+    del packed
+    cim_cases = phase_cim_kernel(torch, cfg)
+    # the float weights of the same seeded init, for the exact mode
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    exact = phase_exact(torch, np, cfg, model, params, cim_cases)
+    del params
 
     details = dict(card=card, device=torch.cuda.get_device_name(0),
                    cases=cases, serve=runs, parity=parity,
                    paged_kernel=paged, sched=sched,
-                   sched_parity=sched_parity,
-                   seconds=time.monotonic() - t_start)
+                   sched_parity=sched_parity, cim_cases=cim_cases,
+                   exact=exact, seconds=time.monotonic() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     print(f"[done] {details['seconds']:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernel_summary(cases, runs, cfg)
-                      + [kernel_summary_paged(paged, sched)]}))
+                      + [kernel_summary_paged(paged, sched),
+                         kernel_summary_cim(cim_cases, exact, cfg)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

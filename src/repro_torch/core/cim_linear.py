@@ -5,7 +5,12 @@ Modes (``CIMConfig.mode``):
   'ternary' - packed-ternary weights through the ternary matmul kernels:
               base3 (5-trit, one byte per weight) or trit2 (one trit,
               2 bits).  The production serving path.
-The macro-exact 'exact' mode of the reference is not ported yet.
+  'exact'   - the macro-exact model through the cim_mac kernel: inputs
+              and weights as ``num_trits`` trit planes, 16-row groups,
+              an ``adc_bits`` ADC per group, shift-and-add.  For accuracy
+              studies; a float weight is ternarized on every call.
+The reference's restore-error injection (``restore_yield``) is not
+ported.
 """
 from __future__ import annotations
 
@@ -14,14 +19,16 @@ from typing import Any
 
 import torch
 
-MODES = ("float", "ternary")
+MODES = ("float", "ternary", "exact")
 
 
 @dataclasses.dataclass(frozen=True)
 class CIMConfig:
     """Execution mode plus the plan request for the kernel layer."""
-    mode: str = "float"            # float | ternary
+    mode: str = "float"            # float | ternary | exact
     packing: str = "base3"         # base3 | trit2
+    num_trits: int = 5             # exact mode: trits per operand
+    adc_bits: int = 5              # exact mode: ADC resolution
     backend: str = "auto"          # any registered kernel backend
     domain: str = "float"          # float | int8
     kv_layout: str = "dense"       # dense | paged: serving KV layout
@@ -36,18 +43,26 @@ class CIMConfig:
         from ..kernels.plan import KV_LAYOUTS, check_choice, resolve_backend
         check_choice("cim mode", self.mode, MODES)
         check_choice("kv layout", self.kv_layout, KV_LAYOUTS)
-        if self.mode != "ternary":
+        if self.mode == "ternary":
+            if self.num_trits != 5:
+                raise ValueError(f"num_trits={self.num_trits}: the port "
+                                 f"packs 5-trit weights only")
+            spec = resolve_backend("ternary", self.backend, self.domain,
+                                   self.packing, platform, self.kv_layout)
+        elif self.mode == "exact":
+            spec = resolve_backend("cim", self.backend, "float", "base3",
+                                   platform, self.kv_layout)
+        else:
             return self
-        spec = resolve_backend("ternary", self.backend, self.domain,
-                               self.packing, platform, self.kv_layout)
         return dataclasses.replace(self, backend=spec.name)
 
 
 def linear(x: torch.Tensor, w: Any, cfg: CIMConfig = CIMConfig()
            ) -> torch.Tensor:
     """Apply a linear layer under the configured mode.  A float weight
-    under a ternary config is packed on every call, as the reference
-    does."""
+    under a ternary config is packed, and under an exact config
+    ternarized, on every call, as the reference does; a packed weight
+    takes the ternary path whatever the mode."""
     from ..kernels import execute, ops, plan_matmul, platform_of, shape_of
     if cfg.mode == "ternary" or isinstance(w, ops.PackedTernary):
         pw = w if isinstance(w, ops.PackedTernary) else ops.pack_weights(
@@ -57,6 +72,11 @@ def linear(x: torch.Tensor, w: Any, cfg: CIMConfig = CIMConfig()
         return execute(plan, x, pw)
     if cfg.mode == "float":
         return x @ w
+    if cfg.mode == "exact":
+        plan = plan_matmul(shape_of(x, w), cfg, op="cim", packing="base3",
+                           domain="float", platform=platform_of(x),
+                           adc_bits=cfg.adc_bits, num_trits=cfg.num_trits)
+        return execute(plan, x, w)
     raise ValueError(f"unknown cim mode {cfg.mode!r}; expected one of "
                      f"{sorted(MODES)}")
 

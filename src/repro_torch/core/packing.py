@@ -11,7 +11,7 @@ import math
 
 import torch
 
-from .ternary import from_balanced_ternary, trit_range
+from .ternary import from_balanced_ternary, to_balanced_ternary, trit_range
 
 TRIT2_PER_BYTE = 4
 
@@ -59,6 +59,12 @@ def unpack_base3(packed: torch.Tensor, num_trits: int = 5) -> torch.Tensor:
 def pack_trit_planes_base3(trits: torch.Tensor) -> torch.Tensor:
     """(q, K, ...) trit planes -> (K, ...) uint8 base3-packed values."""
     return pack_base3(from_balanced_ternary(trits), trits.shape[0])
+
+
+def unpack_base3_to_planes(packed: torch.Tensor,
+                           num_trits: int = 5) -> torch.Tensor:
+    """uint8 base3 -> (q, K, ...) int8 trit planes (the exact CIM path)."""
+    return to_balanced_ternary(unpack_base3(packed, num_trits), num_trits)
 
 
 def packed_bytes(shape: tuple, mode: str, num_trits: int = 5) -> int:

@@ -69,6 +69,12 @@ def quantize_8b(x: torch.Tensor, axis=None) -> QuantResult:
     return quantize_symmetric(x, 127, axis=axis)
 
 
+def quantize_5t_direct(x: torch.Tensor, num_trits: int = TRITS_DEFAULT,
+                       axis=None) -> QuantResult:
+    """Scale straight into the +/-121 trit range (Table 3 row 3)."""
+    return quantize_symmetric(x, trit_range(num_trits), axis=axis)
+
+
 def quantize_8b_truncate_5t(x: torch.Tensor, num_trits: int = TRITS_DEFAULT,
                             axis=None) -> QuantResult:
     """Quantize to 8-bit, then clip the codes into the trit range."""
@@ -81,9 +87,52 @@ class TernaryTensor(NamedTuple):
     trits: torch.Tensor    # int8 (num_trits,) + shape
     scale: torch.Tensor
 
+    @property
+    def num_trits(self) -> int:
+        return self.trits.shape[0]
 
-def ternarize(x: torch.Tensor, num_trits: int = TRITS_DEFAULT,
-              axis=None) -> TernaryTensor:
-    """Float tensor -> TernaryTensor with the paper's truncating flow."""
+    def dequantize(self) -> torch.Tensor:
+        return (from_balanced_ternary(self.trits).to(torch.float32)
+                * self.scale)
+
+
+def ternarize(x: torch.Tensor, num_trits: int = TRITS_DEFAULT, axis=None,
+              method: str = "truncate") -> TernaryTensor:
+    """Float tensor -> TernaryTensor: 'truncate' (8-bit, then clip; the
+    paper's choice) or 'direct' (straight into the trit range)."""
+    if method == "truncate":
+        q = quantize_8b_truncate_5t(x, num_trits, axis=axis)
+    elif method == "direct":
+        q = quantize_5t_direct(x, num_trits, axis=axis)
+    else:
+        raise ValueError(f"unknown method {method!r}; expected one of "
+                         f"['direct', 'truncate']")
+    return TernaryTensor(to_balanced_ternary(q.values, num_trits), q.scale)
+
+
+def encode_inputs(x: torch.Tensor, num_trits: int = TRITS_DEFAULT,
+                  axis=None) -> TernaryTensor:
+    """The macro's ternary input encoding: float activations -> 5-trit
+    codes with the truncating flow, in x's dtype."""
     q = quantize_8b_truncate_5t(x, num_trits, axis=axis)
     return TernaryTensor(to_balanced_ternary(q.values, num_trits), q.scale)
+
+
+# Table 1 signal encodings (used by the macro model):
+#   input trit  +1 -> IN1/IN2 = 1/1, 0 -> 1/0, -1 -> 0/0
+#   weight trit +1 -> Q1Q2 = 00 (LRS), 0 -> 10 (MRS), -1 -> 11 (HRS)
+
+def input_signals(trit: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """trit in {-1, 0, 1} -> (IN1, IN2) int8."""
+    return (trit >= 0).to(torch.int8), (trit > 0).to(torch.int8)
+
+
+def weight_signals(trit: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """trit in {-1, 0, 1} -> (Q1, Q2) int8 (00 = +1, 10 = 0, 11 = -1)."""
+    return (trit <= 0).to(torch.int8), (trit < 0).to(torch.int8)
+
+
+def signals_to_weight_trit(q1: torch.Tensor, q2: torch.Tensor
+                           ) -> torch.Tensor:
+    """(Q1, Q2) -> trit; the inverse of :func:`weight_signals`."""
+    return (1 - q1.to(torch.int8) - q2.to(torch.int8)).to(torch.int8)

@@ -1,12 +1,18 @@
 """Built-in execution backends for the plan registry.
 
-  cuda  - the hand-written kernels (kernels/ternary_matmul.py), platform
-          cuda, priority 100.  2-D weights only (models slice the layer
-          stack before the matmul).
-  torch - the plain versions (kernels/ops.py), cpu and cuda, priority 50.
-          ``auto`` picks it on the CPU; on the card it runs only when
-          named.
-  ref   - the oracles (kernels/ref.py), priority 10.
+  cuda  - the hand-written kernels (kernels/ternary_matmul.py, and
+          kernels/cim_mac.py for ``op='cim'``), platform cuda, priority
+          100.  2-D weights only (models slice the layer stack before the
+          matmul).
+  torch - the plain versions (kernels/ops.py, ``cim_mac_torch``), cpu and
+          cuda, priority 50.  ``auto`` picks it on the CPU; on the card it
+          runs only when named.
+  ref   - the oracles (kernels/ref.py), priority 10; ternary op only.
+
+A cim plan (the macro-exact mode) encodes the activations into trit
+planes per call, ternarizes a float weight per call with one per-tensor
+scale (or unpacks a base3 ``PackedTernary`` into its planes), runs the
+CIM MAC and rescales, as the reference's pallas runner does.
 
 The matmul backends are layout-agnostic (the paged pool's gather and
 scatter wrap around the matmuls), so they declare both KV layouts.  The
@@ -25,6 +31,9 @@ from __future__ import annotations
 
 import torch
 
+from ..core.packing import unpack_base3_to_planes
+from ..core.ternary import encode_inputs, ternarize
+from . import cim_mac as cm
 from . import ops, ref
 from . import paged_attention as pa
 from . import ternary_matmul as tm
@@ -39,7 +48,28 @@ def _pad_k(x2: torch.Tensor, w: ops.PackedTernary) -> torch.Tensor:
     return x2
 
 
+def _run_cim(plan, x, w, mac):
+    """x (..., K) float against a float (K, N) weight or a base3
+    PackedTernary through the CIM MAC ``mac(x_trits, w_trits, adc_bits)``
+    -> (..., N) f32."""
+    lead = x.shape[:-1]
+    xt = encode_inputs(x.reshape(-1, x.shape[-1]), plan.num_trits)
+    if isinstance(w, ops.PackedTernary):
+        if w.mode != "base3":
+            raise ValueError("cim plans need base3 (multi-trit) weights; "
+                             f"got packing {w.mode!r}")
+        w_trits = unpack_base3_to_planes(w.data, plan.num_trits)
+        w_scale = w.scale
+    else:
+        tt = ternarize(w, plan.num_trits)      # one per-tensor scale
+        w_trits, w_scale = tt.trits, tt.scale
+    y = mac(xt.trits, w_trits, plan.adc_bits).to(torch.float32)
+    return (y * xt.scale * w_scale).reshape(*lead, w_trits.shape[-1])
+
+
 def _run_cuda(plan, x, w):
+    if plan.op == "cim":
+        return _run_cim(plan, x, w, cm.cim_mac)
     if w.data.dim() != 2:
         raise ValueError(f"the cuda backend takes 2-D packed weights; got "
                          f"{tuple(w.data.shape)} (slice the layer stack)")
@@ -56,6 +86,8 @@ def _run_cuda(plan, x, w):
 
 
 def _run_torch(plan, x, w):
+    if plan.op == "cim":
+        return _run_cim(plan, x, w, cm.cim_mac_torch)
     if plan.domain == "int8":
         xi, x_scale = ops.quantize_acts_int8(x)
         return ops.ternary_matmul_int8_torch(xi, x_scale, w)
@@ -70,17 +102,20 @@ def _run_ref(plan, x, w):
     return ref.ternary_matmul_ref(_pad_k(x, w), w.data, w.scale, w.mode)
 
 
-_ALL = dict(ops=frozenset({"ternary"}), domains=frozenset({"float", "int8"}),
+_ALL = dict(domains=frozenset({"float", "int8"}),
             packings=frozenset({"base3", "trit2"}),
             kv_layouts=frozenset({"dense", "paged"}))
 
 register_backend(BackendSpec(name="cuda", platforms=frozenset({"cuda"}),
-                             priority=100, runner=_run_cuda, **_ALL))
+                             priority=100, runner=_run_cuda,
+                             ops=frozenset({"ternary", "cim"}), **_ALL))
 register_backend(BackendSpec(name="torch",
                              platforms=frozenset({"cpu", "cuda"}),
-                             priority=50, runner=_run_torch, **_ALL))
+                             priority=50, runner=_run_torch,
+                             ops=frozenset({"ternary", "cim"}), **_ALL))
 register_backend(BackendSpec(name="ref", platforms=frozenset({"cpu", "cuda"}),
-                             priority=10, runner=_run_ref, **_ALL))
+                             priority=10, runner=_run_ref,
+                             ops=frozenset({"ternary"}), **_ALL))
 
 
 def _run_paged_attn(plan, q, kv):

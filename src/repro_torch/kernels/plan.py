@@ -1,6 +1,7 @@
 """Capability-based execution planning for the kernel layer.
 
-Every packed matmul, and every paged-attention read, resolves once into
+Every packed matmul, every macro-exact CIM MAC (``op='cim'``), and every
+paged-attention read resolves once into
 a frozen, hashable :class:`ExecutionPlan` (what to compute, and which
 backend computes it) and runs through :func:`execute`.  Backends declare
 their capabilities in a :class:`BackendSpec`; ``backend='auto'`` picks
@@ -9,9 +10,9 @@ platform, and an explicit backend that lacks a capability raises.
 
 The platform is the operand's device type (``cpu`` or ``cuda``), passed
 in by the caller: there is no global probe.  On a CUDA tensor ``auto``
-resolves to a hand-written kernel only (``cuda`` for the ternary op,
-``paged_attn`` for attention); the plain versions run there only when
-named.
+resolves to a hand-written kernel only (``cuda`` for the ternary and cim
+ops, ``paged_attn`` for attention); the plain versions run there only
+when named.
 
 ``kv_layout`` names the KV-cache layout the serving loop feeds a plan
 from (``dense`` slot caches or the ``paged`` page pool); backends
@@ -24,7 +25,7 @@ import dataclasses
 import functools
 from typing import Any, Callable, Optional
 
-OPS = ("ternary", "attention")
+OPS = ("ternary", "cim", "attention")
 DOMAINS = ("float", "int8")
 PACKINGS = ("base3", "trit2")
 PLATFORMS = ("cpu", "cuda")
@@ -43,7 +44,7 @@ def check_choice(kind: str, value: Any, choices) -> None:
 class ExecutionPlan:
     """A resolved matmul or attention read: produced by
     :func:`plan_matmul`, consumed by :func:`execute`."""
-    op: str                       # ternary | attention
+    op: str                       # ternary | cim | attention
     backend: str                  # resolved name, never 'auto'
     domain: str                   # float | int8
     packing: str                  # base3 | trit2
@@ -52,6 +53,8 @@ class ExecutionPlan:
     n: int
     platform: str                 # cpu | cuda
     kv_layout: str = "dense"      # dense | paged
+    adc_bits: Optional[int] = None    # cim plans: ADC resolution
+    num_trits: Optional[int] = None   # cim plans: trits per operand
 
     @property
     def shape(self) -> tuple:
@@ -156,7 +159,7 @@ def shape_of(x, w) -> tuple:
 
 @functools.lru_cache(maxsize=PLAN_CACHE_SIZE)
 def _resolve(op, m, k, n, backend, domain, packing, platform,
-             kv_layout) -> ExecutionPlan:
+             kv_layout, adc_bits, num_trits) -> ExecutionPlan:
     check_choice("op", op, OPS)
     check_choice("domain", domain, DOMAINS)
     check_choice("packing mode", packing, PACKINGS)
@@ -164,7 +167,8 @@ def _resolve(op, m, k, n, backend, domain, packing, platform,
                            kv_layout)
     return ExecutionPlan(op=op, backend=spec.name, domain=domain,
                          packing=packing, m=m, k=k, n=n,
-                         platform=platform, kv_layout=kv_layout)
+                         platform=platform, kv_layout=kv_layout,
+                         adc_bits=adc_bits, num_trits=num_trits)
 
 
 def plan_matmul(shape, cfg: Any = None, *, platform: str,
@@ -172,11 +176,14 @@ def plan_matmul(shape, cfg: Any = None, *, platform: str,
                 backend: Optional[str] = None,
                 domain: Optional[str] = None,
                 packing: Optional[str] = None,
-                kv_layout: Optional[str] = None) -> ExecutionPlan:
+                kv_layout: Optional[str] = None,
+                adc_bits: Optional[int] = None,
+                num_trits: Optional[int] = None) -> ExecutionPlan:
     """Resolve a plan for an (M, K, N) problem on `platform`.  ``cfg`` is
     any object with ``backend``/``domain``/``packing``/``kv_layout``
-    attributes (a ``CIMConfig``); explicit keywords override it.  An
-    attention plan's shape is ``(S*KV*rep, hd, W*page_size)``: every
+    attributes (a ``CIMConfig``); explicit keywords override it.  A cim
+    plan carries ``adc_bits`` and ``num_trits`` (5 and 5 unless given).
+    An attention plan's shape is ``(S*KV*rep, hd, W*page_size)``: every
     slot's grouped queries against the per-slot page capacity."""
     m, k, n = (int(s) for s in shape)
     if cfg is not None:
@@ -184,18 +191,23 @@ def plan_matmul(shape, cfg: Any = None, *, platform: str,
         domain = domain if domain is not None else cfg.domain
         packing = packing if packing is not None else cfg.packing
         kv_layout = kv_layout if kv_layout is not None else cfg.kv_layout
+    if op == "cim":
+        adc_bits = 5 if adc_bits is None else adc_bits
+        num_trits = 5 if num_trits is None else num_trits
     _ensure_builtin_backends()
     return _resolve(op, m, k, n, "auto" if backend is None else backend,
                     "float" if domain is None else domain,
                     "base3" if packing is None else packing, platform,
-                    "dense" if kv_layout is None else kv_layout)
+                    "dense" if kv_layout is None else kv_layout, adc_bits,
+                    num_trits)
 
 
 def execute(plan: ExecutionPlan, x, w):
     """Run a resolved plan: ``x (..., K) @ w -> (..., N)`` for a ternary
-    plan, ``(acc, m, l)`` of the queries ``x`` against a
-    ``PagedAttentionKV`` ``w`` for an attention plan.  The operands must
-    match the plan's shape, packing and platform."""
+    plan (``w`` a ``PackedTernary``) or a cim plan (``w`` a float (K, N)
+    tensor or a base3 ``PackedTernary``), ``(acc, m, l)`` of the queries
+    ``x`` against a ``PagedAttentionKV`` ``w`` for an attention plan.
+    The operands must match the plan's shape, packing and platform."""
     got = shape_of(x, w)
     if got != plan.shape:
         raise ValueError(f"operand shape {got} does not match plan "

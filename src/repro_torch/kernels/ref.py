@@ -1,8 +1,10 @@
-"""Oracles for the ternary matmul kernels: unpack, then matmul."""
+"""Oracles of the kernels: unpack, then matmul; the macro model for
+``cim_mac``."""
 from __future__ import annotations
 
 import torch
 
+from ..core import cim as cim_core
 from ..core.packing import unpack_base3, unpack_trits2
 
 
@@ -39,3 +41,11 @@ def ternary_matmul_int8_ref(x_int: torch.Tensor, x_scale: torch.Tensor,
                               device=x_int.device)[..., None]
             * torch.as_tensor(scale, dtype=torch.float32,
                               device=x_int.device).expand(n)[None, :])
+
+
+def cim_mac_ref(x_trits: torch.Tensor, w_trits: torch.Tensor,
+                adc_bits: int = 5) -> torch.Tensor:
+    """Oracle for the cim_mac kernel: the functional macro model,
+    (qi, M, K) x (qw, K, N) trit planes -> (M, N) int32."""
+    cfg = cim_core.MacroConfig(adc_bits=adc_bits)
+    return cim_core.cim_matmul_int(x_trits, w_trits, cfg)

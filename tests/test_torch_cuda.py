@@ -14,6 +14,10 @@ transfer per bucket.  The paged-attention kernel: ``m`` within
 maximum (the kernel sums page by page, the plain version in one pass),
 and the null page adds exactly nothing to a live slot.  The schedulers:
 the fused read gives the gather's tokens, one host transfer per chunk.
+The cim_mac kernel: bitwise equal to its plain version (the macro model)
+at ragged shapes, every ADC width and the all-saturating case, and the
+smoke model's exact-mode logits bitwise equal between the cuda and the
+plain torch backend.
 """
 import dataclasses
 
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core.cim_linear import CIMConfig, ternarize_params
+from repro_torch.kernels import cim_mac as cm
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ternary_matmul as tm
@@ -252,3 +257,80 @@ def test_paged_schedulers_on_the_card(dev):
         out[name] = {r.uid: r.out_tokens for r in done}
     assert out["fused"] == out["gather"] == out["dense"]
     assert [len(out["fused"][i]) for i in range(5)] == [3, 4, 5, 6, 7]
+
+
+@pytest.mark.parametrize("qi,qw,m,k,n,bits", [
+    (5, 5, 8, 2048, 1024, 5), (5, 5, 8, 8192, 2048, 5),
+    (5, 5, 300, 520, 130, 5), (5, 5, 1, 37, 5, 5), (3, 5, 13, 1000, 131, 4),
+    (1, 1, 9, 16, 3, 3), (5, 5, 70, 100, 67, 8), (5, 3, 2, 48, 259, 4)])
+def test_cim_mac_kernel_matches_plain_version(dev, qi, qw, m, k, n, bits):
+    rng = np.random.default_rng(m + k + n)
+    x = torch.as_tensor(rng.integers(-1, 2, size=(qi, m, k)),
+                        dtype=torch.int8, device=dev)
+    w = torch.as_tensor(rng.integers(-1, 2, size=(qw, k, n)),
+                        dtype=torch.int8, device=dev)
+    before = cm.LAUNCHES["cim_mac"]
+    got = cm.cim_mac(x, w, bits)
+    torch.cuda.synchronize()
+    assert cm.LAUNCHES["cim_mac"] == before + 1
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, cm.cim_mac_torch(x, w, bits))
+
+
+@pytest.mark.parametrize("bits", [4, 5])
+def test_cim_mac_kernel_all_saturating(dev, bits):
+    x = torch.ones((5, 8, 40), dtype=torch.int8, device=dev)
+    w = -torch.ones((5, 40, 300), dtype=torch.int8, device=dev)
+    got = cm.cim_mac(x, w, bits)
+    assert torch.equal(got, cm.cim_mac_torch(x, w, bits))
+    c = 2**bits - 1
+    assert int(got[0, 0]) == (2 * (16 - c) + max(-8, 8 - c)) * 121 * 121
+
+
+def test_cim_mac_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x = torch.zeros((5, 4, 32), dtype=torch.int8, device=dev)
+    w = torch.zeros((5, 32, 8), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        cm.cim_mac(x.transpose(1, 2).contiguous().transpose(1, 2), w)
+    with pytest.raises(ValueError, match="operands on"):
+        cm.cim_mac(x, w.cpu())
+
+
+def test_smoke_model_exact_mode_cuda_matches_plain_backend(dev):
+    """Macro-exact mode on float weights: the kernel is integer-exact and
+    every other op is the same torch op, so the logits are bitwise equal;
+    the engine resolves the cuda backend and launches the kernel once per
+    dense() call."""
+    cfg = dataclasses.replace(configs.smoke("internlm2-1.8b"),
+                              dtype=torch.float32)
+    model = registry.build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    rng = np.random.default_rng(4)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 8)),
+                             device=dev)
+    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 2, 1)),
+                           device=dev)
+    logits = {}
+    for backend in ("cuda", "torch"):
+        cim = CIMConfig(mode="exact", backend=backend)
+        cm.reset_launches()
+        lg, state = model.prefill(params, prompt, 16, cim=cim)
+        steps = [lg]
+        for tok in feed:
+            lg, state = model.decode(params, tok, state, cim=cim)
+            steps.append(lg)
+        per_forward = 7 * cfg.num_layers + 1
+        assert cm.LAUNCHES["cim_mac"] == (
+            3 * per_forward if backend == "cuda" else 0)
+        logits[backend] = torch.stack(steps)
+    assert torch.equal(logits["cuda"], logits["torch"])
+    eng = ServeEngine(model, params, capacity=16, max_batch=2,
+                      cim=CIMConfig(mode="exact"), device=dev)
+    assert eng.cim.backend == "cuda"
+    for i in range(2):
+        eng.submit(Request(uid=i, prompt=rng.integers(0, 512, size=5),
+                           max_new=3))
+    done = eng.run()
+    assert eng.host_transfers == 1 and all(len(r.out_tokens) == 3
+                                           for r in done)

@@ -38,6 +38,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["forbidden"] == []
     for mod in ("repro_torch.kernels.ternary_matmul", "repro_torch.convert",
+                "repro_torch.kernels.cim_mac", "repro_torch.core.cim",
+                "repro_torch.core.device_models",
                 "repro_torch.serve.engine", "repro_torch.launch.serve",
                 "repro_torch.models.registry"):
         assert mod in report["modules"]
