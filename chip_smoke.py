@@ -9,19 +9,28 @@ Phases, each of which raises on failure:
               at the shapes of the serving path of internlm2-1.8b: K x N
               of each packed weight, M = 8 (decode) and M = 1024 (prefill
               of 8 x 128 tokens; the unembedding only at M = 8), both
-              packings, both domains.  Int8 must match bitwise, float
-              within 1e-4 of max|y| (summation order only).  Each case
-              prints the kernel's median device time (CUDA events behind
-              a spin kernel, L2 flushed between launches), its bound, the
-              plain version's time and a library call's time (a
-              yardstick the port never calls).
+              packings, both domains, plus untimed ragged shapes in f32
+              and bf16 on both sides of M = 8.  Int8 must match bitwise,
+              float within 1e-4 of max|y| (summation order only).  Each
+              case names the route it took (``ROUTES``: M = 8 must take
+              ``gemv``, M = 1024 ``mma``) and prints the kernel's median
+              device time (CUDA events behind a spin kernel, L2 flushed
+              between launches), its bound, the plain version's time and
+              a library call's time (a yardstick the port never calls).
+              At M = 1024 it also runs the mma route with the other tile
+              height than mma_plan's, held to the same bar, and times it.
+              Then per packing and domain the sums over one decode step
+              and one prefill.
 3. serve    - the bucket ServeEngine at full width (bf16, seeded random
               weights packed by ternarize_params; 8 requests of 128
               prompt tokens, 32 new tokens each) in the float and int8
               domains on base3 weights and the int8 domain on trit2
               weights.  The launch counts are zeroed just before each run
               and read just after: the run's kernel must have launched,
-              with one host transfer per bucket and every token there.
+              its prefill through the mma route and its decode through
+              gemv, with one host transfer per bucket and every token
+              there.  Prints the prefill's wall time beside its kernels'
+              summed device time (one prefill under torch.profiler).
 4. parity   - one prefill and four decode steps of the same model with
               the cuda backend and then the plain torch backend named
               explicitly: int8-domain logits bitwise equal, float-domain
@@ -154,6 +163,23 @@ def time_ms(torch, fn, reps, flush):
     return statistics.median(times)
 
 
+def device_busy(torch, fn):
+    """(summed kernel device ms, kernels launched) of one call of `fn`
+    under torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(float(getattr(e, "self_device_time_total",
+                                getattr(e, "self_cuda_time_total", 0.0)))
+                  for e in kernels)
+    return busy_us / 1e3, sum(e.count for e in kernels)
+
+
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.monotonic()
@@ -182,17 +208,21 @@ def phase_kernels(torch, cfg):
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     for mode in ("base3", "trit2"):            # ragged edges, untimed
-        for m, k, n in ((1, 64, 5), (3, 520, 130), (13, 200, 136)):
+        for m, k, n in ((1, 64, 5), (3, 520, 130), (13, 200, 136),
+                        (17, 64, 5), (129, 520, 130), (300, 200, 136)):
             kw = k if mode == "base3" else k // 4
             data = torch.randint(0, 256 if mode == "trit2" else 243, (kw, n),
                                  generator=gen, device=dev, dtype=torch.uint8)
             scale = torch.rand(n, generator=gen, device=dev)
             w = ops.PackedTernary(data, scale, mode)
             x = torch.randn(m, k, generator=gen, device=dev)
-            want = ops.ternary_matmul_torch(x, w)
-            err = (tm.matmul_float(x, data, scale, mode) - want).abs().max()
-            check(err.item() <= FLOAT_TOL * want.abs().max().item(),
-                  f"ternary_matmul {mode} {(m, k, n)}: error {err.item()}")
+            for xf in (x, x.to(torch.bfloat16)):   # f32; bf16 (mma at M > 8)
+                want = ops.ternary_matmul_torch(xf, w)
+                err = (tm.matmul_float(xf, data, scale, mode)
+                       - want).abs().max()
+                check(err.item() <= FLOAT_TOL * want.abs().max().item(),
+                      f"ternary_matmul {mode} {xf.dtype} {(m, k, n)}: "
+                      f"error {err.item()}")
             xi, xs = ops.quantize_acts_int8(x)
             check(torch.equal(tm.matmul_int8(xi, xs, data, scale, mode),
                               ops.ternary_matmul_int8_torch(xi, xs, w)),
@@ -231,7 +261,11 @@ def phase_kernels(torch, cfg):
                         library = ((lambda: torch._int_mm(xi, w_int8))
                                    if m > 16 else None)
                         in_bytes = m * k + 4 * m
-                    got, want = run(), plain()
+                    before = dict(tm.ROUTES)
+                    got = run()
+                    path = [r for r in tm.ROUTES
+                            if tm.ROUTES[r] != before[r]]
+                    want = plain()
                     torch.cuda.synchronize()
                     err = (got - want).abs().max().item()
                     if domain == "int8":
@@ -239,22 +273,60 @@ def phase_kernels(torch, cfg):
                     else:
                         ok = err <= FLOAT_TOL * want.abs().max().item()
                     moved = in_bytes + wbytes + 4 * m * n
+                    plans = (mma_plans(torch, tm, x if domain == "float"
+                                       else xi,
+                                       xs if domain == "int8" else None,
+                                       data, scale, mode, want, flush)
+                             if m > 8 else {})
                     rec = dict(
                         kernel=KERNEL_NAMES[domain], mode=mode, weight=name,
                         m=m, k=k, n=n, per_forward=per_forward,
+                        route=path[0] if len(path) == 1 else path,
                         max_abs_err=err, ok=bool(ok),
                         ms=time_ms(torch, run, 20, flush),
                         plain_ms=time_ms(torch, plain, 5, flush),
                         library_ms=(time_ms(torch, library, 10, flush)
                                     if library else None),
                         bytes=moved, ops=2 * m * k * n,
-                        **bound(moved, 2 * m * k * n, domain))
+                        **bound(moved, 2 * m * k * n, domain), **plans)
                     cases.append(rec)
                     print("[kernels] " + json.dumps(rec))
                     check(ok, f"{rec['kernel']} disagrees with its plain "
                               f"version: {rec}")
+                    want_route = "mma" if m > 8 else "gemv"
+                    check(rec["route"] == want_route,
+                          f"{rec['kernel']} at M={m} took route "
+                          f"{rec['route']}, expected {want_route}")
             del data, w, w_bf16, w_int8
     return cases
+
+
+def mma_plans(torch, tm, x, x_scale, data, scale, mode, want, flush):
+    """The mma route's plan for these operands (mma_plan) and the plan
+    with the other tile height, run through the route's launcher (which
+    counts nothing), held to the plain version as the wrapper is, and
+    timed: {plan, alt_plan, alt_plan_ms}."""
+    m, n = x.shape[0], data.shape[1]
+    k = x.shape[1]
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = tm.mma_plan(m, k, n, sms)
+    alt = tm.mma_tile_plan(m, k, n, sms, 128 if plan[0] == 256 else 256)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+
+    def run():
+        check(tm.launch_mma(x, x_scale, data, scale, mode, out, alt) == 0,
+              f"mma launch failed at plan {alt}")
+    run()
+    torch.cuda.synchronize()
+    if x_scale is not None:
+        ok = torch.equal(out, want)
+    else:
+        ok = ((out - want).abs().max().item()
+              <= FLOAT_TOL * want.abs().max().item())
+    check(ok, f"mma plan {alt} disagrees with the plain version at "
+              f"{(m, k, n)} {mode}")
+    return dict(plan=list(plan), alt_plan=list(alt),
+                alt_plan_ms=time_ms(torch, run, 20, flush))
 
 
 def _requests(rng, vocab, n):
@@ -293,10 +365,14 @@ def phase_serve(torch, np, cfg, model, packed):
         t0 = time.monotonic()
         done = eng.run()
         wall = time.monotonic() - t0
-        counts = dict(tm.LAUNCHES)
+        counts, routes = dict(tm.LAUNCHES), dict(tm.ROUTES)
         kernel = KERNEL_NAMES[domain]
         check(counts[kernel] > 0, f"{kernel} never launched in the "
                                   f"{packing}/{domain} serve run")
+        check(routes["mma"] > 0 and routes["gemv"] > 0
+              and routes["cuda_core"] == 0,
+              f"{packing}/{domain}: prefill must take the mma route and "
+              f"decode the gemv route, got {routes}")
         buckets = 1
         check(eng.host_transfers == buckets,
               f"{eng.host_transfers} host transfers for {buckets} bucket")
@@ -317,6 +393,9 @@ def phase_serve(torch, np, cfg, model, packed):
             torch.cuda.synchronize()
             prefill_ms.append((time.monotonic() - t) * 1e3)
         check(bool(torch.isfinite(logits).all()), "non-finite logits")
+        prefill_busy, prefill_kernels = device_busy(
+            torch, lambda: model.prefill(params, tokens, CAPACITY,
+                                         cim=eng.cim))
         tok = logits[:, -1].argmax(-1, keepdim=True)
         torch.cuda.synchronize()
         t = time.monotonic()
@@ -330,9 +409,13 @@ def phase_serve(torch, np, cfg, model, packed):
         rec = dict(packing=packing, domain=domain, requests=len(done),
                    generated_tokens=eng.generated_tokens,
                    steps=eng.steps_run, host_transfers=eng.host_transfers,
-                   launches=counts, wall_s=wall,
+                   launches=counts, routes=routes, wall_s=wall,
                    tok_per_s=eng.generated_tokens / wall,
                    prefill_ms=statistics.median(prefill_ms),
+                   prefill_device_busy_ms=prefill_busy,
+                   prefill_device_idle_share=(
+                       1.0 - prefill_busy / statistics.median(prefill_ms)),
+                   prefill_kernels=prefill_kernels,
                    decode_step_ms=step_ms,
                    decode_step_bound_ms=wbytes / HBM_BYTES_PER_S * 1e3,
                    weight_bytes_per_step=wbytes)
@@ -380,21 +463,37 @@ def phase_parity(torch, np, cfg, model, params):
     return out
 
 
+def matmul_sums(cases, kernel, mode, m):
+    """Sums of one forward's packed matmuls of `kernel` at `m` rows
+    (every weight at its multiplicity; a prefill has no unembedding):
+    ms, plain_ms, library_ms (None where a case has none), bytes, ops and
+    the number of matmuls."""
+    recs = [c for c in cases if c["kernel"] == kernel and c["mode"] == mode
+            and c["m"] == m]
+
+    def total(key):
+        vals = [c.get(key) for c in recs]
+        if any(v is None for v in vals):
+            return None
+        return sum(v * c["per_forward"] for v, c in zip(vals, recs))
+    out = {key: total(key) for key in ("ms", "plain_ms", "library_ms",
+                                       "alt_plan_ms", "bytes", "ops")}
+    out["matmuls"] = sum(c["per_forward"] for c in recs)
+    return out
+
+
 def kernel_summary(cases, runs, cfg):
     """One record per kernel: the numbers of one decode step's packed
-    matmuls (M = 8, base3, every weight at its multiplicity), and the
-    launches of the base3 serve run in the kernel's domain.  Each serve
-    run's own count is under ``launches_per_run``."""
+    matmuls (M = 8, base3, every weight at its multiplicity), prefill_*
+    over one prefill's (M = 8 x 128, base3), and the launches of the
+    base3 serve run in the kernel's domain.  Each serve run's own count
+    is under ``launches_per_run``."""
     out = []
+    prefill_m = BATCH * PROMPT
     for domain, name in KERNEL_NAMES.items():
         mine = [c for c in cases if c["kernel"] == name]
-        step = [c for c in mine if c["m"] == 8 and c["mode"] == "base3"]
-
-        def total(key):
-            vals = [c[key] for c in step]
-            if any(v is None for v in vals):
-                return None
-            return sum(v * c["per_forward"] for v, c in zip(vals, step))
+        step = matmul_sums(cases, name, "base3", 8)
+        pre = matmul_sums(cases, name, "base3", prefill_m)
         out.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/csrc/ternary_matmul.cu",
@@ -403,15 +502,37 @@ def kernel_summary(cases, runs, cfg):
                           if r["packing"] == "base3"
                           and r["domain"] == domain),
             max_abs_err=max(c["max_abs_err"] for c in mine),
-            ms=total("ms"), plain_ms=total("plain_ms"),
-            **bound(total("bytes"), total("ops"), domain),
-            library_ms=total("library_ms"),
-            workload=f"one decode step of {cfg.name}: "
-                     f"{sum(c['per_forward'] for c in step)} packed "
-                     f"matmuls at M=8, base3",
+            ms=step["ms"], plain_ms=step["plain_ms"],
+            **bound(step["bytes"], step["ops"], domain),
+            library_ms=step["library_ms"],
+            prefill_ms=pre["ms"], prefill_plain_ms=pre["plain_ms"],
+            prefill_bound_ms=bound(pre["bytes"], pre["ops"],
+                                   domain)["bound_ms"],
+            prefill_library_ms=pre["library_ms"],
+            workload=f"one decode step of {cfg.name}: {step['matmuls']} "
+                     f"packed matmuls at M=8, base3; prefill_* over "
+                     f"{pre['matmuls']} at M={prefill_m}, base3",
             launches_per_run={f"{r['packing']}/{r['domain']}":
                               r["launches"][name] for r in runs}))
     return out
+
+
+def print_matmul_sums(cases):
+    """Per packing, domain and phase: the summed kernel, plain, library
+    and bound ms of one forward's packed matmuls, and at prefill the sum
+    under the mma route's other tile height."""
+    for domain, name in KERNEL_NAMES.items():
+        for mode in ("base3", "trit2"):
+            for phase, m in (("decode", 8), ("prefill", BATCH * PROMPT)):
+                t = matmul_sums(cases, name, mode, m)
+                rec = dict(kernel=name, mode=mode, phase=phase, m=m,
+                           matmuls=t["matmuls"], ms=t["ms"],
+                           plain_ms=t["plain_ms"],
+                           library_ms=t["library_ms"],
+                           bound_ms=bound(t["bytes"], t["ops"],
+                                          domain)["bound_ms"],
+                           alt_plan_ms=t["alt_plan_ms"])
+                print("[kernels] sum " + json.dumps(rec))
 
 
 def paged_operands(torch, np, dev, slots, kvh, rep, hd, ps, windows, pos,
@@ -616,6 +737,7 @@ def phase_sched(torch, np, cfg, model, params):
         done = eng.run()
         wall = time.monotonic() - t0
         launches = {**tm.LAUNCHES, **pa.LAUNCHES}
+        routes = dict(tm.ROUTES)
         steps_launched = eng.chunk * eng.chunks_run
         paged = kind != "dense"
         rec = dict(
@@ -635,7 +757,7 @@ def phase_sched(torch, np, cfg, model, params):
             prefix_hit_rate=eng.prefix_hit_rate if paged else None,
             attn_backend=(eng.attn_plan.backend
                           if paged and eng.attn_plan else None),
-            launches=launches)
+            launches=launches, routes=routes)
         print("[sched] " + json.dumps(rec))
         runs[kind] = rec
         tokens[kind] = {r.uid: [int(t) for t in r.out_tokens] for r in done}
@@ -983,6 +1105,7 @@ def main() -> int:
 
     cfg = configs.get(ARCH)
     cases = phase_kernels(torch, cfg)
+    print_matmul_sums(cases)
 
     model = registry.build(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -14,41 +14,74 @@
 // trit2 stores four trits per byte as 2-bit codes, little-endian along K
 // (0 -> 0, 1 -> +1, 2 -> -1, 3 -> 0).
 //
-// What bounds it on an H100: at decode (M = batch <= 8) the packed
-// weight bytes, read once per step at 3.35 TB/s; at prefill (M ~ 1e3)
-// the multiply-adds, which these kernels run on the CUDA cores.
+// Three routes; the wrapper (kernels/ternary_matmul.py, route()) picks
+// one from M and the dtype of x, and no route falls back to another.
 //
-// Design.  A block of 128 threads owns a tile of 8 rows x 128 output
-// columns and loops over K itself; nothing carries across blocks.  A
-// thread owns 4 adjacent columns and reads their packed bytes as one
-// 32-bit load, so a warp reads 128 contiguous bytes of a weight row
-// (coalesced).  The bytes are decoded in registers: no dequantized
-// weight exists in device memory.  Activations are staged in shared
-// memory, 8 rows x 64 K at a time, and broadcast to all column threads.
-// The four warps of a block split each K chunk four ways and combine
-// their sums in shared memory in a fixed order.
+// gemv (M <= 8, decode; tm_gemv_*): bound by the packed weight bytes,
+// read once per step at 3.35 TB/s.  One row tile covers every row, so
+// each weight byte is read once per call.  A block of 8 warps owns 128
+// output columns; the warps take interleaved K rows (warp w reads rows
+// w, w + 8, ...), so at any moment the block reads 8 neighbouring
+// 128-byte row segments, and each lane issues 8 row loads before it
+// computes, to keep bytes in flight.  Bytes are decoded in registers;
+// the activations are staged in shared memory as [k][row], so a lane
+// reads the 8 rows of one k with two 16-byte loads (a broadcast).
 //
-// Decode (M <= 8) takes a second, weight-streaming kernel (tm_gemv_*):
-// one row tile covers every row, so each weight byte is read once per
-// call.  A block of 8 warps owns 128 output columns; the warps take
-// interleaved K rows (warp w reads rows w, w + 8, ...), so at any moment
-// the block reads 8 neighbouring 128-byte row segments, and each lane
-// issues 8 row loads before it computes, to keep more bytes in flight
-// than the tiled kernel does (PERF.md has the measured rate).  The activations
-// are staged in shared memory as [k][row], so a lane reads the 8 rows
-// of one k with two 16-byte loads (a broadcast across the warp).
+// mma (M > 8 with bf16 or int8 x, prefill; tm_mma_kernel): bound by the
+// multiply-adds at the tensor-core rate (989 TFLOP/s bf16, 1979 TOP/s
+// int8).  One template serves both domains; only the mma instruction
+// (m16n8k16 bf16 -> f32, or m16n8k32 s8 -> s32) and the epilogue differ.
+// A block owns 128 or 256 rows x 128 columns of the output: 8 warps
+// (2 x 4) or 16 warps (4 x 4) of 64 x 32 outputs each (the wrapper's
+// mma_plan: 256 rows for M > 128, else 128 with the rows past M masked).
+// cp.async stages x's K slice into a ring of 3 stages and the raw packed
+// weight tile (64 K rows: 64 x 128 bytes of base3, 16 x 128 of trit2)
+// into 2; a decode pass turns each raw tile into the mma's element type
+// in one N x K layout (K contiguous), double-buffered, so that one
+// barrier a stage suffices: iteration t issues the loads of stage t + 2,
+// multiplies stage t, and between its k steps decodes stage t + 1.  int8
+// transposes 4 K rows x 4 columns with __byte_perm; bf16 picks each
+// base3 byte out of its raw word while converting it exactly (no I2F),
+// and turns trit2 codes into bf16 pairs with one fma.  A (x, row-major)
+// and B are then both read with plain ldmatrix: the "TN" layout, the one
+// that serves both types (ldmatrix.trans has no 8-bit form).  x and B
+// rows are padded by 16 bytes and the raw tile's 16-byte chunks are
+// swizzled, against bank conflicts.  The outputs leave through a shared
+// patch per warp as whole 128-byte rows.  What holds this mma.sync form
+// short of the tensor-core peak, by ablation on the H100: the mma.sync
+// issue itself (well below the peak even with no staging or decode),
+// then the staging, the decode and the ldmatrix traffic, which overlap
+// it only in part; wgmma with TMA staging is the next pass.
+// Every weight is exact in bf16 (|v| <= 121) and a bf16 x bf16 product
+// is exact in f32, so the float domain differs from f32 only in the
+// order of the sums; int8 sums are exact.  Rows past M or K, columns
+// past N and rows past the split are staged as 0 (a zero base3 byte
+// decodes to -121, but meets a zero x), so ragged edges need no padded
+// copy; rows not 16-byte aligned are staged byte by byte.
+//
+// cuda_core (M > 8 with f32 x; tm_float_kernel): f32 activations are off
+// the serving path, and rounding them to bf16 for the tensor cores would
+// break the float domain's f32 bar, so they keep this CUDA-core kernel:
+// a block of 128 threads owns 8 rows x 128 columns, a thread 4 adjacent
+// columns read as one 32-bit load, activations staged 8 x 64 at a time,
+// four K slices combined in shared memory in a fixed order.  Its int8
+// twin is gone: int8 at M > 8 takes the mma route.
 //
 // Where the output tiles alone would leave the SMs idle (decode: 8 to 64
-// column tiles for N = 1024 to 8192), the wrapper splits K across blocks
+// column tiles for N = 1024 to 8192; prefill at M = 1024: wq, wo and w2
+// give 64 tiles, wk and wv 32), the wrapper splits K across blocks
 // (grid.z); each split writes its partial sums and a second kernel adds
 // them in split order and applies the epilogue, so the result is
-// deterministic.  Ragged M, N and K edges are masked, not padded.  Later
-// work: bf16/int8 tensor-core products (mma.sync / wgmma, TMA staging)
-// for prefill, where this file's kernels run on the CUDA cores.
+// deterministic (no atomics).
+// Later work: wgmma with TMA staging and warp specialisation for the mma
+// route, and a faster gemv route (PERF.md has each route's times).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -62,6 +95,7 @@ constexpr int kKC = 64;                            // K per staged chunk
 constexpr int kRowsPerSlice = kKC / kSlices;       // 16
 constexpr int kBase3Offset = 121;
 constexpr int kBase3 = 0;
+constexpr uint32_t kBase3Zero = 0x79797979u;       // four bytes of 121
 
 // Activation element -> accumulation type (float or int).
 __device__ __forceinline__ float widen(float v) { return v; }
@@ -196,39 +230,418 @@ tm_float_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
   }
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(kThreads)
-tm_int8_kernel(const int8_t* __restrict__ x, const float* __restrict__ xscale,
-               const uint8_t* __restrict__ w, const float* __restrict__ scale,
-               void* __restrict__ out, int M, int K, int N, int k_per_split,
-               int vec, int partial) {
-  __shared__ int xs[kBM][kKC];
-  __shared__ int red[kSlices][kBM][kBN];
-  const int cg = threadIdx.x % kColGroups, slice = threadIdx.x / kColGroups;
-  const int n0 = blockIdx.x * kBN + cg * kColsPerThread;
-  const int m0 = blockIdx.y * kBM;
+// ------------------------------------------------------- prefill (mma)
+
+constexpr int kMBN = 128;               // output columns per block
+constexpr int kMBK = 64;                // K rows per stage (the split unit)
+constexpr int kAhead = 2;               // stages loaded ahead of the mma
+constexpr int kXStages = kAhead + 1;    // x ring (one stage in the mma)
+constexpr int kPad = 16;                // bytes after each shared row
+constexpr int kRawRow = kMBN;           // one raw packed row, 128 bytes
+constexpr int kMaxSmem = 227 * 1024;    // opt-in shared memory per block
+constexpr int kPatchRow = 40;           // words per epilogue patch row
+
+template <typename T> struct AccOf { using type = int; };
+template <> struct AccOf<__nv_bfloat16> { using type = float; };
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without waiting; valid = false writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// One 16 x 8 output tile += A (16 rows x 32 bytes) . B (32 bytes x 8
+// columns): bf16 k16 with f32 sums, or int8 k32 with exact int32 sums.
+__device__ __forceinline__ void mma_tile(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void mma_tile(int (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Decodes without int-to-float conversions or emulated SIMD: base3
+// bytes minus 121 as int8 (a carry-free byte add of 135); a trit2 byte's
+// four 2-bit codes as four int8; trit2 words as bf16 pairs (below).
+__device__ __forceinline__ uint32_t base3_s8(uint32_t b) {
+  return ((b & 0x7f7f7f7fu) + 0x07070707u) ^ ((b ^ 0x87878787u) & 0x80808080u);
+}
+__device__ __forceinline__ uint32_t trit2_s8(uint32_t b) {
+  const uint32_t c = (b | (b << 6) | (b << 12) | (b << 18)) & 0x03030303u;
+  const uint32_t lo = c & 0x01010101u, hi = (c >> 1) & 0x01010101u;
+  const uint32_t nz = lo ^ hi;
+  return nz | ((hi & nz) * 0xfeu);
+}
+// Every 2-bit code of w as its value + 1 (0 -> 1, 1 -> 2, 2 -> 0, 3 -> 1).
+__device__ __forceinline__ uint32_t trit2_fields_plus_one(uint32_t w) {
+  const uint32_t lo = w & 0x55555555u, hi = (w >> 1) & 0x55555555u;
+  return ((lo & ~hi) << 1) | (~(lo ^ hi) & 0x55555555u);
+}
+// Two fields f in 0..2 at bits 0 and 16 -> the bf16 pair (f - 1): 128 + f
+// is 0x4300 | f in bf16, and (128 + f) * 1 - 129 is exact.
+__device__ __forceinline__ uint32_t bf16x2_minus_one(uint32_t f) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(d) : "r"(f | 0x43004300u), "r"(0x3f803f80u), "r"(0xc301c301u));
+  return d;
+}
+
+// The f32 of byte `sel` of w minus `off`: the byte is placed as the low
+// bits of 2^23's f32 pattern and 2^23 + off is subtracted, which is exact.
+// Every value here has at most 7 significant bits (|v| <= 121), so its
+// bf16 is the upper half of that f32.
+__device__ __forceinline__ uint32_t byte_f32(uint32_t w, int sel, float off) {
+  return __float_as_uint(
+      __uint_as_float(__byte_perm(w, 0x4B00u, 0x5440 + sel)) - off);
+}
+__device__ __forceinline__ void put_bf16x4(__nv_bfloat16* dst, uint32_t f0,
+                                           uint32_t f1, uint32_t f2,
+                                           uint32_t f3) {
+  uint2 v;
+  v.x = __byte_perm(f0, f1, 0x7632);
+  v.y = __byte_perm(f2, f3, 0x7632);
+  *reinterpret_cast<uint2*>(dst) = v;
+}
+
+__device__ __forceinline__ float finish(float acc, const float*, int,
+                                        float sc) {
+  return acc * sc;
+}
+__device__ __forceinline__ float finish(int acc, const float* xscale, int m,
+                                        float sc) {
+  return __fmul_rn(__fmul_rn(__int2float_rn(acc), xscale[m]), sc);
+}
+
+// Four outputs of row gm, columns gn .. gn + 3 (those below N), from a
+// shared patch: raw sums to the split's partial rows, or finished.
+template <typename Acc>
+__device__ __forceinline__ void put_outputs(const Acc* patch,
+                                            const float* xscale,
+                                            const float* scale, void* out,
+                                            int M, int N, int gm, int gn,
+                                            int partial, bool vec4) {
+  const bool whole = vec4 && gn + 3 < N;
+  alignas(16) Acc v[4];
+  *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(patch);
+  if (partial) {
+    Acc* o = static_cast<Acc*>(out)
+             + (static_cast<size_t>(blockIdx.z) * M + gm) * N + gn;
+    if (whole) {
+      *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(v);
+    } else {
+      for (int e = 0; e < 4 && gn + e < N; ++e) o[e] = v[e];
+    }
+    return;
+  }
+  float* o = static_cast<float*>(out) + static_cast<size_t>(gm) * N + gn;
+  if (whole) {
+    const float4 sc = *reinterpret_cast<const float4*>(scale + gn);
+    *reinterpret_cast<float4*>(o) =
+        make_float4(finish(v[0], xscale, gm, sc.x),
+                    finish(v[1], xscale, gm, sc.y),
+                    finish(v[2], xscale, gm, sc.z),
+                    finish(v[3], xscale, gm, sc.w));
+  } else {
+    for (int e = 0; e < 4 && gn + e < N; ++e)
+      o[e] = finish(v[e], xscale, gm, scale[gn + e]);
+  }
+}
+
+template <int MODE, typename T, int BM>
+struct MmaShape {
+  // warps: 2 (BM = 128) or 4 (BM = 256) along M times 4 along N; a warp
+  // owns 64 x 32 outputs
+  static constexpr int kWarpsM = BM / 64;
+  static constexpr int kThreads = kWarpsM * 4 * 32;
+  static constexpr int kMI = BM / kWarpsM / 16;          // m16 tiles per warp
+  static constexpr int kGroups = 16 / (kThreads / 32);   // decode groups
+                                                         // per warp
+  static constexpr int kRow = kMBK * sizeof(T) + kPad;   // x and B rows
+  static constexpr int kX = BM * kRow;                   // one x stage
+  static constexpr int kRawRows = MODE == kBase3 ? kMBK : kMBK / 4;
+  static constexpr int kW = kRawRows * kRawRow;          // one raw w stage
+  // raw row r keeps its 16-byte chunk c at c ^ swizzle(r), so that the
+  // decode's reads (4 K rows apart for base3) spread over the banks
+  static __device__ __forceinline__ int swizzle(int r) {
+    return (MODE == kBase3 ? r / 4 : r) % 8;
+  }
+  static constexpr int kB = kMBN * kRow;                 // one B tile
+  // x ring of kXStages, raw weight ring of kAhead, B double-buffered
+  static constexpr int kSmem = kXStages * kX + kAhead * kW + 2 * kB;
+  static_assert(kSmem <= kMaxSmem, "shared tiles exceed a block's limit");
+};
+
+// Stages K rows [k0, k0 + kMBK) of x and of the raw packed weight; what
+// lies past M, N or the split's end kb1 is written as 0.
+template <int MODE, typename T, int BM>
+__device__ __forceinline__ void mma_load(
+    const T* __restrict__ x, const uint8_t* __restrict__ w, uint8_t* xd,
+    uint8_t* wd, int M, int K, int N, int m0, int n0, int k0, int kb1,
+    int vec) {
+  using S = MmaShape<MODE, T, BM>;
+  constexpr int kE = 16 / sizeof(T);             // x elements per 16 bytes
+  constexpr int kXc = kMBK / kE;                 // 16-byte chunks per x row
+  for (int i = threadIdx.x; i < BM * kXc; i += S::kThreads) {
+    const int r = i / kXc, c = i % kXc;
+    const int gm = m0 + r, gk = k0 + c * kE;
+    uint8_t* d = xd + r * S::kRow + c * 16;
+    const T* src = x + static_cast<size_t>(gm) * K + gk;
+    if (vec) {
+      const bool ok = gm < M && gk < kb1;
+      cp_async16(d, ok ? src : x, ok);
+    } else {
+      for (int j = 0; j < 16; ++j) {
+        const int e = j / static_cast<int>(sizeof(T));
+        d[j] = (gm < M && gk + e < kb1)
+                   ? reinterpret_cast<const uint8_t*>(src)[j] : 0;
+      }
+    }
+  }
+  const int p0 = MODE == kBase3 ? k0 : k0 / 4;   // packed rows
+  const int pend = MODE == kBase3 ? kb1 : kb1 / 4;
+  constexpr int kWc = kMBN / 16;
+  for (int i = threadIdx.x; i < S::kRawRows * kWc; i += S::kThreads) {
+    const int r = i / kWc, c = i % kWc;
+    const int gp = p0 + r, gn = n0 + c * 16;
+    uint8_t* d = wd + r * kRawRow + (c ^ S::swizzle(r)) * 16;
+    const uint8_t* src = w + static_cast<size_t>(gp) * N + gn;
+    if (vec) {
+      const bool ok = gp < pend && gn < N;
+      cp_async16(d, ok ? src : w, ok);
+    } else {
+      for (int j = 0; j < 16; ++j)
+        d[j] = (gp < pend && gn + j < N) ? src[j] : 0;
+    }
+  }
+}
+
+// Raw packed stage -> B tile [kMBN][kMBK] (K contiguous) in T, one of
+// its 16 groups of 32 tasks: a thread turns 4 K rows x 4 columns, a warp
+// covers 8 row quads x 4 column quads, so that with the raw tile's
+// swizzle its raw reads take one pass of the banks and its B writes two
+// (the fewest for 8-byte stores).  base3: int8 transposes the bytes with
+// __byte_perm, bf16 picks each byte straight out of its raw word while
+// it converts.  trit2: int8 spreads each byte's codes; bf16 turns the
+// word's 16 codes into value + 1 at once, then each column's pairs with
+// one fma each.
+template <int MODE, typename T, int BM>
+__device__ __forceinline__ void mma_decode(const uint8_t* wr, uint8_t* bs,
+                                           int g) {
+  using S = MmaShape<MODE, T, BM>;
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  const int lane = threadIdx.x % 32;
+  {
+    const int rq = 8 * (g / 8) + lane / 4;       // K rows 4rq .. 4rq + 3
+    const int cq = 4 * (g % 8) + lane % 4;       // columns 4cq .. 4cq + 3
+    // byte of columns 4cq .. in raw row r
+    auto raw = [&](int r) {
+      return wr + r * kRawRow + ((cq / 4) ^ S::swizzle(r)) * 16 + 4 * (cq % 4);
+    };
+    T* col = reinterpret_cast<T*>(bs + 4 * cq * S::kRow) + 4 * rq;
+    if (MODE == kBase3) {
+      uint32_t r[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        r[t] = *reinterpret_cast<const uint32_t*>(raw(4 * rq + t));
+      if constexpr (kInt8) {
+        const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
+        const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);
+        const uint32_t u0 = __byte_perm(r[2], r[3], 0x5140);
+        const uint32_t u1 = __byte_perm(r[2], r[3], 0x7362);
+        const uint32_t c4[4] = {__byte_perm(t0, u0, 0x5410),
+                                __byte_perm(t0, u0, 0x7632),
+                                __byte_perm(t1, u1, 0x5410),
+                                __byte_perm(t1, u1, 0x7632)};
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          *reinterpret_cast<uint32_t*>(col + c * S::kRow) = base3_s8(c4[c]);
+      } else {
+        constexpr float kOff = 8388608.0f + kBase3Offset;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          put_bf16x4(reinterpret_cast<__nv_bfloat16*>(
+                         reinterpret_cast<uint8_t*>(col) + c * S::kRow),
+                     byte_f32(r[0], c, kOff), byte_f32(r[1], c, kOff),
+                     byte_f32(r[2], c, kOff), byte_f32(r[3], c, kOff));
+      }
+    } else {
+      // one packed row holds K rows 4rq .. 4rq + 3
+      const uint32_t b = *reinterpret_cast<const uint32_t*>(raw(rq));
+      if constexpr (kInt8) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          *reinterpret_cast<uint32_t*>(reinterpret_cast<uint8_t*>(col)
+                                       + c * S::kRow) =
+              trit2_s8((b >> (8 * c)) & 0xffu);
+      } else {
+        // fields of K rows 0 and 2 (even) and 1 and 3 (odd) of each
+        // column, a byte per column; column c's pairs (0, 1) and (2, 3)
+        // are its even and odd bytes side by side
+        const uint32_t f = trit2_fields_plus_one(b);
+        const uint32_t even = f & 0x33333333u, odd = (f >> 2) & 0x33333333u;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const uint32_t p = __byte_perm(even, odd, c | ((4 + c) << 8));
+          uint2 v;
+          v.x = bf16x2_minus_one(p & 0x00030003u);
+          v.y = bf16x2_minus_one((p >> 4) & 0x00030003u);
+          *reinterpret_cast<uint2*>(reinterpret_cast<uint8_t*>(col)
+                                    + c * S::kRow) = v;
+        }
+      }
+    }
+  }
+}
+
+template <int MODE, typename T, int BM>
+__global__ void __launch_bounds__(MmaShape<MODE, T, BM>::kThreads)
+tm_mma_kernel(const T* __restrict__ x, const float* __restrict__ xscale,
+              const uint8_t* __restrict__ w, const float* __restrict__ scale,
+              void* __restrict__ out, int M, int K, int N, int k_per_split,
+              int vec, int partial) {
+  using S = MmaShape<MODE, T, BM>;
+  using Acc = typename AccOf<T>::type;
+  constexpr int MI = S::kMI;
+  constexpr int kSteps = kMBK * sizeof(T) / 32;  // 32-byte mma steps
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint8_t* xs = smem;                            // [kXStages][BM][kRow]
+  uint8_t* ws = xs + kXStages * S::kX;           // [kAhead][raw rows][128]
+  uint8_t* bs = ws + kAhead * S::kW;             // [2][kMBN][kRow]
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * kMBN;
   const int kb0 = blockIdx.z * k_per_split;
   const int kb1 = min(K, kb0 + k_per_split);
-  int acc[kBM][kColsPerThread];
+  const int tiles = (kb1 - kb0 + kMBK - 1) / kMBK;
+  const int wm0 = (warp / 4) * (BM / S::kWarpsM), wn0 = (warp % 4) * 32;
+
+  Acc acc[MI][4][4];
 #pragma unroll
-  for (int m = 0; m < kBM; ++m)
+  for (int a = 0; a < MI; ++a)
 #pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) acc[m][c] = 0;
-  accumulate<MODE>(x, w, xs, acc, M, K, N, m0, n0, kb0, kb1, slice, vec);
-  stash(red, acc, slice, cg);
-  for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
-    const int mm = i / kBN, nn = i % kBN;
-    const int gm = m0 + mm, gn = blockIdx.x * kBN + nn;
-    if (gm >= M || gn >= N) continue;
-    int s = red[0][mm][nn];
+    for (int b = 0; b < 4; ++b)
 #pragma unroll
-    for (int q = 1; q < kSlices; ++q) s += red[q][mm][nn];
-    if (partial) {
-      static_cast<int*>(out)[(static_cast<size_t>(blockIdx.z) * M + gm) * N + gn] = s;
-    } else {
-      static_cast<float*>(out)[static_cast<size_t>(gm) * N + gn] =
-          __fmul_rn(__fmul_rn(__int2float_rn(s), xscale[gm]), scale[gn]);
+      for (int c = 0; c < 4; ++c) acc[a][b][c] = Acc(0);
+
+  // Stage t: x in slot t % kXStages, raw weight in t % kAhead, decoded
+  // B in t % 2.  Iteration t issues the loads of stage t + kAhead,
+  // multiplies stage t and decodes stage t + 1, behind one barrier, so
+  // kAhead - 1 stages stay in flight while it works.
+  auto load = [&](int t) {
+    if (t < tiles)
+      mma_load<MODE, T, BM>(x, w, xs + (t % kXStages) * S::kX,
+                            ws + (t % kAhead) * S::kW, M, K, N, m0, n0,
+                            kb0 + t * kMBK, kb1, vec);
+    cp_async_commit();
+  };
+  constexpr int kWarps = S::kThreads / 32;
+  static_assert(S::kGroups <= kSteps, "a decode group per k step at most");
+#pragma unroll
+  for (int t = 0; t < kAhead; ++t) load(t);
+  cp_async_wait<kAhead - 1>();
+  __syncthreads();
+  if (tiles > 0)
+#pragma unroll
+    for (int j = 0; j < S::kGroups; ++j)
+      mma_decode<MODE, T, BM>(ws, bs, warp + j * kWarps);
+  for (int t = 0; t < tiles; ++t) {
+    cp_async_wait<kAhead - 2>();
+    __syncthreads();    // stage t + 1 landed, B[t % 2] written, and
+                        // iteration t - 1's reads are done
+    load(t + kAhead);
+    const uint8_t* xa = xs + (t % kXStages) * S::kX;
+    const uint8_t* ba = bs + (t % 2) * S::kB;
+    const bool next = t + 1 < tiles;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      uint32_t a[MI][4], b[4][2];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        ldsm_x4(a[mi], xa + (wm0 + mi * 16 + lane % 16) * S::kRow + s * 32
+                           + (lane / 16) * 16);
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj) {
+        uint32_t r[4];
+        ldsm_x4(r, ba + (wn0 + nj * 16 + lane % 8 + (lane / 16) * 8) * S::kRow
+                       + s * 32 + ((lane / 8) % 2) * 16);
+        b[2 * nj][0] = r[0];
+        b[2 * nj][1] = r[1];
+        b[2 * nj + 1][0] = r[2];
+        b[2 * nj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_tile(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
+      // this warp's decode groups of stage t + 1 follow the k steps of
+      // stage t, so their ALU work issues while the mma pipe is busy
+      if (next && s < S::kGroups)
+        mma_decode<MODE, T, BM>(ws + ((t + 1) % kAhead) * S::kW,
+                                bs + ((t + 1) % 2) * S::kB, warp + s * kWarps);
     }
+  }
+
+  // Epilogue: each warp passes its outputs through a private patch of
+  // 16 x 32 in shared memory (the x ring is free now), one m16 tile at a
+  // time, so that each row of 32 outputs leaves as 128 contiguous bytes.
+  cp_async_wait<0>();
+  __syncthreads();
+  static_assert(kWarps * 16 * kPatchRow * 4 <= kXStages * S::kX,
+                "the epilogue's patches fit in the x ring");
+  Acc* patch = reinterpret_cast<Acc*>(xs) + warp * 16 * kPatchRow;
+  const int g = lane / 4, t4 = lane % 4;
+  const bool vec4 = N % 4 == 0
+      && ((reinterpret_cast<uintptr_t>(out)
+           | reinterpret_cast<uintptr_t>(scale)) & 15u) == 0;
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        Acc* p = patch + (g + 8 * h) * kPatchRow + ni * 8 + 2 * t4;
+        p[0] = acc[mi][ni][2 * h];
+        p[1] = acc[mi][ni][2 * h + 1];
+      }
+    __syncwarp();
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int r = 4 * it + lane / 8, c = 4 * (lane % 8);
+      const int gm = m0 + wm0 + mi * 16 + r, gn = n0 + wn0 + c;
+      if (gm < M && gn < N)
+        put_outputs(patch + r * kPatchRow + c, xscale, scale, out, M, N, gm,
+                    gn, partial, vec4);
+    }
+    __syncwarp();
   }
 }
 
@@ -239,7 +652,6 @@ constexpr int kGThreads = kGWarps * 32;
 constexpr int kGCols = 32 * kColsPerThread;        // 128 output columns
 constexpr int kGChunk = 256;                       // K rows staged at once
 constexpr int kGUnroll = 8;                        // row loads in flight
-constexpr uint32_t kBase3Zero = 0x79797979u;       // four bytes of 121
 
 __device__ __forceinline__ void rows8(const float* p, float (&v)[kBM]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0];
@@ -445,25 +857,67 @@ void launch_float(const XT* x, const uint8_t* w, const float* scale, float* dst,
                   int M, int K, int N, int splits, int k_per_split, int vec,
                   int partial, cudaStream_t st) {
   const dim3 grid = grid_of(M, N, splits);
-  if (M <= kBM)
+  if (M <= kBM) {
     tm_gemv_float_kernel<MODE><<<grid, kGThreads, 0, st>>>(
         x, w, scale, dst, M, K, N, k_per_split, vec, partial);
-  else
-    tm_float_kernel<MODE><<<grid, kThreads, 0, st>>>(
-        x, w, scale, dst, M, K, N, k_per_split, vec, partial);
+  } else {
+    // only f32 x reaches the CUDA-core kernel (tm_float_launch checks)
+    if constexpr (std::is_same<XT, float>::value)
+      tm_float_kernel<MODE><<<grid, kThreads, 0, st>>>(
+          x, w, scale, dst, M, K, N, k_per_split, vec, partial);
+  }
 }
 
-template <int MODE>
-void launch_int8(const int8_t* x, const float* xs, const uint8_t* w,
-                 const float* scale, void* dst, int M, int K, int N, int splits,
-                 int k_per_split, int vec, int partial, cudaStream_t st) {
-  const dim3 grid = grid_of(M, N, splits);
-  if (M <= kBM)
-    tm_gemv_int8_kernel<MODE><<<grid, kGThreads, 0, st>>>(
-        x, xs, w, scale, dst, M, K, N, k_per_split, vec, partial);
+// Lets tm_mma_kernel<MODE, T, BM> take its shared tiles (above the
+// default 48 KB) on the current device: one driver call per device.
+template <int MODE, typename T, int BM>
+cudaError_t allow_mma_smem() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev % 64);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(tm_mma_kernel<MODE, T, BM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             MmaShape<MODE, T, BM>::kSmem);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <int MODE, typename T, int BM>
+cudaError_t launch_mma(const T* x, const float* xs, const uint8_t* w,
+                       const float* scale, void* dst, int M, int K, int N,
+                       int splits, int k_per_split, int vec, int partial,
+                       cudaStream_t st) {
+  constexpr int smem = MmaShape<MODE, T, BM>::kSmem;
+  const cudaError_t err = allow_mma_smem<MODE, T, BM>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kMBN - 1) / kMBN, (M + BM - 1) / BM, splits);
+  tm_mma_kernel<MODE, T, BM><<<grid, MmaShape<MODE, T, BM>::kThreads, smem,
+                               st>>>(
+      x, xs, w, scale, dst, M, K, N, k_per_split, vec, partial);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_mma_any(const T* x, const float* xs, const uint8_t* w,
+                           const float* scale, void* dst, int M, int K, int N,
+                           int mode, int bm, int splits, int k_per_split,
+                           int vec, int partial, cudaStream_t st) {
+  using Launch = cudaError_t (*)(const T*, const float*, const uint8_t*,
+                                 const float*, void*, int, int, int, int,
+                                 int, int, int, cudaStream_t);
+  Launch fn = nullptr;
+  if (mode == kBase3)
+    fn = bm == 128 ? launch_mma<0, T, 128>
+       : bm == 256 ? launch_mma<0, T, 256> : nullptr;
   else
-    tm_int8_kernel<MODE><<<grid, kThreads, 0, st>>>(
-        x, xs, w, scale, dst, M, K, N, k_per_split, vec, partial);
+    fn = bm == 128 ? launch_mma<1, T, 128>
+       : bm == 256 ? launch_mma<1, T, 256> : nullptr;
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  return fn(x, xs, w, scale, dst, M, K, N, splits, k_per_split, vec, partial,
+            st);
 }
 
 unsigned reduce_blocks(int M, int N) {
@@ -472,14 +926,16 @@ unsigned reduce_blocks(int M, int N) {
 
 }  // namespace
 
-// x: (M, K) f32 (x_bf16 = 0) or bf16 (x_bf16 = 1); w: packed uint8
-// (K, N) base3 (mode 0) or (K/4, N) trit2 (mode 1, K a multiple of 4);
-// scale: (N,) f32; out: (M, N) f32; partial: (splits, M, N) f32 when
-// splits > 1.  k_per_split is a multiple of 64.  Returns cudaGetLastError().
+// x: (M, K) f32 (x_bf16 = 0; any M) or bf16 (x_bf16 = 1; M <= 8 only,
+// larger M takes tm_mma_launch); w: packed uint8 (K, N) base3 (mode 0)
+// or (K/4, N) trit2 (mode 1, K a multiple of 4); scale: (N,) f32; out:
+// (M, N) f32; partial: (splits, M, N) f32 when splits > 1.  k_per_split
+// is a multiple of 64.  Returns cudaGetLastError().
 extern "C" int tm_float_launch(const void* x, int x_bf16, const void* w,
                                const void* scale, void* out, void* partial,
                                int M, int K, int N, int mode, int splits,
                                int k_per_split, int vec, void* stream) {
+  if (x_bf16 && M > kBM) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int use_partial = splits > 1;
   float* dst = static_cast<float*>(use_partial ? partial : out);
@@ -510,12 +966,14 @@ extern "C" int tm_float_launch(const void* x, int x_bf16, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x: (M, K) int8; xscale: (M,) f32; w, scale as above; out: (M, N) f32;
-// partial: (splits, M, N) int32 when splits > 1.  Returns cudaGetLastError().
+// Decode only (M <= 8).  x: (M, K) int8; xscale: (M,) f32; w, scale as
+// above; out: (M, N) f32; partial: (splits, M, N) int32 when splits > 1.
+// Returns cudaGetLastError().
 extern "C" int tm_int8_launch(const void* x, const void* xscale, const void* w,
                               const void* scale, void* out, void* partial,
                               int M, int K, int N, int mode, int splits,
                               int k_per_split, int vec, void* stream) {
+  if (M > kBM) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int use_partial = splits > 1;
   void* dst = use_partial ? partial : out;
@@ -523,16 +981,53 @@ extern "C" int tm_int8_launch(const void* x, const void* xscale, const void* w,
   const auto* xsp = static_cast<const float*>(xscale);
   const auto* wp = static_cast<const uint8_t*>(w);
   const auto* sp = static_cast<const float*>(scale);
+  const dim3 grid = grid_of(M, N, splits);
   if (mode == kBase3)
-    launch_int8<0>(xp, xsp, wp, sp, dst, M, K, N, splits, k_per_split, vec,
-                   use_partial, st);
+    tm_gemv_int8_kernel<0><<<grid, kGThreads, 0, st>>>(
+        xp, xsp, wp, sp, dst, M, K, N, k_per_split, vec, use_partial);
   else
-    launch_int8<1>(xp, xsp, wp, sp, dst, M, K, N, splits, k_per_split, vec,
-                   use_partial, st);
+    tm_gemv_int8_kernel<1><<<grid, kGThreads, 0, st>>>(
+        xp, xsp, wp, sp, dst, M, K, N, k_per_split, vec, use_partial);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !use_partial) return static_cast<int>(err);
   tm_int8_reduce<<<reduce_blocks(M, N), 256, 0, st>>>(
       static_cast<const int*>(partial), xsp, sp, static_cast<float*>(out), M, N,
       splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core route (M > 8).  x: (M, K) bf16 (x_int8 = 0, float
+// domain; xscale unused) or int8 (x_int8 = 1) with xscale (M,) f32; w,
+// scale, out as above; partial: (splits, M, N) f32 or int32 when
+// splits > 1; bm: 128 or 256 rows per block tile; k_per_split a multiple
+// of 64; vec: every x row and w row starts 16-byte aligned (else the
+// staging falls to byte loads).  Returns cudaGetLastError().
+extern "C" int tm_mma_launch(const void* x, int x_int8, const void* xscale,
+                             const void* w, const void* scale, void* out,
+                             void* partial, int M, int K, int N, int mode,
+                             int bm, int splits, int k_per_split, int vec,
+                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int use_partial = splits > 1;
+  void* dst = use_partial ? partial : out;
+  const auto* xsp = static_cast<const float*>(xscale);
+  const auto* wp = static_cast<const uint8_t*>(w);
+  const auto* sp = static_cast<const float*>(scale);
+  cudaError_t err =
+      x_int8 ? launch_mma_any(static_cast<const int8_t*>(x), xsp, wp, sp, dst,
+                              M, K, N, mode, bm, splits, k_per_split, vec,
+                              use_partial, st)
+             : launch_mma_any(static_cast<const __nv_bfloat16*>(x), xsp, wp,
+                              sp, dst, M, K, N, mode, bm, splits, k_per_split,
+                              vec, use_partial, st);
+  if (err != cudaSuccess || !use_partial) return static_cast<int>(err);
+  if (x_int8)
+    tm_int8_reduce<<<reduce_blocks(M, N), 256, 0, st>>>(
+        static_cast<const int*>(partial), xsp, sp, static_cast<float*>(out),
+        M, N, splits);
+  else
+    tm_float_reduce<<<reduce_blocks(M, N), 256, 0, st>>>(
+        static_cast<const float*>(partial), sp, static_cast<float*>(out), M,
+        N, splits);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""Wrappers of the two hand-written CUDA kernels (``csrc/ternary_matmul.cu``).
+"""Wrappers of the hand-written CUDA kernels of ``csrc/ternary_matmul.cu``.
 
 * :func:`matmul_float` replaces the Pallas kernel ``_kernel`` of
   ``src/repro/kernels/ternary_matmul.py`` (``ternary_matmul``):
@@ -8,16 +8,28 @@
   ``acc * x_scale[m] * scale[n]`` in f32; bitwise equal to the plain
   version.
 
-Bound on an H100: at decode (M <= 8) the packed weight bytes at
-3.35 TB/s; at prefill the multiply-adds.  Decode takes a weight-streaming
-kernel that reads each packed byte once per call; larger M takes a tiled
-kernel that reads it once per 8-row tile.  Both decode bytes in
-registers, and K is split across blocks when the output tiles alone
-cannot fill the SMs (see the source note in the .cu file).
+Three routes, chosen by :func:`route` from M and the dtype of x:
+
+* ``gemv`` (M <= 8, decode): a weight-streaming kernel that reads each
+  packed byte once per call, bound by the packed bytes at 3.35 TB/s on
+  an H100; K is split across blocks (:func:`split_k`) to fill the SMs.
+* ``mma`` (M > 8, bf16 or int8 x; prefill): one tensor-core template,
+  ``mma.sync`` m16n8k16 bf16 -> f32 or m16n8k32 s8 -> s32 on output
+  tiles of 128 or 256 rows by 128 columns, bound by the multiply-adds
+  at the tensor-core rate.  x and the raw packed weight are staged with
+  ``cp.async``; each stage's weight is decoded in shared memory into the
+  mma's type (no dequantized weight in device memory).  K is split by
+  :func:`mma_plan` when the tiles alone cannot fill the SMs.
+* ``cuda_core`` (M > 8, f32 x): the CUDA-core tiled kernel.  f32
+  activations are off the serving path (the full-width model is bf16),
+  and rounding them to bf16 for the tensor cores would break the float
+  domain's f32 bar, so they keep it.  int8 x no longer takes it: its
+  CUDA-core kernel is gone.
 
 On a CPU tensor a wrapper computes its plain version (``kernels/ops.py``);
-on a CUDA tensor it launches the kernel or raises.  ``LAUNCHES`` counts
-kernel launches per wrapper, so a run can show that it went through them.
+on a CUDA tensor it launches its route's kernel or raises.  ``LAUNCHES``
+counts launches per wrapper and ``ROUTES`` per route, so a run can show
+which kernels it went through.
 """
 from __future__ import annotations
 
@@ -29,19 +41,23 @@ from ..core.packing import TRIT2_PER_BYTE
 from . import ops
 
 BLOCK_N = 128            # output columns per block (kBN in the source)
-BLOCK_M = 8              # rows per block (kBM)
+BLOCK_M = 8              # rows per block of the gemv / CUDA-core routes (kBM)
 K_CHUNK = 64             # packed rows per split unit (kKC K rows)
+MMA_BLOCK_N = 128        # output columns per mma block (kMBN)
+MMA_K_CHUNK = 64         # K rows per mma stage and split unit (kMBK)
 MODE_CODE = {"base3": 0, "trit2": 1}
 SOURCE = "ternary_matmul.cu"      # under src/repro_torch/csrc/
 
 LAUNCHES = {"ternary_matmul": 0, "ternary_matmul_int8": 0}
+ROUTES = {"gemv": 0, "cuda_core": 0, "mma": 0}
 
 _SM_COUNT: dict = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _sm_count(device: torch.device) -> int:
@@ -53,13 +69,25 @@ def _sm_count(device: torch.device) -> int:
     return _SM_COUNT[idx]
 
 
+def route(m: int, dtype: torch.dtype) -> str:
+    """The kernel that serves M rows of x in ``dtype`` on the card."""
+    if m <= BLOCK_M:
+        return "gemv"
+    if dtype in (torch.bfloat16, torch.int8):
+        return "mma"
+    if dtype == torch.float32:
+        return "cuda_core"
+    raise TypeError(f"no kernel route for x dtype {dtype}")
+
+
 def split_k(m: int, k: int, n: int, mode: str,
             sm_count: int) -> tuple[int, int]:
-    """(splits, k_per_split): split K across blocks until the grid holds
-    about as many blocks as the SMs hold at once (three per SM for the
-    decode kernel of M <= 8, two for the tiled one).  A split is a whole
-    number of chunks of 64 packed rows (64 K rows of base3, 256 of
-    trit2), so a block streams the same bytes in either packing."""
+    """(splits, k_per_split) of the gemv and CUDA-core routes: split K
+    across blocks until the grid holds about as many blocks as the SMs
+    hold at once (three per SM for the decode kernel of M <= 8, two for
+    the tiled one).  A split is a whole number of chunks of 64 packed
+    rows (64 K rows of base3, 256 of trit2), so a block streams the same
+    bytes in either packing."""
     tiles = -(-n // BLOCK_N) * -(-m // BLOCK_M)
     unit = K_CHUNK * (TRIT2_PER_BYTE if mode == "trit2" else 1)
     chunks = max(1, -(-k // unit))
@@ -68,6 +96,28 @@ def split_k(m: int, k: int, n: int, mode: str,
     splits = min(chunks, want)
     per = -(-chunks // splits)
     return -(-chunks // per), per * unit
+
+
+def mma_tile_plan(m: int, k: int, n: int, sm_count: int,
+                  bm: int) -> tuple[int, int, int]:
+    """(bm, splits, k_per_split) of the mma route with `bm`-row tiles: K
+    is split only when the output tiles alone leave half the SMs idle,
+    into whole stages of 64 K rows (either packing), so that the grid
+    holds at most about one block per SM."""
+    tiles = -(-n // MMA_BLOCK_N) * -(-m // bm)
+    chunks = max(1, -(-k // MMA_K_CHUNK))
+    splits = min(chunks, max(1, sm_count // tiles))
+    per = -(-chunks // splits)
+    return bm, -(-chunks // per), per * MMA_K_CHUNK
+
+
+def mma_plan(m: int, k: int, n: int,
+             sm_count: int) -> tuple[int, int, int]:
+    """(block_m, splits, k_per_split) of the mma route: 256-row tiles (16
+    warps) for M > 128, else 128-row tiles (8 warps) with the rows past M
+    masked; :func:`mma_tile_plan` splits K.  ``chip_smoke.py`` times the
+    other tile height beside this plan at the prefill shapes."""
+    return mma_tile_plan(m, k, n, sm_count, 256 if m > 128 else 128)
 
 
 def _check(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
@@ -109,6 +159,14 @@ def _vec(data: torch.Tensor, n: int) -> int:
     return int(n % 4 == 0 and data.data_ptr() % 4 == 0)
 
 
+def _mma_vec(x: torch.Tensor, data: torch.Tensor) -> int:
+    """16-byte cp.async staging needs every x row and packed weight row
+    to start 16-byte aligned; otherwise the kernel stages byte by byte."""
+    row_bytes = x.shape[1] * x.element_size()
+    return int(row_bytes % 16 == 0 and x.data_ptr() % 16 == 0
+               and data.shape[1] % 16 == 0 and data.data_ptr() % 16 == 0)
+
+
 def _lib():
     """The kernels' library, built at first use, with its C signatures."""
     from .build import library
@@ -121,6 +179,9 @@ def _lib():
         lib.tm_int8_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
                                        i, p]
         lib.tm_int8_launch.restype = i
+        lib.tm_mma_launch.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i,
+                                      i, i, i, p]
+        lib.tm_mma_launch.restype = i
         lib._typed = True
     return lib
 
@@ -129,6 +190,28 @@ def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name} CUDA launch failed: error {err} "
                            f"({torch.cuda.get_device_name()})")
+
+
+def launch_mma(x: torch.Tensor, x_scale, data: torch.Tensor,
+               scale: torch.Tensor, mode: str, out: torch.Tensor,
+               plan: tuple[int, int, int]) -> int:
+    """The tensor-core route for bf16 (float domain; ``x_scale`` None) or
+    int8 x, on checked CUDA operands, with ``plan`` = (block_m, splits,
+    k_per_split) as :func:`mma_plan` gives it; returns the C launcher's
+    error code.  Counts nothing: the wrappers count their launches."""
+    m, k = x.shape
+    n = data.shape[1]
+    bm, splits, per = plan
+    acc_dtype = torch.int32 if x.dtype == torch.int8 else torch.float32
+    partial = (torch.empty((splits, m, n), dtype=acc_dtype, device=x.device)
+               if splits > 1 else None)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    return _lib().tm_mma_launch(
+        x.data_ptr(), int(x.dtype == torch.int8),
+        x_scale.data_ptr() if x_scale is not None else None,
+        data.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        partial.data_ptr() if partial is not None else None,
+        m, k, n, MODE_CODE[mode], bm, splits, per, _mma_vec(x, data), stream)
 
 
 def matmul_float(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
@@ -141,19 +224,24 @@ def matmul_float(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check_cuda(x, data, scale)
-    lib = _lib()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    splits, per = split_k(m, k, n, mode, _sm_count(x.device))
-    partial = (torch.empty((splits, m, n), dtype=torch.float32,
-                           device=x.device) if splits > 1 else None)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.tm_float_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), data.data_ptr(),
-        scale.data_ptr(), out.data_ptr(),
-        partial.data_ptr() if partial is not None else None,
-        m, k, n, MODE_CODE[mode], splits, per, _vec(data, n), stream)
-    _raise_on(err, "ternary_matmul")
+    path = route(m, x.dtype)
+    if path == "mma":
+        err = launch_mma(x, None, data, scale, mode, out,
+                         mma_plan(m, k, n, _sm_count(x.device)))
+    else:
+        splits, per = split_k(m, k, n, mode, _sm_count(x.device))
+        partial = (torch.empty((splits, m, n), dtype=torch.float32,
+                               device=x.device) if splits > 1 else None)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _lib().tm_float_launch(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), data.data_ptr(),
+            scale.data_ptr(), out.data_ptr(),
+            partial.data_ptr() if partial is not None else None,
+            m, k, n, MODE_CODE[mode], splits, per, _vec(data, n), stream)
+    _raise_on(err, f"ternary_matmul ({path})")
     LAUNCHES["ternary_matmul"] += 1
+    ROUTES[path] += 1
     return out
 
 
@@ -171,17 +259,22 @@ def matmul_int8(x_int: torch.Tensor, x_scale: torch.Tensor,
     if x_int.device.type != "cuda":
         raise ValueError(f"unsupported device {x_int.device}")
     _check_cuda(x_int, x_scale, data, scale)
-    lib = _lib()
     out = torch.empty((m, n), dtype=torch.float32, device=x_int.device)
-    splits, per = split_k(m, k, n, mode, _sm_count(x_int.device))
-    partial = (torch.empty((splits, m, n), dtype=torch.int32,
-                           device=x_int.device) if splits > 1 else None)
-    stream = torch.cuda.current_stream(x_int.device).cuda_stream
-    err = lib.tm_int8_launch(
-        x_int.data_ptr(), x_scale.data_ptr(), data.data_ptr(),
-        scale.data_ptr(), out.data_ptr(),
-        partial.data_ptr() if partial is not None else None,
-        m, k, n, MODE_CODE[mode], splits, per, _vec(data, n), stream)
-    _raise_on(err, "ternary_matmul_int8")
+    path = route(m, x_int.dtype)
+    if path == "mma":
+        err = launch_mma(x_int, x_scale, data, scale, mode, out,
+                         mma_plan(m, k, n, _sm_count(x_int.device)))
+    else:
+        splits, per = split_k(m, k, n, mode, _sm_count(x_int.device))
+        partial = (torch.empty((splits, m, n), dtype=torch.int32,
+                               device=x_int.device) if splits > 1 else None)
+        stream = torch.cuda.current_stream(x_int.device).cuda_stream
+        err = _lib().tm_int8_launch(
+            x_int.data_ptr(), x_scale.data_ptr(), data.data_ptr(),
+            scale.data_ptr(), out.data_ptr(),
+            partial.data_ptr() if partial is not None else None,
+            m, k, n, MODE_CODE[mode], splits, per, _vec(data, n), stream)
+    _raise_on(err, f"ternary_matmul_int8 ({path})")
     LAUNCHES["ternary_matmul_int8"] += 1
+    ROUTES[path] += 1
     return out

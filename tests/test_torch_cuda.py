@@ -80,6 +80,96 @@ def test_kernels_match_plain_versions_on_the_card(dev, mode, m, k, n):
             == before["ternary_matmul_int8"] + 1)
 
 
+@pytest.mark.parametrize("mode", ["base3", "trit2"])
+@pytest.mark.parametrize("k,n", [(2048, 1024), (520, 130), (200, 136),
+                                 (64, 5)])
+@pytest.mark.parametrize("m", [9, 16, 17, 64, 127, 128, 129, 300, 1024])
+def test_prefill_routes_match_plain_versions(dev, m, k, n, mode):
+    """M > 8: bf16 and int8 x through the tensor-core route, f32 x
+    through the CUDA-core route, at tile edges and ragged N and K."""
+    x, data, scale = _operands(m, k, n, mode, seed=7 * m + k + n)
+    xt, dt, st = (torch.from_numpy(a).to(dev) for a in (x, data, scale))
+    w = ops.PackedTernary(dt, st, mode)
+    before = dict(tm.ROUTES)
+    xb = xt.to(torch.bfloat16)
+    want = ops.ternary_matmul_torch(xb, w)
+    torch.testing.assert_close(tm.matmul_float(xb, dt, st, mode), want,
+                               rtol=0, atol=1e-5 * want.abs().max().item())
+    xi, xs = ops.quantize_acts_int8(xt)
+    assert torch.equal(tm.matmul_int8(xi, xs, dt, st, mode),
+                       ops.ternary_matmul_int8_torch(xi, xs, w))
+    want = ops.ternary_matmul_torch(xt, w)
+    torch.testing.assert_close(tm.matmul_float(xt, dt, st, mode), want,
+                               rtol=0, atol=1e-5 * want.abs().max().item())
+    assert tm.ROUTES["mma"] == before["mma"] + 2
+    assert tm.ROUTES["cuda_core"] == before["cuda_core"] + 1
+    assert tm.ROUTES["gemv"] == before["gemv"]
+
+
+@pytest.mark.parametrize("mode", ["base3", "trit2"])
+@pytest.mark.parametrize("k,n", [(8192, 2048), (2048, 8192)])
+@pytest.mark.parametrize("m", [128, 129, 300, 1024])
+def test_prefill_route_full_width_shapes(dev, m, k, n, mode):
+    """w2 (K = 8192) and w1 of the full-width model, through 128-row
+    (M = 128) and 256-row tiles, split and unsplit: the tensor cores' f32
+    sums stay within 1e-5 of max|y|, and int8 stays bitwise."""
+    x, data, scale = _operands(m, k, n, mode, seed=m + k)
+    xt, dt, st = (torch.from_numpy(a).to(dev) for a in (x, data, scale))
+    w = ops.PackedTernary(dt, st, mode)
+    xb = xt.to(torch.bfloat16)
+    want = ops.ternary_matmul_torch(xb, w)
+    torch.testing.assert_close(tm.matmul_float(xb, dt, st, mode), want,
+                               rtol=0, atol=1e-5 * want.abs().max().item())
+    xi, xs = ops.quantize_acts_int8(xt)
+    assert torch.equal(tm.matmul_int8(xi, xs, dt, st, mode),
+                       ops.ternary_matmul_int8_torch(xi, xs, w))
+
+
+@pytest.mark.parametrize("mode", ["base3", "trit2"])
+@pytest.mark.parametrize("m,k,n", [(300, 2048, 1024), (1024, 8192, 2048),
+                                   (129, 520, 130)])
+@pytest.mark.parametrize("bm", [128, 256])
+def test_mma_route_agrees_at_either_tile_height(dev, m, k, n, mode, bm):
+    """launch_mma with a plan of either tile height (and its own split of
+    K) gives the wrapper's answer: bitwise in int8, within 1e-5 of max|y|
+    in the float domain; it counts no launch."""
+    x, data, scale = _operands(m, k, n, mode, seed=m + n + bm)
+    xt, dt, st = (torch.from_numpy(a).to(dev) for a in (x, data, scale))
+    plan = tm.mma_tile_plan(m, k, n, tm._sm_count(xt.device), bm)
+    xb = xt.to(torch.bfloat16)
+    xi, xs = ops.quantize_acts_int8(xt)
+    before = dict(tm.ROUTES)
+    for xin, xsc, want in ((xb, None, tm.matmul_float(xb, dt, st, mode)),
+                           (xi, xs, tm.matmul_int8(xi, xs, dt, st, mode))):
+        out = torch.empty((m, n), device=dev)
+        assert tm.launch_mma(xin, xsc, dt, st, mode, out, plan) == 0
+        if xsc is None:
+            torch.testing.assert_close(
+                out, want, rtol=0, atol=1e-5 * want.abs().max().item())
+        else:
+            assert torch.equal(out, want)
+    assert tm.ROUTES["mma"] == before["mma"] + 2
+
+
+def test_ternary_launchers_refuse_a_route_they_do_not_serve(dev):
+    """The C launchers of the gemv / CUDA-core routes refuse bf16 and
+    int8 x at M > 8 (the mma route's work) instead of running a kernel
+    that no longer serves it."""
+    x, data, scale = _operands(16, 64, 128, "base3", seed=0)
+    xt, dt, st = (torch.from_numpy(a).to(dev) for a in (x, data, scale))
+    xi, xs = ops.quantize_acts_int8(xt)
+    out = torch.empty((16, 128), device=dev)
+    lib = tm._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    xb = xt.to(torch.bfloat16)
+    assert lib.tm_float_launch(xb.data_ptr(), 1, dt.data_ptr(),
+                               st.data_ptr(), out.data_ptr(), None, 16, 64,
+                               128, 0, 1, 64, 1, stream) != 0
+    assert lib.tm_int8_launch(xi.data_ptr(), xs.data_ptr(), dt.data_ptr(),
+                              st.data_ptr(), out.data_ptr(), None, 16, 64,
+                              128, 0, 1, 64, 1, stream) != 0
+
+
 def _smoke(dev, packing):
     cfg = dataclasses.replace(configs.smoke("internlm2-1.8b"),
                               dtype=torch.float32)

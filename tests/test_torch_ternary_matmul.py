@@ -134,3 +134,87 @@ def test_wrappers_check_their_operands():
         tm.matmul_float(x, data, torch.ones(5), "base3")
     with pytest.raises(ValueError, match="packing mode"):
         tm.matmul_float(x, data, scale, "int4")
+
+
+@pytest.mark.parametrize("m,dtype,want", [
+    (1, torch.bfloat16, "gemv"), (8, torch.int8, "gemv"),
+    (8, torch.float32, "gemv"), (9, torch.bfloat16, "mma"),
+    (9, torch.int8, "mma"), (9, torch.float32, "cuda_core"),
+    (1024, torch.bfloat16, "mma"), (1024, torch.int8, "mma"),
+    (1024, torch.float32, "cuda_core")])
+def test_route_follows_rows_and_dtype(m, dtype, want):
+    assert tm.route(m, dtype) == want
+
+
+def test_route_refuses_a_dtype_without_a_kernel():
+    with pytest.raises(TypeError, match="no kernel route"):
+        tm.route(16, torch.float16)
+
+
+MMA_SHAPES = [(9, 64, 5), (17, 200, 136), (64, 520, 130), (65, 2048, 1024),
+              (144, 2048, 2048), (384, 8192, 2048), (1024, 2048, 1024),
+              (1024, 2048, 8192), (1024, 8192, 2048)]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("m,k,n", MMA_SHAPES)
+def test_mma_plan_splits_k_in_whole_stages_to_fill_the_sms(m, k, n, sms):
+    bm, splits, per = tm.mma_plan(m, k, n, sms)
+    assert bm == (128 if m <= 128 else 256)
+    assert per > 0 and per % tm.MMA_K_CHUNK == 0
+    # every split starts inside K and together they cover it
+    assert (splits - 1) * per < k <= splits * per
+    tiles = -(-n // tm.MMA_BLOCK_N) * -(-m // bm)
+    chunks = -(-k // tm.MMA_K_CHUNK)
+    # at most about one block per SM, and no fewer than half the splits
+    # that would fill them
+    assert tiles * splits <= max(tiles, sms)
+    assert 2 * splits >= min(chunks, max(1, sms // tiles))
+
+
+def test_mma_plan_at_the_full_width_prefill():
+    """M = 1024 on 132 SMs, 256-row tiles: w1 (256 tiles) runs unsplit;
+    w2 and wq (64 tiles) split K in two, wk (32 tiles) in four."""
+    assert tm.mma_plan(1024, 2048, 8192, 132) == (256, 1, 2048)
+    assert tm.mma_plan(1024, 8192, 2048, 132) == (256, 2, 4096)
+    assert tm.mma_plan(1024, 2048, 2048, 132) == (256, 2, 1024)
+    assert tm.mma_plan(1024, 2048, 1024, 132) == (256, 4, 512)
+    assert tm.mma_plan(256, 2048, 8192, 132) == (256, 2, 1024)
+
+
+@pytest.mark.parametrize("mode", ["base3", "trit2"])
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 1024), (1, 8192, 2048),
+                                   (3, 520, 130), (300, 520, 130),
+                                   (1024, 2048, 8192)])
+def test_split_k_covers_k_in_whole_chunks(mode, m, k, n):
+    splits, per = tm.split_k(m, k, n, mode, 132)
+    unit = tm.K_CHUNK * (4 if mode == "trit2" else 1)
+    assert per > 0 and per % unit == 0
+    assert (splits - 1) * per < k <= splits * per
+
+
+def test_cpu_wrappers_count_no_route():
+    tm.reset_launches()
+    x, data, scale = _operands(16, 64, 8, "base3", seed=1)
+    tm.matmul_float(torch.from_numpy(x).to(torch.bfloat16),
+                    torch.from_numpy(data), torch.from_numpy(scale), "base3")
+    assert tm.ROUTES == {"gemv": 0, "cuda_core": 0, "mma": 0}
+    assert tm.LAUNCHES == {"ternary_matmul": 0, "ternary_matmul_int8": 0}
+
+
+@pytest.mark.parametrize("m", [9, 16, 17, 32, 63, 64, 65, 100, 127, 128])
+def test_mma_plan_takes_128_row_tiles_up_to_128_rows(m):
+    """Rows past M in a 128-row tile are masked; there is no smaller
+    tile."""
+    for k, n in ((2048, 2048), (8192, 2048), (64, 5)):
+        assert tm.mma_plan(m, k, n, 132)[0] == 128
+
+
+@pytest.mark.parametrize("bm", [128, 256])
+@pytest.mark.parametrize("m,k,n", MMA_SHAPES)
+def test_mma_tile_plan_covers_k_at_every_tile_height(m, k, n, bm):
+    got_bm, splits, per = tm.mma_tile_plan(m, k, n, 132, bm)
+    assert got_bm == bm and per % tm.MMA_K_CHUNK == 0
+    assert (splits - 1) * per < k <= splits * per
+    tiles = -(-n // tm.MMA_BLOCK_N) * -(-m // bm)
+    assert tiles * splits <= max(tiles, 132)
