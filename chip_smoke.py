@@ -9,18 +9,27 @@ Phases, each of which raises on failure:
               at the shapes of the serving path of internlm2-1.8b: K x N
               of each packed weight, M = 8 (decode) and M = 1024 (prefill
               of 8 x 128 tokens; the unembedding only at M = 8), both
-              packings, both domains, plus untimed ragged shapes in f32
-              and bf16 on both sides of M = 8.  Int8 must match bitwise,
-              float within 1e-4 of max|y| (summation order only).  Each
-              case names the route it took (``ROUTES``: M = 8 must take
-              ``gemv``, M = 1024 ``mma``) and prints the kernel's median
-              device time (CUDA events behind a spin kernel, L2 flushed
-              between launches), its bound, the plain version's time and
-              a library call's time (a yardstick the port never calls).
-              At M = 1024 it also runs the mma route with the other tile
-              height than mma_plan's, held to the same bar, and times it.
-              Then per packing and domain the sums over one decode step
-              and one prefill.
+              packings, both domains, plus untimed ragged shapes in f32,
+              bf16 and int8 on both sides of M = 8.  Int8 must match
+              bitwise, float within 1e-4 of max|y| (summation order only),
+              and a second float call at M = 8 bitwise equal to the first
+              (the gemv route's cluster adds its splits in rank order).
+              Each case names the route it took (``ROUTES``: bf16 and int8
+              take ``gemv`` at M <= 8 and ``mma`` above, f32 takes
+              ``cuda_core``) and prints the kernel's median device time
+              (CUDA events behind a spin kernel, L2 flushed between
+              launches), its bound, the achieved GB/s and the bound's
+              share of the time, the plain version's time and a library
+              call's time (a yardstick the port never calls).  At M = 8 it
+              records gemv_plan's (block_n, cluster, k_per_split) and, from
+              one call under torch.profiler after a flush, the kernel's own
+              device time, checking that the call launched exactly one
+              kernel, tm_gemv_kernel (no split-K reduce); at M =
+              1024 it also runs the mma route with the other tile height
+              than mma_plan's, held to the same bar, and times it.  Then
+              per packing and domain the sums over one decode step and
+              one prefill, beside the harness's floor: the same timing of
+              a one-element add, times the number of matmuls.
 3. serve    - the bucket ServeEngine at full width (bf16, seeded random
               weights packed by ternarize_params; 8 requests of 128
               prompt tokens, 32 new tokens each) in the float and int8
@@ -29,8 +38,10 @@ Phases, each of which raises on failure:
               and read just after: the run's kernel must have launched,
               its prefill through the mma route and its decode through
               gemv, with one host transfer per bucket and every token
-              there.  Prints the prefill's wall time beside its kernels'
-              summed device time (one prefill under torch.profiler).
+              there.  Prints the prefill's and a decode step's wall time
+              beside their kernels' summed device time, kernel count and
+              the device's idle share (one prefill and one decode step
+              under torch.profiler).
 4. parity   - one prefill and four decode steps of the same model with
               the cuda backend and then the plain torch backend named
               explicitly: int8-domain logits bitwise equal, float-domain
@@ -141,6 +152,13 @@ def bound(moved_bytes, ops, domain):
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
+def rate(rec):
+    """Achieved GB/s (the bytes the call must move over its time) and
+    the bound's share of the time."""
+    return dict(gbps=rec["bytes"] / rec["ms"] / 1e6,
+                bound_share=rec["bound_ms"] / rec["ms"])
+
+
 def time_ms(torch, fn, reps, flush):
     """Median device ms of `fn` over `reps` launches, each timed by CUDA
     events with the L2 cache flushed before it (the serving path reads
@@ -163,21 +181,36 @@ def time_ms(torch, fn, reps, flush):
     return statistics.median(times)
 
 
-def device_busy(torch, fn):
-    """(summed kernel device ms, kernels launched) of one call of `fn`
-    under torch.profiler."""
+def device_busy(torch, fn, tries=5):
+    """(summed kernel device ms, kernels launched, their names) of one
+    call of `fn` under torch.profiler.  Each capture ends with a marker
+    (a short spin kernel, which `fn` never launches) after `fn`'s work
+    has finished; the marker is left out of the result.  Now and then
+    CUPTI hands over no device record of a whole session, the marker's
+    included, so a capture without its marker is taken again, up to
+    `tries` times, and one that never shows it is an error."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = [e for e in events if "spin_kernel" not in e.key]
+        if len(kernels) < len(events):
+            break
+    else:
+        raise SmokeError(f"the profiler recorded no marker in {tries} "
+                         f"captures")
     busy_us = sum(float(getattr(e, "self_device_time_total",
                                 getattr(e, "self_cuda_time_total", 0.0)))
                   for e in kernels)
-    return busy_us / 1e3, sum(e.count for e in kernels)
+    return (busy_us / 1e3, sum(e.count for e in kernels),
+            sorted(e.key for e in kernels))
 
 
 def phase_build():
@@ -199,6 +232,21 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def routed(tm, fn):
+    """fn()'s result and the route it took (``ROUTES`` before and
+    after: one name, or the list of every route that moved)."""
+    before = dict(tm.ROUTES)
+    out = fn()
+    path = [r for r in tm.ROUTES if tm.ROUTES[r] != before[r]]
+    return out, path[0] if len(path) == 1 else path
+
+
+def expected_route(torch, m, dtype):
+    if dtype == torch.float32:
+        return "cuda_core"
+    return "gemv" if m <= 8 else "mma"
+
+
 def phase_kernels(torch, cfg):
     """Kernel vs plain version at the path's shapes; returns per-case
     records."""
@@ -208,26 +256,36 @@ def phase_kernels(torch, cfg):
     gen = torch.Generator(device=dev).manual_seed(1)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     for mode in ("base3", "trit2"):            # ragged edges, untimed
-        for m, k, n in ((1, 64, 5), (3, 520, 130), (13, 200, 136),
-                        (17, 64, 5), (129, 520, 130), (300, 200, 136)):
+        for m, k, n in ((1, 64, 5), (3, 520, 130), (8, 200, 2050),
+                        (5, 2112, 2064), (13, 200, 136), (17, 64, 5),
+                        (129, 520, 130), (300, 200, 136)):
             kw = k if mode == "base3" else k // 4
             data = torch.randint(0, 256 if mode == "trit2" else 243, (kw, n),
                                  generator=gen, device=dev, dtype=torch.uint8)
             scale = torch.rand(n, generator=gen, device=dev)
             w = ops.PackedTernary(data, scale, mode)
             x = torch.randn(m, k, generator=gen, device=dev)
-            for xf in (x, x.to(torch.bfloat16)):   # f32; bf16 (mma at M > 8)
+            for xf in (x, x.to(torch.bfloat16)):
                 want = ops.ternary_matmul_torch(xf, w)
-                err = (tm.matmul_float(xf, data, scale, mode)
-                       - want).abs().max()
+                got, path = routed(tm, lambda: tm.matmul_float(
+                    xf, data, scale, mode))
+                err = (got - want).abs().max()
                 check(err.item() <= FLOAT_TOL * want.abs().max().item(),
                       f"ternary_matmul {mode} {xf.dtype} {(m, k, n)}: "
                       f"error {err.item()}")
+                check(path == expected_route(torch, m, xf.dtype),
+                      f"ternary_matmul {xf.dtype} at M={m} took {path}")
             xi, xs = ops.quantize_acts_int8(x)
-            check(torch.equal(tm.matmul_int8(xi, xs, data, scale, mode),
-                              ops.ternary_matmul_int8_torch(xi, xs, w)),
+            got, path = routed(tm, lambda: tm.matmul_int8(
+                xi, xs, data, scale, mode))
+            check(torch.equal(got, ops.ternary_matmul_int8_torch(xi, xs, w)),
                   f"ternary_matmul_int8 {mode} {(m, k, n)} is not bitwise")
-    print("[kernels] ragged shapes agree")
+            check(path == expected_route(torch, m, xi.dtype),
+                  f"ternary_matmul_int8 at M={m} took {path}")
+    print("[kernels] ragged shapes agree, each through its route")
+    one = torch.zeros(1, device=dev)
+    floor_ms = time_ms(torch, lambda: one.add_(1), 50, flush)
+    print("[kernels] " + json.dumps(dict(harness_floor_ms=floor_ms)))
     cases = []
     for mode in ("base3", "trit2"):
         for name, k, n, per_forward in layer_shapes(cfg):
@@ -261,10 +319,7 @@ def phase_kernels(torch, cfg):
                         library = ((lambda: torch._int_mm(xi, w_int8))
                                    if m > 16 else None)
                         in_bytes = m * k + 4 * m
-                    before = dict(tm.ROUTES)
-                    got = run()
-                    path = [r for r in tm.ROUTES
-                            if tm.ROUTES[r] != before[r]]
+                    got, path = routed(tm, run)
                     want = plain()
                     torch.cuda.synchronize()
                     err = (got - want).abs().max().item()
@@ -272,16 +327,25 @@ def phase_kernels(torch, cfg):
                         ok = torch.equal(got, want)
                     else:
                         ok = err <= FLOAT_TOL * want.abs().max().item()
+                        if m <= 8:          # the splits' order is fixed
+                            ok = ok and torch.equal(run(), got)
                     moved = in_bytes + wbytes + 4 * m * n
                     plans = (mma_plans(torch, tm, x if domain == "float"
                                        else xi,
                                        xs if domain == "int8" else None,
                                        data, scale, mode, want, flush)
-                             if m > 8 else {})
+                             if m > 8 else dict(plan=list(tm.gemv_plan(
+                                 m, k, n, mode, tm._sm_count(dev)))))
+                    if m <= 8:
+                        flush.zero_()
+                        busy, launched, names = device_busy(torch, run)
+                        check(launched == 1 and "tm_gemv_kernel" in names[0],
+                              f"{KERNEL_NAMES[domain]} at M={m} launched "
+                              f"{launched} kernels in one call: {names}")
+                        plans["device_ms"] = busy
                     rec = dict(
                         kernel=KERNEL_NAMES[domain], mode=mode, weight=name,
-                        m=m, k=k, n=n, per_forward=per_forward,
-                        route=path[0] if len(path) == 1 else path,
+                        m=m, k=k, n=n, per_forward=per_forward, route=path,
                         max_abs_err=err, ok=bool(ok),
                         ms=time_ms(torch, run, 20, flush),
                         plain_ms=time_ms(torch, plain, 5, flush),
@@ -289,16 +353,17 @@ def phase_kernels(torch, cfg):
                                     if library else None),
                         bytes=moved, ops=2 * m * k * n,
                         **bound(moved, 2 * m * k * n, domain), **plans)
+                    rec.update(rate(rec))
                     cases.append(rec)
                     print("[kernels] " + json.dumps(rec))
                     check(ok, f"{rec['kernel']} disagrees with its plain "
                               f"version: {rec}")
-                    want_route = "mma" if m > 8 else "gemv"
+                    want_route = expected_route(torch, m, x.dtype)
                     check(rec["route"] == want_route,
                           f"{rec['kernel']} at M={m} took route "
                           f"{rec['route']}, expected {want_route}")
             del data, w, w_bf16, w_int8
-    return cases
+    return cases, floor_ms
 
 
 def mma_plans(torch, tm, x, x_scale, data, scale, mode, want, flush):
@@ -393,17 +458,20 @@ def phase_serve(torch, np, cfg, model, packed):
             torch.cuda.synchronize()
             prefill_ms.append((time.monotonic() - t) * 1e3)
         check(bool(torch.isfinite(logits).all()), "non-finite logits")
-        prefill_busy, prefill_kernels = device_busy(
+        prefill_busy, prefill_kernels, _ = device_busy(
             torch, lambda: model.prefill(params, tokens, CAPACITY,
                                          cim=eng.cim))
         tok = logits[:, -1].argmax(-1, keepdim=True)
         torch.cuda.synchronize()
         t = time.monotonic()
-        for _ in range(MAX_NEW - 1):
+        for _ in range(MAX_NEW - 2):
             logits, state = model.decode(params, tok, state, cim=eng.cim)
             tok = logits[:, -1].argmax(-1, keepdim=True)
         torch.cuda.synchronize()
-        step_ms = (time.monotonic() - t) * 1e3 / (MAX_NEW - 1)
+        step_ms = (time.monotonic() - t) * 1e3 / (MAX_NEW - 2)
+        # the bucket's last step, under the profiler
+        decode_busy, decode_kernels, _ = device_busy(
+            torch, lambda: model.decode(params, tok, state, cim=eng.cim))
         wbytes = hbm_bytes(params) - hbm_bytes(
             {k: v for k, v in params.items() if k == "embed"})
         rec = dict(packing=packing, domain=domain, requests=len(done),
@@ -417,6 +485,9 @@ def phase_serve(torch, np, cfg, model, packed):
                        1.0 - prefill_busy / statistics.median(prefill_ms)),
                    prefill_kernels=prefill_kernels,
                    decode_step_ms=step_ms,
+                   decode_device_busy_ms=decode_busy,
+                   decode_device_idle_share=1.0 - decode_busy / step_ms,
+                   decode_kernels=decode_kernels,
                    decode_step_bound_ms=wbytes / HBM_BYTES_PER_S * 1e3,
                    weight_bytes_per_step=wbytes)
         runs.append(rec)
@@ -477,7 +548,8 @@ def matmul_sums(cases, kernel, mode, m):
             return None
         return sum(v * c["per_forward"] for v, c in zip(vals, recs))
     out = {key: total(key) for key in ("ms", "plain_ms", "library_ms",
-                                       "alt_plan_ms", "bytes", "ops")}
+                                       "alt_plan_ms", "device_ms", "bytes",
+                                       "ops")}
     out["matmuls"] = sum(c["per_forward"] for c in recs)
     return out
 
@@ -517,10 +589,12 @@ def kernel_summary(cases, runs, cfg):
     return out
 
 
-def print_matmul_sums(cases):
+def print_matmul_sums(cases, floor_ms):
     """Per packing, domain and phase: the summed kernel, plain, library
-    and bound ms of one forward's packed matmuls, and at prefill the sum
-    under the mma route's other tile height."""
+    and bound ms of one forward's packed matmuls, their GB/s and bound
+    share, the harness floor times their count, at decode the kernels'
+    profiled device time, and at prefill the sum under the mma route's
+    other tile height."""
     for domain, name in KERNEL_NAMES.items():
         for mode in ("base3", "trit2"):
             for phase, m in (("decode", 8), ("prefill", BATCH * PROMPT)):
@@ -531,7 +605,10 @@ def print_matmul_sums(cases):
                            library_ms=t["library_ms"],
                            bound_ms=bound(t["bytes"], t["ops"],
                                           domain)["bound_ms"],
-                           alt_plan_ms=t["alt_plan_ms"])
+                           bytes=t["bytes"], alt_plan_ms=t["alt_plan_ms"],
+                           device_ms=t["device_ms"],
+                           floor_ms=floor_ms * t["matmuls"])
+                rec.update(rate(rec))
                 print("[kernels] sum " + json.dumps(rec))
 
 
@@ -1104,8 +1181,8 @@ def main() -> int:
     print(f"[card] {card}")
 
     cfg = configs.get(ARCH)
-    cases = phase_kernels(torch, cfg)
-    print_matmul_sums(cases)
+    cases, floor_ms = phase_kernels(torch, cfg)
+    print_matmul_sums(cases, floor_ms)
 
     model = registry.build(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1130,7 +1207,7 @@ def main() -> int:
     del params
 
     details = dict(card=card, device=torch.cuda.get_device_name(0),
-                   cases=cases, serve=runs, parity=parity,
+                   harness_floor_ms=floor_ms, cases=cases, serve=runs, parity=parity,
                    paged_kernel=paged, sched=sched,
                    sched_parity=sched_parity, cim_cases=cim_cases,
                    exact=exact, seconds=time.monotonic() - t_start)

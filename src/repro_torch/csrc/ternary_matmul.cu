@@ -17,15 +17,51 @@
 // Three routes; the wrapper (kernels/ternary_matmul.py, route()) picks
 // one from M and the dtype of x, and no route falls back to another.
 //
-// gemv (M <= 8, decode; tm_gemv_*): bound by the packed weight bytes,
-// read once per step at 3.35 TB/s.  One row tile covers every row, so
-// each weight byte is read once per call.  A block of 8 warps owns 128
-// output columns; the warps take interleaved K rows (warp w reads rows
-// w, w + 8, ...), so at any moment the block reads 8 neighbouring
-// 128-byte row segments, and each lane issues 8 row loads before it
-// computes, to keep bytes in flight.  Bytes are decoded in registers;
-// the activations are staged in shared memory as [k][row], so a lane
-// reads the 8 rows of one k with two 16-byte loads (a broadcast).
+// gemv (M <= 8 with bf16 or int8 x, decode; tm_gemv_kernel): bound by
+// the packed weight bytes, each read once per call at 3.35 TB/s; most
+// calls of a decode step move 2-17 MB, a few microseconds of bytes, so
+// a kernel's fixed cost (launch, first DRAM latency, a second kernel)
+// weighs as much as its rate.  The design, in the order of what it
+// fixes:
+//   * The multiply-adds go to the tensor cores with A and B swapped:
+//     the decoded weight, transposed, is mma.sync's A operand (16
+//     output columns x k16 bf16 or k32 int8) and x's 8 rows its B
+//     operand (n8).  The CUDA cores only decode.  A lane decodes a
+//     32-bit word of 4 neighbouring columns from each of the 4 K rows
+//     its fragment needs (base3: 4 words; trit2: 1 word, whose bytes
+//     hold exactly those 4 rows), so the column order inside a
+//     32-column group is permuted (column 4g + c is row g or g + 8 of
+//     m16 tile c / 2) and, for bf16, so is K inside each k16 step
+//     (lane quad q takes rows 4q .. 4q + 3, which x's B fragment follows
+//     with one 8-byte load).  Decodes as the mma route's: base3 bytes to
+//     bf16 without I2F, trit2 codes to bf16 pairs with one fma,
+//     __byte_perm 4 x 4 transposes for int8.
+//   * The weights stream through a ring of stages (about 32 KB a block:
+//     3 of 64 raw packed rows x 128 columns up to 8 of 64 x 32), each
+//     filled by two TMA boxes on one mbarrier: the raw tile from a 2-D
+//     tensor map with the hardware's swizzle of its width (32, 64 or
+//     128 bytes), and x's 8 x kKS slice.  What lies past M, K or N
+//     arrives as 0 (a zero base3 byte decodes to -121, but meets a zero
+//     x).  One thread issues a stage.  Per-thread 16-byte cp.async, and
+//     a TMA copy per row, were measured slower on the H100: the first
+//     stalls the load/store pipe that the decode's shared loads share,
+//     the second is too small for the TMA.  The small ring leaves room
+//     for 6 blocks an SM, so the unembedding's 724 blocks run in one
+//     wave.  Rows not 16-byte aligned are staged by the threads, byte
+//     by byte, into the same layout.
+//   * K is split without partials in HBM or a second kernel: the splits
+//     of one column tile are one thread-block cluster (grid.z = the
+//     cluster size, 1-8).  Each block adds its warps' sums in warp order
+//     and writes row r's into the inbox of rank r % c through
+//     distributed shared memory; after one cluster barrier each rank
+//     adds its inbox in rank order (float deterministic, int8 exact),
+//     applies the epilogue and writes whole rows.  A block announces
+//     itself at its start and waits for the others only before its
+//     first remote write, so no barrier is needed before it exits.
+//   * gemv_plan (the wrapper) picks the column tile (128, 64 or 32:
+//     wider means longer row segments, 128 bytes being whole lines;
+//     narrower means more blocks) and the smallest cluster that puts a
+//     block on every SM: the widest tile that does so wins.
 //
 // mma (M > 8 with bf16 or int8 x, prefill; tm_mma_kernel): bound by the
 // multiply-adds at the tensor-core rate (989 TFLOP/s bf16, 1979 TOP/s
@@ -59,23 +95,26 @@
 // decodes to -121, but meets a zero x), so ragged edges need no padded
 // copy; rows not 16-byte aligned are staged byte by byte.
 //
-// cuda_core (M > 8 with f32 x; tm_float_kernel): f32 activations are off
-// the serving path, and rounding them to bf16 for the tensor cores would
-// break the float domain's f32 bar, so they keep this CUDA-core kernel:
-// a block of 128 threads owns 8 rows x 128 columns, a thread 4 adjacent
+// cuda_core (f32 x, any M; tm_gemv_float_kernel for M <= 8,
+// tm_float_kernel above): f32 activations are off the serving path, and
+// rounding them to bf16 for the tensor cores would break the float
+// domain's f32 bar, so they keep these CUDA-core kernels.  At M > 8 a
+// block of 128 threads owns 8 rows x 128 columns, a thread 4 adjacent
 // columns read as one 32-bit load, activations staged 8 x 64 at a time,
-// four K slices combined in shared memory in a fixed order.  Its int8
-// twin is gone: int8 at M > 8 takes the mma route.
+// four K slices combined in shared memory in a fixed order.  At M <= 8
+// a block of 8 warps owns 128 columns, the warps take interleaved K rows
+// and each lane issues 8 row loads before it computes.
 //
-// Where the output tiles alone would leave the SMs idle (decode: 8 to 64
-// column tiles for N = 1024 to 8192; prefill at M = 1024: wq, wo and w2
-// give 64 tiles, wk and wv 32), the wrapper splits K across blocks
-// (grid.z); each split writes its partial sums and a second kernel adds
-// them in split order and applies the epilogue, so the result is
-// deterministic (no atomics).
+// Where the output tiles alone would leave the SMs idle, the mma and
+// cuda_core routes split K across blocks (grid.z); each split writes its
+// partial sums and a second kernel adds them in split order and applies
+// the epilogue, so the result is deterministic (no atomics).  The gemv
+// route reduces its splits inside a cluster instead (above).
 // Later work: wgmma with TMA staging and warp specialisation for the mma
-// route, and a faster gemv route (PERF.md has each route's times).
+// route (PERF.md has each route's times).
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -84,6 +123,8 @@
 #include <type_traits>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreads = 128;
 constexpr int kColsPerThread = 4;
@@ -96,13 +137,6 @@ constexpr int kRowsPerSlice = kKC / kSlices;       // 16
 constexpr int kBase3Offset = 121;
 constexpr int kBase3 = 0;
 constexpr uint32_t kBase3Zero = 0x79797979u;       // four bytes of 121
-
-// Activation element -> accumulation type (float or int).
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ int widen(int8_t v) { return static_cast<int>(v); }
 
 // Four packed bytes of columns n0..n0+3 of one packed row; columns past N
 // read as 0 (never written out).
@@ -125,21 +159,21 @@ __device__ __forceinline__ int trit_value(uint32_t b, int c, int j) {
   return static_cast<int>(code & 1u) - static_cast<int>(code >> 1);
 }
 
-// Accumulates the block's K range [kb0, kb1) into acc.  T is float or int.
-template <int MODE, typename T, typename XT>
+// Accumulates the block's K range [kb0, kb1) into acc.
+template <int MODE>
 __device__ __forceinline__ void accumulate(
-    const XT* __restrict__ x, const uint8_t* __restrict__ w,
-    T (&xs)[kBM][kKC], T (&acc)[kBM][kColsPerThread], int M, int K, int N,
-    int m0, int n0, int kb0, int kb1, int slice, int vec) {
+    const float* __restrict__ x, const uint8_t* __restrict__ w,
+    float (&xs)[kBM][kKC], float (&acc)[kBM][kColsPerThread], int M, int K,
+    int N, int m0, int n0, int kb0, int kb1, int slice, int vec) {
+  using T = float;
   const int t = threadIdx.x;
   for (int kc = kb0; kc < kb1; kc += kKC) {
     __syncthreads();
     for (int i = t; i < kBM * kKC; i += kThreads) {
       const int mm = i / kKC, kk = i % kKC;
       const int gm = m0 + mm, gk = kc + kk;
-      T v = T(0);
-      if (gm < M && gk < kb1) v = T(widen(x[static_cast<size_t>(gm) * K + gk]));
-      xs[mm][kk] = v;
+      xs[mm][kk] = (gm < M && gk < kb1) ? x[static_cast<size_t>(gm) * K + gk]
+                                         : 0.f;
     }
     __syncthreads();
     if (n0 >= N) continue;
@@ -184,28 +218,27 @@ __device__ __forceinline__ void accumulate(
 }
 
 // Combines the four K slices of the block in slice order; returns via red.
-template <typename T>
-__device__ __forceinline__ void stash(T (&red)[kSlices][kBM][kBN],
-                                      const T (&acc)[kBM][kColsPerThread],
-                                      int slice, int cg) {
+__device__ __forceinline__ void stash(float (&red)[kSlices][kBM][kBN],
+                                      const float (&acc)[kBM][kColsPerThread],
+                                      int slice, int col) {
   __syncthreads();
 #pragma unroll
   for (int m = 0; m < kBM; ++m)
 #pragma unroll
     for (int c = 0; c < kColsPerThread; ++c)
-      red[slice][m][cg * kColsPerThread + c] = acc[m][c];
+      red[slice][m][col * kColsPerThread + c] = acc[m][c];
   __syncthreads();
 }
 
-template <int MODE, typename XT>
+template <int MODE>
 __global__ void __launch_bounds__(kThreads)
-tm_float_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
+tm_float_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
                 const float* __restrict__ scale, float* __restrict__ out,
                 int M, int K, int N, int k_per_split, int vec, int partial) {
   __shared__ float xs[kBM][kKC];
   __shared__ float red[kSlices][kBM][kBN];
-  const int cg = threadIdx.x % kColGroups, slice = threadIdx.x / kColGroups;
-  const int n0 = blockIdx.x * kBN + cg * kColsPerThread;
+  const int col = threadIdx.x % kColGroups, slice = threadIdx.x / kColGroups;
+  const int n0 = blockIdx.x * kBN + col * kColsPerThread;
   const int m0 = blockIdx.y * kBM;
   const int kb0 = blockIdx.z * k_per_split;
   const int kb1 = min(K, kb0 + k_per_split);
@@ -215,7 +248,7 @@ tm_float_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
 #pragma unroll
     for (int c = 0; c < kColsPerThread; ++c) acc[m][c] = 0.f;
   accumulate<MODE>(x, w, xs, acc, M, K, N, m0, n0, kb0, kb1, slice, vec);
-  stash(red, acc, slice, cg);
+  stash(red, acc, slice, col);
   for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
     const int mm = i / kBN, nn = i % kBN;
     const int gm = m0 + mm, gn = blockIdx.x * kBN + nn;
@@ -645,7 +678,7 @@ tm_mma_kernel(const T* __restrict__ x, const float* __restrict__ xscale,
   }
 }
 
-// ---------------------------------------------------------------- decode
+// ------------------------------------------------- decode, f32 (cuda_core)
 
 constexpr int kGWarps = 8;
 constexpr int kGThreads = kGWarps * 32;
@@ -659,44 +692,37 @@ __device__ __forceinline__ void rows8(const float* p, float (&v)[kBM]) {
   v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
-__device__ __forceinline__ void rows8(const int* p, int (&v)[kBM]) {
-  const int4 a = reinterpret_cast<const int4*>(p)[0];
-  const int4 b = reinterpret_cast<const int4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
 
 // acc[m][c] += x[m][k] * decode(b)[c] for the 8 rows of staged k row kk
 // (trit2: field j of each byte).
-template <int MODE, typename T>
-__device__ __forceinline__ void gemv_row(const T (&xs)[kGChunk][kBM],
+template <int MODE>
+__device__ __forceinline__ void gemv_row(const float (&xs)[kGChunk][kBM],
                                          int kk, uint32_t b, int j,
-                                         T (&acc)[kBM][kColsPerThread]) {
-  T xv[kBM];
+                                         float (&acc)[kBM][kColsPerThread]) {
+  float xv[kBM];
   rows8(&xs[kk][0], xv);
-  T wv[kColsPerThread];
+  float wv[kColsPerThread];
 #pragma unroll
   for (int c = 0; c < kColsPerThread; ++c)
-    wv[c] = T(MODE == kBase3 ? base3_value(b, c) : trit_value(b, c, j));
+    wv[c] = float(MODE == kBase3 ? base3_value(b, c) : trit_value(b, c, j));
 #pragma unroll
   for (int m = 0; m < kBM; ++m)
 #pragma unroll
     for (int c = 0; c < kColsPerThread; ++c) acc[m][c] += xv[m] * wv[c];
 }
 
-template <int MODE, typename T, typename XT>
+template <int MODE>
 __device__ __forceinline__ void gemv_accumulate(
-    const XT* __restrict__ x, const uint8_t* __restrict__ w,
-    T (&xs)[kGChunk][kBM], T (&acc)[kBM][kColsPerThread], int M, int K,
-    int N, int n0, int kb0, int kb1, int vec) {
+    const float* __restrict__ x, const uint8_t* __restrict__ w,
+    float (&xs)[kGChunk][kBM], float (&acc)[kBM][kColsPerThread], int M,
+    int K, int N, int n0, int kb0, int kb1, int vec) {
   const int warp = threadIdx.x / 32;
   for (int kc = kb0; kc < kb1; kc += kGChunk) {
     const int kn = min(kGChunk, kb1 - kc);
     __syncthreads();
     for (int i = threadIdx.x; i < kn * kBM; i += kGThreads) {
       const int mm = i / kn, kk = i % kn;             // coalesced along K
-      xs[kk][mm] = mm < M ? T(widen(x[static_cast<size_t>(mm) * K + kc + kk]))
-                          : T(0);
+      xs[kk][mm] = mm < M ? x[static_cast<size_t>(mm) * K + kc + kk] : 0.f;
     }
     __syncthreads();
     if (n0 >= N) continue;
@@ -741,9 +767,9 @@ __device__ __forceinline__ void gemv_accumulate(
 }
 
 // Adds the 8 warps' sums in warp order into red[0] (returned through red).
-template <typename T>
-__device__ __forceinline__ void gemv_stash(T (&red)[kGWarps][kBM][kGCols],
-                                           const T (&acc)[kBM][kColsPerThread]) {
+__device__ __forceinline__ void gemv_stash(
+    float (&red)[kGWarps][kBM][kGCols],
+    const float (&acc)[kBM][kColsPerThread]) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   __syncthreads();
 #pragma unroll
@@ -754,9 +780,9 @@ __device__ __forceinline__ void gemv_stash(T (&red)[kGWarps][kBM][kGCols],
   __syncthreads();
 }
 
-template <int MODE, typename XT>
+template <int MODE>
 __global__ void __launch_bounds__(kGThreads)
-tm_gemv_float_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
+tm_gemv_float_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
                      const float* __restrict__ scale, float* __restrict__ out,
                      int M, int K, int N, int k_per_split, int vec, int partial) {
   __shared__ __align__(16) float xs[kGChunk][kBM];
@@ -785,37 +811,337 @@ tm_gemv_float_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ w,
   }
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(kGThreads)
-tm_gemv_int8_kernel(const int8_t* __restrict__ x, const float* __restrict__ xscale,
-                    const uint8_t* __restrict__ w, const float* __restrict__ scale,
-                    void* __restrict__ out, int M, int K, int N, int k_per_split,
-                    int vec, int partial) {
-  __shared__ __align__(16) int xs[kGChunk][kBM];
-  __shared__ int red[kGWarps][kBM][kGCols];
-  const int n0 = blockIdx.x * kGCols + (threadIdx.x % 32) * kColsPerThread;
-  const int kb0 = blockIdx.z * k_per_split;
-  const int kb1 = min(K, kb0 + k_per_split);
-  int acc[kBM][kColsPerThread];
+// ------------------------------------------- decode, bf16 / int8 (gemv)
+
+constexpr int kGvThreads = 128;                    // 4 warps
+constexpr int kGvRows = 64;                        // packed rows per stage
+constexpr int kGvGroup = 32;                       // columns per warp
+constexpr int kGvRingBytes = 32 * 1024;            // about, per block
+
+template <int MODE, typename T, int BN>
+struct GemvShape {
+  static constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  static constexpr int kGroups = BN / kGvGroup;          // 32-column groups
+  static constexpr int kKW = kGvThreads / 32 / kGroups;  // warps per group,
+                                                         // which split K
+  static constexpr int kKS = MODE == kBase3 ? kGvRows : 4 * kGvRows;  // K
+                                                         // rows per stage
+  static constexpr int kSteps = kKS * sizeof(T) / 32;    // 32-byte mma steps
+  // A stage is the raw tile [64][BN] as the TMA writes it, its 16-byte
+  // chunks XOR-swizzled by row (BN-byte swizzle), then x [8][kKS], dense.
+  static constexpr int kW = kGvRows * BN;
+  static constexpr int kXRow = kKS * sizeof(T);
+  static constexpr int kX = kBM * kXRow;
+  static constexpr int kStage = (kW + kX + 1023) / 1024 * 1024;
+  static constexpr int kRing = kGvRingBytes / kStage < 3 ? 3
+      : kGvRingBytes / kStage > 8 ? 8 : kGvRingBytes / kStage;
+  // the swizzle: chunk c of row r sits at c ^ swz(r)
+  static __device__ __forceinline__ int swz(int r) {
+    return ((r * BN) >> 7) & (BN / 16 - 1);
+  }
+  static constexpr int kPartRow = BN + 4;                // padded sums row
+  // after the ring, the inbox (the cluster's sums of this block's rows),
+  // then one mbarrier per ring slot; 1 KB spare to align the ring
+  static constexpr int kInbox = kRing * kStage;
+  static constexpr int kBars = kInbox + kBM * kPartRow * 4;
+  static constexpr int kSmem = kBars + 8 * kRing + 1024;
+  static_assert(kGroups * kKW == kGvThreads / 32, "the warps cover the tile");
+  static_assert(kKW * kBM * kPartRow * 4 <= kInbox,
+                "the warps' sums fit in the ring");
+  static_assert(kSmem <= 48 * 1024, "no opt-in shared memory needed");
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+// The box of `map` at (c0, c1) into shared memory by the TMA, counted
+// on the mbarrier at `bar` when it lands; what lies outside the tensor
+// arrives as 0.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
+                                        int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(bar) : "memory");
+}
+
+// The same stage staged by the block's threads with byte loads and
+// stores, for operands that are not 16-byte aligned: the TMA's layout,
+// with everything past M, K, the split or N written as 0.
+template <int MODE, typename T, int BN>
+__device__ __forceinline__ void gemv_fill(const T* __restrict__ x,
+                                          const uint8_t* __restrict__ w,
+                                          uint8_t* st, int t, int M, int K,
+                                          int N, int n0, int kb0, int kb1) {
+  using S = GemvShape<MODE, T, BN>;
+  const int k0 = kb0 + t * S::kKS;
+  for (int i = threadIdx.x; i < kBM * S::kXRow; i += kGvThreads) {
+    const int r = i / S::kXRow, b = i % S::kXRow;
+    const int e = b / static_cast<int>(sizeof(T));
+    st[S::kW + i] = (r < M && k0 + e < kb1)
+        ? reinterpret_cast<const uint8_t*>(
+              x + static_cast<size_t>(r) * K + k0)[b] : 0;
+  }
+  const int p0 = MODE == kBase3 ? k0 : k0 / 4;
+  const int pend = MODE == kBase3 ? kb1 : kb1 / 4;
+  for (int i = threadIdx.x; i < kGvRows * BN; i += kGvThreads) {
+    const int r = i / BN, c = i % BN;
+    st[r * BN + (c ^ (S::swz(r) << 4))] =
+        (p0 + r < pend && n0 + c < N)
+            ? w[static_cast<size_t>(p0 + r) * N + n0 + c] : 0;
+  }
+}
+
+// This warp's k steps of stage t (st): for its 32-column group, two m16
+// tiles += decode(w)^T . x^T.  Lane (g, q): the word at byte 4 (g % 4) of
+// chunk g / 4 of its group holds columns 4g .. 4g + 3, whose column c is
+// row g (c even) or g + 8 (c odd) of tile c / 2; a[tile][0..3] are the
+// mma's a0..a3.
+template <int MODE, typename T, int BN>
+__device__ __forceinline__ void gemv_stage(
+    const uint8_t* st, int t, typename AccOf<T>::type (&acc)[2][4]) {
+  using S = GemvShape<MODE, T, BN>;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int kw = warp / S::kGroups;
+  const int g = lane / 4, q = lane % 4;
+  const int cb = (warp % S::kGroups) * kGvGroup + 4 * g;
+  const uint8_t* xr = st + S::kW + g * S::kXRow;
+  auto word = [&](int r) {
+    return *reinterpret_cast<const uint32_t*>(st + r * BN
+                                              + (cb ^ (S::swz(r) << 4)));
+  };
 #pragma unroll
-  for (int m = 0; m < kBM; ++m)
+  for (int s = 0; s < S::kSteps; ++s) {
+    if ((t * S::kSteps + s) % S::kKW != kw) continue;
+    uint32_t a[2][4], b0, b1;
+    if constexpr (!S::kInt8) {
+      // K slots (2q, 2q + 1, 2q + 8, 2q + 9) of the k16 step hold K rows
+      // 4q .. 4q + 3: x[g][4q .. 4q + 3] is the B fragment
+      const uint2 bx = *reinterpret_cast<const uint2*>(xr + s * 32 + 8 * q);
+      b0 = bx.x;
+      b1 = bx.y;
+      if constexpr (MODE == kBase3) {
+        constexpr float kOff = 8388608.0f + kBase3Offset;
+        uint32_t r[4];
 #pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) acc[m][c] = 0;
-  gemv_accumulate<MODE>(x, w, xs, acc, M, K, N, n0, kb0, kb1, vec);
-  gemv_stash(red, acc);
-  for (int i = threadIdx.x; i < kBM * kGCols; i += kGThreads) {
-    const int mm = i / kGCols, nn = i % kGCols;
-    const int gn = blockIdx.x * kGCols + nn;
-    if (mm >= M || gn >= N) continue;
-    int s = red[0][mm][nn];
+        for (int i = 0; i < 4; ++i) r[i] = word(16 * s + 4 * q + i);
 #pragma unroll
-    for (int q = 1; q < kGWarps; ++q) s += red[q][mm][nn];
-    if (partial) {
-      static_cast<int*>(out)[(static_cast<size_t>(blockIdx.z) * M + mm) * N + gn] = s;
+        for (int c = 0; c < 4; ++c) {
+          a[c / 2][c % 2] = __byte_perm(byte_f32(r[0], c, kOff),
+                                        byte_f32(r[1], c, kOff), 0x7632);
+          a[c / 2][2 + c % 2] = __byte_perm(byte_f32(r[2], c, kOff),
+                                            byte_f32(r[3], c, kOff), 0x7632);
+        }
+      } else {
+        // one packed row holds the lane's 4 K rows of each column
+        const uint32_t f = trit2_fields_plus_one(word(4 * s + q));
+        const uint32_t even = f & 0x33333333u, odd = (f >> 2) & 0x33333333u;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const uint32_t p = __byte_perm(even, odd, c | ((4 + c) << 8));
+          a[c / 2][c % 2] = bf16x2_minus_one(p & 0x00030003u);
+          a[c / 2][2 + c % 2] = bf16x2_minus_one((p >> 4) & 0x00030003u);
+        }
+      }
     } else {
-      static_cast<float*>(out)[static_cast<size_t>(mm) * N + gn] =
-          __fmul_rn(__fmul_rn(__int2float_rn(s), xscale[mm]), scale[gn]);
+      // k32 step: K rows 4q .. 4q + 3 (h = 0) and 16 + 4q .. (h = 1)
+      b0 = *reinterpret_cast<const uint32_t*>(xr + s * 32 + 4 * q);
+      b1 = *reinterpret_cast<const uint32_t*>(xr + s * 32 + 16 + 4 * q);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t c4[4];
+        if constexpr (MODE == kBase3) {
+          uint32_t r[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) r[i] = word(32 * s + 16 * h + 4 * q + i);
+          const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
+          const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);
+          const uint32_t u0 = __byte_perm(r[2], r[3], 0x5140);
+          const uint32_t u1 = __byte_perm(r[2], r[3], 0x7362);
+          c4[0] = base3_s8(__byte_perm(t0, u0, 0x5410));
+          c4[1] = base3_s8(__byte_perm(t0, u0, 0x7632));
+          c4[2] = base3_s8(__byte_perm(t1, u1, 0x5410));
+          c4[3] = base3_s8(__byte_perm(t1, u1, 0x7632));
+        } else {
+          const uint32_t b = word(8 * s + 4 * h + q);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) c4[c] = trit2_s8((b >> (8 * c)) & 0xffu);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) a[c / 2][2 * h + c % 2] = c4[c];
+      }
     }
+    mma_tile(acc[0], a[0], b0, b1);
+    mma_tile(acc[1], a[1], b0, b1);
+  }
+}
+
+// The cluster barrier in its two halves (every thread of every block).
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+template <typename Acc>
+__device__ __forceinline__ void add4(Acc (&v)[4], const Acc* p) {
+  alignas(16) Acc u[4];
+  *reinterpret_cast<uint4*>(u) = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] += u[e];
+}
+
+// grid (ceil(N / BN), 1, splits), launched as clusters of (1, 1, splits):
+// block z sums K rows [z * k_per_split, (z + 1) * k_per_split) of
+// columns [x * BN, (x + 1) * BN) for all M <= 8 rows.
+template <int MODE, typename T, int BN>
+__global__ void __launch_bounds__(kGvThreads)
+tm_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
+               const __grid_constant__ CUtensorMap xmap,
+               const T* __restrict__ x, const float* __restrict__ xscale,
+               const uint8_t* __restrict__ w, const float* __restrict__ scale,
+               float* __restrict__ out, int M, int K, int N, int k_per_split,
+               int vec) {
+  using S = GemvShape<MODE, T, BN>;
+  using Acc = typename AccOf<T>::type;
+  extern __shared__ __align__(16) uint8_t dyn[];
+  // the ring starts on a 1 KB boundary (the 128-byte swizzle's period)
+  uint8_t* smem = dyn + ((1024 - (smem_u32(dyn) & 1023)) & 1023);
+  const int warp = threadIdx.x / 32;
+  const int n0 = blockIdx.x * BN;
+  const int rank = blockIdx.z, splits = gridDim.z;
+  const int kb0 = rank * k_per_split;
+  const int kb1 = min(K, kb0 + k_per_split);
+  const int stages = kb1 > kb0 ? (kb1 - kb0 + S::kKS - 1) / S::kKS : 0;
+  // A rank may write into another's inbox only once that block runs:
+  // every block says it has started here and waits for the others just
+  // before its first remote write, long after.
+  if (splits > 1) cluster_arrive_relaxed();
+
+  Acc acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = Acc(0);
+
+  const uint32_t ring = smem_u32(smem), bars = ring + S::kBars;
+  if (vec) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < S::kRing; ++s) mbar_init(bars + 8 * s, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    // Stage t lives in slot t % kRing, its two boxes (the raw tile at
+    // packed row p0, x at K row k0) counted on that slot's mbarrier
+    // (phase t / kRing); iteration t issues stage t + kRing - 1 into the
+    // slot that stage t - 1 freed, after the barrier that shows every
+    // warp is done with it.
+    auto issue = [&](int t) {
+      if (threadIdx.x == 0 && t < stages) {
+        const int k0 = kb0 + t * S::kKS, s = t % S::kRing;
+        mbar_expect_tx(bars + 8 * s, S::kW + S::kX);
+        tma_box(ring + s * S::kStage, &wmap, n0,
+                MODE == kBase3 ? k0 : k0 / 4, bars + 8 * s);
+        tma_box(ring + s * S::kStage + S::kW, &xmap, k0, 0, bars + 8 * s);
+      }
+    };
+#pragma unroll
+    for (int t = 0; t < S::kRing - 1; ++t) issue(t);
+    for (int t = 0; t < stages; ++t) {
+      mbar_wait(bars + 8 * (t % S::kRing), (t / S::kRing) & 1);
+      __syncthreads();
+      issue(t + S::kRing - 1);
+      gemv_stage<MODE, T, BN>(smem + (t % S::kRing) * S::kStage, t, acc);
+    }
+  } else {
+    for (int t = 0; t < stages; ++t) {
+      __syncthreads();
+      gemv_fill<MODE, T, BN>(x, w, smem, t, M, K, N, n0, kb0, kb1);
+      __syncthreads();
+      gemv_stage<MODE, T, BN>(smem, t, acc);
+    }
+  }
+  __syncthreads();
+
+  // The ring is free: each warp leaves its sums as [row][column] (lane
+  // (g, q) holds rows 2q, 2q + 1 of columns 4g .. 4g + 3), one array per
+  // K warp.
+  Acc* part = reinterpret_cast<Acc*>(smem);
+  Acc* inbox = reinterpret_cast<Acc*>(smem + S::kInbox);
+  {
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4, q = lane % 4;
+    Acc* p = part + ((warp / S::kGroups) * kBM + 2 * q) * S::kPartRow
+             + (warp % S::kGroups) * kGvGroup + 4 * g;
+    alignas(16) Acc v0[4] = {acc[0][0], acc[0][2], acc[1][0], acc[1][2]};
+    alignas(16) Acc v1[4] = {acc[0][1], acc[0][3], acc[1][1], acc[1][3]};
+    *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(v0);
+    *reinterpret_cast<uint4*>(p + S::kPartRow) =
+        *reinterpret_cast<const uint4*>(v1);
+  }
+  __syncthreads();
+
+  // Row r belongs to rank r % splits.  Each rank adds its K warps' sums
+  // in warp order and writes them into slot [rank][r / splits] of the
+  // owner's inbox (its own shared memory, or another block's through
+  // distributed shared memory); one cluster barrier later the owner adds
+  // its slots in rank order, so the result does not depend on timing.
+  constexpr int kQuads = kBM * BN / 4;           // 4 outputs each
+  const int owned = kBM / splits;                // rows per rank
+  const bool vec4 = N % 4 == 0
+      && ((reinterpret_cast<uintptr_t>(out)
+           | reinterpret_cast<uintptr_t>(scale)) & 15u) == 0;
+  cg::cluster_group cluster = cg::this_cluster();
+  if (splits > 1) cluster_wait();                // every block has started
+  for (int i = threadIdx.x; i < kQuads; i += kGvThreads) {
+    const int r = i / (BN / 4), c = 4 * (i % (BN / 4));
+    if (r >= M || n0 + c >= N) continue;
+    const Acc* p = part + r * S::kPartRow + c;
+    alignas(16) Acc v[4];
+    *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int kw = 1; kw < S::kKW; ++kw) add4(v, p + kw * kBM * S::kPartRow);
+    if (splits == 1) {
+      put_outputs(v, xscale, scale, out, M, N, r, n0 + c, 0, vec4);
+      continue;
+    }
+    Acc* dst = cluster.map_shared_rank(inbox, r % splits)
+               + (rank * owned + r / splits) * S::kPartRow + c;
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+  }
+  if (splits == 1) return;
+  cluster_arrive_release();
+  cluster_wait();                                // every slot has landed
+  for (int i = threadIdx.x; i < owned * BN / 4; i += kGvThreads) {
+    const int j = i / (BN / 4), c = 4 * (i % (BN / 4));
+    const int r = rank + j * splits;
+    if (r >= M || n0 + c >= N) continue;
+    const Acc* p = inbox + j * S::kPartRow + c;
+    alignas(16) Acc v[4];
+    *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(p);
+    for (int z = 1; z < splits; ++z) add4(v, p + z * owned * S::kPartRow);
+    put_outputs(v, xscale, scale, out, M, N, r, n0 + c, 0, vec4);
   }
 }
 
@@ -847,24 +1173,18 @@ __global__ void tm_int8_reduce(const int* __restrict__ partial,
                      scale[i % N]);
 }
 
-dim3 grid_of(int M, int N, int splits) {
-  if (M <= kBM) return dim3((N + kGCols - 1) / kGCols, 1, splits);
-  return dim3((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
-}
-
-template <int MODE, typename XT>
-void launch_float(const XT* x, const uint8_t* w, const float* scale, float* dst,
-                  int M, int K, int N, int splits, int k_per_split, int vec,
-                  int partial, cudaStream_t st) {
-  const dim3 grid = grid_of(M, N, splits);
+template <int MODE>
+void launch_float(const float* x, const uint8_t* w, const float* scale,
+                  float* dst, int M, int K, int N, int splits,
+                  int k_per_split, int vec, int partial, cudaStream_t st) {
   if (M <= kBM) {
+    const dim3 grid((N + kGCols - 1) / kGCols, 1, splits);
     tm_gemv_float_kernel<MODE><<<grid, kGThreads, 0, st>>>(
         x, w, scale, dst, M, K, N, k_per_split, vec, partial);
   } else {
-    // only f32 x reaches the CUDA-core kernel (tm_float_launch checks)
-    if constexpr (std::is_same<XT, float>::value)
-      tm_float_kernel<MODE><<<grid, kThreads, 0, st>>>(
-          x, w, scale, dst, M, K, N, k_per_split, vec, partial);
+    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, splits);
+    tm_float_kernel<MODE><<<grid, kThreads, 0, st>>>(
+        x, w, scale, dst, M, K, N, k_per_split, vec, partial);
   }
 }
 
@@ -920,44 +1240,136 @@ cudaError_t launch_mma_any(const T* x, const float* xs, const uint8_t* w,
             st);
 }
 
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, found through the CUDA runtime (the library
+// links no libcuda of its own); nullptr where it is missing.
+EncodeTiled encode_tiled() {
+  static std::atomic<EncodeTiled> fn{nullptr};
+  EncodeTiled f = fn.load(std::memory_order_acquire);
+  if (f == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess
+        && found == cudaDriverEntryPointSuccess) {
+      f = reinterpret_cast<EncodeTiled>(p);
+      fn.store(f, std::memory_order_release);
+    }
+  }
+  return f;
+}
+
+// A rank-2 tensor map of `rows` x `cols` elements, rows `pitch` bytes
+// apart, read in boxes of box_rows x box_cols.
+cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type,
+                       const void* base, int cols, int rows, size_t pitch,
+                       int box_cols, int box_rows, CUtensorMapSwizzle swz) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dim[2] = {static_cast<cuuint64_t>(cols),
+                             static_cast<cuuint64_t>(rows)};
+  const cuuint64_t stride[1] = {static_cast<cuuint64_t>(pitch)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_cols),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t step[2] = {1, 1};
+  return enc(map, type, 2, const_cast<void*>(base), dim, stride, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <int MODE, typename T, int BN>
+cudaError_t launch_gemv(const T* x, const float* xs, const uint8_t* w,
+                        const float* scale, float* out, int M, int K, int N,
+                        int cluster, int k_per_split, int vec,
+                        cudaStream_t st) {
+  using S = GemvShape<MODE, T, BN>;
+  // the raw tile in 64 x BN boxes, swizzled by BN bytes; x in 8 x kKS
+  // boxes, the rows past M read as 0
+  CUtensorMap wmap = {}, xmap = {};
+  if (vec) {
+    const CUtensorMapSwizzle swz = BN == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : BN == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                            : CU_TENSOR_MAP_SWIZZLE_32B;
+    cudaError_t err = tensor_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N,
+                                 MODE == kBase3 ? K : K / 4, N, BN, kGvRows,
+                                 swz);
+    if (err != cudaSuccess) return err;
+    err = tensor_map(&xmap, S::kInt8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     x, K, M, static_cast<size_t>(K) * sizeof(T), S::kKS,
+                     kBM, CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + BN - 1) / BN, 1, cluster);
+  cfg.blockDim = dim3(kGvThreads);
+  cfg.dynamicSmemBytes = S::kSmem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = cluster;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, tm_gemv_kernel<MODE, T, BN>, wmap, xmap, x, xs, w, scale, out, M,
+      K, N, k_per_split, vec);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_gemv_any(const T* x, const float* xs, const uint8_t* w,
+                            const float* scale, float* out, int M, int K,
+                            int N, int mode, int block_n, int cluster,
+                            int k_per_split, int vec, cudaStream_t st) {
+  using Launch = cudaError_t (*)(const T*, const float*, const uint8_t*,
+                                 const float*, float*, int, int, int, int,
+                                 int, int, cudaStream_t);
+  const Launch table[2][3] = {
+      {launch_gemv<0, T, 32>, launch_gemv<0, T, 64>, launch_gemv<0, T, 128>},
+      {launch_gemv<1, T, 32>, launch_gemv<1, T, 64>, launch_gemv<1, T, 128>}};
+  const int b = block_n == 32 ? 0 : block_n == 64 ? 1 : block_n == 128 ? 2
+                                                                       : -1;
+  if (b < 0 || (mode != 0 && mode != 1)) return cudaErrorInvalidValue;
+  return table[mode][b](x, xs, w, scale, out, M, K, N, cluster, k_per_split,
+                        vec, st);
+}
+
 unsigned reduce_blocks(int M, int N) {
   return static_cast<unsigned>((static_cast<size_t>(M) * N + 255) / 256);
 }
 
 }  // namespace
 
-// x: (M, K) f32 (x_bf16 = 0; any M) or bf16 (x_bf16 = 1; M <= 8 only,
-// larger M takes tm_mma_launch); w: packed uint8 (K, N) base3 (mode 0)
-// or (K/4, N) trit2 (mode 1, K a multiple of 4); scale: (N,) f32; out:
-// (M, N) f32; partial: (splits, M, N) f32 when splits > 1.  k_per_split
-// is a multiple of 64.  Returns cudaGetLastError().
-extern "C" int tm_float_launch(const void* x, int x_bf16, const void* w,
+// The CUDA-core route: x (M, K) f32, any M; w: packed uint8 (K, N) base3
+// (mode 0) or (K/4, N) trit2 (mode 1, K a multiple of 4); scale: (N,)
+// f32; out: (M, N) f32; partial: (splits, M, N) f32 when splits > 1.
+// k_per_split is a multiple of 64.  bf16 and int8 x take tm_gemv_launch
+// (M <= 8) or tm_mma_launch.  Returns cudaGetLastError().
+extern "C" int tm_float_launch(const void* x, const void* w,
                                const void* scale, void* out, void* partial,
                                int M, int K, int N, int mode, int splits,
                                int k_per_split, int vec, void* stream) {
-  if (x_bf16 && M > kBM) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int use_partial = splits > 1;
   float* dst = static_cast<float*>(use_partial ? partial : out);
+  const auto* xp = static_cast<const float*>(x);
   const auto* wp = static_cast<const uint8_t*>(w);
   const auto* sp = static_cast<const float*>(scale);
-  if (x_bf16) {
-    const auto* xp = static_cast<const __nv_bfloat16*>(x);
-    if (mode == kBase3)
-      launch_float<0>(xp, wp, sp, dst, M, K, N, splits, k_per_split, vec,
-                      use_partial, st);
-    else
-      launch_float<1>(xp, wp, sp, dst, M, K, N, splits, k_per_split, vec,
-                      use_partial, st);
-  } else {
-    const auto* xp = static_cast<const float*>(x);
-    if (mode == kBase3)
-      launch_float<0>(xp, wp, sp, dst, M, K, N, splits, k_per_split, vec,
-                      use_partial, st);
-    else
-      launch_float<1>(xp, wp, sp, dst, M, K, N, splits, k_per_split, vec,
-                      use_partial, st);
-  }
+  if (mode == kBase3)
+    launch_float<0>(xp, wp, sp, dst, M, K, N, splits, k_per_split, vec,
+                    use_partial, st);
+  else
+    launch_float<1>(xp, wp, sp, dst, M, K, N, splits, k_per_split, vec,
+                    use_partial, st);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || !use_partial) return static_cast<int>(err);
   tm_float_reduce<<<reduce_blocks(M, N), 256, 0, st>>>(
@@ -966,34 +1378,41 @@ extern "C" int tm_float_launch(const void* x, int x_bf16, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Decode only (M <= 8).  x: (M, K) int8; xscale: (M,) f32; w, scale as
-// above; out: (M, N) f32; partial: (splits, M, N) int32 when splits > 1.
-// Returns cudaGetLastError().
-extern "C" int tm_int8_launch(const void* x, const void* xscale, const void* w,
-                              const void* scale, void* out, void* partial,
-                              int M, int K, int N, int mode, int splits,
-                              int k_per_split, int vec, void* stream) {
-  if (M > kBM) return static_cast<int>(cudaErrorInvalidValue);
+// The decode route (tm_gemv_kernel), one launch per call.  x: (M, K) with
+// 1 <= M <= 8, bf16 (x_type 1, float domain; xscale unused) or int8
+// (x_type 2) with xscale (M,) f32; x_type 0 (f32) is refused, as is any
+// M above 8.  w, scale, out as above.  block_n: 32, 64 or 128 columns
+// per block; cluster: 1, 2, 4 or 8 blocks splitting K, each taking
+// k_per_split rows (a multiple of 64 base3 or 256 trit2 rows; the splits
+// must cover K).  vec: every x row and w row starts 16-byte aligned, as
+// the TMA needs (else the threads stage them byte by byte).  Returns the
+// launch's error, or cudaErrorInvalidValue for what the kernel does not
+// take.
+extern "C" int tm_gemv_launch(const void* x, int x_type, const void* xscale,
+                              const void* w, const void* scale, void* out,
+                              int M, int K, int N, int mode, int block_n,
+                              int cluster, int k_per_split, int vec,
+                              void* stream) {
+  const int stage = mode == kBase3 ? kGvRows : 4 * kGvRows;
+  const bool ok = (x_type == 1 || x_type == 2) && M >= 1 && M <= kBM
+      && K >= 1 && N >= 1 && (mode == 0 || mode == 1)
+      && (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8)
+      && k_per_split > 0 && k_per_split % stage == 0
+      && static_cast<long long>(cluster) * k_per_split >= K;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int use_partial = splits > 1;
-  void* dst = use_partial ? partial : out;
-  const auto* xp = static_cast<const int8_t*>(x);
   const auto* xsp = static_cast<const float*>(xscale);
   const auto* wp = static_cast<const uint8_t*>(w);
   const auto* sp = static_cast<const float*>(scale);
-  const dim3 grid = grid_of(M, N, splits);
-  if (mode == kBase3)
-    tm_gemv_int8_kernel<0><<<grid, kGThreads, 0, st>>>(
-        xp, xsp, wp, sp, dst, M, K, N, k_per_split, vec, use_partial);
-  else
-    tm_gemv_int8_kernel<1><<<grid, kGThreads, 0, st>>>(
-        xp, xsp, wp, sp, dst, M, K, N, k_per_split, vec, use_partial);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || !use_partial) return static_cast<int>(err);
-  tm_int8_reduce<<<reduce_blocks(M, N), 256, 0, st>>>(
-      static_cast<const int*>(partial), xsp, sp, static_cast<float*>(out), M, N,
-      splits);
-  return static_cast<int>(cudaGetLastError());
+  auto* op = static_cast<float*>(out);
+  const cudaError_t err =
+      x_type == 2
+          ? launch_gemv_any(static_cast<const int8_t*>(x), xsp, wp, sp, op, M,
+                            K, N, mode, block_n, cluster, k_per_split, vec, st)
+          : launch_gemv_any(static_cast<const __nv_bfloat16*>(x), xsp, wp, sp,
+                            op, M, K, N, mode, block_n, cluster, k_per_split,
+                            vec, st);
+  return static_cast<int>(err);
 }
 
 // The tensor-core route (M > 8).  x: (M, K) bf16 (x_int8 = 0, float

@@ -10,9 +10,18 @@
 
 Three routes, chosen by :func:`route` from M and the dtype of x:
 
-* ``gemv`` (M <= 8, decode): a weight-streaming kernel that reads each
-  packed byte once per call, bound by the packed bytes at 3.35 TB/s on
-  an H100; K is split across blocks (:func:`split_k`) to fill the SMs.
+* ``gemv`` (M <= 8, bf16 or int8 x; decode): one weight-streaming
+  tensor-core template, bound by the packed bytes at 3.35 TB/s on an
+  H100.  The decoded weight, transposed, is ``mma.sync``'s A operand and
+  x's (at most 8) rows its B operand (m16n8k16 bf16 -> f32, m16n8k32 s8
+  -> s32), so the CUDA cores only decode.  The raw packed weight and x
+  stream through a ring in shared memory, each stage two TMA boxes from
+  2-D tensor maps (rows past M or K arrive as 0).  :func:`gemv_plan` picks
+  the column tile and a thread-block cluster of 1-8 blocks that split K;
+  rank r of the cluster adds every rank's sums through distributed
+  shared memory in rank order (deterministic; int8 exact), so a call is
+  one launch, with no partial sums in device memory and no second
+  kernel.
 * ``mma`` (M > 8, bf16 or int8 x; prefill): one tensor-core template,
   ``mma.sync`` m16n8k16 bf16 -> f32 or m16n8k32 s8 -> s32 on output
   tiles of 128 or 256 rows by 128 columns, bound by the multiply-adds
@@ -20,11 +29,14 @@ Three routes, chosen by :func:`route` from M and the dtype of x:
   ``cp.async``; each stage's weight is decoded in shared memory into the
   mma's type (no dequantized weight in device memory).  K is split by
   :func:`mma_plan` when the tiles alone cannot fill the SMs.
-* ``cuda_core`` (M > 8, f32 x): the CUDA-core tiled kernel.  f32
+* ``cuda_core`` (f32 x, any M): the CUDA-core kernels (a weight-streaming
+  one for M <= 8, a tiled one above), K split by :func:`split_k`.  f32
   activations are off the serving path (the full-width model is bf16),
   and rounding them to bf16 for the tensor cores would break the float
-  domain's f32 bar, so they keep it.  int8 x no longer takes it: its
-  CUDA-core kernel is gone.
+  domain's f32 bar, so they keep these.
+
+The mma and cuda_core routes add their K splits in a second kernel, in
+split order.
 
 On a CPU tensor a wrapper computes its plain version (``kernels/ops.py``);
 on a CUDA tensor it launches its route's kernel or raises.  ``LAUNCHES``
@@ -41,11 +53,17 @@ from ..core.packing import TRIT2_PER_BYTE
 from . import ops
 
 BLOCK_N = 128            # output columns per block (kBN in the source)
-BLOCK_M = 8              # rows per block of the gemv / CUDA-core routes (kBM)
+BLOCK_M = 8              # rows per block of the CUDA-core routes (kBM)
 K_CHUNK = 64             # packed rows per split unit (kKC K rows)
+GEMV_MAX_M = 8           # rows the gemv route takes (the mma's n8)
+GEMV_BLOCK_NS = (128, 64, 32)    # gemv column tiles, widest first
+GEMV_CLUSTERS = (1, 2, 4, 8)     # blocks per cluster (portable sizes)
+GEMV_STAGE_ROWS = 64     # packed rows per gemv stage (kGvRows)
 MMA_BLOCK_N = 128        # output columns per mma block (kMBN)
 MMA_K_CHUNK = 64         # K rows per mma stage and split unit (kMBK)
 MODE_CODE = {"base3": 0, "trit2": 1}
+# x dtype codes of tm_gemv_launch (which refuses f32)
+X_TYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 SOURCE = "ternary_matmul.cu"      # under src/repro_torch/csrc/
 
 LAUNCHES = {"ternary_matmul": 0, "ternary_matmul_int8": 0}
@@ -71,23 +89,21 @@ def _sm_count(device: torch.device) -> int:
 
 def route(m: int, dtype: torch.dtype) -> str:
     """The kernel that serves M rows of x in ``dtype`` on the card."""
-    if m <= BLOCK_M:
-        return "gemv"
-    if dtype in (torch.bfloat16, torch.int8):
-        return "mma"
     if dtype == torch.float32:
         return "cuda_core"
+    if dtype in (torch.bfloat16, torch.int8):
+        return "gemv" if m <= GEMV_MAX_M else "mma"
     raise TypeError(f"no kernel route for x dtype {dtype}")
 
 
 def split_k(m: int, k: int, n: int, mode: str,
             sm_count: int) -> tuple[int, int]:
-    """(splits, k_per_split) of the gemv and CUDA-core routes: split K
-    across blocks until the grid holds about as many blocks as the SMs
-    hold at once (three per SM for the decode kernel of M <= 8, two for
-    the tiled one).  A split is a whole number of chunks of 64 packed
-    rows (64 K rows of base3, 256 of trit2), so a block streams the same
-    bytes in either packing."""
+    """(splits, k_per_split) of the CUDA-core route: split K across
+    blocks until the grid holds about as many blocks as the SMs hold at
+    once (three per SM for the kernel of M <= 8, two for the tiled one).
+    A split is a whole number of chunks of 64 packed rows (64 K rows of
+    base3, 256 of trit2), so a block streams the same bytes in either
+    packing."""
     tiles = -(-n // BLOCK_N) * -(-m // BLOCK_M)
     unit = K_CHUNK * (TRIT2_PER_BYTE if mode == "trit2" else 1)
     chunks = max(1, -(-k // unit))
@@ -96,6 +112,32 @@ def split_k(m: int, k: int, n: int, mode: str,
     splits = min(chunks, want)
     per = -(-chunks // splits)
     return -(-chunks // per), per * unit
+
+
+def gemv_plan(m: int, k: int, n: int, mode: str,
+              sm_count: int) -> tuple[int, int, int]:
+    """(block_n, cluster, k_per_split) of the gemv route.  K is cut into
+    stages of 64 packed rows (64 K rows of base3, 256 of trit2) and a
+    cluster of `cluster` blocks splits them, each a whole number of
+    stages and none empty.  The widest column tile (128, 64 or 32) whose
+    smallest such cluster puts a block on every SM wins: a wider tile
+    reads longer row segments (128 bytes or more are whole lines), a
+    narrower one makes more blocks.  Where nothing fills the SMs, the
+    narrowest tile and the largest cluster."""
+    if not 1 <= m <= GEMV_MAX_M:
+        raise ValueError(f"the gemv route takes 1 to {GEMV_MAX_M} rows, "
+                         f"got {m}")
+    unit = GEMV_STAGE_ROWS * (TRIT2_PER_BYTE if mode == "trit2" else 1)
+    stages = max(1, -(-k // unit))
+    clusters = [c for c in GEMV_CLUSTERS
+                if (c - 1) * -(-stages // c) < stages]
+    for bn in GEMV_BLOCK_NS:
+        tiles = -(-n // bn)
+        for c in clusters:
+            if tiles * c >= sm_count:
+                return bn, c, -(-stages // c) * unit
+    c = clusters[-1]
+    return GEMV_BLOCK_NS[-1], c, -(-stages // c) * unit
 
 
 def mma_tile_plan(m: int, k: int, n: int, sm_count: int,
@@ -173,12 +215,12 @@ def _lib():
     lib = library(SOURCE)
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.tm_float_launch.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i,
+        lib.tm_float_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                         i, p]
         lib.tm_float_launch.restype = i
-        lib.tm_int8_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i,
-                                       i, p]
-        lib.tm_int8_launch.restype = i
+        lib.tm_gemv_launch.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i,
+                                       i, i, p]
+        lib.tm_gemv_launch.restype = i
         lib.tm_mma_launch.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i,
                                       i, i, i, p]
         lib.tm_mma_launch.restype = i
@@ -214,6 +256,27 @@ def launch_mma(x: torch.Tensor, x_scale, data: torch.Tensor,
         m, k, n, MODE_CODE[mode], bm, splits, per, _mma_vec(x, data), stream)
 
 
+def launch_gemv(x: torch.Tensor, x_scale, data: torch.Tensor,
+                scale: torch.Tensor, mode: str, out: torch.Tensor,
+                plan: tuple[int, int, int]) -> int:
+    """The decode route for bf16 (float domain; ``x_scale`` None) or int8
+    x on checked CUDA operands, with ``plan`` = (block_n, cluster,
+    k_per_split) as :func:`gemv_plan` gives it; returns the C launcher's
+    error code, which refuses f32 x, M above 8 and a plan the kernel
+    does not take.  Counts nothing: the wrappers count their launches."""
+    if x.dtype not in X_TYPE:
+        raise TypeError(f"no gemv kernel for x dtype {x.dtype}")
+    m, k = x.shape
+    n = data.shape[1]
+    block_n, cluster, per = plan
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    return _lib().tm_gemv_launch(
+        x.data_ptr(), X_TYPE[x.dtype],
+        x_scale.data_ptr() if x_scale is not None else None,
+        data.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k, n,
+        MODE_CODE[mode], block_n, cluster, per, _mma_vec(x, data), stream)
+
+
 def matmul_float(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
                  mode: str) -> torch.Tensor:
     """(M, K) f32/bf16 @ packed (K | K/4, N) -> (M, N) f32."""
@@ -226,17 +289,20 @@ def matmul_float(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
     _check_cuda(x, data, scale)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     path = route(m, x.dtype)
+    sms = _sm_count(x.device)
     if path == "mma":
         err = launch_mma(x, None, data, scale, mode, out,
-                         mma_plan(m, k, n, _sm_count(x.device)))
+                         mma_plan(m, k, n, sms))
+    elif path == "gemv":
+        err = launch_gemv(x, None, data, scale, mode, out,
+                          gemv_plan(m, k, n, mode, sms))
     else:
-        splits, per = split_k(m, k, n, mode, _sm_count(x.device))
+        splits, per = split_k(m, k, n, mode, sms)
         partial = (torch.empty((splits, m, n), dtype=torch.float32,
                                device=x.device) if splits > 1 else None)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _lib().tm_float_launch(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), data.data_ptr(),
-            scale.data_ptr(), out.data_ptr(),
+            x.data_ptr(), data.data_ptr(), scale.data_ptr(), out.data_ptr(),
             partial.data_ptr() if partial is not None else None,
             m, k, n, MODE_CODE[mode], splits, per, _vec(data, n), stream)
     _raise_on(err, f"ternary_matmul ({path})")
@@ -261,19 +327,13 @@ def matmul_int8(x_int: torch.Tensor, x_scale: torch.Tensor,
     _check_cuda(x_int, x_scale, data, scale)
     out = torch.empty((m, n), dtype=torch.float32, device=x_int.device)
     path = route(m, x_int.dtype)
+    sms = _sm_count(x_int.device)
     if path == "mma":
         err = launch_mma(x_int, x_scale, data, scale, mode, out,
-                         mma_plan(m, k, n, _sm_count(x_int.device)))
+                         mma_plan(m, k, n, sms))
     else:
-        splits, per = split_k(m, k, n, mode, _sm_count(x_int.device))
-        partial = (torch.empty((splits, m, n), dtype=torch.int32,
-                               device=x_int.device) if splits > 1 else None)
-        stream = torch.cuda.current_stream(x_int.device).cuda_stream
-        err = _lib().tm_int8_launch(
-            x_int.data_ptr(), x_scale.data_ptr(), data.data_ptr(),
-            scale.data_ptr(), out.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
-            m, k, n, MODE_CODE[mode], splits, per, _vec(data, n), stream)
+        err = launch_gemv(x_int, x_scale, data, scale, mode, out,
+                          gemv_plan(m, k, n, mode, sms))
     _raise_on(err, f"ternary_matmul_int8 ({path})")
     LAUNCHES["ternary_matmul_int8"] += 1
     ROUTES[path] += 1

@@ -152,22 +152,136 @@ def test_mma_route_agrees_at_either_tile_height(dev, m, k, n, mode, bm):
 
 
 def test_ternary_launchers_refuse_a_route_they_do_not_serve(dev):
-    """The C launchers of the gemv / CUDA-core routes refuse bf16 and
-    int8 x at M > 8 (the mma route's work) instead of running a kernel
-    that no longer serves it."""
+    """The gemv route's C launcher refuses M > 8 (the mma route's work)
+    in either domain and f32 x (the CUDA-core route's) instead of
+    running a kernel that does not serve it."""
     x, data, scale = _operands(16, 64, 128, "base3", seed=0)
     xt, dt, st = (torch.from_numpy(a).to(dev) for a in (x, data, scale))
     xi, xs = ops.quantize_acts_int8(xt)
     out = torch.empty((16, 128), device=dev)
-    lib = tm._lib()
-    stream = torch.cuda.current_stream().cuda_stream
+    plan = (32, 1, 64)
     xb = xt.to(torch.bfloat16)
-    assert lib.tm_float_launch(xb.data_ptr(), 1, dt.data_ptr(),
-                               st.data_ptr(), out.data_ptr(), None, 16, 64,
-                               128, 0, 1, 64, 1, stream) != 0
-    assert lib.tm_int8_launch(xi.data_ptr(), xs.data_ptr(), dt.data_ptr(),
-                              st.data_ptr(), out.data_ptr(), None, 16, 64,
-                              128, 0, 1, 64, 1, stream) != 0
+    assert tm.launch_gemv(xb, None, dt, st, "base3", out, plan) != 0
+    assert tm.launch_gemv(xi, xs, dt, st, "base3", out, plan) != 0
+    assert tm.launch_gemv(xt[:8], None, dt, st, "base3", out, plan) != 0
+    assert tm.launch_gemv(xb[:9], None, dt, st, "base3", out, plan) != 0
+    assert tm.launch_gemv(xb[:8], None, dt, st, "base3", out, plan) == 0
+
+
+# every packed weight of internlm2-1.8b at full width (K, N): wq/wo,
+# wk/wv, w1/w3, w2 and the unembedding (vocab padded to 92672)
+MAIN_PATH_KN = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048),
+                (2048, 92672)]
+
+
+def _device_operands(dev, m, k, n, mode, seed):
+    """Seeded x (M, K) f32, packed bytes and scales, made on the card
+    (the unembedding's 190 MB would take long through numpy)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kw = k // 4 if mode == "trit2" else k
+    data = torch.randint(0, 256 if mode == "trit2" else 243, (kw, n),
+                         generator=gen, device=dev, dtype=torch.uint8)
+    scale = (torch.rand(n, generator=gen, device=dev) + 0.5) * 0.01
+    return torch.randn(m, k, generator=gen, device=dev), data, scale
+
+
+def _gemv_matches(dev, x, data, scale, mode, place=lambda t: t):
+    """bf16 and int8 x through the gemv route against the plain
+    versions: within 1e-5 of max|y| in the float domain, bitwise in
+    int8; each call one launch of the route.  ``place`` gives the
+    kernel's copy of x and of the weight."""
+    w = ops.PackedTernary(data, scale, mode)
+    before = dict(tm.ROUTES)
+    xb = x.to(torch.bfloat16)
+    want = ops.ternary_matmul_torch(xb, w)
+    torch.testing.assert_close(
+        tm.matmul_float(place(xb), place(data), scale, mode), want,
+        rtol=0, atol=1e-5 * want.abs().max().item())
+    xi, xs = ops.quantize_acts_int8(x)
+    assert torch.equal(tm.matmul_int8(place(xi), xs, place(data), scale,
+                                      mode),
+                       ops.ternary_matmul_int8_torch(xi, xs, w))
+    assert tm.ROUTES["gemv"] == before["gemv"] + 2
+    assert tm.ROUTES["mma"] == before["mma"]
+    assert tm.ROUTES["cuda_core"] == before["cuda_core"]
+
+
+@pytest.mark.parametrize("mode", ["base3", "trit2"])
+@pytest.mark.parametrize("k,n", MAIN_PATH_KN)
+@pytest.mark.parametrize("m", [1, 3, 8])
+def test_gemv_route_at_the_main_path_shapes(dev, m, k, n, mode):
+    x, data, scale = _device_operands(dev, m, k, n, mode, seed=m + k + n)
+    _gemv_matches(dev, x, data, scale, mode)
+
+
+@pytest.mark.parametrize("mode", ["base3", "trit2"])
+@pytest.mark.parametrize("m,k,n", [
+    (1, 64, 5), (2, 200, 130), (4, 520, 2050), (5, 8192, 2050),
+    (6, 2052, 136), (7, 4, 16), (8, 200, 2050), (8, 1028, 130)])
+def test_gemv_route_ragged_edges(dev, m, k, n, mode):
+    """M from 1 to 8, ragged N, K off the 64-row (base3) or 256-row
+    (trit2) stage, and rows that are not 16-byte aligned (N % 16 != 0,
+    or bf16 K % 8 != 0), which the kernel stages byte by byte."""
+    x, data, scale = _device_operands(dev, m, k, n, mode, seed=3 * k + n)
+    _gemv_matches(dev, x, data, scale, mode)
+
+
+@pytest.mark.parametrize("mode", ["base3", "trit2"])
+@pytest.mark.parametrize("m,k,n", [
+    (3, 200, 2064), (8, 520, 1040), (5, 2112, 144), (1, 8256, 2048),
+    (8, 2048, 92688)])
+def test_gemv_route_tma_edges(dev, m, k, n, mode):
+    """16-byte aligned operands, so the TMA stages them: K off the stage,
+    N off the column tile and M below 8 arrive as zeros from outside the
+    tensor maps."""
+    x, data, scale = _device_operands(dev, m, k, n, mode, seed=k + n)
+    assert tm._mma_vec(x.to(torch.bfloat16), data)
+    _gemv_matches(dev, x, data, scale, mode)
+
+
+@pytest.mark.parametrize("mode", ["base3", "trit2"])
+def test_gemv_route_unaligned_pointers(dev, mode):
+    """Operands whose storage starts one element past a 16-byte
+    boundary take the byte staging."""
+    def off_by_one(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16
+        return view
+    x, data, scale = _device_operands(dev, 8, 2048, 1024, mode, seed=5)
+    _gemv_matches(dev, x, data, scale, mode, place=off_by_one)
+
+
+@pytest.mark.parametrize("mode", ["base3", "trit2"])
+@pytest.mark.parametrize("k,n", [(8192, 2048), (2048, 1024), (520, 130)])
+def test_gemv_route_float_is_deterministic(dev, k, n, mode):
+    """The cluster adds its splits in rank order: two calls agree
+    bitwise in the float domain."""
+    x, data, scale = _device_operands(dev, 8, k, n, mode, seed=k)
+    xb = x.to(torch.bfloat16)
+    first = tm.matmul_float(xb, data, scale, mode)
+    for _ in range(3):
+        assert torch.equal(tm.matmul_float(xb, data, scale, mode), first)
+
+
+def test_gemv_launcher_refuses_a_plan_it_does_not_take(dev, monkeypatch):
+    """Block widths off {32, 64, 128}, clusters off {1, 2, 4, 8}, splits
+    that are not whole stages or do not cover K: the C launcher refuses,
+    and the wrapper raises instead of taking another route."""
+    x, data, scale = _device_operands(dev, 8, 2048, 256, "base3", seed=7)
+    xb = x.to(torch.bfloat16)
+    out = torch.empty((8, 256), device=dev)
+    for plan in ((48, 1, 2048), (32, 3, 704), (32, 16, 128), (32, 4, 96),
+                 (32, 2, 512), (32, 1, 0)):
+        assert tm.launch_gemv(xb, None, data, scale, "base3", out, plan) != 0
+    assert tm.launch_gemv(xb, None, data, scale, "base3", out,
+                          (32, 8, 256)) == 0
+    monkeypatch.setattr(tm, "gemv_plan", lambda *a: (32, 2, 512))
+    before = dict(tm.ROUTES)
+    with pytest.raises(RuntimeError, match="gemv"):
+        tm.matmul_float(xb, data, scale, "base3")
+    assert tm.ROUTES == before
 
 
 def _smoke(dev, packing):

@@ -138,7 +138,9 @@ def test_wrappers_check_their_operands():
 
 @pytest.mark.parametrize("m,dtype,want", [
     (1, torch.bfloat16, "gemv"), (8, torch.int8, "gemv"),
-    (8, torch.float32, "gemv"), (9, torch.bfloat16, "mma"),
+    (8, torch.float32, "cuda_core"), (1, torch.float32, "cuda_core"),
+    (8, torch.bfloat16, "gemv"), (1, torch.int8, "gemv"),
+    (9, torch.bfloat16, "mma"),
     (9, torch.int8, "mma"), (9, torch.float32, "cuda_core"),
     (1024, torch.bfloat16, "mma"), (1024, torch.int8, "mma"),
     (1024, torch.float32, "cuda_core")])
@@ -195,9 +197,12 @@ def test_split_k_covers_k_in_whole_chunks(mode, m, k, n):
 
 def test_cpu_wrappers_count_no_route():
     tm.reset_launches()
-    x, data, scale = _operands(16, 64, 8, "base3", seed=1)
-    tm.matmul_float(torch.from_numpy(x).to(torch.bfloat16),
-                    torch.from_numpy(data), torch.from_numpy(scale), "base3")
+    for m in (16, 8):
+        x, data, scale = _operands(m, 64, 8, "base3", seed=1)
+        xt, dt, st = (torch.from_numpy(a) for a in (x, data, scale))
+        tm.matmul_float(xt.to(torch.bfloat16), dt, st, "base3")
+        tm.matmul_float(xt, dt, st, "base3")
+        tm.matmul_int8(*ops.quantize_acts_int8(xt), dt, st, "base3")
     assert tm.ROUTES == {"gemv": 0, "cuda_core": 0, "mma": 0}
     assert tm.LAUNCHES == {"ternary_matmul": 0, "ternary_matmul_int8": 0}
 
@@ -218,3 +223,63 @@ def test_mma_tile_plan_covers_k_at_every_tile_height(m, k, n, bm):
     assert (splits - 1) * per < k <= splits * per
     tiles = -(-n // tm.MMA_BLOCK_N) * -(-m // bm)
     assert tiles * splits <= max(tiles, 132)
+
+
+# every packed weight of internlm2-1.8b at full width (K, N): wq/wo,
+# wk/wv, w1/w3, w2 and the unembedding (vocab padded to 92672)
+MAIN_PATH_KN = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048),
+                (2048, 92672)]
+GEMV_SHAPES = MAIN_PATH_KN + [(64, 5), (520, 130), (200, 2050),
+                              (8192, 2050), (4, 16), (2048, 7)]
+
+
+def _check_gemv_plan(m, k, n, mode, sms):
+    bn, cluster, per = tm.gemv_plan(m, k, n, mode, sms)
+    unit = tm.GEMV_STAGE_ROWS * (4 if mode == "trit2" else 1)
+    assert bn in tm.GEMV_BLOCK_NS and bn % 16 == 0
+    assert cluster in (1, 2, 4, 8)
+    # whole stages (64 packed rows: 16 k16 steps of base3 bf16, 4 packed
+    # rows per trit2 k16 step), every split non-empty, together all of K
+    assert per > 0 and per % unit == 0
+    assert (cluster - 1) * per < k <= cluster * per
+    return bn, cluster, per
+
+
+@pytest.mark.parametrize("mode", ["base3", "trit2"])
+@pytest.mark.parametrize("k,n", GEMV_SHAPES)
+@pytest.mark.parametrize("m", [1, 3, 8])
+def test_gemv_plan_covers_k_in_whole_stages(m, k, n, mode):
+    _check_gemv_plan(m, k, n, mode, 132)
+
+
+@pytest.mark.parametrize("mode", ["base3", "trit2"])
+@pytest.mark.parametrize("k,n", MAIN_PATH_KN)
+def test_gemv_plan_puts_a_block_on_every_sm(k, n, mode):
+    """At every main-path shape the grid holds at least one block per SM
+    of an H100 (132) with the widest tile that does so."""
+    bn, cluster, _ = _check_gemv_plan(8, k, n, mode, 132)
+    assert -(-n // bn) * cluster >= 132
+    wider = [b for b in tm.GEMV_BLOCK_NS if b > bn]
+    unit = tm.GEMV_STAGE_ROWS * (4 if mode == "trit2" else 1)
+    stages = -(-k // unit)
+    for b in wider:     # no wider tile could have filled the SMs
+        assert all(-(-n // b) * c < 132 for c in (1, 2, 4, 8)
+                   if (c - 1) * -(-stages // c) < stages)
+
+
+def test_gemv_plan_at_the_full_width_decode():
+    """M = 8 on 132 SMs: wq and w2 take 64 columns in clusters of 8, wk
+    32 columns in clusters of 8, w1 128 columns in clusters of 4, and
+    the unembedding 128 columns unsplit; trit2 keeps the tiles."""
+    for mode in ("base3", "trit2"):
+        assert tm.gemv_plan(8, 2048, 2048, mode, 132) == (64, 8, 256)
+        assert tm.gemv_plan(8, 2048, 1024, mode, 132) == (32, 8, 256)
+        assert tm.gemv_plan(8, 2048, 8192, mode, 132) == (128, 4, 512)
+        assert tm.gemv_plan(8, 8192, 2048, mode, 132) == (64, 8, 1024)
+        assert tm.gemv_plan(8, 2048, 92672, mode, 132) == (128, 1, 2048)
+
+
+@pytest.mark.parametrize("m", [0, 9, 16])
+def test_gemv_plan_refuses_rows_off_the_route(m):
+    with pytest.raises(ValueError, match="gemv route"):
+        tm.gemv_plan(m, 2048, 2048, "base3", 132)
