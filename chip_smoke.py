@@ -70,25 +70,40 @@ Phases, each of which raises on failure:
               the dense pool; prefix hit rate > 0.  Then one chunk of a
               fused scheduler runs under
               torch.cuda.set_sync_debug_mode("error").
-7. cim-kernel - the cim_mac kernel against its plain version (the macro
-              model) on the card, bitwise: every K x N of the model at
-              M = 8, every one but the unembedding at M = 1024, and ragged
-              cases (K % 16 != 0, M = 1, N off the tile, 3 x 5 and 1 x 1
-              trit planes, adc_bits 3/4/5/8, all groups saturating).
-              Prints the kernel's median time per call, its bound and the
-              plain version's time.
+7. cim-kernel - cim_mac against its plain version (the macro model) on
+              the card, bitwise, each call checked to take its route
+              (ROUTES: ``codes`` at adc_bits >= 5, ``groups`` below):
+              ragged cases (K % 16 != 0, M = 1, N off the tile, 3 x 5 and
+              1 x 1 trit planes, adc_bits 3/4/5/8), all groups saturating
+              (both entries at 5 bits), and planted saturating groups
+              (x = -w in 5% of the (row, group) pairs) at adc_bits
+              3/4/5/6/8 through the trit-plane entry and, at 5 and more,
+              the code entry.  Then at every K x N of the model at M = 8
+              and every one but the unembedding at M = 1024, random
+              planes folded once into codes and a CodeWeight: the code
+              entry's median time per call (the exact path's call), its
+              product term alone, the trit-plane entry (fold included),
+              its bound (one int8 product, 1 byte per weight) beside the
+              groups route's 25-pair bound, the plain version's time, at
+              M = 8 the groups route at b = 4 and at M = 1024
+              torch._int_mm on the codes (the product alone, a yardstick).
 8. exact    - macro-exact inference (CIMConfig(mode="exact")) through the
               bucket ServeEngine at full width on the bf16 float weights
               of the same seeded init: 8 requests of 128 prompt tokens, 16
               new tokens each, counts zeroed just before the run.  Checks:
               the engine resolved cuda; cim_mac launched 169 times per
-              forward (1 prefill + the decode steps run) and no ternary
-              kernel did; one host transfer; every token there.  Then one
-              prefill and two decode steps with the cuda backend and with
-              the plain torch backend named: logits bitwise equal.  Prints
-              the prefill time, the decode ms per step beside its
-              ternarize, encode and kernel device times, tok/s, and the
-              greedy-token agreement with the float-mode model.
+              forward (1 prefill + the decode steps run), all on the codes
+              route, and no ternary kernel did; each weight ternarized
+              once (169 cache fills); one host transfer; every token
+              there.  Then one prefill that fills the cleared weight
+              cache, one that finds it, and four decode steps that fill
+              nothing; one profiled decode step; then one prefill and two
+              decode steps with the cuda backend and with the plain torch
+              backend named: logits bitwise equal.  Prints the prefill
+              times, the decode ms per step beside its encode (codes
+              only), kernel and (0) ternarize device times and the cache's
+              one-time fill, tok/s, and the greedy-token agreement with
+              the float-mode model.
 
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -938,18 +953,62 @@ def trit_planes(torch, gen, shape, dev):
                          dtype=torch.int8)
 
 
+def planted_planes(torch, gen, qi, qw, m, k, n, dev, share):
+    """Random trit planes with a `share` of the (row, full group) pairs
+    planted to saturate: x_i's 16 trits all non-zero and, in one random
+    column, w_j's their negation (mac = -16), for a random plane pair."""
+    x = trit_planes(torch, gen, (qi, m, k), dev)
+    w = trit_planes(torch, gen, (qw, k, n), dev)
+    groups = k // 16
+    plants = int(share * m * groups)
+    if plants == 0:
+        return x, w
+    pick = torch.randperm(m * groups, generator=gen, device=dev)[:plants]
+    rows, gs = pick // groups, pick % groups
+    i = torch.randint(0, qi, (plants,), generator=gen, device=dev)
+    j = torch.randint(0, qw, (plants,), generator=gen, device=dev)
+    cols = torch.randint(0, n, (plants,), generator=gen, device=dev)
+    signs = torch.randint(0, 2, (plants, 16), generator=gen, device=dev,
+                          dtype=torch.int8) * 2 - 1
+    ks = gs[:, None] * 16 + torch.arange(16, device=dev)
+    x[i[:, None], rows[:, None], ks] = signs
+    w[j[:, None], ks, cols[:, None]] = -signs
+    return x, w
+
+
 def cim_bytes_ops(qi, qw, m, k, n):
-    """Bytes (the trit planes in once, the int32 output out once) and
-    operations (two per multiply-add of every plane pair) of one MAC."""
+    """The groups route's work: bytes (the trit planes in once, the int32
+    output out once) and operations (two per multiply-add of every plane
+    pair)."""
     return qi * m * k + qw * k * n + 4 * m * n, 2 * qi * qw * m * k * n
 
 
+def code_bytes_ops(m, k, n, cw):
+    """The code route's work: bytes (the codes and base3 bytes in once,
+    the weight's full-group lists, the int32 output) and operations (one
+    int8 product)."""
+    lists = 4 * cw.groups.offsets.numel() + 4 * cw.groups.entries.numel()
+    return m * k + k * n + lists + 4 * m * n, 2 * m * k * n
+
+
 def phase_cim_kernel(torch, cfg):
-    """The cim_mac kernel vs its plain version, bitwise; returns the
-    per-shape records at the model's shapes."""
+    """cim_mac vs its plain version, bitwise, through both routes and
+    both entries; returns the per-shape records at the model's shapes."""
+    from repro_torch.core.ternary import from_balanced_ternary
     from repro_torch.kernels import cim_mac as cm
+    from repro_torch.kernels import ternary_matmul as tm
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
+
+    def routed_mac(fn, bits, what):
+        before = dict(cm.ROUTES)
+        out = fn()
+        moved = [r for r in cm.ROUTES if cm.ROUTES[r] != before[r]]
+        check(moved == [cm.route(bits)] and cm.route(bits) == (
+            "codes" if bits >= 5 else "groups"),
+              f"cim_mac {what} at {bits} bits took {moved}")
+        return out
+
     ragged = [(5, 5, 8, 37, 131, 5), (5, 5, 1, 1000, 300, 5),
               (3, 5, 13, 1000, 67, 4), (1, 1, 9, 16, 3, 3),
               (5, 5, 70, 100, 259, 8), (5, 3, 2, 48, 513, 4),
@@ -957,62 +1016,121 @@ def phase_cim_kernel(torch, cfg):
     for qi, qw, m, k, n, bits in ragged:
         x = trit_planes(torch, gen, (qi, m, k), dev)
         w = trit_planes(torch, gen, (qw, k, n), dev)
-        check(torch.equal(cm.cim_mac(x, w, bits), cm.cim_mac_torch(x, w, bits)),
+        got = routed_mac(lambda: cm.cim_mac(x, w, bits), bits, "ragged")
+        check(torch.equal(got, cm.cim_mac_torch(x, w, bits)),
               f"cim_mac {(qi, qw, m, k, n, bits)} is not bitwise")
     for bits in (4, 5):                        # every full group saturates
         x = torch.ones((5, 8, 2040), dtype=torch.int8, device=dev)
         w = -torch.ones((5, 2040, 300), dtype=torch.int8, device=dev)
-        got = cm.cim_mac(x, w, bits)
+        got = routed_mac(lambda: cm.cim_mac(x, w, bits), bits, "saturating")
         c = 2**bits - 1
         check(torch.equal(got, cm.cim_mac_torch(x, w, bits))
               and int(got[0, 0]) == (127 * (16 - c) + max(-8, 8 - c)) * 121**2,
               f"cim_mac all-saturating case at {bits} bits")
-    print("[cim-kernel] ragged and saturating cases are bitwise equal")
+        if bits == 5:
+            xc = from_balanced_ternary(x).to(torch.int8)
+            check(torch.equal(routed_mac(lambda: cm.cim_mac_codes(
+                xc, cm.code_weight(w), bits), bits, "saturating codes"), got),
+                  "cim_mac_codes all-saturating case")
+    # planted saturating groups: b = 5 adds the correction, 6 and 8 take
+    # the product alone, 3 and 4 the groups route
+    planted = []
+    for qi, qw, m, k, n in ((5, 5, 8, 2048, 1024), (5, 5, 1024, 520, 136),
+                            (5, 5, 1, 200, 130), (3, 5, 13, 1000, 67),
+                            (5, 5, 8, 37, 5)):
+        x, w = planted_planes(torch, gen, qi, qw, m, k, n, dev, 0.05)
+        xc = from_balanced_ternary(x).to(torch.int8)
+        cw = cm.code_weight(w)
+        fired = int((cm.correction_torch(x, w, 5) != 0).sum())
+        for bits in (3, 4, 5, 6, 8):
+            want = cm.cim_mac_torch(x, w, bits)
+            check(torch.equal(routed_mac(lambda: cm.cim_mac(x, w, bits),
+                                         bits, "planted"), want),
+                  f"cim_mac planted {(qi, qw, m, k, n, bits)} not bitwise")
+            if bits >= 5:
+                check(torch.equal(routed_mac(lambda: cm.cim_mac_codes(
+                    xc, cw, bits), bits, "planted codes"), want),
+                      f"cim_mac_codes planted {(m, k, n, bits)} not bitwise")
+        planted.append(dict(shape=[qi, qw, m, k, n], saturated_outputs=fired,
+                            listed_columns=int(cw.groups.entries.shape[0])))
+    print("[cim-kernel] ragged, planted and saturating cases are bitwise "
+          "equal, each through its route: " + json.dumps(planted))
+
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     cases = []
     for name, k, n, per_forward in layer_shapes(cfg):
         w = trit_planes(torch, gen, (5, k, n), dev)
+        cw = cm.code_weight(w)
+        w_codes = (cw.data.to(torch.int16) - 121).to(torch.int8)
         for m in ((8,) if name == "unembed" else (8, BATCH * PROMPT)):
             x = trit_planes(torch, gen, (5, m, k), dev)
-            got, want = cm.cim_mac(x, w), cm.cim_mac_torch(x, w)
+            xc = from_balanced_ternary(x).to(torch.int8)
+            run = lambda: cm.cim_mac_codes(xc, cw)
+            got = routed_mac(run, 5, "model shape")
+            want = cm.cim_mac_codes_torch(xc, cw)
+            planes_ok = torch.equal(cm.cim_mac(x, w), want)
             torch.cuda.synchronize()
-            moved, ops = cim_bytes_ops(5, 5, m, k, n)
-            rec = dict(kernel="cim_mac", weight=name, m=m, k=k, n=n,
-                       per_forward=per_forward,
-                       max_abs_err=(got - want).abs().max().item(),
-                       ok=bool(torch.equal(got, want)),
-                       ms=time_ms(torch, lambda: cm.cim_mac(x, w), 10, flush),
-                       plain_ms=time_ms(torch, lambda: cm.cim_mac_torch(x, w),
-                                        2, flush),
-                       bytes=moved, ops=ops, **bound(moved, ops, "int8"))
+            moved, ops = code_bytes_ops(m, k, n, cw)
+            old_moved, old_ops = cim_bytes_ops(5, 5, m, k, n)
+            product = torch.empty((m, n), dtype=torch.int32, device=dev)
+            rec = dict(
+                kernel="cim_mac", weight=name, m=m, k=k, n=n,
+                per_forward=per_forward, route="codes",
+                max_abs_err=(got - want).abs().max().item(),
+                ok=bool(torch.equal(got, want) and planes_ok),
+                listed_columns=int(cw.groups.entries.shape[0]),
+                ms=time_ms(torch, run, 10, flush),
+                product_ms=time_ms(torch, lambda: tm.launch_int32(
+                    xc, cw.data, "base3", product), 10, flush),
+                planes_entry_ms=time_ms(torch, lambda: cm.cim_mac(x, w), 5,
+                                        flush),
+                plain_ms=time_ms(torch, lambda: cm.cim_mac_codes_torch(
+                    xc, cw), 2, flush),
+                library_ms=None, bytes=moved, ops=ops,
+                **bound(moved, ops, "int8"), old_bytes=old_moved,
+                old_ops=old_ops,
+                old_bound_ms=bound(old_moved, old_ops, "int8")["bound_ms"])
+            if m > 16:
+                # the product term alone (no clip): a yardstick only
+                rec["int_mm_product_ms"] = time_ms(
+                    torch, lambda: torch._int_mm(xc, w_codes), 10, flush)
+            else:
+                # the groups route (b = 4), timed beside the code route
+                rec["groups_b4_ms"] = time_ms(
+                    torch, lambda: cm.cim_mac(x, w, 4), 10, flush)
+            rec.update(rate(rec))
             cases.append(rec)
             print("[cim-kernel] " + json.dumps(rec))
             check(rec["ok"], f"cim_mac disagrees with its plain version: "
                              f"{rec}")
-            del x, got, want
-        del w
+            del x, xc, got, want, product
+        del w, cw, w_codes
     return cases
 
 
 def exact_split_ms(torch, cfg, params, cim_cases, flush):
-    """Device ms of one exact-mode decode step's parts: ternarizing every
-    float weight, encoding every dense() input, and the cim_mac kernel,
-    each part timed per weight shape and multiplied by its count."""
-    from repro_torch.core.ternary import encode_inputs, ternarize
+    """Device ms of one exact-mode decode step's parts, each timed per
+    weight shape and multiplied by its count: quantizing every dense()
+    input to codes, and cim_mac's code entry; beside it what the cuda
+    backend's weight cache pays once, at the first forward (ternarize,
+    base3 bytes and full-group lists of every weight)."""
+    from repro_torch.core.ternary import quantize_8b_truncate_5t
+    from repro_torch.kernels import backends
     blocks = params["blocks"]
     weights = {"wq,wo": blocks["wq"][0], "wk,wv": blocks["wk"][0],
                "w1,w3": blocks["w1"][0], "w2": blocks["w2"][0],
                "unembed": params["unembed"]}
     gen = torch.Generator(device="cuda").manual_seed(5)
-    split = dict(ternarize_ms=0.0, encode_ms=0.0, kernel_ms=0.0)
+    split = dict(encode_ms=0.0, kernel_ms=0.0, ternarize_fill_ms=0.0)
     for name, k, n, per_forward in layer_shapes(cfg):
         w = weights[name]
         x = torch.randn((BATCH, k), generator=gen, device="cuda",
                         dtype=cfg.dtype)
-        split["ternarize_ms"] += per_forward * time_ms(
-            torch, lambda: ternarize(w), 3, flush)
+        split["ternarize_fill_ms"] += per_forward * time_ms(
+            torch, lambda: backends.CodeWeightCache().get(w, 5), 2, flush)
         split["encode_ms"] += per_forward * time_ms(
-            torch, lambda: encode_inputs(x), 5, flush)
+            torch, lambda: quantize_8b_truncate_5t(x).values.to(torch.int8),
+            5, flush)
         split["kernel_ms"] += per_forward * next(
             c["ms"] for c in cim_cases if c["weight"] == name and c["m"] == 8)
     return split
@@ -1022,10 +1140,13 @@ def phase_exact(torch, np, cfg, model, params, cim_cases):
     """Macro-exact serving at full width, then cuda-vs-torch logits."""
     import dataclasses
     from repro_torch.core.cim_linear import CIMConfig
+    from repro_torch.kernels import backends
     from repro_torch.kernels import cim_mac as cm
     from repro_torch.kernels import ternary_matmul as tm
     from repro_torch.serve import Request, ServeEngine
     per_forward = sum(c[3] for c in layer_shapes(cfg))
+    cache = backends.CODE_WEIGHTS
+    cache.clear()
     rng = np.random.default_rng(13)
     prompts = [rng.integers(0, cfg.vocab_size, size=PROMPT)
                for _ in range(BATCH)]
@@ -1039,10 +1160,13 @@ def phase_exact(torch, np, cfg, model, params, cim_cases):
         torch.cuda.synchronize()
         cm.reset_launches()
         tm.reset_launches()
+        fills = cache.fills
         t0 = time.monotonic()
         done = eng.run()
         wall = time.monotonic() - t0
         launches = {**cm.LAUNCHES, **tm.LAUNCHES}
+        routes = dict(cm.ROUTES)
+        fills = cache.fills - fills
         tokens[mode] = {r.uid: [int(t) for t in r.out_tokens] for r in done}
         check(eng.host_transfers == 1,
               f"{mode}: {eng.host_transfers} host transfers for 1 bucket")
@@ -1061,6 +1185,14 @@ def phase_exact(torch, np, cfg, model, params, cim_cases):
             check(launches["cim_mac"] == per_forward * forwards,
                   f"cim_mac launched {launches['cim_mac']} times, expected "
                   f"{per_forward} x {forwards}")
+            check(routes["codes"] == per_forward * forwards
+                  and routes["groups"] == 0,
+                  f"cim_mac routes {routes}, expected {per_forward} x "
+                  f"{forwards} codes")
+            # every weight is a distinct tensor, ternarized once
+            check(fills == per_forward,
+                  f"{fills} weights ternarized in the exact run, expected "
+                  f"{per_forward}, one each")
             check(launches["ternary_matmul"] == 0
                   and launches["ternary_matmul_int8"] == 0,
                   f"a ternary kernel launched in exact mode: {launches}")
@@ -1068,7 +1200,8 @@ def phase_exact(torch, np, cfg, model, params, cim_cases):
                        generated_tokens=eng.generated_tokens,
                        steps=eng.steps_run,
                        host_transfers=eng.host_transfers,
-                       launches=launches, wall_s=wall,
+                       launches=launches, routes=routes,
+                       weights_ternarized=fills, wall_s=wall,
                        tok_per_s=eng.generated_tokens / wall)
         else:
             rec["float_tok_per_s"] = eng.generated_tokens / wall
@@ -1080,14 +1213,19 @@ def phase_exact(torch, np, cfg, model, params, cim_cases):
 
     cim = CIMConfig(mode="exact", backend="cuda")
     batch = torch.as_tensor(np.stack(prompts), device="cuda")
-    torch.cuda.synchronize()
-    t = time.monotonic()
-    logits, state = model.prefill(params, batch, CAPACITY, cim=cim)
-    torch.cuda.synchronize()
-    rec["prefill_ms"] = (time.monotonic() - t) * 1e3
+    # the first forward fills the weight cache, a later one finds it
+    for key in ("prefill_first_ms", "prefill_ms"):
+        if key == "prefill_first_ms":
+            cache.clear()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        logits, state = model.prefill(params, batch, CAPACITY, cim=cim)
+        torch.cuda.synchronize()
+        rec[key] = (time.monotonic() - t) * 1e3
     check(bool(torch.isfinite(logits).all()), "non-finite exact logits")
     tok = logits[:, -1].argmax(-1, keepdim=True)
     steps = 4
+    fills = cache.fills
     torch.cuda.synchronize()
     t = time.monotonic()
     for _ in range(steps):
@@ -1095,10 +1233,18 @@ def phase_exact(torch, np, cfg, model, params, cim_cases):
         tok = logits[:, -1].argmax(-1, keepdim=True)
     torch.cuda.synchronize()
     rec["decode_step_ms"] = (time.monotonic() - t) * 1e3 / steps
+    check(cache.fills == fills,
+          f"{cache.fills - fills} weights ternarized in decode steps after "
+          f"the first forward")
+    busy, launched, _ = device_busy(torch, lambda: model.decode(
+        params, tok, state, cim=cim))
+    rec.update(decode_device_busy_ms=busy, decode_kernels=launched,
+               decode_idle_share=1 - busy / rec["decode_step_ms"])
     del state
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    rec["decode_step_device_ms"] = exact_split_ms(torch, cfg, params,
-                                                  cim_cases, flush)
+    split = exact_split_ms(torch, cfg, params, cim_cases, flush)
+    split["ternarize_ms"] = 0.0     # no weight made in the steps (above)
+    rec["decode_step_device_ms"] = split
     del flush
 
     # cuda backend vs the plain torch backend: bitwise logits
@@ -1131,7 +1277,9 @@ def phase_exact(torch, np, cfg, model, params, cim_cases):
 
 def kernel_summary_cim(cases, exact, cfg):
     """cim_mac over one exact-mode decode step (M = 8, every weight at its
-    multiplicity), with the launches of the exact serve run."""
+    multiplicity) and one prefill, with the launches of the exact serve
+    run, the bound of the code route beside the 25-pair bound of the
+    groups route, and the groups route at b = 4 for continuity."""
     step = [c for c in cases if c["m"] == 8]
     prefill = [c for c in cases if c["m"] > 8 or c["weight"] == "unembed"]
 
@@ -1139,22 +1287,40 @@ def kernel_summary_cim(cases, exact, cfg):
         return sum(c[key] * c["per_forward"] for c in recs)
     return dict(
         name="cim_mac", route="cuda", source="src/repro_torch/csrc/cim_mac.cu",
+        sources=["src/repro_torch/csrc/cim_mac.cu",
+                 "src/repro_torch/csrc/ternary_matmul.cu"],
         replaces="src/repro/kernels/cim_mac.py:29",
-        launches=exact["launches"]["cim_mac"],
+        launches=exact["launches"]["cim_mac"], routes=exact["routes"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=total(step, "ms"), plain_ms=total(step, "plain_ms"),
         **bound(total(step, "bytes"), total(step, "ops"), "int8"),
+        old_bound_ms=bound(total(step, "old_bytes"), total(step, "old_ops"),
+                           "int8")["bound_ms"],
+        product_ms=total(step, "product_ms"),
+        planes_entry_ms=total(step, "planes_entry_ms"),
+        groups_b4_ms=total(step, "groups_b4_ms"),
         library_ms=None,
         library_reason="no PyTorch call clips each 16-row group's MAC "
-                       "before the shift-and-add",
+                       "before the shift-and-add; prefill_int_mm_product_ms "
+                       "times torch._int_mm on the codes, the product term "
+                       "alone, as a yardstick",
         prefill_ms=total(prefill, "ms"),
+        prefill_product_ms=total(prefill, "product_ms"),
+        prefill_planes_entry_ms=total(prefill, "planes_entry_ms"),
         prefill_plain_ms=total(prefill, "plain_ms"),
         prefill_bound_ms=bound(total(prefill, "bytes"), total(prefill, "ops"),
                                "int8")["bound_ms"],
+        prefill_old_bound_ms=bound(total(prefill, "old_bytes"),
+                                   total(prefill, "old_ops"),
+                                   "int8")["bound_ms"],
+        prefill_int_mm_product_ms=sum(
+            c["int_mm_product_ms"] * c["per_forward"] for c in prefill
+            if "int_mm_product_ms" in c),
         launches_per_forward=sum(c["per_forward"] for c in step),
         workload=f"one exact-mode decode step of {cfg.name}: "
-                 f"{sum(c['per_forward'] for c in step)} MACs of 5 x 5 trit "
-                 f"planes at M=8; prefill_* at M={BATCH * PROMPT}")
+                 f"{sum(c['per_forward'] for c in step)} MACs of 5-trit codes "
+                 f"at M=8, 5-bit ADC; prefill_* at M={BATCH * PROMPT} (the "
+                 f"unembedding at M=8)")
 
 
 def main() -> int:

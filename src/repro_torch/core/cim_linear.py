@@ -8,7 +8,10 @@ Modes (``CIMConfig.mode``):
   'exact'   - the macro-exact model through the cim_mac kernel: inputs
               and weights as ``num_trits`` trit planes, 16-row groups,
               an ``adc_bits`` ADC per group, shift-and-add.  For accuracy
-              studies; a float weight is ternarized on every call.
+              studies.  The plain torch backend ternarizes a float weight
+              on every call, as the reference does; the cuda backend at
+              ``adc_bits >= 5`` ternarizes each weight once and keeps it
+              (``kernels/backends.py``, ``CODE_WEIGHTS``).
 The reference's restore-error injection (``restore_yield``) is not
 ported.
 """
@@ -60,9 +63,10 @@ class CIMConfig:
 def linear(x: torch.Tensor, w: Any, cfg: CIMConfig = CIMConfig()
            ) -> torch.Tensor:
     """Apply a linear layer under the configured mode.  A float weight
-    under a ternary config is packed, and under an exact config
-    ternarized, on every call, as the reference does; a packed weight
-    takes the ternary path whatever the mode."""
+    under a ternary config is packed on every call, as the reference
+    does, and under an exact config ternarized by the plan's backend
+    (once per weight on the card's code route); a packed weight takes
+    the ternary path whatever the mode."""
     from ..kernels import execute, ops, plan_matmul, platform_of, shape_of
     if cfg.mode == "ternary" or isinstance(w, ops.PackedTernary):
         pw = w if isinstance(w, ops.PackedTernary) else ops.pack_weights(

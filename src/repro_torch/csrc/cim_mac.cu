@@ -1,5 +1,5 @@
-// Macro-exact ternary CIM MAC for Hopper (sm_90a): trit planes in, the
-// TL-nvSRAM-CIM array's ADC-clipped shift-and-add out.
+// Macro-exact ternary CIM MAC for Hopper (sm_90a): the TL-nvSRAM-CIM
+// array's ADC-clipped shift-and-add.
 //
 // Replaces the Pallas kernel `_kernel` of src/repro/kernels/cim_mac.py
 // (`cim_mac`).  It computes the semantics of the macro model
@@ -12,26 +12,50 @@
 //   code       = clamp(r_g - mac_ij[g], 0, 2^b - 1)      (the b-bit ADC)
 //   out[m, n]  = sum_ij 3^(i+j) sum_g (r_g - code)        (int32)
 //
-// and r_g - clamp(r_g - mac, 0, C) = clamp(mac, r_g - C, r_g), which is
-// what the loop evaluates.  At b = 5 this equals the Pallas kernel, which
-// clips every group, partial or not, to [16 - 31, 16]; for b <= 4 and K
-// not a multiple of 16 the Pallas kernel clips a partial group to the
-// wrong window and its zero-padded groups add (16 - C) 3^(i+j) each,
-// while this kernel follows the oracle.
+// and r_g - clamp(r_g - mac, 0, C) = clamp(mac, r_g - C, r_g), since
+// mac <= r_g.  At b = 5 this equals the Pallas kernel, which clips every
+// group, partial or not, to [16 - 31, 16]; for b <= 4 and K not a
+// multiple of 16 the Pallas kernel clips a partial group to the wrong
+// window and its zero-padded groups add (16 - C) 3^(i+j) each, while this
+// source follows the oracle.
 //
-// Layout: x and w row-major and contiguous; out (M, N) int32.  M, N and K
-// are bounds-checked in the kernel: rows past M, columns past N and rows
-// past K load as 0, groups past K are skipped, and nothing is padded in
-// device memory.
+// Two routes (kernels/cim_mac.py, route()):
 //
-// Design.  A block of 256 threads owns a BM x BN output tile and walks its
-// share of K two groups (32 rows) at a time.  Per step it stages the x
-// planes as (qi, 2, BM) and the w planes as (qw, 2, BN) 16-byte vectors
+// codes (b >= 5).  With C = 2^b - 1, clamp(mac, r_g - C, r_g) =
+// mac + relu(r_g - C - mac), and summed with the powers of 3 the mac
+// part is one product of the 5-trit codes, X = sum_i 3^i x_i and
+// W = sum_j 3^j w_j in [-121, 121]:
+//   out = X . W + sum_ij 3^(i+j) sum_g relu(r_g - C - mac_ij[g]).
+// W + 121 is the base3 byte, so X . W is the int8 route of
+// ternary_matmul_int8 with an int32 epilogue (csrc/ternary_matmul.cu:
+// tensor cores, 1 byte per weight), exact in int32 (121^2 K < 2^31).
+// The correction is 0 unless C < 2 r_g: never for b >= 6; at b = 5 only
+// in a full group with mac = -16, i.e. x_i's 16 digits all non-zero and
+// w_j's exactly their negation, which adds 3^(i+j).  cim_correct_kernel
+// adds those terms: one thread per (row m, full group g) whose group has
+// a weight column with a full plane derives the 16 codes' digits (a
+// shared table) and, for each plane i whose 16 digits are all non-zero,
+// its sign pattern; the warp then walks the weight's list of (column,
+// planes full, sign patterns) for group g, lanes across columns, and adds
+// 3^(i+j) for each plane j whose pattern is the opposite with an integer
+// atomicAdd (exact in any order).  Its cost follows the flagged groups:
+// with quantized Gaussian data about 0.1-0.2% of (plane, group) slices
+// are full on either side; if every group saturates it is right but
+// slow (an atomic per row, group and column).
+//
+// groups (b <= 4, where the clip bites almost everywhere): the dense
+// per-group kernel, cim_mac_kernel, on the trit planes.  Layout: x and w
+// row-major and contiguous; out (M, N) int32.  M, N and K are
+// bounds-checked in the kernel: rows past M, columns past N and rows past
+// K load as 0, groups past K are skipped, and nothing is padded in device
+// memory.  A block of 256 threads owns a BM x BN output tile and walks
+// its share of K two groups (32 rows) at a time.  Per step it stages the
+// x planes as (qi, 2, BM) and the w planes as (qw, 2, BN) 16-byte vectors
 // in shared memory, each vector one row's or one column's 16 trits of a
-// group: w is transposed on the way in (a thread loads a 4 x 4 byte block,
-// four rows of four columns, and turns it with __byte_perm).  Each thread
-// then computes TM x TN outputs: per plane pair and group, four __dp4a
-// give one group MAC, a min and a max clip it, and one multiply-add
+// group: w is transposed on the way in (a thread loads a 4 x 4 byte
+// block, four rows of four columns, and turns it with __byte_perm).  Each
+// thread then computes TM x TN outputs: per plane pair and group, four
+// __dp4a give one group MAC, a min and a max clip it, and one multiply-add
 // accumulates it with its power of 3, in int32.  Two tiles:
 //   M <= 8 (decode): BM = 8, BN = 256, each thread one column and all
 //     eight rows, so the block streams each weight-plane byte once;
@@ -41,17 +65,17 @@
 // into the zeroed output with atomicAdd: integer addition is exact in any
 // order, so the result is deterministic.
 //
-// Bound.  The least time the card could take: at decode (M = 8) the 5
-// plane bytes per weight at 3.35 TB/s; at prefill the 25 plane-pair MACs
-// on the int8 tensor cores (1979 TOP/s).  This kernel runs the MACs on the
-// CUDA cores instead, as dp4a plus the clip, about 7 int32 instructions
-// per 16 products, and that instruction rate is what holds it back at both
-// shapes.  `mma.sync.m16n8k16.s8` yields one group MAC per output element
-// (K = 16 is one group) and is the next step; decoding base3 weights in
-// the kernel would cut the decode bytes from 5 to 1 per weight.
+// Bound.  The least time the card could take.  codes: the one int8
+// product, at decode (M = 8) its 1 byte per weight at 3.35 TB/s, at
+// prefill its multiply-adds on the int8 tensor cores (1979 TOP/s).
+// groups: the 5 plane bytes per weight at decode and the 25 plane-pair
+// MACs at prefill; cim_mac_kernel runs them on the CUDA cores as dp4a
+// plus the clip, about 7 int32 instructions per 16 products, and that
+// instruction rate holds it back at both shapes.
 //
-// C interface (loaded with ctypes): cim_mac_launch(...) returns
-// cudaGetLastError() after the launch, 0 on success.
+// C interface (loaded with ctypes): cim_mac_launch(...) and
+// cim_correct_launch(...) return cudaGetLastError() after the launch, 0
+// on success.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -211,6 +235,117 @@ cudaError_t launch(const void* x, const void* w, void* out, int qi, int qw,
   return cudaGetLastError();
 }
 
+// ------------------------------------------ codes route: the correction
+
+constexpr int kCorrThreads = 256;
+constexpr int kTritRange = 121;    // 5-trit codes lie in [-121, 121]
+
+// The 5 balanced-ternary digits of v, two bits per plane i: bit 2i the
+// digit is non-zero, bit 2i + 1 it is negative.
+__device__ unsigned digit_bits(int v) {
+  unsigned bits = 0;
+  for (int i = 0; i < kMaxPlanes; ++i) {
+    int d = v % 3;                   // -2 .. 2, with v's sign
+    if (d > 1) d -= 3;
+    if (d < -1) d += 3;
+    bits |= (d != 0 ? 1u : 0u) << (2 * i);
+    bits |= (d < 0 ? 1u : 0u) << (2 * i + 1);
+    v = (v - d) / 3;                 // exact
+  }
+  return bits;
+}
+
+// out[m, n] += sum over full groups g, planes i of x and j of w where
+// x_i's 16 digits are all non-zero and w_j's are their negation, of
+// 3^(i+j).  offsets (groups + 1) and entries (E, 4) list, per full group
+// g, the columns n with a full weight plane: entry (n, pat0 | pat1 << 16,
+// pat2 | pat3 << 16, pat4 | planes << 16), pat_j the 16-bit negative mask
+// of w_j's rows when bit j of `planes` says w_j is all non-zero there.
+__global__ void __launch_bounds__(kCorrThreads)
+cim_correct_kernel(const int8_t* __restrict__ x,
+                   const int* __restrict__ offsets,
+                   const int4* __restrict__ entries, int* __restrict__ out,
+                   int M, int K, int N, int xvec) {
+  // the digits of every int8 code (clipped into the 5-trit range, as the
+  // balanced-ternary planes are), by its byte
+  __shared__ unsigned short digits[256];
+  for (int t = threadIdx.x; t < 256; t += kCorrThreads)
+    digits[t] = static_cast<unsigned short>(digit_bits(
+        max(-kTritRange, min(kTritRange, static_cast<int>(
+            static_cast<int8_t>(t))))));
+  __syncthreads();
+
+  const int groups = K / kRows;                  // full groups only
+  const long long item =
+      static_cast<long long>(blockIdx.x) * kCorrThreads + threadIdx.x;
+  int m = 0, g = 0;
+  unsigned full = 0, pat[kMaxPlanes] = {0, 0, 0, 0, 0};
+  if (item < static_cast<long long>(M) * groups) {
+    m = static_cast<int>(item / groups);
+    g = static_cast<int>(item % groups);
+    if (__ldg(offsets + g + 1) > __ldg(offsets + g)) {
+      const int8_t* p = x + static_cast<size_t>(m) * K + g * kRows;
+      unsigned word[4];                          // the group's 16 codes
+      if (xvec) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(p));
+        word[0] = v.x; word[1] = v.y; word[2] = v.z; word[3] = v.w;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          word[q] = load_word(p + 4 * q, 4, false);
+      }
+      unsigned nz[kMaxPlanes] = {0, 0, 0, 0, 0};
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const unsigned b = digits[(word[r / 4] >> (8 * (r % 4))) & 0xffu];
+#pragma unroll
+        for (int i = 0; i < kMaxPlanes; ++i) {
+          nz[i] |= ((b >> (2 * i)) & 1u) << r;
+          pat[i] |= ((b >> (2 * i + 1)) & 1u) << r;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kMaxPlanes; ++i)
+        if (nz[i] == 0xffffu) full |= 1u << i;
+    }
+  }
+
+  // The warp takes its flagged (m, g) one by one, its lanes across the
+  // group's list.
+  const int lane = threadIdx.x % 32;
+  unsigned live = __ballot_sync(0xffffffffu, full != 0);
+  while (live) {
+    const int src = __ffs(live) - 1;
+    live &= live - 1;
+    const int sm = __shfl_sync(0xffffffffu, m, src);
+    const int sg = __shfl_sync(0xffffffffu, g, src);
+    const unsigned sfull = __shfl_sync(0xffffffffu, full, src);
+    unsigned want[kMaxPlanes];                   // w_j's pattern to match
+#pragma unroll
+    for (int i = 0; i < kMaxPlanes; ++i)
+      want[i] = ~__shfl_sync(0xffffffffu, pat[i], src) & 0xffffu;
+    const int e1 = __ldg(offsets + sg + 1);
+    for (int e = __ldg(offsets + sg) + lane; e < e1; e += 32) {
+      const int4 en = __ldg(entries + e);
+      const unsigned wfull = static_cast<unsigned>(en.w) >> 16;
+      const unsigned wp[kMaxPlanes] = {
+          static_cast<unsigned>(en.y) & 0xffffu,
+          static_cast<unsigned>(en.y) >> 16,
+          static_cast<unsigned>(en.z) & 0xffffu,
+          static_cast<unsigned>(en.z) >> 16,
+          static_cast<unsigned>(en.w) & 0xffffu};
+      int add = 0;
+#pragma unroll
+      for (int i = 0; i < kMaxPlanes; ++i)
+#pragma unroll
+        for (int j = 0; j < kMaxPlanes; ++j)
+          if ((sfull >> i & 1u) && (wfull >> j & 1u) && wp[j] == want[i])
+            add += kPow3[i + j];
+      if (add) atomicAdd(out + static_cast<size_t>(sm) * N + en.x, add);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -229,6 +364,27 @@ int cim_mac_launch(const void* x, const void* w, void* out, int qi, int qw,
                                 groups_per_split, xvec, wvec, st);
   return launch<64, 64, 4, 4>(x, w, out, qi, qw, M, K, N, cmax, splits,
                               groups_per_split, xvec, wvec, st);
+}
+
+// The codes route's correction at adc_bits = 5, added into out (M, N)
+// int32, which already holds the product X . W.  x: (M, K) int8 codes in
+// [-121, 121]; offsets: (K / 16 + 1,) int32 and entries: (E, 4) int32,
+// 16-byte aligned, the weight's full-group lists (kernels/cim_mac.py,
+// full_groups); xvec: every x row starts 16-byte aligned.
+int cim_correct_launch(const void* x, const void* offsets,
+                       const void* entries, void* out, int M, int K, int N,
+                       int xvec, void* stream) {
+  if (M < 0 || K < 0 || N < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long items = static_cast<long long>(M) * (K / kRows);
+  if (items == 0) return 0;
+  const unsigned blocks =
+      static_cast<unsigned>((items + kCorrThreads - 1) / kCorrThreads);
+  cim_correct_kernel<<<blocks, kCorrThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(x), static_cast<const int*>(offsets),
+      static_cast<const int4*>(entries), static_cast<int*>(out), M, K, N,
+      xvec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

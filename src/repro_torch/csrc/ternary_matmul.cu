@@ -9,6 +9,9 @@
 //          x f32 or bf16, f32 accumulation, scale applied once after K.
 //   int8:  y[m,n] = ((float)(sum_k x[m,k] * decode(w)[k,n]) * xs[m]) * scale[n]
 //          exact int32 accumulation, epilogue with __fmul_rn in that order.
+//   int32: acc[m,n] = sum_k x[m,k] * decode(w)[k,n], int8 x, the int8
+//          routes' exact sums written as they are (no scales): the
+//          product term of cim_mac's code route (csrc/cim_mac.cu).
 //
 // decode: base3 stores one weight per byte as v + 121 (v in [-121, 121]);
 // trit2 stores four trits per byte as 2-bit codes, little-endian along K
@@ -374,19 +377,21 @@ __device__ __forceinline__ float finish(int acc, const float* xscale, int m,
 }
 
 // Four outputs of row gm, columns gn .. gn + 3 (those below N), from a
-// shared patch: raw sums to the split's partial rows, or finished.
+// shared patch: finished (plane < 0), or the raw sums into row gm of
+// plane `plane` of an (planes, M, N) array of Acc (a split's partial
+// rows, or plane 0: the int32 output of cim_mac's code route).
 template <typename Acc>
 __device__ __forceinline__ void put_outputs(const Acc* patch,
                                             const float* xscale,
                                             const float* scale, void* out,
                                             int M, int N, int gm, int gn,
-                                            int partial, bool vec4) {
+                                            int plane, bool vec4) {
   const bool whole = vec4 && gn + 3 < N;
   alignas(16) Acc v[4];
   *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(patch);
-  if (partial) {
+  if (plane >= 0) {
     Acc* o = static_cast<Acc*>(out)
-             + (static_cast<size_t>(blockIdx.z) * M + gm) * N + gn;
+             + (static_cast<size_t>(plane) * M + gm) * N + gn;
     if (whole) {
       *reinterpret_cast<uint4*>(o) = *reinterpret_cast<const uint4*>(v);
     } else {
@@ -672,7 +677,7 @@ tm_mma_kernel(const T* __restrict__ x, const float* __restrict__ xscale,
       const int gm = m0 + wm0 + mi * 16 + r, gn = n0 + wn0 + c;
       if (gm < M && gn < N)
         put_outputs(patch + r * kPatchRow + c, xscale, scale, out, M, N, gm,
-                    gn, partial, vec4);
+                    gn, partial ? static_cast<int>(blockIdx.z) : -1, vec4);
     }
     __syncwarp();
   }
@@ -1014,15 +1019,16 @@ __device__ __forceinline__ void add4(Acc (&v)[4], const Acc* p) {
 
 // grid (ceil(N / BN), 1, splits), launched as clusters of (1, 1, splits):
 // block z sums K rows [z * k_per_split, (z + 1) * k_per_split) of
-// columns [x * BN, (x + 1) * BN) for all M <= 8 rows.
+// columns [x * BN, (x + 1) * BN) for all M <= 8 rows.  raw (int8 x only):
+// out is (M, N) int32 and takes the exact sums, with no scales.
 template <int MODE, typename T, int BN>
 __global__ void __launch_bounds__(kGvThreads)
 tm_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
                const __grid_constant__ CUtensorMap xmap,
                const T* __restrict__ x, const float* __restrict__ xscale,
                const uint8_t* __restrict__ w, const float* __restrict__ scale,
-               float* __restrict__ out, int M, int K, int N, int k_per_split,
-               int vec) {
+               void* __restrict__ out, int M, int K, int N, int k_per_split,
+               int vec, int raw) {
   using S = GemvShape<MODE, T, BN>;
   using Acc = typename AccOf<T>::type;
   extern __shared__ __align__(16) uint8_t dyn[];
@@ -1123,7 +1129,8 @@ tm_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
 #pragma unroll
     for (int kw = 1; kw < S::kKW; ++kw) add4(v, p + kw * kBM * S::kPartRow);
     if (splits == 1) {
-      put_outputs(v, xscale, scale, out, M, N, r, n0 + c, 0, vec4);
+      put_outputs(v, xscale, scale, out, M, N, r, n0 + c, raw ? 0 : -1,
+                  vec4);
       continue;
     }
     Acc* dst = cluster.map_shared_rank(inbox, r % splits)
@@ -1141,7 +1148,7 @@ tm_gemv_kernel(const __grid_constant__ CUtensorMap wmap,
     alignas(16) Acc v[4];
     *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(p);
     for (int z = 1; z < splits; ++z) add4(v, p + z * owned * S::kPartRow);
-    put_outputs(v, xscale, scale, out, M, N, r, n0 + c, 0, vec4);
+    put_outputs(v, xscale, scale, out, M, N, r, n0 + c, raw ? 0 : -1, vec4);
   }
 }
 
@@ -1171,6 +1178,17 @@ __global__ void tm_int8_reduce(const int* __restrict__ partial,
   for (int z = 1; z < splits; ++z) s += partial[z * total + i];
   out[i] = __fmul_rn(__fmul_rn(__int2float_rn(s), xscale[i / N]),
                      scale[i % N]);
+}
+
+__global__ void tm_int32_reduce(const int* __restrict__ partial,
+                                int* __restrict__ out, int M, int N,
+                                int splits) {
+  const size_t total = static_cast<size_t>(M) * N;
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  int s = partial[i];
+  for (int z = 1; z < splits; ++z) s += partial[z * total + i];
+  out[i] = s;
 }
 
 template <int MODE>
@@ -1286,8 +1304,8 @@ cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type,
 
 template <int MODE, typename T, int BN>
 cudaError_t launch_gemv(const T* x, const float* xs, const uint8_t* w,
-                        const float* scale, float* out, int M, int K, int N,
-                        int cluster, int k_per_split, int vec,
+                        const float* scale, void* out, int M, int K, int N,
+                        int cluster, int k_per_split, int vec, int raw,
                         cudaStream_t st) {
   using S = GemvShape<MODE, T, BN>;
   // the raw tile in 64 x BN boxes, swizzled by BN bytes; x in 8 x kKS
@@ -1321,18 +1339,19 @@ cudaError_t launch_gemv(const T* x, const float* xs, const uint8_t* w,
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, tm_gemv_kernel<MODE, T, BN>, wmap, xmap, x, xs, w, scale, out, M,
-      K, N, k_per_split, vec);
+      K, N, k_per_split, vec, raw);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_gemv_any(const T* x, const float* xs, const uint8_t* w,
-                            const float* scale, float* out, int M, int K,
+                            const float* scale, void* out, int M, int K,
                             int N, int mode, int block_n, int cluster,
-                            int k_per_split, int vec, cudaStream_t st) {
+                            int k_per_split, int vec, int raw,
+                            cudaStream_t st) {
   using Launch = cudaError_t (*)(const T*, const float*, const uint8_t*,
-                                 const float*, float*, int, int, int, int,
-                                 int, int, cudaStream_t);
+                                 const float*, void*, int, int, int, int,
+                                 int, int, int, cudaStream_t);
   const Launch table[2][3] = {
       {launch_gemv<0, T, 32>, launch_gemv<0, T, 64>, launch_gemv<0, T, 128>},
       {launch_gemv<1, T, 32>, launch_gemv<1, T, 64>, launch_gemv<1, T, 128>}};
@@ -1340,7 +1359,18 @@ cudaError_t launch_gemv_any(const T* x, const float* xs, const uint8_t* w,
                                                                        : -1;
   if (b < 0 || (mode != 0 && mode != 1)) return cudaErrorInvalidValue;
   return table[mode][b](x, xs, w, scale, out, M, K, N, cluster, k_per_split,
-                        vec, st);
+                        vec, raw, st);
+}
+
+// What tm_gemv_kernel takes: 1-8 rows, a cluster of 1, 2, 4 or 8 blocks
+// whose splits are whole stages and cover K.
+bool gemv_plan_ok(int M, int K, int N, int mode, int cluster,
+                  int k_per_split) {
+  const int stage = mode == kBase3 ? kGvRows : 4 * kGvRows;
+  return M >= 1 && M <= kBM && K >= 1 && N >= 1 && (mode == 0 || mode == 1)
+      && (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8)
+      && k_per_split > 0 && k_per_split % stage == 0
+      && static_cast<long long>(cluster) * k_per_split >= K;
 }
 
 unsigned reduce_blocks(int M, int N) {
@@ -1393,25 +1423,21 @@ extern "C" int tm_gemv_launch(const void* x, int x_type, const void* xscale,
                               int M, int K, int N, int mode, int block_n,
                               int cluster, int k_per_split, int vec,
                               void* stream) {
-  const int stage = mode == kBase3 ? kGvRows : 4 * kGvRows;
-  const bool ok = (x_type == 1 || x_type == 2) && M >= 1 && M <= kBM
-      && K >= 1 && N >= 1 && (mode == 0 || mode == 1)
-      && (cluster == 1 || cluster == 2 || cluster == 4 || cluster == 8)
-      && k_per_split > 0 && k_per_split % stage == 0
-      && static_cast<long long>(cluster) * k_per_split >= K;
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (!(x_type == 1 || x_type == 2)
+      || !gemv_plan_ok(M, K, N, mode, cluster, k_per_split))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* xsp = static_cast<const float*>(xscale);
   const auto* wp = static_cast<const uint8_t*>(w);
   const auto* sp = static_cast<const float*>(scale);
-  auto* op = static_cast<float*>(out);
   const cudaError_t err =
       x_type == 2
-          ? launch_gemv_any(static_cast<const int8_t*>(x), xsp, wp, sp, op, M,
-                            K, N, mode, block_n, cluster, k_per_split, vec, st)
+          ? launch_gemv_any(static_cast<const int8_t*>(x), xsp, wp, sp, out,
+                            M, K, N, mode, block_n, cluster, k_per_split, vec,
+                            0, st)
           : launch_gemv_any(static_cast<const __nv_bfloat16*>(x), xsp, wp, sp,
-                            op, M, K, N, mode, block_n, cluster, k_per_split,
-                            vec, st);
+                            out, M, K, N, mode, block_n, cluster, k_per_split,
+                            vec, 0, st);
   return static_cast<int>(err);
 }
 
@@ -1448,5 +1474,39 @@ extern "C" int tm_mma_launch(const void* x, int x_int8, const void* xscale,
     tm_float_reduce<<<reduce_blocks(M, N), 256, 0, st>>>(
         static_cast<const float*>(partial), sp, static_cast<float*>(out), M,
         N, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The int32 epilogue of both int8 routes, for cim_mac's code route
+// (kernels/cim_mac.py): x (M, K) int8 times the packed w, the exact int32
+// sums written to out (M, N) int32 as they are, with no scales.  Plans,
+// operands and errors as tm_gemv_launch (M <= 8) and tm_mma_launch
+// (partial: (splits, M, N) int32 when splits > 1, added in split order).
+extern "C" int tm_gemv_int32_launch(const void* x, const void* w, void* out,
+                                    int M, int K, int N, int mode,
+                                    int block_n, int cluster,
+                                    int k_per_split, int vec, void* stream) {
+  if (!gemv_plan_ok(M, K, N, mode, cluster, k_per_split))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_gemv_any(
+      static_cast<const int8_t*>(x), nullptr,
+      static_cast<const uint8_t*>(w), nullptr, out, M, K, N, mode, block_n,
+      cluster, k_per_split, vec, 1, static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int tm_mma_int32_launch(const void* x, const void* w, void* out,
+                                   void* partial, int M, int K, int N,
+                                   int mode, int bm, int splits,
+                                   int k_per_split, int vec, void* stream) {
+  if (M < 1 || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // one split writes its raw sums straight into out (plane 0)
+  const cudaError_t err = launch_mma_any(
+      static_cast<const int8_t*>(x), nullptr, static_cast<const uint8_t*>(w),
+      nullptr, splits > 1 ? partial : out, M, K, N, mode, bm, splits,
+      k_per_split, vec, 1, st);
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  tm_int32_reduce<<<reduce_blocks(M, N), 256, 0, st>>>(
+      static_cast<const int*>(partial), static_cast<int*>(out), M, N, splits);
   return static_cast<int>(cudaGetLastError());
 }

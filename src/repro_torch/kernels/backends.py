@@ -9,10 +9,15 @@
           runs only when named.
   ref   - the oracles (kernels/ref.py), priority 10; ternary op only.
 
-A cim plan (the macro-exact mode) encodes the activations into trit
-planes per call, ternarizes a float weight per call with one per-tensor
-scale (or unpacks a base3 ``PackedTernary`` into its planes), runs the
-CIM MAC and rescales, as the reference's pallas runner does.
+A cim plan (the macro-exact mode) quantizes the activations per call,
+ternarizes a float weight with one per-tensor scale (or unpacks a base3
+``PackedTernary`` into its planes), runs the CIM MAC and rescales, as the
+reference's pallas runner does.  The torch backend does all of it on
+every call.  The cuda backend at the code route (``adc_bits >= 5``)
+quantizes x to 5-trit codes only (no planes) and takes the weight's
+:class:`~.cim_mac.CodeWeight` and scale from :data:`CODE_WEIGHTS`, which
+makes them once per weight, bitwise as ``ternarize`` would on each call;
+at b <= 4 (the groups route) it ternarizes per call as the torch backend.
 
 The matmul backends are layout-agnostic (the paged pool's gather and
 scatter wrap around the matmuls), so they declare both KV layouts.  The
@@ -29,10 +34,12 @@ raises.
 """
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from ..core.packing import unpack_base3_to_planes
-from ..core.ternary import encode_inputs, ternarize
+from ..core.ternary import encode_inputs, quantize_8b_truncate_5t, ternarize
 from . import cim_mac as cm
 from . import ops, ref
 from . import paged_attention as pa
@@ -48,27 +55,90 @@ def _pad_k(x2: torch.Tensor, w: ops.PackedTernary) -> torch.Tensor:
     return x2
 
 
+def _weight_trits(w, num_trits: int):
+    """(trit planes, scale) of a cim plan's weight: a float (K, N) weight
+    ternarized with one per-tensor scale, or a base3 PackedTernary."""
+    if isinstance(w, ops.PackedTernary):
+        if w.mode != "base3":
+            raise ValueError("cim plans need base3 (multi-trit) weights; "
+                             f"got packing {w.mode!r}")
+        return unpack_base3_to_planes(w.data, num_trits), w.scale
+    tt = ternarize(w, num_trits)
+    return tt.trits, tt.scale
+
+
 def _run_cim(plan, x, w, mac):
     """x (..., K) float against a float (K, N) weight or a base3
     PackedTernary through the CIM MAC ``mac(x_trits, w_trits, adc_bits)``
     -> (..., N) f32."""
     lead = x.shape[:-1]
     xt = encode_inputs(x.reshape(-1, x.shape[-1]), plan.num_trits)
-    if isinstance(w, ops.PackedTernary):
-        if w.mode != "base3":
-            raise ValueError("cim plans need base3 (multi-trit) weights; "
-                             f"got packing {w.mode!r}")
-        w_trits = unpack_base3_to_planes(w.data, plan.num_trits)
-        w_scale = w.scale
-    else:
-        tt = ternarize(w, plan.num_trits)      # one per-tensor scale
-        w_trits, w_scale = tt.trits, tt.scale
+    w_trits, w_scale = _weight_trits(w, plan.num_trits)
     y = mac(xt.trits, w_trits, plan.adc_bits).to(torch.float32)
     return (y * xt.scale * w_scale).reshape(*lead, w_trits.shape[-1])
 
 
+class CodeWeightCache:
+    """The cuda backend's code-route weights: per weight and trit count,
+    its :class:`~.cim_mac.CodeWeight` and scale, made once.
+
+    The model slices its layer stack on every call, so an entry is keyed
+    by what identifies the data (the root tensor's identity, the view's
+    offset, shape, strides and dtype), not by the Python object.  An
+    entry holds a weak reference to the root tensor and the data's
+    version counter: a weight changed in place (a new ``_version``) is
+    made again, and an entry dies with its root tensor, so a tensor later
+    allocated at the same address cannot find it.  ``fills`` counts the
+    entries made."""
+
+    def __init__(self) -> None:
+        self._entries: dict = {}
+        self.fills = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+    def get(self, w, num_trits: int) -> tuple:
+        """(CodeWeight, scale) of a float weight or base3 PackedTernary."""
+        src = w.data if isinstance(w, ops.PackedTernary) else w
+        root = src if src._base is None else src._base
+        key = (id(root), src.storage_offset(), tuple(src.shape),
+               src.stride(), src.dtype, isinstance(w, ops.PackedTernary),
+               num_trits)
+        hit = self._entries.get(key)
+        if hit is not None and hit[0]() is root and hit[1] == src._version:
+            return hit[2]
+        w_trits, scale = _weight_trits(w, num_trits)
+        value = (cm.code_weight(w_trits), scale)
+        entries = self._entries
+        self._entries[key] = (
+            weakref.ref(root, lambda _, key=key: entries.pop(key, None)),
+            src._version, value)
+        self.fills += 1
+        return value
+
+
+CODE_WEIGHTS = CodeWeightCache()
+
+
+def _run_cim_codes(plan, x, w):
+    """The cuda backend's cim plan at the code route: x quantized to
+    5-trit codes (the scale of ``encode_inputs``), the cached weight."""
+    lead = x.shape[:-1]
+    q = quantize_8b_truncate_5t(x.reshape(-1, x.shape[-1]), plan.num_trits)
+    cw, w_scale = CODE_WEIGHTS.get(w, plan.num_trits)
+    y = cm.cim_mac_codes(q.values.to(torch.int8), cw,
+                         plan.adc_bits).to(torch.float32)
+    return (y * q.scale * w_scale).reshape(*lead, cw.data.shape[-1])
+
+
 def _run_cuda(plan, x, w):
     if plan.op == "cim":
+        if cm.route(plan.adc_bits) == "codes":
+            return _run_cim_codes(plan, x, w)
         return _run_cim(plan, x, w, cm.cim_mac)
     if w.data.dim() != 2:
         raise ValueError(f"the cuda backend takes 2-D packed weights; got "

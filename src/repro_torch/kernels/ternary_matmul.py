@@ -6,7 +6,9 @@
 * :func:`matmul_int8` replaces ``_kernel_int8`` (``ternary_matmul_int8``):
   exact int32 accumulation of int8 activations, then
   ``acc * x_scale[m] * scale[n]`` in f32; bitwise equal to the plain
-  version.
+  version.  :func:`launch_int32` runs the same two routes with an int32
+  epilogue (the exact sums, no scales): the product term of the
+  macro-exact ``cim_mac``'s code route (``kernels/cim_mac.py``).
 
 Three routes, chosen by :func:`route` from M and the dtype of x:
 
@@ -224,6 +226,12 @@ def _lib():
         lib.tm_mma_launch.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i,
                                       i, i, i, p]
         lib.tm_mma_launch.restype = i
+        lib.tm_gemv_int32_launch.argtypes = [p, p, p, i, i, i, i, i, i, i,
+                                             i, p]
+        lib.tm_gemv_int32_launch.restype = i
+        lib.tm_mma_int32_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                            i, i, p]
+        lib.tm_mma_int32_launch.restype = i
         lib._typed = True
     return lib
 
@@ -275,6 +283,33 @@ def launch_gemv(x: torch.Tensor, x_scale, data: torch.Tensor,
         x_scale.data_ptr() if x_scale is not None else None,
         data.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k, n,
         MODE_CODE[mode], block_n, cluster, per, _mma_vec(x, data), stream)
+
+
+def launch_int32(x: torch.Tensor, data: torch.Tensor, mode: str,
+                 out: torch.Tensor) -> int:
+    """The int32 epilogue of the int8 routes, on checked CUDA operands:
+    (M, K) int8 x times the packed weight, the exact sums written into
+    ``out`` (M, N) int32 as they are, with no scales, through ``gemv``
+    (M <= 8) or ``mma`` and their plans.  Returns the C launcher's error
+    code.  Counts nothing: ``cim_mac``'s code route calls it and counts
+    its own launches."""
+    m, k = x.shape
+    n = data.shape[1]
+    sms = _sm_count(x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    vec = _mma_vec(x, data)
+    if route(m, x.dtype) == "gemv":
+        block_n, cluster, per = gemv_plan(m, k, n, mode, sms)
+        return _lib().tm_gemv_int32_launch(
+            x.data_ptr(), data.data_ptr(), out.data_ptr(), m, k, n,
+            MODE_CODE[mode], block_n, cluster, per, vec, stream)
+    bm, splits, per = mma_plan(m, k, n, sms)
+    partial = (torch.empty((splits, m, n), dtype=torch.int32,
+                           device=x.device) if splits > 1 else None)
+    return _lib().tm_mma_int32_launch(
+        x.data_ptr(), data.data_ptr(), out.data_ptr(),
+        partial.data_ptr() if partial is not None else None, m, k, n,
+        MODE_CODE[mode], bm, splits, per, vec, stream)
 
 
 def matmul_float(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,

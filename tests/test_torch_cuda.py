@@ -14,10 +14,13 @@ transfer per bucket.  The paged-attention kernel: ``m`` within
 maximum (the kernel sums page by page, the plain version in one pass),
 and the null page adds exactly nothing to a live slot.  The schedulers:
 the fused read gives the gather's tokens, one host transfer per chunk.
-The cim_mac kernel: bitwise equal to its plain version (the macro model)
-at ragged shapes, every ADC width and the all-saturating case, and the
-smoke model's exact-mode logits bitwise equal between the cuda and the
-plain torch backend.
+The cim_mac kernels: bitwise equal to their plain version (the macro
+model) at ragged shapes, every ADC width, planted saturating groups and
+the all-saturating case, through both routes (``codes`` at 5 bits and
+more, ``groups`` below) and both entries (trit planes and codes); the
+int32 epilogue of both int8 ternary routes bitwise equal to the integer
+product; and the smoke model's exact-mode logits bitwise equal between
+the cuda and the plain torch backend, with each weight ternarized once.
 """
 import dataclasses
 
@@ -27,6 +30,8 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core.cim_linear import CIMConfig, ternarize_params
+from repro_torch.core.ternary import from_balanced_ternary
+from repro_torch.kernels import backends
 from repro_torch.kernels import cim_mac as cm
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
@@ -538,3 +543,153 @@ def test_smoke_model_exact_mode_cuda_matches_plain_backend(dev):
     done = eng.run()
     assert eng.host_transfers == 1 and all(len(r.out_tokens) == 3
                                            for r in done)
+
+
+def _planted_planes(qi, qw, m, k, n, seed, plants):
+    """Seeded random trit planes with `plants` saturating (row, group,
+    plane i, plane j, column) spots: x_i's 16 trits of the group all
+    non-zero, w_j's of the column their negation (mac = -16)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-1, 2, size=(qi, m, k)).astype(np.int8)
+    w = rng.integers(-1, 2, size=(qw, k, n)).astype(np.int8)
+    for _ in range(plants if k >= 16 else 0):
+        mm, g = rng.integers(m), rng.integers(k // 16)
+        i, j, nn = rng.integers(qi), rng.integers(qw), rng.integers(n)
+        rows = slice(16 * g, 16 * g + 16)
+        x[i, mm, rows] = rng.choice([-1, 1], size=16)
+        w[j, rows, nn] = -x[i, mm, rows]
+    return x, w
+
+
+@pytest.mark.parametrize("m", [1, 9, 300, 1024])
+@pytest.mark.parametrize("k,n", [(2048, 1024), (520, 130), (200, 136),
+                                 (37, 5)])
+def test_int32_epilogue_of_the_int8_routes_is_the_integer_product(dev, m, k,
+                                                                  n):
+    """cim_mac's product term: int8 codes in [-121, 121] times base3
+    bytes through gemv (M <= 8) or mma, raw int32 sums, bitwise the
+    integer product (taken in f64, exact below 2^53)."""
+    gen = torch.Generator(device=dev).manual_seed(m + k + n)
+    x = torch.randint(-121, 122, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    data = torch.randint(0, 243, (k, n), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    out = torch.empty((m, n), dtype=torch.int32, device=dev)
+    before = dict(tm.LAUNCHES)
+    assert tm.launch_int32(x, data, "base3", out) == 0
+    want = (x.double() @ (data.double() - 121)).to(torch.int32)
+    assert torch.equal(out, want)
+    assert tm.LAUNCHES == before                  # counts nothing
+
+
+def test_int32_epilogue_at_the_full_width_prefill(dev):
+    """w2's K = 8192 at M = 1024 (a split-K plan, reduced in order) and
+    the extreme codes, whose sums reach 121^2 K."""
+    x = torch.full((1024, 8192), -121, dtype=torch.int8, device=dev)
+    data = torch.zeros((8192, 2048), dtype=torch.uint8, device=dev)
+    out = torch.empty((1024, 2048), dtype=torch.int32, device=dev)
+    assert tm.launch_int32(x, data, "base3", out) == 0
+    assert bool((out == 121 * 121 * 8192).all())
+    assert tm.launch_int32(x[:8].contiguous(), data, "base3", out[:8]) == 0
+    assert bool((out[:8] == 121 * 121 * 8192).all())
+
+
+@pytest.mark.parametrize("bits", [3, 4, 5, 6, 8])
+@pytest.mark.parametrize("qi,qw,m,k,n", [
+    (5, 5, 1, 2048, 1024), (5, 5, 8, 520, 130), (5, 5, 1024, 520, 136),
+    (3, 5, 8, 1000, 131), (5, 3, 13, 48, 259), (5, 5, 8, 37, 5)])
+def test_cim_mac_routes_match_plain_version_with_planted_saturation(
+        dev, qi, qw, m, k, n, bits):
+    x, w = _planted_planes(qi, qw, m, k, n, seed=m + k + bits, plants=64)
+    x, w = (torch.as_tensor(a, device=dev) for a in (x, w))
+    before = dict(cm.ROUTES)
+    got = cm.cim_mac(x, w, bits)
+    want = cm.cim_mac_torch(x, w, bits)
+    assert torch.equal(got, want)
+    path = cm.route(bits)
+    assert path == ("codes" if bits >= 5 else "groups")
+    assert cm.ROUTES[path] == before[path] + 1
+    if bits == 5 and k >= 16:                     # the planted spots fire
+        assert not torch.equal(got, cm.cim_mac_torch(x, w, 6))
+
+
+@pytest.mark.parametrize("bits", [5, 6, 8])
+@pytest.mark.parametrize("m,k,n", [(1, 2048, 2048), (8, 8192, 520),
+                                   (1024, 520, 136), (9, 37, 5)])
+def test_cim_mac_code_entry_matches_plain_version(dev, m, k, n, bits):
+    x, w = _planted_planes(5, 5, m, k, n, seed=3 * k + bits, plants=128)
+    x, w = (torch.as_tensor(a, device=dev) for a in (x, w))
+    xc = from_balanced_ternary(x).to(torch.int8)
+    cw = cm.code_weight(w)
+    before = dict(cm.ROUTES)
+    got = cm.cim_mac_codes(xc, cw, bits)
+    assert cm.ROUTES["codes"] == before["codes"] + 1
+    assert torch.equal(got, cm.cim_mac_codes_torch(xc, cw, bits))
+    assert torch.equal(got, cm.cim_mac_torch(x, w, bits))
+
+
+@pytest.mark.parametrize("bits", [4, 5, 6])
+@pytest.mark.parametrize("m,k,n", [(1, 40, 300), (8, 2040, 300),
+                                   (1024, 200, 130)])
+def test_cim_mac_all_saturating_through_both_entries(dev, m, k, n, bits):
+    """x = +1 against w = -1 on every row: every full group of every
+    plane pair saturates (at 5 bits the correction's worst case: every
+    (row, group) flagged, every column listed)."""
+    x = torch.ones((5, m, k), dtype=torch.int8, device=dev)
+    w = -torch.ones((5, k, n), dtype=torch.int8, device=dev)
+    want = cm.cim_mac_torch(x, w, bits)
+    assert torch.equal(cm.cim_mac(x, w, bits), want)
+    if bits >= 5:
+        xc = from_balanced_ternary(x).to(torch.int8)
+        assert torch.equal(cm.cim_mac_codes(xc, cm.code_weight(w), bits),
+                           want)
+    c, full, rest = 2**bits - 1, k // 16, k % 16
+    want00 = full * max(-16, 16 - c) + (max(-rest, rest - c) if rest else 0)
+    assert int(want[0, 0]) == want00 * 121 * 121
+
+
+def test_cim_mac_code_entry_refuses_what_it_does_not_take(dev):
+    xc = torch.zeros((4, 32), dtype=torch.int8, device=dev)
+    cw = cm.code_weight(torch.zeros((5, 32, 8), dtype=torch.int8,
+                                    device=dev))
+    with pytest.raises(ValueError, match="adc_bits"):
+        cm.cim_mac_codes(xc, cw, 4)
+    with pytest.raises(ValueError, match="operands on"):
+        cm.cim_mac_codes(xc, cm.CodeWeight(cw.data.cpu(), cw.groups), 5)
+    with pytest.raises(TypeError, match="int8"):
+        cm.cim_mac_codes(xc.int(), cw, 5)
+
+
+def test_exact_mode_ternarizes_each_weight_once_on_the_card(dev):
+    """The cuda backend's code route fills one cache entry per weight at
+    the first forward and none after; a weight changed in place is made
+    again; the logits stay bitwise those of the plain torch backend."""
+    cfg = dataclasses.replace(configs.smoke("internlm2-1.8b"),
+                              dtype=torch.float32)
+    model = registry.build(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+    prompt = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, size=(2, 8)), device=dev)
+    per_forward = 7 * cfg.num_layers + 1
+    backends.CODE_WEIGHTS.clear()
+    fills = backends.CODE_WEIGHTS.fills
+    cm.reset_launches()
+    cuda = CIMConfig(mode="exact", backend="cuda")
+    torch_cfg = CIMConfig(mode="exact", backend="torch")
+    lg, state = model.prefill(params, prompt, 16, cim=cuda)
+    assert backends.CODE_WEIGHTS.fills - fills == per_forward
+    tok = lg[:, -1].argmax(-1, keepdim=True)
+    lg2, _ = model.decode(params, tok, state, cim=cuda)
+    assert backends.CODE_WEIGHTS.fills - fills == per_forward
+    assert cm.ROUTES["codes"] == cm.LAUNCHES["cim_mac"] == 2 * per_forward
+    want, wstate = model.prefill(params, prompt, 16, cim=torch_cfg)
+    assert torch.equal(lg, want)
+    assert torch.equal(lg2, model.decode(params, tok, wstate,
+                                         cim=torch_cfg)[0])
+    params["unembed"].mul_(-1)                    # in place: made again
+    lg3, _ = model.prefill(params, prompt, 16, cim=cuda)
+    assert backends.CODE_WEIGHTS.fills - fills == per_forward + 1
+    assert torch.equal(lg3, model.prefill(params, prompt, 16,
+                                          cim=torch_cfg)[0])
+    backends.CODE_WEIGHTS.clear()
