@@ -30,7 +30,29 @@ Phases, each of which raises on failure:
               per packing and domain the sums over one decode step and
               one prefill, beside the harness's floor: the same timing of
               a one-element add, times the number of matmuls.
-3. serve    - the bucket ServeEngine at full width (bf16, seeded random
+3. paged-kernel - the paged_attention kernel against its plain version:
+              untimed ragged cases (positions on page edges and 0, slots
+              sharing a page, a null page full of garbage, hd 64 with 4
+              grouped queries, pages of 5 at hd 40, hd 20 whose rows of
+              40 bytes take the plain-loads route, glm4-9b's 2 KV x 16
+              grouping), each through its load route (``ROUTES``: tma or
+              loads), a second call bitwise equal to the first, and live
+              slots bitwise unchanged with the null page zeroed.  Then
+              three timed cases on realistic data: the serve shape (8
+              slots, 8 KV heads x 2 grouped queries, hd 128, pages of 16,
+              32 windows, bf16, a pool of 257 pages in random order),
+              capacity 2048 (128 windows, a pool of 1025 pages) and
+              glm4-9b's grouping (2 KV x 16).  m within
+              1e-5 * max(1, |m|), acc and l within 1e-4 of their per-row
+              maximum.  Per timed case: paged_plan's launch shape, the
+              load route, the time per call by CUDA events and the
+              profiled device time (median of 3 calls after an L2 flush,
+              each one kernel, paged_attention_kernel), beside the bound
+              (live context and full table) and the plain version's time.
+              ``--paged-only [--src DIR]`` builds and runs this phase
+              alone, with the repro_torch package under DIR (another
+              checkout's, to time its kernel on the same cases).
+4. serve    - the bucket ServeEngine at full width (bf16, seeded random
               weights packed by ternarize_params; 8 requests of 128
               prompt tokens, 32 new tokens each) in the float and int8
               domains on base3 weights and the int8 domain on trit2
@@ -42,20 +64,11 @@ Phases, each of which raises on failure:
               beside their kernels' summed device time, kernel count and
               the device's idle share (one prefill and one decode step
               under torch.profiler).
-4. parity   - one prefill and four decode steps of the same model with
+5. parity   - one prefill and four decode steps of the same model with
               the cuda backend and then the plain torch backend named
               explicitly: int8-domain logits bitwise equal, float-domain
               logits within 10% of the logit scale (24 bf16 layers carry
               the kernels' different summation order).
-5. paged-kernel - the paged_attention kernel against its plain version at
-              the serve shape (8 slots, 8 KV heads x 2 grouped queries,
-              hd 128, pages of 16, 32 windows, bf16, a pool of 257 pages
-              in random order) and at ragged cases: positions on page
-              edges and 0, slots sharing a page, a null page full of
-              garbage, hd 64 with 4 grouped queries.  m within
-              1e-5 * max(1, |m|), acc and l within 1e-4 of their per-row
-              maximum.  Prints its time per call beside the bound (live
-              context and full table) and the plain version's time.
 6. sched    - three continuous schedulers on one bursty trace at full
               width (base3 / float, 8 slots, chunk 8, capacity 512, pages
               of 16): the dense Scheduler, the PagedScheduler on the named
@@ -109,6 +122,7 @@ The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --paged-only [--src OTHER_CHECKOUT/src]
 """
 from __future__ import annotations
 
@@ -682,28 +696,98 @@ def paged_bytes_ops(s, kvh, rep, hd, windows, positions):
     return moved, 4 * positions * kvh * rep * hd
 
 
-def phase_paged_kernel(torch, np, cfg):
-    """The paged_attention kernel vs its plain version on the card."""
+def paged_bounds(slots, kvh, rep, hd, windows, pos):
+    """The live-context bound (what pos needs) and the full-table bound,
+    in ms, with what bounds the first."""
+    live = sum(min(p, windows * PAGE) for p in pos)
+    moved, ops = paged_bytes_ops(slots, kvh, rep, hd, windows, live)
+    moved_full, ops_full = paged_bytes_ops(slots, kvh, rep, hd, windows,
+                                           slots * windows * PAGE)
+    t_bytes, t_ops = moved / HBM_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_full_table_ms=max(
+                    moved_full / HBM_BYTES_PER_S,
+                    ops_full / PEAK_F32_OPS_PER_S) * 1e3,
+                bytes_live=moved, bytes_full=moved_full)
+
+
+def paged_device_ms(torch, pa, fn, flush, name, reps=3, tries=5):
+    """Median over `reps` profiled calls, each after an L2 flush, of the
+    kernel's own device time; each call must launch one kernel, the
+    paged_attention kernel.  Now and then CUPTI hands over a capture that
+    holds the end marker but no record of the call's kernel (the launch
+    count shows the kernel ran); such a capture is taken again, up to
+    `tries` times a call."""
+    times = []
+    for _ in range(reps):
+        for _ in range(tries):
+            flush.zero_()
+            before = pa.LAUNCHES["paged_attention"]
+            busy, launched, names = device_busy(torch, fn)
+            # device_busy calls fn again for each capture it retakes
+            check(pa.LAUNCHES["paged_attention"] > before,
+                  f"paged_attention at {name} did not launch")
+            if launched:
+                break
+        check(launched == 1 and "paged_attention_kernel" in names[0],
+              f"paged_attention at {name} launched {launched} kernels in "
+              f"one call: {names}")
+        times.append(busy)
+    return statistics.median(times)
+
+
+def phase_paged_kernel(torch, np, cfg, other=False):
+    """The paged_attention kernel vs its plain version on the card.  With
+    `other` (another checkout's package, timed on the same cases) a case
+    its wrapper refuses is recorded as refused; this checkout's kernel
+    must take every case, each through the route ``load_route`` names."""
     from repro_torch.kernels import paged_attention as pa
     dev = torch.device("cuda")
     kvh, hd = cfg.num_kv_heads, cfg.hd
     rep = cfg.num_heads // kvh
     windows = SCHED_CAPACITY // PAGE
+    routes = getattr(pa, "ROUTES", None)
+
+    def call(q, kv, name):
+        """The call's result and the load route it took."""
+        before = dict(routes) if routes is not None else None
+        out = pa.paged_attention(q, kv)
+        if routes is None:
+            return out, "n/a"
+        moved = [r for r in routes if routes[r] != before[r]]
+        route = moved[0] if len(moved) == 1 else moved
+        check(other or route == pa.load_route(kv),
+              f"paged_attention at {name} took {route}")
+        return out, route
+
     cases = [("serve ragged, garbage null page", SLOTS, kvh, rep, hd, PAGE,
               windows, [0, 1, 15, 16, 17, 511, 512, 700], True),
              ("hd 64, rep 4", 5, 2, 4, 64, PAGE, 8, [0, 5, 16, 64, 128],
               True),
-             ("pages of 5, hd 40 (unaligned rows)", 7, 3, 1, 40, 5, 7,
-              [0, 1, 4, 5, 6, 34, 35], True)]
-    worst = 0.0
+             ("pages of 5, hd 40", 7, 3, 1, 40, 5, 7,
+              [0, 1, 4, 5, 6, 34, 35], True),
+             ("hd 20 (rows of 40 bytes: plain loads)", 6, 2, 3, 20, 4, 6,
+              [0, 3, 4, 5, 23, 24], True),
+             ("glm4-9b grouping, garbage null page", SLOTS, 2, 16, hd, PAGE,
+              windows, [0, 1, 15, 16, 17, 511, 512, 256], True)]
     for i, (name, *shape, pos, garbage) in enumerate(cases):
         q, kv = paged_operands(torch, np, dev, *shape, pos=pos, seed=i,
                                garbage=garbage)
-        got = pa.paged_attention(q, kv)
+        try:
+            got, route = call(q, kv, name)
+        except ValueError as e:
+            if not other:
+                raise
+            print(f"[paged-kernel] {name}: refused ({e})")
+            continue
         torch.cuda.synchronize()
         ok, err = stats_error(torch, got, pa.paged_attention_torch(q, kv))
         check(ok, f"paged_attention disagrees with its plain version at "
                   f"{name}: max abs error {err}")
+        check(all(torch.equal(a, b) for a, b in
+                  zip(got, pa.paged_attention(q, kv))),
+              f"two calls differ at {name}")
         clean = kv._replace(k_pages=kv.k_pages.clone(),
                             v_pages=kv.v_pages.clone())
         clean.k_pages[0] = 0
@@ -712,40 +796,57 @@ def phase_paged_kernel(torch, np, cfg):
         check(all(torch.equal(a[live], b[live]) for a, b in
                   zip(got, pa.paged_attention(q, clean))),
               f"the null page leaks into a live slot at {name}")
-        print(f"[paged-kernel] {name}: ok, max abs error {err:.3g}")
-    # timed at the serve shape, realistic data (no garbage)
-    pos = [0, 1, 15, 16, 17, 511, 512, 256]
-    q, kv = paged_operands(torch, np, dev, SLOTS, kvh, rep, hd, PAGE,
-                           windows, pos, seed=9, garbage=False)
-    got = pa.paged_attention(q, kv)
-    ok, worst = stats_error(torch, got, pa.paged_attention_torch(q, kv))
-    check(ok, f"paged_attention disagrees at the timed case ({worst})")
+        print(f"[paged-kernel] {name}: ok through {route}, max abs error "
+              f"{err:.3g}")
+    # timed, realistic data (no garbage): the serve shape, capacity 2048
+    # (a pool of 1025 pages, 67 MB of K+V) and glm4-9b's grouping
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    live = sum(min(p, windows * PAGE) for p in pos)
-    moved, ops = paged_bytes_ops(SLOTS, kvh, rep, hd, windows, live)
-    moved_full, ops_full = paged_bytes_ops(SLOTS, kvh, rep, hd, windows,
-                                           SLOTS * windows * PAGE)
-    t_live = max(moved / HBM_BYTES_PER_S, ops / PEAK_F32_OPS_PER_S) * 1e3
-    t_full = max(moved_full / HBM_BYTES_PER_S,
-                 ops_full / PEAK_F32_OPS_PER_S) * 1e3
-    rec = dict(
-        shape=dict(slots=SLOTS, kv_heads=kvh, rep=rep, hd=hd, page=PAGE,
-                   windows=windows, pool_pages=1 + SLOTS * windows, pos=pos,
-                   dtype="bf16"),
-        max_abs_err=worst,
-        ms=time_ms(torch, lambda: pa.paged_attention(q, kv), 50, flush),
-        plain_ms=time_ms(torch, lambda: pa.paged_attention_torch(q, kv), 10,
-                         flush),
-        bound_ms=t_live,
-        bound_by=("bytes" if moved / HBM_BYTES_PER_S
-                  >= ops / PEAK_F32_OPS_PER_S else "operations"),
-        bound_full_table_ms=t_full, bytes_live=moved, bytes_full=moved_full,
-        library_ms=None,
-        library_reason="no PyTorch call returns the unnormalised flash "
-                       "statistics (acc, m, l) of a paged context")
-    rec["ms_per_step"] = rec["ms"] * cfg.num_layers
-    print("[paged-kernel] " + json.dumps(rec))
-    return rec
+    timed = [("serve", SLOTS, kvh, rep, windows,
+              [0, 1, 15, 16, 17, 511, 512, 256]),
+             ("capacity 2048", SLOTS, kvh, rep, 2048 // PAGE,
+              [0, 1, 17, 512, 1000, 1536, 2047, 2048]),
+             ("glm4-9b grouping", SLOTS, 2, 16, windows,
+              [0, 1, 15, 16, 17, 511, 512, 256])]
+    recs = []
+    for i, (name, slots, h, r, w, pos) in enumerate(timed):
+        rec = dict(case=name, shape=dict(
+            slots=slots, kv_heads=h, rep=r, hd=hd, page=PAGE, windows=w,
+            pool_pages=1 + slots * w, pos=pos, dtype="bf16"),
+            **paged_bounds(slots, h, r, hd, w, pos))
+        q, kv = paged_operands(torch, np, dev, slots, h, r, hd, PAGE, w,
+                               pos, seed=9 + i, garbage=False)
+        try:
+            got, route = call(q, kv, name)
+        except ValueError as e:
+            if not other:
+                raise
+            rec.update(refused=str(e), ms=None, device_ms=None)
+            print("[paged-kernel] " + json.dumps(rec))
+            recs.append(rec)
+            continue
+        ok, worst = stats_error(torch, got, pa.paged_attention_torch(q, kv))
+        check(ok, f"paged_attention disagrees at {name} ({worst})")
+        plan = (pa.paged_plan(slots, h, r, hd, PAGE, w, 2)._asdict()
+                if hasattr(pa, "paged_plan") else None)
+        fn = lambda: pa.paged_attention(q, kv)      # noqa: E731
+        rec.update(
+            route=route, plan=plan, max_abs_err=worst,
+            ms=time_ms(torch, fn, 50, flush),
+            device_ms=paged_device_ms(torch, pa, fn, flush, name),
+            plain_ms=time_ms(torch, lambda: pa.paged_attention_torch(q, kv),
+                             10, flush),
+            library_ms=None,
+            library_reason="no PyTorch call returns the unnormalised flash "
+                           "statistics (acc, m, l) of a paged context")
+        rec["gbps_live"] = rec["bytes_live"] / rec["device_ms"] / 1e6
+        rec["bound_share_device"] = rec["bound_ms"] / rec["device_ms"]
+        print("[paged-kernel] " + json.dumps(rec))
+        recs.append(rec)
+    serve = dict(recs[0])
+    serve["ms_per_step"] = serve["ms"] * cfg.num_layers
+    serve["device_ms_per_step"] = serve["device_ms"] * cfg.num_layers
+    serve["cases"] = recs
+    return serve
 
 
 def sched_requests(np, cfg, seed):
@@ -941,7 +1042,13 @@ def kernel_summary_paged(paged, runs):
         bound_by=paged["bound_by"], library_ms=None,
         library_reason=paged["library_reason"],
         bound_full_table_ms=paged["bound_full_table_ms"],
+        device_ms=paged["device_ms"], load_route=paged["route"],
+        plan=paged["plan"],
         ms_per_decode_step=paged["ms_per_step"],
+        device_ms_per_decode_step=paged["device_ms_per_step"],
+        other_cases={c["case"]: dict(ms=c["ms"], device_ms=c["device_ms"],
+                                     bound_ms=c["bound_ms"])
+                     for c in paged["cases"][1:]},
         launches_per_decode_step=runs["fused"]["launches"]["paged_attention"]
         // runs["fused"]["steps_launched"],
         workload="one layer's read at the serve shape: 8 slots x 8 KV heads "
@@ -1323,17 +1430,31 @@ def kernel_summary_cim(cases, exact, cfg):
                  f"unembedding at M=8)")
 
 
-def main() -> int:
+def parse_args(argv):
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--paged-only", action="store_true",
+                    help="build, then run only the paged-kernel phase")
+    ap.add_argument("--src", type=Path, default=ROOT / "src",
+                    help="the tree holding the repro_torch package to run "
+                         "(with --paged-only: another checkout's, to time "
+                         "its kernel on the same cases)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(sys.argv[1:] if argv is None else argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} not found; run "
-              f"from a checkout of the repository", file=sys.stderr)
+    src = args.src.resolve()
+    if not (src / "repro_torch").is_dir():
+        print(f"chip_smoke: {src / 'repro_torch'} not found; run from a "
+              f"checkout of the repository", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(src))
     import numpy as np
     from repro_torch import configs
     from repro_torch.core.cim_linear import CIMConfig, ternarize_params
@@ -1347,8 +1468,19 @@ def main() -> int:
     print(f"[card] {card}")
 
     cfg = configs.get(ARCH)
+    if args.paged_only:
+        paged = phase_paged_kernel(torch, np, cfg,
+                                   other=src != (ROOT / "src").resolve())
+        print(f"[done] {time.monotonic() - t_start:.1f} s, {src}")
+        print(card)
+        print(json.dumps({"paged_kernel": paged}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     cases, floor_ms = phase_kernels(torch, cfg)
     print_matmul_sums(cases, floor_ms)
+    paged = phase_paged_kernel(torch, np, cfg)
 
     model = registry.build(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1360,7 +1492,6 @@ def main() -> int:
     runs = phase_serve(torch, np, cfg, model, packed)
     parity = phase_parity(torch, np, cfg, model, packed["base3"])
     del packed["trit2"]
-    paged = phase_paged_kernel(torch, np, cfg)
     sched, sched_parity = phase_sched(torch, np, cfg, model,
                                       packed["base3"])
     phase_sync_free_chunk(torch, np, cfg, model, packed["base3"])

@@ -12,7 +12,9 @@ int8 domain bitwise for both; the bucket ServeEngine keeps one host
 transfer per bucket.  The paged-attention kernel: ``m`` within
 1e-5 * max(1, |m|), ``acc`` and ``l`` within 1e-4 of their per-row
 maximum (the kernel sums page by page, the plain version in one pass),
-and the null page adds exactly nothing to a live slot.  The schedulers:
+each call through the load route ``load_route`` names, a second call
+bitwise equal to the first (the cluster merges in rank order), and the
+null page adds exactly nothing to a live slot.  The schedulers:
 the fused read gives the gather's tokens, one host transfer per chunk.
 The cim_mac kernels: bitwise equal to their plain version (the macro
 model) at ragged shapes, every ADC width, planted saturating groups and
@@ -394,16 +396,32 @@ def _close_stats(got, want):
     (2, 4, 64, 16, 8, [0, 5, 64, 128]),
     (3, 1, 40, 5, 7, [0, 1, 4, 5, 6, 34, 35]),
     (1, 8, 128, 1, 9, [0, 1, 8, 9]),
+    # capacity 2048: 8 ranks of 16 windows
+    (8, 2, 128, 16, 128, [0, 1, 17, 512, 1000, 1536, 2047, 2048]),
+    # glm4-9b's grouping: 2 KV heads x 16 queries, two row groups
+    (2, 16, 128, 16, 32, [0, 1, 15, 16, 17, 511, 512, 256]),
+    # every slot inside rank 0's 4 windows: ranks 1-7 dead
+    (8, 2, 128, 16, 32, [1, 5, 16, 17, 33, 64, 60, 2]),
+    # rows of 40 bytes in bf16: the plain-loads route
+    (2, 3, 20, 4, 6, [0, 3, 4, 5, 23, 24]),
+    (1, 8, 256, 4, 2, [3]),                 # rep x hd = 2048 at hd 256
 ])
 def test_paged_attention_kernel_matches_plain_version(dev, dtype, kvh, rep,
                                                       hd, ps, windows, pos):
     q, kv = _paged_operands(dev, dtype, len(pos), kvh, rep, hd, ps, windows,
                             pos, seed=hd + ps)
-    before = pa.LAUNCHES["paged_attention"]
+    route = "tma" if hd * q.element_size() % 16 == 0 else "loads"
+    assert pa.load_route(kv) == route
+    before, routes = pa.LAUNCHES["paged_attention"], dict(pa.ROUTES)
     got = pa.paged_attention(q, kv)
     torch.cuda.synchronize()
     assert pa.LAUNCHES["paged_attention"] == before + 1
+    assert pa.ROUTES[route] == routes[route] + 1
     _close_stats(got, pa.paged_attention_torch(q, kv))
+    # the ranks' partials are merged in rank order: a second call agrees
+    # bitwise
+    for a, b in zip(got, pa.paged_attention(q, kv)):
+        assert torch.equal(a, b)
     # the null page's garbage adds exactly nothing to a live slot
     clean = kv._replace(k_pages=kv.k_pages.clone(),
                         v_pages=kv.v_pages.clone())
@@ -412,6 +430,43 @@ def test_paged_attention_kernel_matches_plain_version(dev, dtype, kvh, rep,
     live = kv.pos > 0
     for a, b in zip(got, pa.paged_attention(q, clean)):
         assert torch.equal(a[live], b[live])
+
+
+def test_paged_attention_takes_the_loads_route_off_16_byte_pages(dev):
+    """Pools whose base is 2 bytes off a 16-byte boundary cannot feed the
+    TMA: the same kernel copies their pages with plain loads, and agrees
+    with the TMA route's result bitwise (the same arithmetic)."""
+    q, kv = _paged_operands(dev, torch.bfloat16, 8, 8, 2, 128, 16, 32,
+                            [0, 1, 15, 16, 17, 511, 512, 256], seed=4)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    off = kv._replace(k_pages=shifted(kv.k_pages),
+                      v_pages=shifted(kv.v_pages))
+    assert pa.load_route(kv) == "tma" and pa.load_route(off) == "loads"
+    routes = dict(pa.ROUTES)
+    want = pa.paged_attention(q, kv)
+    got = pa.paged_attention(q, off)
+    assert pa.ROUTES["tma"] == routes["tma"] + 1
+    assert pa.ROUTES["loads"] == routes["loads"] + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_paged_plan_shared_bytes_match_the_kernel(dev):
+    """The plan's shared bytes are the kernel's (``pa_smem_bytes``)."""
+    lib = pa._lib()
+    for shape in [(8, 8, 2, 128, 16, 32, 2), (8, 2, 16, 128, 16, 32, 2),
+                  (8, 8, 2, 128, 16, 128, 4), (7, 3, 1, 40, 5, 7, 4),
+                  (4, 1, 8, 128, 1, 9, 2), (2, 1, 64, 32, 64, 8, 4)]:
+        plan = pa.paged_plan(*shape)
+        rep, hd, ps, elem = shape[2], shape[3], shape[4], shape[6]
+        assert lib.pa_smem_bytes(rep, hd, ps, plan.per_rank, plan.rows,
+                                 plan.threads // 32, plan.stages,
+                                 elem) == plan.smem
 
 
 def test_paged_attention_wrapper_refuses_what_the_kernel_does_not_take(dev):
@@ -424,10 +479,15 @@ def test_paged_attention_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         pa.paged_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
                            kv)
-    big, kvb = _paged_operands(dev, torch.float32, 1, 1, 8, 256, 4, 2, [3],
-                               seed=2)
-    with pytest.raises(ValueError, match="accumulator lanes"):
-        pa.paged_attention(big, kvb)
+    # a warp carries 8 grouped queries, a block 8 warps: rep <= 64
+    many, kvm = _paged_operands(dev, torch.float32, 1, 1, 65, 16, 4, 2, [3],
+                                seed=2)
+    with pytest.raises(ValueError, match="grouped queries"):
+        pa.paged_attention(many, kvm)
+    wide, kvw = _paged_operands(dev, torch.float32, 1, 1, 1, 264, 4, 2, [3],
+                                seed=2)
+    with pytest.raises(ValueError, match="head dim"):
+        pa.paged_attention(wide, kvw)
 
 
 def test_paged_schedulers_on_the_card(dev):
