@@ -14,6 +14,13 @@ Phases, each of which raises on failure:
               bitwise, float within 1e-4 of max|y| (summation order only),
               and a second float call at M = 8 bitwise equal to the first
               (the gemv route's cluster adds its splits in rank order).
+              The same cases, base3 only, at the other dense models'
+              widest weights: glm4-9b's w1 (4096 x 13696) and w2 (13696 x
+              4096) and qwen3-14b's w1 (5120 x 17408) and w2 (17408 x
+              5120), at M = 8 and 1024; at M = 1024 the float route's
+              error against an f64 sum is recorded beside the plain
+              version's and that of one unsplit accumulator chain, and
+              must stay within 1e-5 of max|y|.
               Each case names the route it took (``ROUTES``: bf16 and int8
               take ``gemv`` at M <= 8 and ``mma`` above, f32 takes
               ``cuda_core``) and prints the kernel's median device time
@@ -35,14 +42,16 @@ Phases, each of which raises on failure:
               sharing a page, a null page full of garbage, hd 64 with 4
               grouped queries, pages of 5 at hd 40, hd 20 whose rows of
               40 bytes take the plain-loads route, glm4-9b's 2 KV x 16
-              grouping), each through its load route (``ROUTES``: tma or
+              grouping, phi3-mini-3.8b's 32 KV x 1 at hd 96, qwen3-14b's
+              8 KV x 5), each through its load route (``ROUTES``: tma or
               loads), a second call bitwise equal to the first, and live
               slots bitwise unchanged with the null page zeroed.  Then
               three timed cases on realistic data: the serve shape (8
               slots, 8 KV heads x 2 grouped queries, hd 128, pages of 16,
               32 windows, bf16, a pool of 257 pages in random order),
-              capacity 2048 (128 windows, a pool of 1025 pages) and
-              glm4-9b's grouping (2 KV x 16).  m within
+              capacity 2048 (128 windows, a pool of 1025 pages),
+              glm4-9b's grouping (2 KV x 16), phi3-mini-3.8b's (32 KV x 1,
+              hd 96) and capacity 4096 (256 windows).  m within
               1e-5 * max(1, |m|), acc and l within 1e-4 of their per-row
               maximum.  Per timed case: paged_plan's launch shape, the
               load route, the time per call by CUDA events and the
@@ -83,7 +92,19 @@ Phases, each of which raises on failure:
               the dense pool; prefix hit rate > 0.  Then one chunk of a
               fused scheduler runs under
               torch.cuda.set_sync_debug_mode("error").
-7. cim-kernel - cim_mac against its plain version (the macro model) on
+7. long     - prompts past 2048 tokens on internlm2-1.8b at full width
+              (base3, float domain), through the flash recurrence: one
+              layer's flash_attention against the direct masked
+              attention on the same q/k/v of 2560 positions in f32 (max
+              difference within 1e-5 of max|v|); the bucket ServeEngine
+              with 2 prompts of 6000 tokens (not a multiple of the
+              512-position chunk) and 8 new tokens at capacity 6016 (one
+              host transfer, 169 matmul launches a forward); the
+              PagedScheduler, gather and fused, with one 3000-token
+              request among 7 short ones at capacity 4096 (256 windows),
+              held as the sched phase holds it.  Prints each long
+              prefill's time.
+8. cim-kernel - cim_mac against its plain version (the macro model) on
               the card, bitwise, each call checked to take its route
               (ROUTES: ``codes`` at adc_bits >= 5, ``groups`` below):
               ragged cases (K % 16 != 0, M = 1, N off the tile, 3 x 5 and
@@ -100,7 +121,7 @@ Phases, each of which raises on failure:
               groups route's 25-pair bound, the plain version's time, at
               M = 8 the groups route at b = 4 and at M = 1024
               torch._int_mm on the codes (the product alone, a yardstick).
-8. exact    - macro-exact inference (CIMConfig(mode="exact")) through the
+9. exact    - macro-exact inference (CIMConfig(mode="exact")) through the
               bucket ServeEngine at full width on the bf16 float weights
               of the same seeded init: 8 requests of 128 prompt tokens, 16
               new tokens each, counts zeroed just before the run.  Checks:
@@ -117,7 +138,23 @@ Phases, each of which raises on failure:
               only), kernel and (0) ternarize device times and the cache's
               one-time fill, tok/s, and the greedy-token agreement with
               the float-mode model.
+10. models  - glm4-9b, phi3-mini-3.8b and qwen3-14b, one at a time, each
+              freed before the next, at full width and full depth:
+              seeded random bf16 weights on the card, packed to base3
+              (a stacked weight one layer at a time), then the bucket
+              ServeEngine on 8 requests x 128 prompt tokens x 16 new
+              ones in the float domain, the counts zeroed just before
+              the run: 7 matmuls a layer plus the unembedding launched
+              per forward, prefill on the mma route and decode on gemv,
+              one host transfer, every token there.  Prints the prefill
+              ms, decode ms/step, tok/s, packed weight bytes and the
+              decode bytes floor (those bytes at 3.35 TB/s).  Then the
+              parity phase's check on the first 4 layers (every width
+              kept) and, for glm4-9b, the PagedScheduler, gather and
+              fused, on the first burst of the bursty trace (8
+              requests), held as the sched phase holds it.
 
+Each phase prints its seconds and torch.cuda.max_memory_allocated().
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 
@@ -139,14 +176,35 @@ PEAK_OPS_PER_S = {"float": 989e12,         # bf16 tensor cores, dense
                   "int8": 1979e12}         # int8 tensor cores, dense
 PEAK_F32_OPS_PER_S = 67e12               # f32 outside the tensor cores
 ARCH = "internlm2-1.8b"
+# kernel cases at the other dense models' widest weights: (arch, weight,
+# K, N); glm4-9b's d_ff 13696 = 107 x 128 is both N and K
+OTHER_MODEL_SHAPES = [("glm4-9b", "w1,w3", 4096, 13696),
+                      ("glm4-9b", "w2", 13696, 4096),
+                      ("qwen3-14b", "w1,w3", 5120, 17408),
+                      ("qwen3-14b", "w2", 17408, 5120)]
 BATCH, PROMPT, MAX_NEW, CAPACITY = 8, 128, 32, 256
 # paged serving: slots, chunk, per-request capacity, page size
 SLOTS, CHUNK, SCHED_CAPACITY, PAGE = 8, 8, 512, 16
 NEAR_TIE = 0.02               # fused vs gather: top-2 margin / logit scale
 FLOAT_TOL = 1e-4              # kernel vs plain, relative to max|y|
+CHAIN_TOL = 1e-5              # float mma route vs an f64 sum, the same
+                              # (the card tests' bar for one matmul)
 MODEL_FLOAT_TOL = 0.1         # logits, relative to max|logit|
 SPIN_CYCLES = 2_000_000       # ~1 ms at the H100's 1.98 GHz clock
 EXACT_NEW = 16               # new tokens per request in the exact phase
+# the models phase: the other dense models at full width and depth
+MODEL_ARCHS = ("glm4-9b", "phi3-mini-3.8b", "qwen3-14b")
+MODELS_NEW = 16              # new tokens per request
+PARITY_LAYERS = 4            # depth of the models' cuda-vs-torch check
+SCHED_ARCH = "glm4-9b"       # served through the PagedScheduler as well
+SCHED_CUT = 8                # requests of the bursty trace it serves
+# the long phase (internlm2-1.8b): the bucket engine at 2 x 6000 prompt
+# tokens, the PagedScheduler with one 3000-token request at capacity 4096,
+# and one layer's flash recurrence held to the direct attention
+LONG_BATCH, LONG_PROMPT, LONG_NEW, LONG_CAPACITY = 2, 6000, 8, 6016
+SCHED_LONG_PROMPT, SCHED_LONG_CAPACITY = 3000, 4096
+FLASH_CHECK_T = 2560
+FLASH_TOL = 1e-5             # flash vs direct in f32, relative to max|v|
 KERNEL_NAMES = {"float": "ternary_matmul", "int8": "ternary_matmul_int8"}
 REPLACES = {"float": "src/repro/kernels/ternary_matmul.py:144",
             "int8": "src/repro/kernels/ternary_matmul.py:202"}
@@ -318,81 +376,127 @@ def phase_kernels(torch, cfg):
     cases = []
     for mode in ("base3", "trit2"):
         for name, k, n, per_forward in layer_shapes(cfg):
-            if mode == "base3":
-                data = torch.randint(0, 243, (k, n), generator=gen,
-                                     device=dev, dtype=torch.uint8)
-            else:
-                data = torch.randint(0, 256, (k // 4, n), generator=gen,
-                                     device=dev, dtype=torch.uint8)
-            scale = torch.rand(n, generator=gen, device=dev) * 1e-2
-            w = ops.PackedTernary(data, scale, mode)
-            w_bf16 = ops.decode_weight(w, torch.bfloat16)
-            w_int8 = ops.decode_weight(w, torch.int8)
-            wbytes = data.numel() + 4 * n
-            for m in ((8,) if name == "unembed" else (8, BATCH * PROMPT)):
-                x = torch.randn(m, k, generator=gen, device=dev,
-                                dtype=torch.bfloat16)
-                xi, xs = ops.quantize_acts_int8(x)
-                for domain in ("float", "int8"):
-                    if domain == "float":
-                        run = lambda: tm.matmul_float(x, data, scale, mode)
-                        plain = lambda: ops.ternary_matmul_torch(x, w)
-                        library = lambda: torch.matmul(x, w_bf16)
-                        in_bytes = 2 * m * k
-                    else:
-                        run = lambda: tm.matmul_int8(xi, xs, data, scale,
-                                                     mode)
-                        plain = lambda: ops.ternary_matmul_int8_torch(
-                            xi, xs, w)
-                        # torch._int_mm takes M > 16 only
-                        library = ((lambda: torch._int_mm(xi, w_int8))
-                                   if m > 16 else None)
-                        in_bytes = m * k + 4 * m
-                    got, path = routed(tm, run)
-                    want = plain()
-                    torch.cuda.synchronize()
-                    err = (got - want).abs().max().item()
-                    if domain == "int8":
-                        ok = torch.equal(got, want)
-                    else:
-                        ok = err <= FLOAT_TOL * want.abs().max().item()
-                        if m <= 8:          # the splits' order is fixed
-                            ok = ok and torch.equal(run(), got)
-                    moved = in_bytes + wbytes + 4 * m * n
-                    plans = (mma_plans(torch, tm, x if domain == "float"
-                                       else xi,
-                                       xs if domain == "int8" else None,
-                                       data, scale, mode, want, flush)
-                             if m > 8 else dict(plan=list(tm.gemv_plan(
-                                 m, k, n, mode, tm._sm_count(dev)))))
-                    if m <= 8:
-                        flush.zero_()
-                        busy, launched, names = device_busy(torch, run)
-                        check(launched == 1 and "tm_gemv_kernel" in names[0],
-                              f"{KERNEL_NAMES[domain]} at M={m} launched "
-                              f"{launched} kernels in one call: {names}")
-                        plans["device_ms"] = busy
-                    rec = dict(
-                        kernel=KERNEL_NAMES[domain], mode=mode, weight=name,
-                        m=m, k=k, n=n, per_forward=per_forward, route=path,
-                        max_abs_err=err, ok=bool(ok),
-                        ms=time_ms(torch, run, 20, flush),
-                        plain_ms=time_ms(torch, plain, 5, flush),
-                        library_ms=(time_ms(torch, library, 10, flush)
-                                    if library else None),
-                        bytes=moved, ops=2 * m * k * n,
-                        **bound(moved, 2 * m * k * n, domain), **plans)
-                    rec.update(rate(rec))
-                    cases.append(rec)
-                    print("[kernels] " + json.dumps(rec))
-                    check(ok, f"{rec['kernel']} disagrees with its plain "
-                              f"version: {rec}")
-                    want_route = expected_route(torch, m, x.dtype)
-                    check(rec["route"] == want_route,
-                          f"{rec['kernel']} at M={m} took route "
-                          f"{rec['route']}, expected {want_route}")
-            del data, w, w_bf16, w_int8
+            ms = (8,) if name == "unembed" else (8, BATCH * PROMPT)
+            cases += matmul_cases(torch, gen, flush, cfg.name, mode, name,
+                                  k, n, per_forward, ms)
+    # the other dense models' widest weights, base3, decode and prefill
+    for arch, name, k, n in OTHER_MODEL_SHAPES:
+        cases += matmul_cases(torch, gen, flush, arch, "base3", name, k, n,
+                              0, (8, BATCH * PROMPT))
     return cases, floor_ms
+
+
+def matmul_cases(torch, gen, flush, arch, mode, name, k, n, per_forward,
+                 ms):
+    """Both ternary kernels at one packed weight (K x N, random bytes and
+    scales) and each M of `ms`, against their plain versions and timed
+    beside a library call: one record per (M, domain), checked to agree
+    and to take its route."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_matmul as tm
+    dev = torch.device("cuda")
+    if mode == "base3":
+        data = torch.randint(0, 243, (k, n), generator=gen, device=dev,
+                             dtype=torch.uint8)
+    else:
+        data = torch.randint(0, 256, (k // 4, n), generator=gen, device=dev,
+                             dtype=torch.uint8)
+    scale = torch.rand(n, generator=gen, device=dev) * 1e-2
+    w = ops.PackedTernary(data, scale, mode)
+    w_bf16 = ops.decode_weight(w, torch.bfloat16)
+    w_int8 = ops.decode_weight(w, torch.int8)
+    wbytes = data.numel() + 4 * n
+    cases = []
+    for m in ms:
+        x = torch.randn(m, k, generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        xi, xs = ops.quantize_acts_int8(x)
+        for domain in ("float", "int8"):
+            if domain == "float":
+                run = lambda: tm.matmul_float(x, data, scale, mode)
+                plain = lambda: ops.ternary_matmul_torch(x, w)
+                library = lambda: torch.matmul(x, w_bf16)
+                in_bytes = 2 * m * k
+            else:
+                run = lambda: tm.matmul_int8(xi, xs, data, scale, mode)
+                plain = lambda: ops.ternary_matmul_int8_torch(xi, xs, w)
+                # torch._int_mm takes M > 16 only
+                library = ((lambda: torch._int_mm(xi, w_int8))
+                           if m > 16 else None)
+                in_bytes = m * k + 4 * m
+            got, path = routed(tm, run)
+            want = plain()
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            if domain == "int8":
+                ok = torch.equal(got, want)
+            else:
+                ok = err <= FLOAT_TOL * want.abs().max().item()
+                if m <= 8:          # the splits' order is fixed
+                    ok = ok and torch.equal(run(), got)
+            moved = in_bytes + wbytes + 4 * m * n
+            plans = (mma_plans(torch, tm, x if domain == "float" else xi,
+                               xs if domain == "int8" else None,
+                               data, scale, mode, want, flush)
+                     if m > 8 else dict(plan=list(tm.gemv_plan(
+                         m, k, n, mode, tm._sm_count(dev)))))
+            if domain == "float" and m > 8 and arch != ARCH:
+                plans.update(chain_errors(torch, tm, ops, x, w, want, got))
+            if m <= 8:
+                flush.zero_()
+                busy, launched, names = device_busy(torch, run)
+                check(launched == 1 and "tm_gemv_kernel" in names[0],
+                      f"{KERNEL_NAMES[domain]} at M={m} launched "
+                      f"{launched} kernels in one call: {names}")
+                plans["device_ms"] = busy
+            rec = dict(
+                kernel=KERNEL_NAMES[domain], arch=arch, mode=mode,
+                weight=name, m=m, k=k, n=n, per_forward=per_forward,
+                route=path, max_abs_err=err, ok=bool(ok),
+                ms=time_ms(torch, run, 20, flush),
+                plain_ms=time_ms(torch, plain, 5, flush),
+                library_ms=(time_ms(torch, library, 10, flush)
+                            if library else None),
+                bytes=moved, ops=2 * m * k * n,
+                **bound(moved, 2 * m * k * n, domain), **plans)
+            rec.update(rate(rec))
+            cases.append(rec)
+            print("[kernels] " + json.dumps(rec))
+            check(ok, f"{rec['kernel']} disagrees with its plain version: "
+                      f"{rec}")
+            want_route = expected_route(torch, m, x.dtype)
+            check(rec["route"] == want_route,
+                  f"{rec['kernel']} at M={m} took route {rec['route']}, "
+                  f"expected {want_route}")
+    del data, w, w_bf16, w_int8
+    return cases
+
+
+def chain_errors(torch, tm, ops, x, w, want, got):
+    """The float mma route's error against an f64 sum, relative to the
+    largest output, beside the f32 plain version's and that of the same
+    tiles with K in one accumulator chain (no split): what
+    ``MMA_FLOAT_CHAIN`` holds back."""
+    m, k = x.shape
+    exact = x.double() @ (ops.decode_weight(w, torch.float64)[:k]
+                          * w.scale.double()[None, :])
+    top = exact.abs().max().item()
+    bm = tm.mma_plan(m, k, w.data.shape[1], tm._sm_count(x.device))[0]
+    chunks = -(-k // tm.MMA_K_CHUNK)
+    one = torch.empty_like(got)
+    check(tm.launch_mma(x, None, w.data, w.scale, w.mode, one,
+                        (bm, 1, chunks * tm.MMA_K_CHUNK)) == 0,
+          "mma launch with one chain failed")
+    torch.cuda.synchronize()
+
+    def rel(y):
+        return (y.double() - exact).abs().max().item() / top
+    out = dict(err_vs_f64=rel(got), plain_err_vs_f64=rel(want),
+               one_chain_err_vs_f64=rel(one))
+    check(out["err_vs_f64"] <= CHAIN_TOL,
+          f"the mma route's f32 error at K={k} passes {CHAIN_TOL} of "
+          f"max|y|: {out}")
+    return out
 
 
 def mma_plans(torch, tm, x, x_scale, data, scale, mode, want, flush):
@@ -403,8 +507,10 @@ def mma_plans(torch, tm, x, x_scale, data, scale, mode, want, flush):
     m, n = x.shape[0], data.shape[1]
     k = x.shape[1]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = tm.mma_plan(m, k, n, sms)
-    alt = tm.mma_tile_plan(m, k, n, sms, 128 if plan[0] == 256 else 256)
+    chain = tm.MMA_FLOAT_CHAIN if x_scale is None else None
+    plan = tm.mma_plan(m, k, n, sms, chain)
+    alt = tm.mma_tile_plan(m, k, n, sms, 128 if plan[0] == 256 else 256,
+                           chain)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
 
     def run():
@@ -524,7 +630,7 @@ def phase_serve(torch, np, cfg, model, packed):
     return runs
 
 
-def phase_parity(torch, np, cfg, model, params):
+def phase_parity(torch, np, cfg, model, params, tag="parity"):
     """cuda backend vs the plain torch backend on the full-width model."""
     import dataclasses
     from repro_torch.core.cim_linear import CIMConfig
@@ -558,8 +664,9 @@ def phase_parity(torch, np, cfg, model, params):
             ok = err <= MODEL_FLOAT_TOL * scale
         out[domain] = dict(max_abs_err=err, logit_scale=scale,
                            argmax_agreement=agree, ok=bool(ok))
-        print(f"[parity] {domain}: " + json.dumps(out[domain]))
-        check(ok, f"{domain}-domain logits: cuda vs torch {out[domain]}")
+        print(f"[{tag}] {domain}: " + json.dumps(out[domain]))
+        check(ok, f"{cfg.name} {domain}-domain logits: cuda vs torch "
+                  f"{out[domain]}")
     return out
 
 
@@ -569,7 +676,7 @@ def matmul_sums(cases, kernel, mode, m):
     ms, plain_ms, library_ms (None where a case has none), bytes, ops and
     the number of matmuls."""
     recs = [c for c in cases if c["kernel"] == kernel and c["mode"] == mode
-            and c["m"] == m]
+            and c["m"] == m and c["arch"] == ARCH]
 
     def total(key):
         vals = [c.get(key) for c in recs]
@@ -583,7 +690,7 @@ def matmul_sums(cases, kernel, mode, m):
     return out
 
 
-def kernel_summary(cases, runs, cfg):
+def kernel_summary(cases, runs, cfg, models):
     """One record per kernel: the numbers of one decode step's packed
     matmuls (M = 8, base3, every weight at its multiplicity), prefill_*
     over one prefill's (M = 8 x 128, base3), and the launches of the
@@ -614,7 +721,14 @@ def kernel_summary(cases, runs, cfg):
                      f"packed matmuls at M=8, base3; prefill_* over "
                      f"{pre['matmuls']} at M={prefill_m}, base3",
             launches_per_run={f"{r['packing']}/{r['domain']}":
-                              r["launches"][name] for r in runs}))
+                              r["launches"][name] for r in runs},
+            launches_models={arch: m["launches"][name]
+                             for arch, m in models.items()},
+            other_model_cases=[
+                {key: c[key] for key in (
+                    "arch", "weight", "m", "k", "n", "route", "max_abs_err",
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                for c in mine if c["arch"] != ARCH]))
     return out
 
 
@@ -770,7 +884,13 @@ def phase_paged_kernel(torch, np, cfg, other=False):
              ("hd 20 (rows of 40 bytes: plain loads)", 6, 2, 3, 20, 4, 6,
               [0, 3, 4, 5, 23, 24], True),
              ("glm4-9b grouping, garbage null page", SLOTS, 2, 16, hd, PAGE,
-              windows, [0, 1, 15, 16, 17, 511, 512, 256], True)]
+              windows, [0, 1, 15, 16, 17, 511, 512, 256], True),
+             ("phi3-mini-3.8b grouping (32 KV x 1, hd 96), garbage null "
+              "page", SLOTS, 32, 1, 96, PAGE, windows,
+              [0, 1, 15, 16, 17, 511, 512, 256], True),
+             ("qwen3-14b grouping (8 KV x 5), garbage null page", SLOTS, 8,
+              5, hd, PAGE, windows, [0, 1, 15, 16, 17, 511, 512, 256],
+              True)]
     for i, (name, *shape, pos, garbage) in enumerate(cases):
         q, kv = paged_operands(torch, np, dev, *shape, pos=pos, seed=i,
                                garbage=garbage)
@@ -799,21 +919,27 @@ def phase_paged_kernel(torch, np, cfg, other=False):
         print(f"[paged-kernel] {name}: ok through {route}, max abs error "
               f"{err:.3g}")
     # timed, realistic data (no garbage): the serve shape, capacity 2048
-    # (a pool of 1025 pages, 67 MB of K+V) and glm4-9b's grouping
+    # (a pool of 1025 pages, 67 MB of K+V), glm4-9b's grouping,
+    # phi3-mini-3.8b's (32 KV x 1 at hd 96) and capacity 4096 (256
+    # windows, a pool of 2049 pages, 134 MB of K+V)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    timed = [("serve", SLOTS, kvh, rep, windows,
+    timed = [("serve", SLOTS, kvh, rep, hd, windows,
               [0, 1, 15, 16, 17, 511, 512, 256]),
-             ("capacity 2048", SLOTS, kvh, rep, 2048 // PAGE,
+             ("capacity 2048", SLOTS, kvh, rep, hd, 2048 // PAGE,
               [0, 1, 17, 512, 1000, 1536, 2047, 2048]),
-             ("glm4-9b grouping", SLOTS, 2, 16, windows,
-              [0, 1, 15, 16, 17, 511, 512, 256])]
+             ("glm4-9b grouping", SLOTS, 2, 16, hd, windows,
+              [0, 1, 15, 16, 17, 511, 512, 256]),
+             ("phi3-mini-3.8b grouping", SLOTS, 32, 1, 96, windows,
+              [0, 1, 15, 16, 17, 511, 512, 256]),
+             ("capacity 4096", SLOTS, kvh, rep, hd, 4096 // PAGE,
+              [0, 1, 17, 1000, 2048, 3000, 4095, 4096])]
     recs = []
-    for i, (name, slots, h, r, w, pos) in enumerate(timed):
+    for i, (name, slots, h, r, d, w, pos) in enumerate(timed):
         rec = dict(case=name, shape=dict(
-            slots=slots, kv_heads=h, rep=r, hd=hd, page=PAGE, windows=w,
+            slots=slots, kv_heads=h, rep=r, hd=d, page=PAGE, windows=w,
             pool_pages=1 + slots * w, pos=pos, dtype="bf16"),
-            **paged_bounds(slots, h, r, hd, w, pos))
-        q, kv = paged_operands(torch, np, dev, slots, h, r, hd, PAGE, w,
+            **paged_bounds(slots, h, r, d, w, pos))
+        q, kv = paged_operands(torch, np, dev, slots, h, r, d, PAGE, w,
                                pos, seed=9 + i, garbage=False)
         try:
             got, route = call(q, kv, name)
@@ -826,7 +952,7 @@ def phase_paged_kernel(torch, np, cfg, other=False):
             continue
         ok, worst = stats_error(torch, got, pa.paged_attention_torch(q, kv))
         check(ok, f"paged_attention disagrees at {name} ({worst})")
-        plan = (pa.paged_plan(slots, h, r, hd, PAGE, w, 2)._asdict()
+        plan = (pa.paged_plan(slots, h, r, d, PAGE, w, 2)._asdict()
                 if hasattr(pa, "paged_plan") else None)
         fn = lambda: pa.paged_attention(q, kv)      # noqa: E731
         rec.update(
@@ -870,24 +996,25 @@ def sched_requests(np, cfg, seed):
     return specs
 
 
-def make_scheduler(kind, model, params, cim):
+def make_scheduler(kind, model, params, cim, capacity=SCHED_CAPACITY):
     from repro_torch.serve import PagedScheduler, Scheduler
     if kind == "dense":
-        return Scheduler(model, params, capacity=SCHED_CAPACITY,
+        return Scheduler(model, params, capacity=capacity,
                          slots=SLOTS, chunk=CHUNK, cim=cim, device="cuda")
-    return PagedScheduler(model, params, capacity=SCHED_CAPACITY,
+    return PagedScheduler(model, params, capacity=capacity,
                           slots=SLOTS, chunk=CHUNK, page_size=PAGE, cim=cim,
                           fused_attn="auto" if kind == "fused" else False,
                           device="cuda")
 
 
-def first_divergence(torch, model, params, cim, prompt, want, got):
+def first_divergence(torch, model, params, cim, prompt, want, got,
+                     capacity=SCHED_CAPACITY):
     """Where two token lists of one request first differ: the step, and
     the top-2 margin and scale of the logits there, taken by feeding
     `want`'s tokens through the dense decode."""
     j = next(i for i, (a, b) in enumerate(zip(want, got)) if a != b)
     tokens = torch.as_tensor(prompt[None], device="cuda")
-    logits, state = model.prefill(params, tokens, SCHED_CAPACITY, cim=cim)
+    logits, state = model.prefill(params, tokens, capacity, cim=cim)
     for t in want[:j]:
         logits, state = model.decode(
             params, torch.tensor([[t]], device="cuda"), state, cim=cim)
@@ -897,17 +1024,22 @@ def first_divergence(torch, model, params, cim, prompt, want, got):
                 want=want[j], got=got[j])
 
 
-def phase_sched(torch, np, cfg, model, params):
-    """Dense, gather and fused schedulers on one trace; returns records."""
+def phase_sched(torch, np, cfg, model, params, specs=None,
+                kinds=("dense", "gather", "fused"), capacity=SCHED_CAPACITY,
+                tag="sched"):
+    """Schedulers of `kinds` (dense, gather, fused) on one trace (by
+    default the bursty trace); returns records and the fused-vs-gather
+    parity."""
     from repro_torch.core.cim_linear import CIMConfig
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ternary_matmul as tm
     from repro_torch.serve import Request, latency_stats
     cim = CIMConfig(mode="ternary", packing="base3", domain="float")
-    specs = sched_requests(np, cfg, seed=21)
+    if specs is None:
+        specs = sched_requests(np, cfg, seed=21)
     runs, tokens = {}, {}
-    for kind in ("dense", "gather", "fused"):
-        eng = make_scheduler(kind, model, params, cim)
+    for kind in kinds:
+        eng = make_scheduler(kind, model, params, cim, capacity)
         if kind == "fused":
             check(eng.attn_plan is not None
                   and eng.attn_plan.backend == "paged_attn",
@@ -951,7 +1083,7 @@ def phase_sched(torch, np, cfg, model, params):
             attn_backend=(eng.attn_plan.backend
                           if paged and eng.attn_plan else None),
             launches=launches, routes=routes)
-        print("[sched] " + json.dumps(rec))
+        print(f"[{tag}] " + json.dumps(rec))
         runs[kind] = rec
         tokens[kind] = {r.uid: [int(t) for t in r.out_tokens] for r in done}
         check(len(done) == len(specs) and all(
@@ -967,29 +1099,31 @@ def phase_sched(torch, np, cfg, model, params):
               f"{kind}: paged_attention launched "
               f"{launches['paged_attention']} times, expected {want}")
         del eng
-    dense_peak = runs["dense"]["kv_bytes_resident_peak"]
-    for kind in ("gather", "fused"):
-        peak = runs[kind]["kv_bytes_resident_peak"]
-        check(peak <= dense_peak / 2,
-              f"{kind}: resident KV peak {peak} is not <= half the dense "
-              f"pool's {dense_peak}")
-        check(runs[kind]["prefix_hit_rate"] > 0, f"{kind}: no prefix hit")
     prompts = {uid: prompt for uid, prompt, _, _ in specs}
-    bad = [u for u in prompts if tokens["gather"][u] != tokens["dense"][u]]
-    if bad:
+    if "dense" in runs:
+        dense_peak = runs["dense"]["kv_bytes_resident_peak"]
+        for kind in ("gather", "fused"):
+            peak = runs[kind]["kv_bytes_resident_peak"]
+            check(peak <= dense_peak / 2,
+                  f"{kind}: resident KV peak {peak} is not <= half the "
+                  f"dense pool's {dense_peak}")
+            check(runs[kind]["prefix_hit_rate"] > 0,
+                  f"{kind}: no prefix hit")
+        bad = [u for u in prompts
+               if tokens["gather"][u] != tokens["dense"][u]]
         for u in bad:
-            print("[sched] gather != dense " + json.dumps(
+            print(f"[{tag}] gather != dense " + json.dumps(
                 dict(uid=u, **first_divergence(
                     torch, model, params, cim, prompts[u],
-                    tokens["dense"][u], tokens["gather"][u]))))
-    check(not bad, f"gather tokens differ from dense for requests {bad}")
+                    tokens["dense"][u], tokens["gather"][u], capacity))))
+        check(not bad, f"gather tokens differ from dense for requests {bad}")
     mism = [u for u in prompts if tokens["fused"][u] != tokens["gather"][u]]
     ties = []
     for u in mism:
         d = dict(uid=u, **first_divergence(torch, model, params, cim,
                                            prompts[u], tokens["gather"][u],
-                                           tokens["fused"][u]))
-        print("[sched] fused != gather " + json.dumps(d))
+                                           tokens["fused"][u], capacity))
+        print(f"[{tag}] fused != gather " + json.dumps(d))
         ties.append(d)
     total = sum(len(t) for t in tokens["gather"].values())
     agree = sum(a == b for u in prompts
@@ -998,7 +1132,7 @@ def phase_sched(torch, np, cfg, model, params):
                   argmax_agreement=agree / total,
                   largest_margin_at_mismatch=max(
                       (d["margin"] / d["scale"] for d in ties), default=None))
-    print("[sched] fused vs gather " + json.dumps(parity))
+    print(f"[{tag}] fused vs gather " + json.dumps(parity))
     check(all(d["margin"] <= NEAR_TIE * d["scale"] for d in ties),
           f"fused tokens differ from gather beyond a near tie: {ties}")
     return runs, parity
@@ -1031,7 +1165,272 @@ def phase_sync_free_chunk(torch, np, cfg, model, params):
     print("[sched] one fused chunk ran under sync_debug_mode('error')")
 
 
-def kernel_summary_paged(paged, runs):
+def forward_matmuls(cfg):
+    """Packed matmuls of one forward (every layer's seven, then the
+    unembedding)."""
+    return sum(c[3] for c in layer_shapes(cfg))
+
+
+def cut_depth(cfg, params, layers):
+    """The config and params of the model's first `layers` layers (views,
+    no copy): the same widths, a shorter stack."""
+    import dataclasses
+    layers = min(layers, cfg.num_layers)
+    blocks = {k: v[:layers] for k, v in params["blocks"].items()}
+    return (dataclasses.replace(cfg, num_layers=layers),
+            {**params, "blocks": blocks})
+
+
+def phase_model(torch, np, arch):
+    """One of the other dense models at full width and full depth: seeded
+    random bf16 weights on the card packed to base3, the bucket
+    ServeEngine on 8 requests x 128 prompt tokens x MODELS_NEW new ones
+    (counts zeroed just before the run and read just after), per-phase
+    times beside the decode bytes floor, the cuda-vs-torch parity on the
+    first PARITY_LAYERS layers, and for SCHED_ARCH the PagedScheduler,
+    fused against gather, on the first SCHED_CUT requests of the bursty
+    trace.  The model is freed before the next one."""
+    from repro_torch import configs
+    from repro_torch.core.cim_linear import (CIMConfig, hbm_bytes,
+                                             ternarize_params)
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.models import registry
+    from repro_torch.serve import Request, ServeEngine
+    cfg = configs.get(arch)
+    model = registry.build(cfg)
+    cim = CIMConfig(mode="ternary", packing="base3", domain="float")
+    t = time.monotonic()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t
+    raw_bytes = hbm_bytes(params)
+    t = time.monotonic()
+    packed = ternarize_params(params, cim)
+    torch.cuda.synchronize()
+    pack_s = time.monotonic() - t
+    del params
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(17)
+    warm = ServeEngine(model, packed, capacity=CAPACITY, max_batch=BATCH,
+                       cim=cim, device="cuda")
+    for r in _requests(rng, cfg.vocab_size, BATCH):
+        r.max_new = 2
+        warm.submit(r)
+    warm.run()
+    eng = ServeEngine(model, packed, capacity=CAPACITY, max_batch=BATCH,
+                      cim=cim, device="cuda")
+    check(eng.cim.backend == "cuda",
+          f"{arch}: auto resolved to {eng.cim.backend!r} on the card")
+    reqs = _requests(rng, cfg.vocab_size, BATCH)
+    for r in reqs:
+        r.max_new = MODELS_NEW
+        eng.submit(r)
+    tm.reset_launches()
+    pa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    done = eng.run()
+    wall = time.monotonic() - t0
+    launches, routes = dict(tm.LAUNCHES), dict(tm.ROUTES)
+    per_forward = forward_matmuls(cfg)
+    check(launches["ternary_matmul"] == per_forward * MODELS_NEW
+          and launches["ternary_matmul_int8"] == 0,
+          f"{arch}: {launches} ternary launches, expected {per_forward} a "
+          f"forward x {MODELS_NEW} forwards")
+    check(routes["mma"] > 0 and routes["gemv"] > 0
+          and routes["cuda_core"] == 0,
+          f"{arch}: prefill must take the mma route and decode the gemv "
+          f"route, got {routes}")
+    check(eng.host_transfers == 1,
+          f"{arch}: {eng.host_transfers} host transfers for 1 bucket")
+    check(len(done) == BATCH and all(
+        len(r.out_tokens) == MODELS_NEW
+        and all(0 <= tok < cfg.padded_vocab for tok in r.out_tokens)
+        for r in done), f"{arch}: a request is missing tokens")
+
+    tokens = torch.as_tensor(np.stack([r.prompt for r in reqs]),
+                             device="cuda")
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        logits, state = model.prefill(packed, tokens, CAPACITY, cim=eng.cim)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.monotonic() - t) * 1e3)
+    check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    steps = MODELS_NEW - 2
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    for _ in range(steps):
+        logits, state = model.decode(packed, tok, state, cim=eng.cim)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t) * 1e3 / steps
+    check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
+    try:
+        busy, kernels, _ = device_busy(torch, lambda: model.decode(
+            packed, tok, state, cim=eng.cim))
+    except SmokeError as e:             # the profile is a reading only
+        print(f"[models] {arch}: no decode profile ({e})")
+        busy = kernels = None
+    del state, logits
+    wbytes = hbm_bytes(packed) - hbm_bytes(
+        {k: v for k, v in packed.items() if k == "embed"})
+    rec = dict(
+        arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+        heads=cfg.num_heads, kv_heads=cfg.num_kv_heads, hd=cfg.hd,
+        d_ff=cfg.d_ff, padded_vocab=cfg.padded_vocab, qk_norm=cfg.qk_norm,
+        init_s=init_s, pack_s=pack_s, bf16_weight_bytes=raw_bytes,
+        packed_weight_bytes=hbm_bytes(packed),
+        decode_weight_bytes=wbytes,
+        decode_step_bound_ms=wbytes / HBM_BYTES_PER_S * 1e3,
+        requests=len(done), generated_tokens=eng.generated_tokens,
+        steps=eng.steps_run, host_transfers=eng.host_transfers,
+        launches=launches, routes=routes,
+        matmuls_per_forward=per_forward, wall_s=wall,
+        tok_per_s=eng.generated_tokens / wall,
+        prefill_ms=statistics.median(prefill_ms), decode_step_ms=step_ms,
+        decode_device_busy_ms=busy, decode_kernels=kernels,
+        decode_device_idle_share=(1.0 - busy / step_ms if busy else None))
+    print("[models] " + json.dumps(rec))
+    del eng, warm
+    cut_cfg, cut_params = cut_depth(cfg, packed, PARITY_LAYERS)
+    rec["parity_layers"] = cut_cfg.num_layers
+    rec["parity"] = phase_parity(torch, np, cut_cfg, registry.build(cut_cfg),
+                                 cut_params, tag=f"models {arch} parity")
+    del cut_params
+    if arch == SCHED_ARCH:
+        specs = sched_requests(np, cfg, seed=21)[:SCHED_CUT]
+        runs, parity = phase_sched(torch, np, cfg, model, packed,
+                                   specs=specs, kinds=("gather", "fused"),
+                                   tag=f"models {arch} sched")
+        rec["sched"] = runs
+        rec["sched_parity"] = parity
+    del packed
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_long(torch, np, cfg, model, params):
+    """Prompts past 2048 tokens on internlm2-1.8b at full width (base3,
+    float domain): the bucket engine with LONG_BATCH prompts of
+    LONG_PROMPT tokens (not a multiple of the flash chunk of 512); the
+    PagedScheduler, gather and fused, with one SCHED_LONG_PROMPT-token
+    request among short ones at capacity SCHED_LONG_CAPACITY; and one
+    layer's flash recurrence held to the direct attention on the same
+    q/k/v of FLASH_CHECK_T positions, in f32."""
+    from repro_torch.core.cim_linear import CIMConfig
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.models import attention
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.serve import Request, ServeEngine
+    cim = CIMConfig(mode="ternary", packing="base3", domain="float")
+    rng = np.random.default_rng(31)
+    out = {}
+    # the flash recurrence against the direct attention, one layer
+    x = params["embed"][torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, size=(1, FLASH_CHECK_T)),
+        device="cuda")].to(cfg.dtype)
+    wl = {k: v[0] for k, v in params["blocks"].items()}
+    q, k, v = attention._project_qkv(
+        rms_norm(x, wl["ln1"], cfg.norm_eps), wl, cfg,
+        torch.arange(FLASH_CHECK_T, device="cuda"), cim)
+    q, k, v = q.float(), k.float(), v.float()
+    check(FLASH_CHECK_T > attention.FLASH_THRESHOLD,
+          "the flash check must sit above the threshold")
+    flash = attention.flash_attention(q, k, v, cfg)
+    direct = attention._gqa_attend(q, k, v, attention.causal_mask(
+        FLASH_CHECK_T, FLASH_CHECK_T, device="cuda"))
+    err = (flash - direct).abs().max().item()
+    bar = FLASH_TOL * v.abs().max().item()
+    out["flash_vs_direct"] = dict(positions=FLASH_CHECK_T, max_abs_err=err,
+                                  bar=bar, v_scale=v.abs().max().item())
+    print("[long] flash vs direct " + json.dumps(out["flash_vs_direct"]))
+    check(err <= bar, f"flash_attention differs from the direct attention "
+                      f"by {err} (> {bar})")
+    del x, q, k, v, flash, direct
+
+    # the bucket engine at 2 x 6000 prompt tokens
+    prompts = [rng.integers(0, cfg.vocab_size, size=LONG_PROMPT)
+               for _ in range(LONG_BATCH)]
+    eng = ServeEngine(model, params, capacity=LONG_CAPACITY,
+                      max_batch=LONG_BATCH, cim=cim, device="cuda")
+    for i, p in enumerate(prompts):
+        eng.submit(Request(uid=i, prompt=p, max_new=LONG_NEW))
+    tm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    done = eng.run()
+    wall = time.monotonic() - t0
+    launches = dict(tm.LAUNCHES)
+    check(launches["ternary_matmul"] == forward_matmuls(cfg) * LONG_NEW,
+          f"long bucket: {launches} ternary launches")
+    check(eng.host_transfers == 1,
+          f"long bucket: {eng.host_transfers} host transfers for 1 bucket")
+    check(len(done) == LONG_BATCH and all(
+        len(r.out_tokens) == LONG_NEW
+        and all(0 <= tok < cfg.padded_vocab for tok in r.out_tokens)
+        for r in done), "long bucket: a request is missing tokens")
+    batch = torch.as_tensor(np.stack(prompts), device="cuda")
+    prefill_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        logits, _ = model.prefill(params, batch, LONG_CAPACITY, cim=eng.cim)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.monotonic() - t) * 1e3)
+    check(bool(torch.isfinite(logits).all()), "long prefill: non-finite")
+    try:
+        busy, kernels, _ = device_busy(torch, lambda: model.prefill(
+            params, batch, LONG_CAPACITY, cim=eng.cim))
+    except SmokeError as e:             # the profile is a reading only
+        print(f"[long] no prefill profile ({e})")
+        busy = kernels = None
+    out["bucket"] = dict(
+        requests=len(done), prompt=LONG_PROMPT, capacity=LONG_CAPACITY,
+        generated_tokens=eng.generated_tokens,
+        host_transfers=eng.host_transfers, wall_s=wall,
+        tok_per_s=eng.generated_tokens / wall, launches=launches,
+        prefill_ms=statistics.median(prefill_ms),
+        prefill_tokens_per_s=LONG_BATCH * LONG_PROMPT
+        / statistics.median(prefill_ms) * 1e3,
+        prefill_device_busy_ms=busy, prefill_kernels=kernels)
+    print("[long] bucket " + json.dumps(out["bucket"]))
+    del eng, logits, batch
+    torch.cuda.empty_cache()
+
+    # the PagedScheduler with one 3000-token request among short ones
+    specs = sched_requests(np, cfg, seed=23)[:SLOTS]
+    long_prompt = rng.integers(0, cfg.vocab_size,
+                               SCHED_LONG_PROMPT).astype(np.int32)
+    uid, _, max_new, arrival = specs[0]
+    specs[0] = (uid, long_prompt, max_new, arrival)
+    runs, parity = phase_sched(torch, np, cfg, model, params, specs=specs,
+                               kinds=("gather", "fused"),
+                               capacity=SCHED_LONG_CAPACITY,
+                               tag="long sched")
+    one = torch.as_tensor(long_prompt[None], device="cuda")
+    prefill_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        model.prefill(params, one, SCHED_LONG_CAPACITY, cim=cim)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.monotonic() - t) * 1e3)
+    out["sched"] = runs
+    out["sched_parity"] = parity
+    out["sched_long_prefill_ms"] = statistics.median(prefill_ms)
+    print("[long] sched " + json.dumps(dict(
+        prompt=SCHED_LONG_PROMPT, capacity=SCHED_LONG_CAPACITY,
+        long_prefill_ms=out["sched_long_prefill_ms"])))
+    torch.cuda.empty_cache()
+    return out
+
+
+def kernel_summary_paged(paged, runs, models, long):
     return dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/csrc/paged_attention.cu",
@@ -1051,6 +1450,11 @@ def kernel_summary_paged(paged, runs):
                      for c in paged["cases"][1:]},
         launches_per_decode_step=runs["fused"]["launches"]["paged_attention"]
         // runs["fused"]["steps_launched"],
+        launches_models={f"{arch} fused sched": m["sched"]["fused"][
+            "launches"]["paged_attention"] for arch, m in models.items()
+            if "sched" in m},
+        launches_long_sched=long["sched"]["fused"]["launches"][
+            "paged_attention"],
         workload="one layer's read at the serve shape: 8 slots x 8 KV heads "
                  "x 2 queries, hd 128, 32 pages of 16, bf16")
 
@@ -1463,7 +1867,22 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.monotonic()
-    phase_build()
+    phases = []
+
+    def run(name, fn, *args, **kwargs):
+        """One phase, with its seconds and its device-memory peak."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.monotonic()
+        result = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        rec = dict(phase=name, seconds=time.monotonic() - t,
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
+        print("[phase] " + json.dumps(rec))
+        phases.append(rec)
+        return result
+
+    run("build", phase_build)
     card = card_line()
     print(f"[card] {card}")
 
@@ -1478,43 +1897,59 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    cases, floor_ms = phase_kernels(torch, cfg)
+    cases, floor_ms = run("kernels", phase_kernels, torch, cfg)
     print_matmul_sums(cases, floor_ms)
-    paged = phase_paged_kernel(torch, np, cfg)
+    paged = run("paged-kernel", phase_paged_kernel, torch, np, cfg)
 
     model = registry.build(cfg)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = model.init(gen, device="cuda")
-    packed = {p: ternarize_params(params, CIMConfig(mode="ternary",
-                                                    packing=p))
-              for p in ("base3", "trit2")}
-    del params
-    runs = phase_serve(torch, np, cfg, model, packed)
-    parity = phase_parity(torch, np, cfg, model, packed["base3"])
+
+    def init_packed():
+        params = model.init(torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+        return {p: ternarize_params(params, CIMConfig(mode="ternary",
+                                                      packing=p))
+                for p in ("base3", "trit2")}
+    packed = run("init", init_packed)
+    runs = run("serve", phase_serve, torch, np, cfg, model, packed)
+    parity = run("parity", phase_parity, torch, np, cfg, model,
+                 packed["base3"])
     del packed["trit2"]
-    sched, sched_parity = phase_sched(torch, np, cfg, model,
-                                      packed["base3"])
-    phase_sync_free_chunk(torch, np, cfg, model, packed["base3"])
+    sched, sched_parity = run("sched", phase_sched, torch, np, cfg, model,
+                              packed["base3"])
+    run("sync-free chunk", phase_sync_free_chunk, torch, np, cfg, model,
+        packed["base3"])
+    long = run("long", phase_long, torch, np, cfg, model, packed["base3"])
     del packed
-    cim_cases = phase_cim_kernel(torch, cfg)
+    torch.cuda.empty_cache()
+    cim_cases = run("cim-kernel", phase_cim_kernel, torch, cfg)
     # the float weights of the same seeded init, for the exact mode
     params = model.init(torch.Generator(device="cuda").manual_seed(0),
                         device="cuda")
-    exact = phase_exact(torch, np, cfg, model, params, cim_cases)
+    exact = run("exact", phase_exact, torch, np, cfg, model, params,
+                cim_cases)
     del params
+    torch.cuda.empty_cache()
+    models = {arch: run(f"models {arch}", phase_model, torch, np, arch)
+              for arch in MODEL_ARCHS}
 
     details = dict(card=card, device=torch.cuda.get_device_name(0),
-                   harness_floor_ms=floor_ms, cases=cases, serve=runs, parity=parity,
-                   paged_kernel=paged, sched=sched,
-                   sched_parity=sched_parity, cim_cases=cim_cases,
-                   exact=exact, seconds=time.monotonic() - t_start)
+                   harness_floor_ms=floor_ms, cases=cases, serve=runs,
+                   parity=parity, paged_kernel=paged, sched=sched,
+                   sched_parity=sched_parity, long=long, cim_cases=cim_cases,
+                   exact=exact, models=models, phases=phases,
+                   seconds=time.monotonic() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(details, indent=1))
+    print("[models] summary " + json.dumps({
+        arch: {key: m[key] for key in (
+            "prefill_ms", "decode_step_ms", "tok_per_s",
+            "packed_weight_bytes", "decode_step_bound_ms",
+            "decode_device_idle_share")} for arch, m in models.items()}))
     print(f"[done] {details['seconds']:.1f} s")
     print(card)
-    print(json.dumps({"kernels": kernel_summary(cases, runs, cfg)
-                      + [kernel_summary_paged(paged, sched),
+    print(json.dumps({"kernels": kernel_summary(cases, runs, cfg, models)
+                      + [kernel_summary_paged(paged, sched, models, long),
                          kernel_summary_cim(cim_cases, exact, cfg)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

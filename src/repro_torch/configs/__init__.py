@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ("internlm2-1.8b",)
+ARCHS = ("internlm2-1.8b", "glm4-9b", "phi3-mini-3.8b", "qwen3-14b")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

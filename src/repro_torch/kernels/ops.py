@@ -79,10 +79,30 @@ def _ordered_sum_rows(x: torch.Tensor) -> torch.Tensor:
 def pack_weights(w: torch.Tensor, mode: str = "base3") -> PackedTernary:
     """Quantize a float (..., K, N) weight with the paper's truncating
     flow (5 trits for base3) and pack it, with per-output-column scales.
-    Leading (layer stack) axes are kept."""
+    Leading (layer stack) axes are kept.  A stacked weight is packed one
+    (K, N) matrix at a time into the stacked result: every step is
+    per column, so the bytes and scales are those of packing it whole,
+    while the temporaries (f32 and int32 copies, five trit planes) stay
+    the size of one matrix (qwen3-14b's w1 is 3.6 G weights)."""
     if mode not in PACKINGS:
         raise ValueError(f"unknown packing mode {mode!r}; expected one of "
                          f"{sorted(PACKINGS)}")
+    if w.dim() == 2:
+        return _pack_matrix(w, mode)
+    flat = w.reshape((-1,) + tuple(w.shape[-2:]))
+    for i, matrix in enumerate(flat):
+        one = _pack_matrix(matrix, mode)
+        if i == 0:
+            data = one.data.new_empty((len(flat),) + tuple(one.data.shape))
+            scale = one.scale.new_empty((len(flat),) + tuple(one.scale.shape))
+        data[i], scale[i] = one.data, one.scale
+    lead = tuple(w.shape[:-2])
+    return PackedTernary(data.reshape(lead + tuple(data.shape[1:])),
+                         scale.reshape(lead + tuple(scale.shape[1:])), mode)
+
+
+def _pack_matrix(w: torch.Tensor, mode: str) -> PackedTernary:
+    """:func:`pack_weights` of one (K, N) matrix."""
     if mode == "base3":
         tt = ternarize(w, axis=-2)
         data = pack_trit_planes_base3(tt.trits)          # (..., K, N)

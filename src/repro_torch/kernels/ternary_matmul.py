@@ -30,7 +30,9 @@ Three routes, chosen by :func:`route` from M and the dtype of x:
   at the tensor-core rate.  x and the raw packed weight are staged with
   ``cp.async``; each stage's weight is decoded in shared memory into the
   mma's type (no dequantized weight in device memory).  K is split by
-  :func:`mma_plan` when the tiles alone cannot fill the SMs.
+  :func:`mma_plan` when the tiles alone cannot fill the SMs, and in the
+  float domain also where K passes ``MMA_FLOAT_CHAIN`` rows (the tensor
+  cores' truncating f32 accumulation drifts with the chain's length).
 * ``cuda_core`` (f32 x, any M): the CUDA-core kernels (a weight-streaming
   one for M <= 8, a tiled one above), K split by :func:`split_k`.  f32
   activations are off the serving path (the full-width model is bf16),
@@ -63,6 +65,14 @@ GEMV_CLUSTERS = (1, 2, 4, 8)     # blocks per cluster (portable sizes)
 GEMV_STAGE_ROWS = 64     # packed rows per gemv stage (kGvRows)
 MMA_BLOCK_N = 128        # output columns per mma block (kMBN)
 MMA_K_CHUNK = 64         # K rows per mma stage and split unit (kMBK)
+# The most K rows one bf16 mma accumulator chain takes.  The tensor cores
+# add each m16n8k16 product into the f32 accumulator with truncation, so
+# the chain's error against an exact sum grows about linearly with its
+# length, where the f32 plain version's grows far slower; up to 8192
+# rows it stays within the card tests' bar (chip_smoke.py measures both
+# against an f64 sum at glm4-9b's K = 13696).  Longer K is split, and the
+# splits are added in IEEE f32, in split order; int8 sums exactly.
+MMA_FLOAT_CHAIN = 8192
 MODE_CODE = {"base3": 0, "trit2": 1}
 # x dtype codes of tm_gemv_launch (which refuses f32)
 X_TYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -142,26 +152,30 @@ def gemv_plan(m: int, k: int, n: int, mode: str,
     return GEMV_BLOCK_NS[-1], c, -(-stages // c) * unit
 
 
-def mma_tile_plan(m: int, k: int, n: int, sm_count: int,
-                  bm: int) -> tuple[int, int, int]:
+def mma_tile_plan(m: int, k: int, n: int, sm_count: int, bm: int,
+                  chain: int | None = None) -> tuple[int, int, int]:
     """(bm, splits, k_per_split) of the mma route with `bm`-row tiles: K
-    is split only when the output tiles alone leave half the SMs idle,
-    into whole stages of 64 K rows (either packing), so that the grid
-    holds at most about one block per SM."""
+    is split when the output tiles alone leave half the SMs idle, so
+    that the grid holds at most about one block per SM, and, given a
+    `chain`, until no split covers more than `chain` K rows; splits are
+    whole stages of 64 K rows (either packing)."""
     tiles = -(-n // MMA_BLOCK_N) * -(-m // bm)
     chunks = max(1, -(-k // MMA_K_CHUNK))
     splits = min(chunks, max(1, sm_count // tiles))
+    if chain is not None:
+        splits = max(splits, -(-k // chain))
     per = -(-chunks // splits)
     return bm, -(-chunks // per), per * MMA_K_CHUNK
 
 
-def mma_plan(m: int, k: int, n: int,
-             sm_count: int) -> tuple[int, int, int]:
+def mma_plan(m: int, k: int, n: int, sm_count: int,
+             chain: int | None = None) -> tuple[int, int, int]:
     """(block_m, splits, k_per_split) of the mma route: 256-row tiles (16
     warps) for M > 128, else 128-row tiles (8 warps) with the rows past M
-    masked; :func:`mma_tile_plan` splits K.  ``chip_smoke.py`` times the
-    other tile height beside this plan at the prefill shapes."""
-    return mma_tile_plan(m, k, n, sm_count, 256 if m > 128 else 128)
+    masked; :func:`mma_tile_plan` splits K (the float domain passes
+    ``chain=MMA_FLOAT_CHAIN``).  ``chip_smoke.py`` times the other tile
+    height beside this plan at the prefill shapes."""
+    return mma_tile_plan(m, k, n, sm_count, 256 if m > 128 else 128, chain)
 
 
 def _check(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
@@ -327,7 +341,7 @@ def matmul_float(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
     sms = _sm_count(x.device)
     if path == "mma":
         err = launch_mma(x, None, data, scale, mode, out,
-                         mma_plan(m, k, n, sms))
+                         mma_plan(m, k, n, sms, MMA_FLOAT_CHAIN))
     elif path == "gemv":
         err = launch_gemv(x, None, data, scale, mode, out,
                           gemv_plan(m, k, n, mode, sms))

@@ -2,15 +2,18 @@
 
 Runs full-width decode steps of the bucket path (the same model, packing
 and domain as ``launch/serve.py``; a bucket of 8 requests at position
-128), first timed plain with CUDA synchronisation, then under
-``torch.profiler``.  Prints the device time per step by kernel, the
-number of kernels launched per step, and the device's busy and idle
-share of the profiled wall time, and then, under ``cProfile``, the host
-time spent in the port's own functions, as one JSON line.  It is the
+``--prompt-len``, 128 by default), first timed plain with CUDA
+synchronisation, then under ``torch.profiler``.  Prints the device time
+per step by kernel, the number of kernels launched per step, and the
+device's busy and idle share of the profiled wall time, and then, under
+``cProfile``, the host time spent in the port's own functions, as one
+JSON line.  It is the
 yardstick for taking the host out of the decode step (CUDA-graph replay):
 the idle share and the kernels per step are what such a change moves.
 
   PYTHONPATH=src python -m repro_torch.launch.profile --packed base3 --domain int8
+  PYTHONPATH=src python -m repro_torch.launch.profile --arch glm4-9b \
+      --prompt-len 3000 --capacity 3072
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-BATCH, PROMPT_LEN, CAPACITY = 8, 128, 256
+BATCH = 8
 STEPS, TOP, SEED = 8, 10, 0
 
 
@@ -35,10 +38,20 @@ def _device_us(event) -> float:
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", default="internlm2-1.8b")
+    p.add_argument("--arch", default="internlm2-1.8b",
+                   help="one of repro_torch.configs.ARCHS")
     p.add_argument("--packed", default="base3", choices=("base3", "trit2"))
     p.add_argument("--domain", default="float", choices=("float", "int8"))
+    p.add_argument("--prompt-len", type=int, default=128,
+                   help="prompt tokens per request (past 2048 the prefill "
+                        "takes the flash recurrence)")
+    p.add_argument("--capacity", type=int, default=0,
+                   help="KV positions per request (0: the prompt plus "
+                        "the profiled steps, rounded up to 128)")
     args = p.parse_args(argv)
+    # the prefill, then 3 warm-up steps and three runs of STEPS
+    capacity = args.capacity or -(-(args.prompt_len + 4 * STEPS)
+                                  // 128) * 128
 
     from repro_torch import configs, resolve_device
     from repro_torch.core.cim_linear import CIMConfig, ternarize_params
@@ -53,8 +66,8 @@ def main(argv=None) -> dict:
                    device=device), cim)
     rng = np.random.default_rng(SEED + 1)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(
-        BATCH, PROMPT_LEN)), device=device)
-    logits, state = model.prefill(params, tokens, CAPACITY, cim=cim)
+        BATCH, args.prompt_len)), device=device)
+    logits, state = model.prefill(params, tokens, capacity, cim=cim)
     tok = logits[:, -1].argmax(-1, keepdim=True)
 
     def steps(n):
@@ -96,7 +109,7 @@ def main(argv=None) -> dict:
     out = {
         "arch": cfg.name, "device": torch.cuda.get_device_name(device),
         "packed": args.packed, "domain": args.domain, "batch": BATCH,
-        "position": PROMPT_LEN, "steps": STEPS,
+        "position": args.prompt_len, "capacity": capacity, "steps": STEPS,
         "step_ms": step_ms,
         "profiled_step_ms": wall_us / 1e3 / STEPS,
         "device_busy_ms_per_step": busy_us / 1e3 / STEPS,

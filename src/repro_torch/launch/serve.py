@@ -20,6 +20,15 @@ packed bytes are decoded only inside the matmul kernels.
       --packed base3 --continuous --kv paged --slots 8 --chunk 8 \\
       --capacity 512 --arrival-rate 50
 
+``--arch`` takes every name of ``repro_torch.configs.ARCHS``
+(internlm2-1.8b, glm4-9b, phi3-mini-3.8b, qwen3-14b).  A prompt past
+2048 tokens is prefilled through the flash recurrence
+(``models.attention.flash_attention``); size ``--capacity`` to hold the
+prompt and its new tokens:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
+      --packed base3 --prompt-len 3000 --capacity 3072
+
 ``--device cpu --smoke`` runs the same paths on the CPU through the plain
 PyTorch versions of the kernels.
 """
@@ -35,13 +44,16 @@ import torch
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser()
-    p.add_argument("--arch", default="internlm2-1.8b")
+    p.add_argument("--arch", default="internlm2-1.8b",
+                   help="one of repro_torch.configs.ARCHS")
     p.add_argument("--smoke", action="store_true")
     p.add_argument("--requests", type=int, default=8)
     p.add_argument("--prompt-len", type=int, default=32)
     p.add_argument("--max-new", type=int, default=16)
     p.add_argument("--max-batch", type=int, default=8)
-    p.add_argument("--capacity", type=int, default=256)
+    p.add_argument("--capacity", type=int, default=256,
+                   help="KV positions per request: at least the prompt "
+                        "plus its new tokens")
     p.add_argument("--packed", choices=("base3", "trit2"))
     p.add_argument("--domain", default="float", choices=("float", "int8"),
                    help="arithmetic domain of the packed matmuls")

@@ -1,13 +1,13 @@
 """Grouped-query attention, dense KV cache: prefill and the decode read.
 
 Layout: q (B, S, H, hd), k/v (B, T, KV, hd).  GQA is computed with
-grouped einsums, no repeated heads.  The decode reads take the cache
-position as a host int (the bucket engine: every row at one position)
-or as a ``(B,)`` device tensor (the slot pools: each row at its own),
-and never copy a device position to the host.  Only the direct (masked)
-attention is ported: above ``FLASH_THRESHOLD`` positions the reference
-switches to a flash recurrence, which is not ported yet, and ``attend``
-raises.
+grouped einsums, no repeated heads.  ``attend`` runs the direct (masked)
+attention up to ``FLASH_THRESHOLD`` positions and the flash recurrence
+over KV chunks above it, as the reference does; both take k/v as dense
+tensors or as ``paged_kv.PagedKV`` gather-views.  The decode reads take
+the cache position as a host int (the bucket engine: every row at one
+position) or as a ``(B,)`` device tensor (the slot pools: each row at
+its own), and never copy a device position to the host.
 """
 from __future__ import annotations
 
@@ -16,10 +16,11 @@ from typing import Any, NamedTuple
 
 import torch
 
+from . import paged_kv
 from .config import ModelConfig
-from .layers import apply_rope, dense
+from .layers import apply_rope, dense, rms_norm
 
-FLASH_THRESHOLD = 2048
+FLASH_THRESHOLD = 2048   # direct attention up to here, flash above
 NEG_INF = -1e30
 
 
@@ -35,13 +36,16 @@ def _project_qkv(x, w, cfg: ModelConfig, positions, cim_cfg=None):
     q = dense(x, w["wq"], cim_cfg).reshape(b, s, h, hd)
     k = dense(x, w["wk"], cim_cfg).reshape(b, s, kv, hd)
     v = dense(x, w["wv"], cim_cfg).reshape(b, s, kv, hd)
+    if cfg.qk_norm and "q_norm" in w:
+        q = rms_norm(q, w["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, w["k_norm"], cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def _gqa_attend(q, k, v, mask):
-    """q (B,S,H,hd) x k/v (B,T,KV,hd); additive mask (1,1,1,S,T).
+    """q (B,S,H,hd) x k/v (B,T,KV,hd); additive mask (1,1,1,S,T) or None.
     Scores in f32, probabilities cast to q's dtype before the PV product,
     which accumulates in f32 and rounds once to q's dtype."""
     b, s, h, hd = q.shape
@@ -49,30 +53,99 @@ def _gqa_attend(q, k, v, mask):
     rep = h // kv
     qg = q.reshape(b, s, kv, rep, hd)
     scores = torch.einsum("bskrd,btkd->bkrst", qg.float(), k.float())
-    scores = scores / math.sqrt(hd) + mask
+    scores = scores / math.sqrt(hd)
+    if mask is not None:
+        scores = scores + mask
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bkrst,btkd->bskrd", probs.float(), v.float())
     return out.to(q.dtype).reshape(b, s, h * hd)
 
 
-def causal_mask(s: int, t: int, device=None) -> torch.Tensor:
-    """Additive (1, 1, 1, s, t) mask: query i sees keys 0..i."""
-    qpos = torch.arange(s, device=device)[:, None]
+def causal_mask(s: int, t: int, window: int = 0, offset: int = 0,
+                device=None) -> torch.Tensor:
+    """Additive (1, 1, 1, s, t) mask; query i sits at position offset + i
+    and sees keys 0..offset + i (the last `window` of them when a window
+    is set)."""
+    qpos = torch.arange(s, device=device)[:, None] + offset
     kpos = torch.arange(t, device=device)[None, :]
+    ok = kpos <= qpos
+    if window > 0:
+        ok = ok & (kpos > qpos - window)
     zero = torch.zeros((), dtype=torch.float32, device=device)
-    return torch.where(kpos <= qpos, zero, NEG_INF)[None, None, None]
+    return torch.where(ok, zero, NEG_INF)[None, None, None]
 
 
-def attend(q, k, v):
-    """Direct causal attention of a prompt over itself, up to
-    FLASH_THRESHOLD positions."""
+def flash_attention(q, k, v, cfg: ModelConfig, causal: bool = True,
+                    q_offset=0, chunk: int = 512) -> torch.Tensor:
+    """Memory-bounded attention: a loop over KV chunks carrying the
+    running (max, denominator, accumulator), the flash recurrence in
+    plain torch ops.  The (S, T) score matrix never exists, only one
+    chunk's (S, chunk) scores.
+
+    q (B,S,H,hd); k/v (B,T,KV,hd) or ``paged_kv.PagedKV`` views, which
+    are gathered into dense K/V first.  q goes to f32 and is divided by
+    sqrt(hd) in f32; K/V are zero-padded to a multiple of `chunk`; the
+    mask (causal or ``kpos < T``, always ``kpos < T`` for the padding,
+    and the sliding window when the config sets one) is rebuilt per
+    chunk from positions, with query i at position q_offset + i.
+    Masked scores are -1e30.  Returns (B, S, H*hd) in q's dtype."""
+    k = paged_kv.materialize(k)
+    v = paged_kv.materialize(v)
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    kv = k.shape[2]
+    rep = h // kv
+    window = cfg.sliding_window
+    pad = -t % chunk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    nc = k.shape[1] // chunk
+    qg = (q.reshape(b, s, kv, rep, hd).float()
+          / _root(hd, torch.float32))
+    qpos = (torch.arange(s, device=q.device) + q_offset)[:, None]
+    neg = torch.full((), NEG_INF, dtype=torch.float32, device=q.device)
+    m = torch.full((b, s, kv, rep), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, s, kv, rep), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, s, kv, rep, hd), dtype=torch.float32,
+                      device=q.device)
+    for c in range(nc):
+        kb = k[:, c * chunk:(c + 1) * chunk].float()
+        vb = v[:, c * chunk:(c + 1) * chunk].float()
+        sc = torch.einsum("bskrd,bukd->bskru", qg, kb)
+        kpos = (c * chunk + torch.arange(chunk, device=q.device))[None, :]
+        ok = kpos <= qpos if causal else kpos < t
+        ok = ok & (kpos < t)                     # mask the padding
+        if window:
+            ok = ok & (kpos > qpos - window)
+        sc = torch.where(ok[None, :, None, None, :], sc, neg)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bskru,bukd->bskrd",
+                                                   p, vb)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(b, s, h * hd).to(q.dtype)
+
+
+def attend(q, k, v, cfg: ModelConfig, causal: bool = True, q_offset=0):
+    """Dispatch: direct masked attention up to FLASH_THRESHOLD positions,
+    flash above.  ``k``/``v`` may be ``paged_kv.PagedKV`` gather-views,
+    gathered into dense (B, T, KV, hd) here, so both branches give what
+    dense K/V give.  As in the reference, the direct branch offsets the
+    mask by `q_offset` only when S != T, while flash always takes it."""
+    k = paged_kv.materialize(k)
+    v = paged_kv.materialize(v)
     s, t = q.shape[1], k.shape[1]
-    if max(s, t) > FLASH_THRESHOLD:
-        raise NotImplementedError(
-            f"attention over {max(s, t)} positions needs flash_attention "
-            f"(the reference's path above {FLASH_THRESHOLD} positions), "
-            f"which is not ported yet")
-    return _gqa_attend(q, k, v, causal_mask(s, t, q.device))
+    if max(s, t) <= FLASH_THRESHOLD:
+        off = q_offset if s != t else 0
+        mask = (causal_mask(s, t, cfg.sliding_window, off, q.device)
+                if causal else None)
+        return _gqa_attend(q, k, v, mask)
+    return flash_attention(q, k, v, cfg, causal=causal, q_offset=q_offset)
 
 
 def prefill_attention(x, w, cfg: ModelConfig, cache: KVCache,
@@ -85,7 +158,7 @@ def prefill_attention(x, w, cfg: ModelConfig, cache: KVCache,
                          f"{cache.k.shape[1]}")
     positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(x, w, cfg, positions, cim_cfg)
-    out = attend(q, k, v)
+    out = attend(q, k, v, cfg, causal=True)
     cache.k[:, :s] = k.to(cache.k.dtype)
     cache.v[:, :s] = v.to(cache.v.dtype)
     return dense(out, w["wo"], cim_cfg), KVCache(cache.k, cache.v, s)

@@ -18,14 +18,19 @@ class ModelConfig:
     num_kv_heads: int
     d_ff: int
     vocab_size: int
+    head_dim: int = 0              # 0 -> d_model // num_heads
     rope_theta: float = 10_000.0
+    qk_norm: bool = False          # RMSNorm of each head's q and k
+    sliding_window: int = 0        # 0 = full attention; the attention
+                                   # functions mask a window, but the
+                                   # model refuses one (no rolling cache)
     norm_eps: float = 1e-6
     dtype: Any = torch.bfloat16
     kv_cache_dtype: str = ""       # "" (= dtype); "int8" is not ported yet
 
     @property
     def hd(self) -> int:
-        return self.d_model // self.num_heads
+        return self.head_dim or self.d_model // self.num_heads
 
     @property
     def padded_vocab(self) -> int:

@@ -20,11 +20,14 @@ KV in a pool of fixed-size pages instead:
     KV into freshly allocated pages.
   * :class:`PageAllocator`: the host-side free list with refcounted
     prefix sharing, and :func:`prefix_key`.
+  * :class:`PagedKV` and :func:`materialize`: a paged K or V operand of
+    ``attention.attend`` / ``flash_attention``, gathered into the dense
+    layout before they compute.
 
 The reference's functions return an updated copy of the pool; these
 update the pool's tensors in place (no second pool is ever allocated)
 and return the same pool, so call sites read alike.  Int8-KV scale pages
-and the ``PagedKV`` operand wrapper are not ported yet.
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -219,3 +222,24 @@ def prefix_key(prompt_np, page: int, page_size: int):
     """Hashable identity of prompt page ``page``: the token prefix that
     (causally) determines the page's KV contents."""
     return (page, prompt_np[: (page + 1) * page_size].tobytes())
+
+
+class PagedKV(NamedTuple):
+    """A paged K or V operand of ``attention.attend`` /
+    ``flash_attention``: per-row page tables over a shared page pool.
+    ``pages (P, page_size, KV, hd)``; ``page_table (B, n)``.  The
+    attention functions gather it (:func:`materialize`) before they
+    compute, so the paged layout needs no second attention and gives
+    what dense operands give, bit for bit."""
+    pages: torch.Tensor
+    page_table: torch.Tensor
+
+
+def materialize(x):
+    """Gather a :class:`PagedKV` view into a dense (B, n * page_size, KV,
+    hd) tensor (anything else is returned as it is)."""
+    if not isinstance(x, PagedKV):
+        return x
+    b, n = x.page_table.shape
+    g = x.pages[x.page_table.long()]             # (B, n, ps, KV, hd)
+    return g.reshape((b, n * g.shape[2]) + tuple(g.shape[3:]))

@@ -3,7 +3,8 @@
 Params mirror the reference's tree: ``embed`` (V, d), ``unembed``
 (d, V), ``final_norm`` (d,), and ``blocks`` whose leaves carry a leading
 layer axis (``ln1``, ``ln2``, ``wq``, ``wk``, ``wv``, ``wo``, ``w1``,
-``w2``, ``w3``).  Packed weights are ``PackedTernary`` with the same
+``w2``, ``w3``, and ``q_norm`` / ``k_norm`` (L, hd) where the config
+sets ``qk_norm``).  Packed weights are ``PackedTernary`` with the same
 leading axis; the layer loop slices it.  Every weight matmul goes
 through ``layers.dense`` and so through the CIM modes.
 
@@ -39,6 +40,11 @@ class TransformerLM:
                 f"family {cfg.family!r} is not ported yet (dense only)")
         if cfg.kv_cache_dtype == "int8":
             raise NotImplementedError("int8 KV caches are not ported yet")
+        if cfg.sliding_window > 0:
+            raise NotImplementedError(
+                f"sliding_window={cfg.sliding_window}: a windowed model "
+                f"decodes against a rolling cache (slot = pos % window), "
+                f"which is not ported yet (it comes with mixtral)")
         self.cfg = cfg
         self.param_specs = self._param_specs()
 
@@ -56,6 +62,9 @@ class TransformerLM:
                   "w1": ParamSpec(L + (d, f)),
                   "w2": ParamSpec(L + (f, d)),
                   "w3": ParamSpec(L + (d, f))}
+        if cfg.qk_norm:
+            blocks["q_norm"] = ParamSpec(L + (hd,), "ones")
+            blocks["k_norm"] = ParamSpec(L + (hd,), "ones")
         return {"embed": ParamSpec((v, d), "embed"),
                 "unembed": ParamSpec((d, v)),
                 "final_norm": ParamSpec((d,), "ones"),
@@ -153,7 +162,7 @@ class TransformerLM:
     def supports_paged_kv(self) -> bool:
         """The dense family's full-cache read-then-write decode pages
         cleanly (the reference also excludes cross-attention and
-        sliding-window models, which are not ported)."""
+        sliding-window models; ``__init__`` refuses a window)."""
         return True
 
     def decode_paged(self, params: dict, tokens: torch.Tensor, pool,

@@ -221,6 +221,36 @@ def test_gemv_route_at_the_main_path_shapes(dev, m, k, n, mode):
     _gemv_matches(dev, x, data, scale, mode)
 
 
+# the other dense models' widest weights (K, N): glm4-9b's w1/w3 and w2
+# (d_ff 13696 = 107 x 128) and qwen3-14b's w1/w3 and w2 (d_ff 17408)
+OTHER_MODEL_KN = [(4096, 13696), (13696, 4096), (5120, 17408),
+                  (17408, 5120)]
+
+
+@pytest.mark.parametrize("mode", ["base3", "trit2"])
+@pytest.mark.parametrize("k,n", OTHER_MODEL_KN)
+@pytest.mark.parametrize("m", [8, 1024])
+def test_ternary_routes_at_the_other_models_shapes(dev, m, k, n, mode):
+    """Decode (M = 8, the gemv route) and prefill (M = 1024, the mma
+    route) at glm4-9b's and qwen3-14b's MLP shapes: float within 1e-5 of
+    max|y| (K past MMA_FLOAT_CHAIN is split), int8 bitwise, each call
+    through its route."""
+    x, data, scale = _device_operands(dev, m, k, n, mode, seed=m + k + n)
+    if m <= 8:
+        _gemv_matches(dev, x, data, scale, mode)
+        return
+    w = ops.PackedTernary(data, scale, mode)
+    before = dict(tm.ROUTES)
+    xb = x.to(torch.bfloat16)
+    want = ops.ternary_matmul_torch(xb, w)
+    torch.testing.assert_close(tm.matmul_float(xb, data, scale, mode), want,
+                               rtol=0, atol=1e-5 * want.abs().max().item())
+    xi, xs = ops.quantize_acts_int8(x)
+    assert torch.equal(tm.matmul_int8(xi, xs, data, scale, mode),
+                       ops.ternary_matmul_int8_torch(xi, xs, w))
+    assert tm.ROUTES["mma"] == before["mma"] + 2
+
+
 @pytest.mark.parametrize("mode", ["base3", "trit2"])
 @pytest.mark.parametrize("m,k,n", [
     (1, 64, 5), (2, 200, 130), (4, 520, 2050), (5, 8192, 2050),
@@ -329,6 +359,67 @@ def test_smoke_model_cuda_backend_matches_plain_backend(dev, packing,
                                    atol=1e-4 * want.abs().max().item())
 
 
+@pytest.mark.parametrize("domain", ["float", "int8"])
+@pytest.mark.parametrize("arch", ["glm4-9b", "phi3-mini-3.8b", "qwen3-14b"])
+def test_other_smoke_models_cuda_backend_matches_plain_backend(dev, arch,
+                                                               domain):
+    """The three other dense models at smoke size (1 KV head, MHA,
+    qk-RMSNorm), f32, base3 weights: a prefill and three decode steps
+    through the kernels give the plain backend's logits (int8 bitwise,
+    float to the summation order)."""
+    cfg = dataclasses.replace(configs.smoke(arch), dtype=torch.float32)
+    model = registry.build(cfg)
+    params = ternarize_params(
+        model.init(torch.Generator(device=dev).manual_seed(0), device=dev),
+        CIMConfig(mode="ternary", packing="base3"))
+    rng = np.random.default_rng(4)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 8)),
+                             device=dev)
+    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(3, 2, 1)),
+                           device=dev)
+    logits = {}
+    for backend in ("cuda", "torch"):
+        cim = CIMConfig(mode="ternary", packing="base3", domain=domain,
+                        backend=backend)
+        lg, state = model.prefill(params, prompt, 16, cim=cim)
+        steps = [lg]
+        for tok in feed:
+            lg, state = model.decode(params, tok, state, cim=cim)
+            steps.append(lg)
+        logits[backend] = torch.stack(steps)
+    got, want = logits["cuda"], logits["torch"]
+    if domain == "int8":
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-4 * want.abs().max().item())
+
+
+def test_long_prompt_through_flash_on_the_card(dev):
+    """A 2100-token prompt (past the 2048 of the direct attention) on the
+    smoke model, f32, base3 weights: the prefill takes the flash
+    recurrence on the card, and the cuda backend's logits over the
+    prefill and two decode steps are the plain backend's (int8
+    bitwise)."""
+    cfg, model, params = _smoke(dev, "base3")
+    rng = np.random.default_rng(8)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 2100)),
+                             device=dev)
+    logits = {}
+    for backend in ("cuda", "torch"):
+        cim = CIMConfig(mode="ternary", packing="base3", domain="int8",
+                        backend=backend)
+        lg, state = model.prefill(params, prompt, 2112, cim=cim)
+        steps = [lg]
+        for _ in range(2):
+            lg, state = model.decode(params, lg[:, -1].argmax(
+                -1, keepdim=True), state, cim=cim)
+            steps.append(lg)
+        logits[backend] = torch.stack(steps)
+    assert torch.equal(logits["cuda"], logits["torch"])
+    assert state["pos"] == 2102
+
+
 def test_serve_engine_on_the_card(dev):
     """Two prompt-length buckets in the int8 domain: the cuda backend
     gives the plain backend's tokens, through the kernel, with one host
@@ -405,6 +496,12 @@ def _close_stats(got, want):
     # rows of 40 bytes in bf16: the plain-loads route
     (2, 3, 20, 4, 6, [0, 3, 4, 5, 23, 24]),
     (1, 8, 256, 4, 2, [3]),                 # rep x hd = 2048 at hd 256
+    # phi3-mini-3.8b's grouping: 32 KV heads x 1 query, hd 96
+    (32, 1, 96, 16, 32, [0, 1, 15, 16, 17, 511, 512, 256]),
+    # qwen3-14b's grouping: 8 KV heads x 5 queries
+    (8, 5, 128, 16, 32, [0, 1, 15, 16, 17, 511, 512, 256]),
+    # capacity 4096: 8 ranks of 32 windows
+    (8, 2, 128, 16, 256, [0, 1, 17, 1000, 2048, 3000, 4095, 4096]),
 ])
 def test_paged_attention_kernel_matches_plain_version(dev, dtype, kvh, rep,
                                                       hd, ps, windows, pos):

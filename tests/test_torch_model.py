@@ -162,12 +162,27 @@ def test_init_follows_the_param_rules():
             tm.init(gen)
 
 
-def test_attend_refuses_the_flash_range():
+def test_attend_refuses_the_flash_range(monkeypatch):
+    """attend no longer refuses the range past FLASH_THRESHOLD positions:
+    there it dispatches to flash_attention, as the reference does, and up
+    to it to the direct masked attention (tests/test_torch_flash.py holds
+    both against the reference)."""
     from repro_torch.models import attention
-    q = torch.zeros(1, 2049, 4, 16)
-    k = torch.zeros(1, 2049, 2, 16)
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        attention.attend(q, k, k)
+    cfg = configs.smoke("internlm2-1.8b")
+    calls = []
+    flash = attention.flash_attention
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape[1])
+        return flash(*args, **kwargs)
+    monkeypatch.setattr(attention, "flash_attention", counted)
+    for s in (attention.FLASH_THRESHOLD, attention.FLASH_THRESHOLD + 1):
+        gen = torch.Generator().manual_seed(s)
+        q = torch.randn(1, s, 4, 16, generator=gen)
+        k = torch.randn(1, s, 2, 16, generator=gen)
+        out = attention.attend(q, k, k, cfg)
+        assert out.shape == (1, s, 64) and bool(torch.isfinite(out).all())
+    assert calls == [attention.FLASH_THRESHOLD + 1]
 
 
 def test_to_tensor_keeps_bf16_bits():
