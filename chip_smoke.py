@@ -104,7 +104,30 @@ Phases, each of which raises on failure:
               request among 7 short ones at capacity 4096 (256 windows),
               held as the sched phase holds it.  Prints each long
               prefill's time.
-8. cim-kernel - cim_mac against its plain version (the macro model) on
+8. fidelity - device-fidelity serving (``repro_torch.faults``) of
+              internlm2-1.8b: the threefry kernel bitwise against its
+              plain version on the card (and the CPU's for the small
+              ones) on flat ranges from 0, past 2^31 and past 2^32, one
+              layer's planes of the stacked w1 and the ADC noise's column
+              runs; its time on that layer's planes beside its bound and
+              the plain version's time.  One full-width w1 layer (2048 x
+              8192, M = 8) of device_ternary_mac on the card and on the
+              CPU under measured_fault_model(seed=0, drift_rate=0.001):
+              bitwise with variation off; with variation on and ADC
+              noise 0.5 (per_row, as the dense Scheduler calls it) at
+              most 1% of the outputs differ.  Then, under that campaign, the
+              dense Scheduler and the fused PagedScheduler (4 requests x
+              128 prompt tokens x 16 new, 2 slots, chunk 4, scrub_every
+              2, capacity 256), each exact and then device: counts zeroed
+              before each run and read after; one transfer per chunk, at
+              least one scrub, the served trit error rate in (0, 3 x the
+              restore bound], prefill on the mma route and no gemv in
+              device decode (one gemv a prefill: its unembedding at
+              M = 1), one fused read per layer per step; prints
+              the power-on restore, disturb, probe, device decode step
+              and exact prefill ms, the ADC clip counters and the greedy
+              agreement with the exact run (not gated).
+9. cim-kernel - cim_mac against its plain version (the macro model) on
               the card, bitwise, each call checked to take its route
               (ROUTES: ``codes`` at adc_bits >= 5, ``groups`` below):
               ragged cases (K % 16 != 0, M = 1, N off the tile, 3 x 5 and
@@ -121,7 +144,7 @@ Phases, each of which raises on failure:
               groups route's 25-pair bound, the plain version's time, at
               M = 8 the groups route at b = 4 and at M = 1024
               torch._int_mm on the codes (the product alone, a yardstick).
-9. exact    - macro-exact inference (CIMConfig(mode="exact")) through the
+10. exact   - macro-exact inference (CIMConfig(mode="exact")) through the
               bucket ServeEngine at full width on the bf16 float weights
               of the same seeded init: 8 requests of 128 prompt tokens, 16
               new tokens each, counts zeroed just before the run.  Checks:
@@ -138,7 +161,7 @@ Phases, each of which raises on failure:
               only), kernel and (0) ternarize device times and the cache's
               one-time fill, tok/s, and the greedy-token agreement with
               the float-mode model.
-10. models  - glm4-9b, phi3-mini-3.8b and qwen3-14b, one at a time, each
+11. models  - glm4-9b, phi3-mini-3.8b and qwen3-14b, one at a time, each
               freed before the next, at full width and full depth:
               seeded random bf16 weights on the card, packed to base3
               (a stacked weight one layer at a time), then the bucket
@@ -205,6 +228,14 @@ LONG_BATCH, LONG_PROMPT, LONG_NEW, LONG_CAPACITY = 2, 6000, 8, 6016
 SCHED_LONG_PROMPT, SCHED_LONG_CAPACITY = 3000, 4096
 FLASH_CHECK_T = 2560
 FLASH_TOL = 1e-5             # flash vs direct in f32, relative to max|v|
+# the fidelity phase (internlm2-1.8b, base3/float, the launcher's campaign)
+FID_REQUESTS, FID_NEW, FID_SLOTS, FID_CHUNK = 4, 16, 2, 4
+FID_SCRUB_EVERY, FID_CAPACITY, FID_PAGE = 2, 256, 16
+FID_VAR_SHARE = 0.01         # device MAC with variation: outputs that may
+                             # differ between card and CPU (f32 counts
+                             # summed in another order)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9   # H100 SXM: 64 INT32 lanes an SM
+THREEFRY_REPLACES = "src/repro/faults/scrub.py:85"
 KERNEL_NAMES = {"float": "ternary_matmul", "int8": "ternary_matmul_int8"}
 REPLACES = {"float": "src/repro/kernels/ternary_matmul.py:144",
             "int8": "src/repro/kernels/ternary_matmul.py:202"}
@@ -1430,6 +1461,276 @@ def phase_long(torch, np, cfg, model, params):
     return out
 
 
+def fid_draw_cases(prng):
+    """(name, key, draw shape, block) of the draw checks: flat ranges
+    from 0, past 2^31 and past 2^32, one layer's planes of internlm2's
+    stacked w1 (the disturb and scrub pieces) and the unembedding's
+    column runs, as the device MAC's ADC noise draws them."""
+    w1 = (5, 24, 2048, 8192)
+    kn = 2048 * 8192
+    return [("flat 2^20 from 0", prng.key(0), (1 << 33,),
+             prng.flat_range(0, 1 << 20)),
+            ("flat past 2^31", prng.key(7), (1 << 33,),
+             prng.flat_range(2**31 - 1000, 1 << 20)),
+            ("flat past 2^32", prng.key(2**31 - 1), (1 << 33,),
+             prng.flat_range(2**32 + 17, 1 << 20)),
+            ("w1 layer 7 planes", prng.fold_in(prng.key(3), 5), w1,
+             prng.Block(7 * kn, 5, 24 * kn, kn)),
+            ("noise runs", prng.key(11), (5, 5, 8, 128, 92672),
+             prng.Block(3 * 8 * 128 * 92672 + 5000, 8 * 128, 92672, 4096))]
+
+
+def threefry_record(ms, plain_ms, n):
+    """Bound of a draw of n words: 4 bytes written each, ~73 int32
+    operations each at the card's int32 rate."""
+    from repro_torch.kernels import threefry
+    t_bytes = 4 * n / HBM_BYTES_PER_S * 1e3
+    t_ops = threefry.OPS_PER_WORD * n / INT32_OPS_PER_S * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, words=n, bytes=4 * n,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                gbps=4 * n / ms / 1e6)
+
+
+def phase_fidelity(torch, np, cfg, model, params, card):
+    """Device-fidelity serving (``repro_torch.faults``): the threefry
+    kernel against its plain version, one full-width layer of the device
+    MAC on the card against the CPU, then the dense Scheduler and the
+    fused PagedScheduler under the launcher's campaign.  Every record
+    printed carries the card's name and power limit."""
+    import dataclasses
+    from repro_torch import faults
+    from repro_torch.core import prng
+    from repro_torch.core.cim_linear import CIMConfig
+    from repro_torch.core.error_injection import expected_trit_error_rate
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.kernels import threefry
+    from repro_torch.serve import PagedScheduler, Request, Scheduler
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    out = {}
+
+    # -- draws: the kernel bitwise against the plain version
+    draws = []
+    for name, key, shape, blk in fid_draw_cases(prng):
+        got = prng.bits(key, shape, dev, blk)
+        want = prng.bits_torch(key, blk, dev)
+        check(torch.equal(got.reshape(want.shape), want),
+              f"threefry differs from its plain version: {name}")
+        if blk.rows * blk.cols <= 1 << 20:
+            check(torch.equal(got.reshape(want.shape).cpu(),
+                              prng.bits_torch(key, blk)),
+                  f"threefry on the card differs from the CPU: {name}")
+        draws.append(dict(name=name, words=blk.rows * blk.cols))
+    key, shape, blk = fid_draw_cases(prng)[3][1:]
+    rec = threefry_record(
+        time_ms(torch, lambda: threefry.random_bits(key, blk, dev), 5,
+                flush),
+        time_ms(torch, lambda: prng.bits_torch(key, blk, dev), 3, flush),
+        blk.rows * blk.cols)
+    rec.update(case="w1 layer planes (5 x 2048 x 8192)", max_abs_err=0,
+               card=card)
+    out["threefry"] = rec
+    out["draw_cases"] = draws
+    print("[fidelity] threefry " + json.dumps(rec))
+
+    # -- one full-width w1 layer: the device MAC on the card vs the CPU
+    fm = faults.measured_fault_model(seed=0, drift_rate=0.001)
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.standard_normal(
+        (8, cfg.d_model)).astype(np.float32))
+    w = ops.pack_weights(torch.randn(
+        (cfg.d_model, cfg.d_ff), generator=torch.Generator().manual_seed(4)),
+        "base3")
+    planes = faults.weight_trit_planes(w)
+    layer = {}
+    for tag, model_f, per_row in (
+            ("variation off", fm, False),
+            ("variation on, adc noise 0.5",
+             dataclasses.replace(fm, variation=True, adc_noise_sigma=0.5),
+             True)):
+        t = time.monotonic()
+        yc, loc, hic = faults.device_ternary_mac(
+            x, planes, w.scale, model_f, with_stats=True, per_row=per_row)
+        cpu_s = time.monotonic() - t
+        xd, pd, sd = x.to(dev), planes.to(dev), w.scale.to(dev)
+        yd, lod, hid = faults.device_ternary_mac(
+            xd, pd, sd, model_f, with_stats=True, per_row=per_row)
+        yd = yd.cpu()
+        differ = float((yd != yc).float().mean())
+        if model_f.variation:
+            check(differ <= FID_VAR_SHARE,
+                  f"device MAC ({tag}): {differ:.4f} of the outputs differ "
+                  f"between the card and the CPU (bar {FID_VAR_SHARE})")
+        else:
+            check(torch.equal(yd, yc) and (int(lod), int(hid)) == (
+                int(loc), int(hic)),
+                  f"device MAC ({tag}) differs between the card and the CPU")
+        ms = time_ms(torch, lambda: faults.device_ternary_mac(
+            xd, pd, sd, model_f, per_row=per_row), 3, flush)
+        layer[tag] = dict(share_differing=differ,
+                          max_abs_err=float((yd - yc).abs().max()),
+                          clip_lo=int(lod), clip_hi=int(hid), card_ms=ms,
+                          cpu_s=cpu_s, per_row=per_row, card=card)
+        print(f"[fidelity] layer {tag} " + json.dumps(layer[tag]))
+    out["layer"] = layer
+    del xd, pd, sd
+    faults.model.clear_code_cache()
+
+    # -- serving under the launcher's campaign
+    faults.set_fault_model(fm)
+    bound = 3.0 * expected_trit_error_rate(fm.restore_yield,
+                                           (1 / 3, 1 / 3, 1 / 3))
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(0, cfg.vocab_size, PROMPT).astype(np.int32)
+               for _ in range(FID_REQUESTS)]
+    exact_cim = CIMConfig(mode="ternary", packing="base3")
+    dev_cim = dataclasses.replace(exact_cim, fidelity="device")
+    runs = {}
+    for kind in ("dense", "fused"):
+        toks = {}
+        for fid, cim in (("exact", exact_cim), ("device", dev_cim)):
+            kw = dict(capacity=FID_CAPACITY, slots=FID_SLOTS,
+                      chunk=FID_CHUNK, cim=cim, device="cuda",
+                      scrub_every=FID_SCRUB_EVERY)
+            torch.cuda.synchronize()
+            t_init = time.monotonic()
+            eng = (Scheduler(model, params, **kw) if kind == "dense" else
+                   PagedScheduler(model, params, page_size=FID_PAGE,
+                                  fused_attn="auto", **kw))
+            torch.cuda.synchronize()
+            init_s = time.monotonic() - t_init
+            for i, p in enumerate(prompts):
+                eng.submit(Request(uid=i, prompt=p, max_new=FID_NEW))
+            tm.reset_launches()
+            pa.reset_launches()
+            threefry.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            done = eng.run()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = {**tm.LAUNCHES, **pa.LAUNCHES, **threefry.LAUNCHES}
+            routes = dict(tm.ROUTES)
+            toks[fid] = {r.uid: r.out_tokens for r in done}
+            check(eng.host_transfers == eng.chunks_run,
+                  f"{kind}/{fid}: {eng.host_transfers} transfers for "
+                  f"{eng.chunks_run} chunks")
+            check(len(done) == FID_REQUESTS and all(
+                len(r.out_tokens) == FID_NEW for r in done),
+                  f"{kind}/{fid}: a request is missing tokens")
+            check(routes["mma"] > 0, f"{kind}/{fid}: prefill must take the "
+                                     f"mma route, got {routes}")
+            if kind == "fused":
+                check(eng.attn_plan.backend == "paged_attn"
+                      and launches["paged_attention"]
+                      == cfg.num_layers * eng.chunk * eng.chunks_run,
+                      f"{kind}/{fid}: {launches['paged_attention']} fused "
+                      f"reads for {eng.chunks_run} chunks")
+            if fid == "exact":
+                continue
+            check(eng.decode_per_slot == (kind == "dense"),
+                  f"{kind}: decode_per_slot {eng.decode_per_slot}: the "
+                  f"reference decodes the dense pool a slot per call and "
+                  f"reads the fused pool in one call")
+            check(eng.cim.backend == "device"
+                  and eng.cim_prefill.backend == "cuda",
+                  f"device run resolved decode {eng.cim.backend!r}, "
+                  f"prefill {eng.cim_prefill.backend!r}")
+            # a prefill's unembedding runs at M = 1 (its last position)
+            # and takes gemv; device decode must add none
+            check(routes["gemv"] == FID_REQUESTS,
+                  f"{kind}: {routes['gemv']} gemv launches for "
+                  f"{FID_REQUESTS} prefills: device decode took the gemv "
+                  f"route")
+            check(launches["threefry"] > 0, "threefry never launched")
+            check(eng.scrubs_run >= 1, f"{kind}: no scrub ran")
+            err = faults.packed_trit_error_rate(eng.params,
+                                                eng._params_pristine)
+            check(0.0 < err <= bound, f"{kind}: served trit error rate "
+                                      f"{err} outside (0, {bound}]")
+            rec = dict(kind=kind, wall_s=wall, init_s=init_s,
+                       chunks=eng.chunks_run,
+                       host_transfers=eng.host_transfers,
+                       scrubs=eng.scrubs_run, adc_clip_lo=eng.adc_clip_lo,
+                       adc_clip_hi=eng.adc_clip_hi, trit_error_rate=err,
+                       trit_error_bound=bound, launches=launches,
+                       routes=routes, card=card,
+                       tok_per_s=eng.generated_tokens / wall)
+            rec.update(fid_times(torch, np, eng, model, prompts[0]))
+            runs[kind] = rec
+        same = sum(a == b for u in toks["exact"] for a, b in
+                   zip(toks["exact"][u], toks["device"][u]))
+        runs[kind]["greedy_agreement"] = same / (FID_REQUESTS * FID_NEW)
+        print(f"[fidelity] serve {kind} " + json.dumps(runs[kind]))
+        del eng
+        faults.model.clear_code_cache()
+        torch.cuda.empty_cache()
+    out["serve"] = runs
+    return out
+
+
+def fid_times(torch, np, eng, model, prompt):
+    """ms of the device-fidelity pieces on the scheduler's served
+    weights: the power-on restore (a scrub), one chunk's disturb, the ADC
+    probe, one device decode step of every slot and one exact prefill."""
+    from repro_torch import faults
+    from repro_torch.core import prng
+
+    def wall_ms(fn):
+        # each piece already ran in the serve run: one timed call
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        return (time.monotonic() - t) * 1e3
+
+    def decode_step():
+        # the dense decode, with the engine's rows per MAC call
+        with faults.rows_as_calls(eng.decode_per_slot):
+            model.decode(eng.params, tok, dict(state), cim=eng.cim)
+
+    fm = eng._fault_model
+    tokens = torch.as_tensor(prompt[None], device="cuda")
+    state = model.init_cache(eng.slots, eng.capacity, torch.device("cuda"))
+    state["pos"] = torch.full((eng.slots,), len(prompt), dtype=torch.int32,
+                              device="cuda")
+    tok = torch.zeros((eng.slots, 1), dtype=torch.int32, device="cuda")
+    return dict(
+        restore_ms=wall_ms(lambda: eng._restore(1)),
+        disturb_ms=wall_ms(lambda: faults.disturb_packed_params(
+            eng.params, fm.drift_rate, prng.fold_in(eng._drift_key, 99),
+            num_trits=eng.cim.num_trits)),
+        probe_ms=wall_ms(lambda: faults.adc_probe(eng.params)),
+        decode_step_ms=wall_ms(decode_step),
+        exact_prefill_ms=wall_ms(lambda: model.prefill(
+            eng.params, tokens, eng.capacity, cim=eng.cim_prefill)))
+
+
+def kernel_summary_threefry(fid):
+    """The threefry kernel over one layer's planes of the stacked w1 (a
+    disturb or scrub piece), with the launches of the device runs."""
+    rec = fid["threefry"]
+    return dict(
+        name="threefry", route="cuda",
+        source="src/repro_torch/csrc/threefry.cu",
+        replaces=THREEFRY_REPLACES,
+        replaces_note="not a Pallas kernel: XLA's threefry2x32 lowering of "
+                      "the jax.random draws of the fault channels",
+        launches=sum(r["launches"]["threefry"] for r in fid["serve"].values()),
+        launches_per_run={k: r["launches"]["threefry"]
+                          for k, r in fid["serve"].items()},
+        max_abs_err=0, ms=rec["ms"], plain_ms=rec["plain_ms"],
+        bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+        library_ms=None,
+        library_reason="no PyTorch call draws jax's threefry2x32 bits "
+                       "(torch's generators are Philox)",
+        workload=f"one draw of {rec['words']} words: one layer's five trit "
+                 f"planes of internlm2-1.8b's stacked w1")
+
+
 def kernel_summary_paged(paged, runs, models, long):
     return dict(
         name="paged_attention", route="cuda",
@@ -1919,6 +2220,8 @@ def main(argv=None) -> int:
     run("sync-free chunk", phase_sync_free_chunk, torch, np, cfg, model,
         packed["base3"])
     long = run("long", phase_long, torch, np, cfg, model, packed["base3"])
+    fid = run("fidelity", phase_fidelity, torch, np, cfg, model,
+              packed["base3"], card)
     del packed
     torch.cuda.empty_cache()
     cim_cases = run("cim-kernel", phase_cim_kernel, torch, cfg)
@@ -1936,7 +2239,8 @@ def main(argv=None) -> int:
                    harness_floor_ms=floor_ms, cases=cases, serve=runs,
                    parity=parity, paged_kernel=paged, sched=sched,
                    sched_parity=sched_parity, long=long, cim_cases=cim_cases,
-                   exact=exact, models=models, phases=phases,
+                   exact=exact, models=models, fidelity=fid,
+                   phases=phases,
                    seconds=time.monotonic() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -1950,7 +2254,8 @@ def main(argv=None) -> int:
     print(card)
     print(json.dumps({"kernels": kernel_summary(cases, runs, cfg, models)
                       + [kernel_summary_paged(paged, sched, models, long),
-                         kernel_summary_cim(cim_cases, exact, cfg)]}))
+                         kernel_summary_cim(cim_cases, exact, cfg),
+                         kernel_summary_threefry(fid)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -12,8 +12,12 @@ Modes (``CIMConfig.mode``):
               on every call, as the reference does; the cuda backend at
               ``adc_bits >= 5`` ternarizes each weight once and keeps it
               (``kernels/backends.py``, ``CODE_WEIGHTS``).
-The reference's restore-error injection (``restore_yield``) is not
-ported.
+
+``fidelity`` is the execution fidelity of a ternary config: ``exact``
+(the kernels) or ``device`` (the fault-injected analog MAC of
+``repro_torch.faults``).  Engines resolve one config per phase
+(:meth:`CIMConfig.resolve`), so a device request runs the device backend
+in decode and an exact backend in prefill.
 """
 from __future__ import annotations
 
@@ -35,29 +39,34 @@ class CIMConfig:
     backend: str = "auto"          # any registered kernel backend
     domain: str = "float"          # float | int8
     kv_layout: str = "dense"       # dense | paged: serving KV layout
+    fidelity: str = "exact"        # exact | device: execution fidelity
 
-    def resolve(self, platform: str) -> "CIMConfig":
+    def resolve(self, platform: str, phase: str = "auto") -> "CIMConfig":
         """Pin 'auto' against the backend registry for `platform` (the
-        device type the engine runs on) and the config's KV layout;
-        raises on an incapable backend, so a bad request fails at
-        construction.  (The reference resolves once per phase to route
-        its device-fidelity path, which is not ported: both phases would
-        resolve alike here.)"""
-        from ..kernels.plan import KV_LAYOUTS, check_choice, resolve_backend
+        device type the engine runs on), the config's KV layout and its
+        fidelity as routed for ``phase`` (``kernels.route_fidelity``: a
+        device request resolves an exact backend for prefill); raises on
+        an incapable backend, so a bad request fails at construction."""
+        from ..kernels.plan import (KV_LAYOUTS, check_choice,
+                                    resolve_backend, route_fidelity)
         check_choice("cim mode", self.mode, MODES)
         check_choice("kv layout", self.kv_layout, KV_LAYOUTS)
+        fidelity = route_fidelity(self.fidelity, phase)
         if self.mode == "ternary":
-            if self.num_trits != 5:
-                raise ValueError(f"num_trits={self.num_trits}: the port "
-                                 f"packs 5-trit weights only")
             spec = resolve_backend("ternary", self.backend, self.domain,
-                                   self.packing, platform, self.kv_layout)
+                                   self.packing, platform, self.kv_layout,
+                                   fidelity)
         elif self.mode == "exact":
             spec = resolve_backend("cim", self.backend, "float", "base3",
-                                   platform, self.kv_layout)
+                                   platform, self.kv_layout, fidelity)
         else:
+            if fidelity != "exact":
+                raise ValueError(
+                    "fidelity 'device' needs the ternary (packed-weight) "
+                    "serving path; float mode has no device model")
             return self
-        return dataclasses.replace(self, backend=spec.name)
+        return dataclasses.replace(self, backend=spec.name,
+                                   fidelity=fidelity)
 
 
 def linear(x: torch.Tensor, w: Any, cfg: CIMConfig = CIMConfig()
@@ -70,7 +79,7 @@ def linear(x: torch.Tensor, w: Any, cfg: CIMConfig = CIMConfig()
     from ..kernels import execute, ops, plan_matmul, platform_of, shape_of
     if cfg.mode == "ternary" or isinstance(w, ops.PackedTernary):
         pw = w if isinstance(w, ops.PackedTernary) else ops.pack_weights(
-            w, cfg.packing)
+            w, cfg.packing, cfg.num_trits)
         plan = plan_matmul(shape_of(x, pw), cfg, packing=pw.mode,
                            platform=platform_of(x))
         return execute(plan, x, pw)
@@ -92,22 +101,25 @@ def _packable(name: str, x: Any) -> bool:
             and name not in ("embed", "router"))
 
 
-def ternarize_params(params: Any, cfg: CIMConfig) -> Any:
-    """Pack every matmul weight of a nested params dict: the 2/3/4-D
-    float tensors whose two trailing dims are both >= 64 and whose name
-    is not 'embed' or 'router' (so the unembed IS packed; norms and the
-    embedding table stay float)."""
+def ternarize_params(params: Any, cfg: CIMConfig, predicate=None) -> Any:
+    """Pack every matmul weight of a nested params dict with
+    ``cfg.packing`` and ``cfg.num_trits``.  ``predicate(path, leaf)``
+    (``path`` the tuple of keys down to the leaf) selects the weights;
+    by default the 2/3/4-D float tensors whose two trailing dims are both
+    >= 64 and whose name is not 'embed' or 'router' (so the unembed IS
+    packed; norms and the embedding table stay float)."""
     from ..kernels import ops
+    pred = predicate or (lambda path, x: _packable(path[-1] if path else "",
+                                                   x))
 
-    def convert(tree):
+    def convert(tree, path):
         if isinstance(tree, dict):
-            return {k: (convert(v) if isinstance(v, dict) else
-                        (ops.pack_weights(v, cfg.packing)
-                         if _packable(k, v) else v))
-                    for k, v in tree.items()}
+            return {k: convert(v, path + (k,)) for k, v in tree.items()}
+        if pred(path, tree):
+            return ops.pack_weights(tree, cfg.packing, cfg.num_trits)
         return tree
 
-    return convert(params)
+    return convert(params, ())
 
 
 def hbm_bytes(params: Any) -> int:

@@ -14,7 +14,10 @@ enters as a Gaussian comparator or current offset.
 
 The deterministic functions compute in f32 where they take tensors, as
 the reference does; the ``sample_*`` functions draw from an explicit
-``torch.Generator``.
+``torch.Generator``.  The fault campaigns and the yield model draw their
+standard normals from ``core.prng`` keys instead (bit for bit the
+reference's ``jax.random`` draws) and pass them to the ``*_from_normals``
+forms, which the ``sample_*`` functions share.
 """
 from __future__ import annotations
 
@@ -71,13 +74,19 @@ def level_resistance(level: torch.Tensor, d: DeviceParams) -> torch.Tensor:
     return table[level.long()]
 
 
+def resistance_from_normals(level: torch.Tensor, z: torch.Tensor,
+                            d: DeviceParams) -> torch.Tensor:
+    """Lognormal resistance around the level's nominal value, given the
+    standard normals ``z``."""
+    return level_resistance(level, d) * torch.exp(d.sigma_ln_r * z)
+
+
 def sample_resistance(level: torch.Tensor, generator: torch.Generator,
                       d: DeviceParams, shape=()) -> torch.Tensor:
     """Lognormal resistance sample around the level's nominal value."""
-    nominal = level_resistance(level, d)
-    z = torch.randn(tuple(shape) if shape else nominal.shape,
-                    generator=generator, device=nominal.device)
-    return nominal * torch.exp(d.sigma_ln_r * z)
+    z = torch.randn(tuple(shape) if shape else level.shape,
+                    generator=generator, device=level.device)
+    return resistance_from_normals(level, z, d)
 
 
 def discharge_conductance(r_reram, d: DeviceParams, cmos_rel=0.0):
@@ -114,19 +123,24 @@ def reference_conductances(d: DeviceParams) -> tuple[float, float, float]:
             _path_conductance(r3, d))
 
 
+def reference_conductances_from_normals(zs, d: DeviceParams) -> tuple:
+    """The reference ladders are built from ReRAMs too, so they vary; two
+    series devices halve the variance of ln R (sigma / sqrt 2).  ``zs``
+    are the three ladders' standard normals."""
+    sig = d.sigma_ln_r / math.sqrt(2.0)
+    nominals = (math.sqrt(d.r_lrs * d.mrs), math.sqrt(d.mrs * d.r_hrs),
+                8.0 * d.r_lrs)
+    return tuple(_path_conductance(nominal * torch.exp(sig * z), d)
+                 for nominal, z in zip(nominals, zs))
+
+
 def sample_reference_conductances(generator: torch.Generator,
                                   d: DeviceParams, shape=()):
-    """The reference ladders are built from ReRAMs too, so they vary; two
-    series devices halve the variance of ln R (sigma / sqrt 2).  The
-    samples lie on the generator's device."""
-    sig = d.sigma_ln_r / math.sqrt(2.0)
-    out = []
-    for nominal in (math.sqrt(d.r_lrs * d.mrs), math.sqrt(d.mrs * d.r_hrs),
-                    8.0 * d.r_lrs):
-        z = torch.randn(tuple(shape), generator=generator,
-                        device=generator.device)
-        out.append(_path_conductance(nominal * torch.exp(sig * z), d))
-    return tuple(out)
+    """:func:`reference_conductances_from_normals` with the normals drawn
+    from `generator`; the samples lie on its device."""
+    zs = [torch.randn(tuple(shape), generator=generator,
+                      device=generator.device) for _ in range(3)]
+    return reference_conductances_from_normals(zs, d)
 
 
 # ---------------- SL-nvSRAM-CIM voltage-divider select scheme [12] -------

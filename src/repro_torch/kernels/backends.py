@@ -209,3 +209,8 @@ register_backend(BackendSpec(name="paged_attn_torch",
                              platforms=frozenset({"cpu", "cuda"}),
                              priority=50, runner=_run_paged_attn_torch,
                              **_ATTN))
+
+# The device-fidelity backend (the fault-injected analog MAC over a seeded
+# FaultModel) registers from repro_torch.faults.backend, imported last so
+# the built-ins above are in place when it joins the registry.
+from ..faults import backend as _faults_backend  # noqa: E402,F401

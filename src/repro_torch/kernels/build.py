@@ -19,7 +19,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("ternary_matmul.cu", "paged_attention.cu", "cim_mac.cu")
+SOURCES = ("ternary_matmul.cu", "paged_attention.cu", "cim_mac.cu",
+           "threefry.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -76,9 +76,13 @@ def _ordered_sum_rows(x: torch.Tensor) -> torch.Tensor:
     return _ordered_sum_rows(acc)
 
 
-def pack_weights(w: torch.Tensor, mode: str = "base3") -> PackedTernary:
+def pack_weights(w: torch.Tensor, mode: str = "base3",
+                 num_trits: int = 5) -> PackedTernary:
     """Quantize a float (..., K, N) weight with the paper's truncating
-    flow (5 trits for base3) and pack it, with per-output-column scales.
+    flow (``num_trits`` trits for base3) and pack it, with per-output-
+    column scales.  A base3 byte holds ``v + trit_range(num_trits)``, as
+    the reference packs it, while the kernels decode ``byte - 121``: at
+    ``num_trits < 5`` the values served are the reference's too.
     Leading (layer stack) axes are kept.  A stacked weight is packed one
     (K, N) matrix at a time into the stacked result: every step is
     per column, so the bytes and scales are those of packing it whole,
@@ -88,10 +92,10 @@ def pack_weights(w: torch.Tensor, mode: str = "base3") -> PackedTernary:
         raise ValueError(f"unknown packing mode {mode!r}; expected one of "
                          f"{sorted(PACKINGS)}")
     if w.dim() == 2:
-        return _pack_matrix(w, mode)
+        return _pack_matrix(w, mode, num_trits)
     flat = w.reshape((-1,) + tuple(w.shape[-2:]))
     for i, matrix in enumerate(flat):
-        one = _pack_matrix(matrix, mode)
+        one = _pack_matrix(matrix, mode, num_trits)
         if i == 0:
             data = one.data.new_empty((len(flat),) + tuple(one.data.shape))
             scale = one.scale.new_empty((len(flat),) + tuple(one.scale.shape))
@@ -101,10 +105,11 @@ def pack_weights(w: torch.Tensor, mode: str = "base3") -> PackedTernary:
                          scale.reshape(lead + tuple(scale.shape[1:])), mode)
 
 
-def _pack_matrix(w: torch.Tensor, mode: str) -> PackedTernary:
+def _pack_matrix(w: torch.Tensor, mode: str, num_trits: int = 5
+                 ) -> PackedTernary:
     """:func:`pack_weights` of one (K, N) matrix."""
     if mode == "base3":
-        tt = ternarize(w, axis=-2)
+        tt = ternarize(w, num_trits, axis=-2)
         data = pack_trit_planes_base3(tt.trits)          # (..., K, N)
         scale = tt.scale.squeeze(-2)
     else:

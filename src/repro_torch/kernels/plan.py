@@ -18,6 +18,14 @@ when named.
 from (``dense`` slot caches or the ``paged`` page pool); backends
 declare the layouts they can be planned under, so paged serving is a
 registered capability, not a keyword threaded through call sites.
+
+``fidelity`` is the execution fidelity: ``exact`` (the kernels' bitwise
+contract) or ``device`` (the fault-injected analog MAC of
+``repro_torch.faults``, which registers a device-only backend).  A
+request is first routed per phase (:func:`route_fidelity`: prefill runs
+exact even under a device request), then matched like any capability,
+so a device backend never serves an exact request and an exact backend
+never a device one.
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ DOMAINS = ("float", "int8")
 PACKINGS = ("base3", "trit2")
 PLATFORMS = ("cpu", "cuda")
 KV_LAYOUTS = ("dense", "paged")
+PHASES = ("auto", "decode", "prefill")
+FIDELITIES = ("exact", "device")
 
 PLAN_CACHE_SIZE = 4096
 
@@ -53,8 +63,10 @@ class ExecutionPlan:
     n: int
     platform: str                 # cpu | cuda
     kv_layout: str = "dense"      # dense | paged
-    adc_bits: Optional[int] = None    # cim plans: ADC resolution
-    num_trits: Optional[int] = None   # cim plans: trits per operand
+    adc_bits: Optional[int] = None    # cim and device plans: ADC bits
+    num_trits: Optional[int] = None   # cim and device plans: trits
+    phase: str = "auto"           # auto | decode | prefill
+    fidelity: str = "exact"       # exact | device, after routing
 
     @property
     def shape(self) -> tuple:
@@ -72,12 +84,15 @@ class BackendSpec:
     priority: int
     runner: Callable
     kv_layouts: frozenset = frozenset({"dense"})
+    fidelities: frozenset = frozenset({"exact"})
 
     def supports(self, op: str, domain: str, packing: str,
-                 platform: str, kv_layout: str = "dense") -> bool:
+                 platform: str, kv_layout: str = "dense",
+                 fidelity: str = "exact") -> bool:
         return (op in self.ops and domain in self.domains
                 and packing in self.packings and platform in self.platforms
-                and kv_layout in self.kv_layouts)
+                and kv_layout in self.kv_layouts
+                and fidelity in self.fidelities)
 
 
 _REGISTRY: dict[str, BackendSpec] = {}
@@ -88,9 +103,12 @@ def _ensure_builtin_backends() -> None:
         from . import backends  # noqa: F401  (registers on import)
 
 
-def register_backend(spec: BackendSpec) -> None:
-    if spec.name in _REGISTRY:
-        raise ValueError(f"backend {spec.name!r} already registered")
+def register_backend(spec: BackendSpec, *, override: bool = False) -> None:
+    """Register a backend; replacing a registered name needs
+    ``override=True``."""
+    if spec.name in _REGISTRY and not override:
+        raise ValueError(f"backend {spec.name!r} already registered; "
+                         f"pass override=True to replace it")
     _REGISTRY[spec.name] = spec
     _resolve.cache_clear()
 
@@ -115,30 +133,45 @@ def platform_of(x) -> str:
     return platform
 
 
+def route_fidelity(fidelity: str, phase: str) -> str:
+    """The fidelity a phase runs: ``exact`` stays exact; ``device`` runs
+    the fault-injected path for the error-tolerant phases (``decode``,
+    ``auto``) and exact for ``prefill``, whose mistakes would corrupt the
+    whole KV prefix (a decode upset perturbs one sampled token)."""
+    check_choice("fidelity", fidelity, FIDELITIES)
+    check_choice("phase", phase, PHASES)
+    if fidelity == "device" and phase == "prefill":
+        return "exact"
+    return fidelity
+
+
 def resolve_backend(op: str = "ternary", backend: str = "auto",
                     domain: str = "float", packing: str = "base3",
-                    platform: str = "cuda",
-                    kv_layout: str = "dense") -> BackendSpec:
+                    platform: str = "cuda", kv_layout: str = "dense",
+                    fidelity: str = "exact") -> BackendSpec:
     """'auto' picks the highest-priority capable backend on `platform`;
     an explicit name is checked against its declared capabilities."""
     _ensure_builtin_backends()
     check_choice("platform", platform, PLATFORMS)
     check_choice("kv layout", kv_layout, KV_LAYOUTS)
+    check_choice("fidelity", fidelity, FIDELITIES)
     if backend in (None, "auto"):
         cands = [s for s in _REGISTRY.values()
-                 if s.supports(op, domain, packing, platform, kv_layout)]
+                 if s.supports(op, domain, packing, platform, kv_layout,
+                               fidelity)]
         if not cands:
             raise ValueError(
                 f"no registered backend supports op={op!r} "
                 f"domain={domain!r} packing={packing!r} "
-                f"kv_layout={kv_layout!r} on platform {platform!r}; "
-                f"registered: {backend_names()}")
+                f"kv_layout={kv_layout!r} fidelity={fidelity!r} on "
+                f"platform {platform!r}; registered: {backend_names()}")
         return max(cands, key=lambda s: s.priority)
     spec = get_backend(backend)
     for kind, value, have in (("op", op, spec.ops),
                               ("domain", domain, spec.domains),
                               ("packing mode", packing, spec.packings),
                               ("kv layout", kv_layout, spec.kv_layouts),
+                              ("fidelity", fidelity, spec.fidelities),
                               ("platform", platform, spec.platforms)):
         if value not in have:
             raise ValueError(
@@ -158,31 +191,37 @@ def shape_of(x, w) -> tuple:
 
 
 @functools.lru_cache(maxsize=PLAN_CACHE_SIZE)
-def _resolve(op, m, k, n, backend, domain, packing, platform,
-             kv_layout, adc_bits, num_trits) -> ExecutionPlan:
+def _resolve(op, m, k, n, phase, backend, domain, packing, platform,
+             kv_layout, fidelity, adc_bits, num_trits) -> ExecutionPlan:
     check_choice("op", op, OPS)
     check_choice("domain", domain, DOMAINS)
     check_choice("packing mode", packing, PACKINGS)
+    # routed BEFORE the capability match: a device request for prefill
+    # resolves against the exact backends
+    fidelity = route_fidelity(fidelity, phase)
     spec = resolve_backend(op, backend, domain, packing, platform,
-                           kv_layout)
+                           kv_layout, fidelity)
     return ExecutionPlan(op=op, backend=spec.name, domain=domain,
                          packing=packing, m=m, k=k, n=n,
                          platform=platform, kv_layout=kv_layout,
-                         adc_bits=adc_bits, num_trits=num_trits)
+                         adc_bits=adc_bits, num_trits=num_trits,
+                         phase=phase, fidelity=fidelity)
 
 
 def plan_matmul(shape, cfg: Any = None, *, platform: str,
-                op: str = "ternary",
+                phase: str = "auto", op: str = "ternary",
                 backend: Optional[str] = None,
                 domain: Optional[str] = None,
                 packing: Optional[str] = None,
                 kv_layout: Optional[str] = None,
+                fidelity: Optional[str] = None,
                 adc_bits: Optional[int] = None,
                 num_trits: Optional[int] = None) -> ExecutionPlan:
     """Resolve a plan for an (M, K, N) problem on `platform`.  ``cfg`` is
-    any object with ``backend``/``domain``/``packing``/``kv_layout``
-    attributes (a ``CIMConfig``); explicit keywords override it.  A cim
-    plan carries ``adc_bits`` and ``num_trits`` (5 and 5 unless given).
+    any object with ``backend``/``domain``/``packing``/``kv_layout``/
+    ``fidelity`` attributes (a ``CIMConfig``); explicit keywords override
+    it.  A cim plan, and a device-fidelity plan (whose ADC model needs
+    them), carries ``adc_bits`` and ``num_trits`` (5 and 5 unless given).
     An attention plan's shape is ``(S*KV*rep, hd, W*page_size)``: every
     slot's grouped queries against the per-slot page capacity."""
     m, k, n = (int(s) for s in shape)
@@ -191,15 +230,18 @@ def plan_matmul(shape, cfg: Any = None, *, platform: str,
         domain = domain if domain is not None else cfg.domain
         packing = packing if packing is not None else cfg.packing
         kv_layout = kv_layout if kv_layout is not None else cfg.kv_layout
-    if op == "cim":
+        fidelity = fidelity if fidelity is not None else cfg.fidelity
+    fidelity = "exact" if fidelity is None else fidelity
+    if op == "cim" or fidelity == "device":
         adc_bits = 5 if adc_bits is None else adc_bits
         num_trits = 5 if num_trits is None else num_trits
     _ensure_builtin_backends()
-    return _resolve(op, m, k, n, "auto" if backend is None else backend,
+    return _resolve(op, m, k, n, phase,
+                    "auto" if backend is None else backend,
                     "float" if domain is None else domain,
                     "base3" if packing is None else packing, platform,
-                    "dense" if kv_layout is None else kv_layout, adc_bits,
-                    num_trits)
+                    "dense" if kv_layout is None else kv_layout, fidelity,
+                    adc_bits, num_trits)
 
 
 def execute(plan: ExecutionPlan, x, w):

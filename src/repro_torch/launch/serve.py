@@ -29,6 +29,17 @@ prompt and its new tokens:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
       --packed base3 --prompt-len 3000 --capacity 3072
 
+``--fidelity device`` serves decode through the fault-injected analog
+MAC (``repro_torch.faults``) under the campaign of the paper's measured
+TL restore yield, ``measured_fault_model(seed=--seed, drift_rate=0.001)``:
+the served weights drift every chunk and are restore-scrubbed every
+``--scrub-every`` chunks; prefill stays exact.  It needs ``--packed`` and
+``--continuous``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
+      --packed base3 --continuous --kv paged --fidelity device \
+      --scrub-every 2
+
 ``--device cpu --smoke`` runs the same paths on the CPU through the plain
 PyTorch versions of the kernels.
 """
@@ -57,6 +68,16 @@ def main(argv=None) -> dict:
     p.add_argument("--packed", choices=("base3", "trit2"))
     p.add_argument("--domain", default="float", choices=("float", "int8"),
                    help="arithmetic domain of the packed matmuls")
+    p.add_argument("--fidelity", default="exact",
+                   choices=("exact", "device"),
+                   help="execution fidelity: 'device' serves decode "
+                        "through the fault-injected analog backend at the "
+                        "measured TL restore yield (prefill stays exact); "
+                        "requires --packed and --continuous")
+    p.add_argument("--scrub-every", type=int, default=8,
+                   help="decode chunks between restore-scrub repairs "
+                        "under --fidelity device (0 disables scrubbing: "
+                        "degradation accumulates)")
     p.add_argument("--continuous", action="store_true",
                    help="continuous-batching Scheduler (slot pool + "
                         "chunked decode) instead of the bucket engine")
@@ -91,6 +112,13 @@ def main(argv=None) -> dict:
     if args.kv == "paged" and not args.continuous:
         p.error("--kv paged requires --continuous (the paged pool is a "
                 "slot-pool layout)")
+    if args.fidelity == "device" and not args.packed:
+        p.error("--fidelity device requires --packed (the device model "
+                "faults packed ternary weights; float serving has no "
+                "device path)")
+    if args.fidelity == "device" and not args.continuous:
+        p.error("--fidelity device requires --continuous (drift and "
+                "restore-scrub are per-chunk hooks of the Scheduler)")
 
     from repro_torch import configs, resolve_device
     from repro_torch.core.cim_linear import (CIMConfig, hbm_bytes,
@@ -108,8 +136,17 @@ def main(argv=None) -> dict:
     raw_bytes = hbm_bytes(params)
     cim = None
     if args.packed:
+        if args.fidelity == "device":
+            # pin the measured-yield campaign BEFORE resolution, so the
+            # device backend serves the paper's TL restore yield
+            from repro_torch import faults
+            faults.set_fault_model(faults.measured_fault_model(
+                seed=args.seed, drift_rate=0.001))
         cim = CIMConfig(mode="ternary", packing=args.packed,
-                        domain=args.domain)
+                        domain=args.domain, fidelity=args.fidelity)
+        # fail fast for both phases the engines resolve
+        cim.resolve(device.type)
+        cim.resolve(device.type, phase="prefill")
         params = ternarize_params(params, cim)
     if args.trace_file:
         trace = load_trace(args.trace_file)
@@ -124,10 +161,12 @@ def main(argv=None) -> dict:
             chunk=args.chunk, page_size=args.page_size,
             num_pages=args.num_pages or None, cim=cim,
             fused_attn={"auto": "auto", "true": True,
-                        "false": False}[args.fused_attn], device=device)
+                        "false": False}[args.fused_attn], device=device,
+            scrub_every=args.scrub_every)
     elif args.continuous:
         eng = Scheduler(model, params, capacity=args.capacity, slots=slots,
-                        chunk=args.chunk, cim=cim, device=device)
+                        chunk=args.chunk, cim=cim, device=device,
+                        scrub_every=args.scrub_every)
     else:
         eng = ServeEngine(model, params, capacity=args.capacity,
                           max_batch=args.max_batch, cim=cim, device=device)
@@ -150,6 +189,7 @@ def main(argv=None) -> dict:
         "packed": args.packed or "float",
         "backend": eng.cim.backend if eng.cim else None,
         "domain": args.domain if args.packed else None,
+        "fidelity": eng.cim.fidelity if eng.cim else None,
         "weight_bytes": raw_bytes,
         "weight_bytes_served": hbm_bytes(params),
         "requests": len(done),
@@ -164,6 +204,9 @@ def main(argv=None) -> dict:
         out.update(decode_loop="continuous", slots=eng.slots,
                    chunk=eng.chunk, chunks=eng.chunks_run,
                    slot_occupancy=eng.slot_occupancy, kv=args.kv)
+        if eng.cim is not None and eng.cim.fidelity == "device":
+            out.update(scrubs=eng.scrubs_run, adc_clip_lo=eng.adc_clip_lo,
+                       adc_clip_hi=eng.adc_clip_hi)
         if args.kv == "paged":
             out.update(page_size=eng.page_size, num_pages=eng.num_pages,
                        attn_backend=(eng.attn_plan.backend

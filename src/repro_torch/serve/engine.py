@@ -33,6 +33,19 @@ that began with a live slot (``steps``) and the live slot-steps
 :class:`PagedScheduler` keeps the KV in a paged, prefix-shared pool
 (``models/paged_kv.py``) and reads it through the ``paged_attention``
 kernel.
+
+Device fidelity (``CIMConfig(fidelity="device")``): engines resolve the
+config once per phase, so decode runs the fault-injected ``device``
+backend and prefill an exact one.  The schedulers then serve from a
+SERVED copy of the packed weights, restored at power-on from the
+pristine tree through the campaign's restore channel, disturbed before
+every chunk (drift keyed by ``chunks_run``) and restored again every
+``scrub_every`` chunks (``repro_torch.faults``).  The ADC probe's two
+counters ride the chunk's one transfer.  Where the reference decodes one
+slot per call (the dense pool and the paged gather read), the device MAC
+takes each slot's row as its own call (``decode_per_slot``); the fused
+paged read is one call over every slot, as the reference's is.  Under
+exact fidelity every hook is inert.
 """
 from __future__ import annotations
 
@@ -44,7 +57,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import faults, resolve_device
+from ..core import prng
 from ..models import paged_kv
 
 _LOG = logging.getLogger("repro_torch.serve.engine")
@@ -104,9 +118,15 @@ class _EngineBase:
         self.params = params
         self.capacity = capacity
         self.device = resolve_device(device)
-        # resolve the plan request once, against the engine's platform,
-        # so an incapable backend fails here and not mid-decode
-        self.cim = None if cim is None else cim.resolve(self.device.type)
+        # resolve the plan request once per phase, against the engine's
+        # platform, so an incapable backend fails here and not mid-decode;
+        # a device request runs decode on the device backend and prefill
+        # on an exact one (for an exact request the two are equal)
+        if cim is None:
+            self.cim = self.cim_prefill = None
+        else:
+            self.cim = cim.resolve(self.device.type)
+            self.cim_prefill = cim.resolve(self.device.type, phase="prefill")
         self.queue: list[Request] = []
         self.completed: list[Request] = []
         self.steps_run = 0
@@ -129,7 +149,8 @@ class _EngineBase:
                                               dtype=torch.int32)
                               for r in reqs]).to(self.device)
         logits, state = self.model.prefill(self.params, tokens,
-                                           self.capacity, cim=self.cim)
+                                           self.capacity,
+                                           cim=self.cim_prefill)
         return greedy_sample(logits), state
 
     def _arrival_pump(self, clock, sleep, try_admit, busy, serve_round):
@@ -303,14 +324,16 @@ class Scheduler(_EngineBase):
     the same requests.
 
     The pump API (``free_slots`` / ``is_busy`` / ``try_admit`` /
-    ``step_round``) lets a caller own the arrival loop.  The reference's
-    device-fidelity hooks (fault-injected weights, drift, restore-scrub)
-    are not ported: this scheduler serves exact weights only.
+    ``step_round``) lets a caller own the arrival loop.  Under a
+    device-fidelity config the served weights drift per chunk and are
+    restore-scrubbed every ``scrub_every`` chunks (``None`` or 0: never;
+    see the module docstring).
     """
 
     def __init__(self, model, params, capacity: int = 512, slots: int = 8,
                  chunk: int = 8, cim=None, clock=time.monotonic,
-                 sleep=time.sleep, device="cuda"):
+                 sleep=time.sleep, device="cuda",
+                 scrub_every: Optional[int] = 8):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if chunk < 1:
@@ -320,6 +343,7 @@ class Scheduler(_EngineBase):
         self.chunk = chunk
         self._clock = clock
         self._sleep = sleep
+        self._init_fidelity(scrub_every)
         dev = self.device
         i32 = dict(dtype=torch.int32, device=dev)
         # control lanes, shared by the dense and paged pools
@@ -341,6 +365,71 @@ class Scheduler(_EngineBase):
         cache = self.model.init_cache(self.slots, self.capacity,
                                       self.device)
         self.pool = {"k": cache["k"], "v": cache["v"]}
+
+    # --------------------------------------------------- device fidelity
+
+    def _init_fidelity(self, scrub_every: Optional[int]) -> None:
+        """Graceful-degradation state for device-fidelity serving: the
+        pristine (TL-ReRAM) weights and the SERVED weights, which the
+        campaign's drift channel disturbs every chunk and a restore-scrub
+        repairs every ``scrub_every`` chunks (the paper's DC-power-free
+        restore as an online repair).  The served weights come up through
+        one restore pass from the pristine ones (power-on)."""
+        self.scrub_every = scrub_every
+        self.scrubs_run = 0
+        self.adc_clip_lo = 0          # ADC clip counters, summed per chunk
+        self.adc_clip_hi = 0
+        self._fault_serving = (self.cim is not None
+                               and self.cim.mode == "ternary"
+                               and self.cim.fidelity == "device")
+        if not self._fault_serving:
+            return
+        fm = faults.get_fault_model()
+        self._fault_model = fm
+        self._params_pristine = self.params
+        self._drift_key = fm.key_for("serve-drift")
+        self._scrub_key = fm.key_for("serve-scrub")
+        self.params = self._restore(self.scrubs_run)
+
+    def _restore(self, n: int):
+        """The pristine weights through the restore channel, keyed by
+        the scrub count ``n``."""
+        return faults.scrub_packed_params(
+            self._params_pristine, self._fault_model.restore_yield,
+            prng.fold_in(self._scrub_key, n), num_trits=self.cim.num_trits)
+
+    def _pre_chunk(self) -> None:
+        """Between-chunk drift: the disturb channel compounds on the
+        served weights (a chunk-indexed key: a deterministic campaign)."""
+        if self._fault_serving and self._fault_model.drift_rate > 0.0:
+            self.params = faults.disturb_packed_params(
+                self.params, self._fault_model.drift_rate,
+                prng.fold_in(self._drift_key, self.chunks_run),
+                num_trits=self.cim.num_trits)
+
+    def _round_extras(self) -> tuple:
+        """Device scalars for the round's ONE transfer: the ADC probe's
+        (clip_lo, clip_hi) over the served weights; () when exact."""
+        if self._fault_serving:
+            return faults.adc_probe(self.params,
+                                    adc_bits=self.cim.adc_bits,
+                                    num_trits=self.cim.num_trits)
+        return ()
+
+    def _absorb_round_extras(self, extras) -> None:
+        if len(extras):
+            lo, hi = extras
+            self.adc_clip_lo += int(lo)
+            self.adc_clip_hi += int(hi)
+
+    def _maybe_scrub(self) -> None:
+        """Every ``scrub_every`` chunks, restore the served weights from
+        the pristine tree: drift discarded, residual error bounded by
+        the restore yield."""
+        if (self._fault_serving and self.scrub_every
+                and self.chunks_run % self.scrub_every == 0):
+            self.scrubs_run += 1
+            self.params = self._restore(self.scrubs_run)
 
     def kv_bytes(self) -> int:
         """Device bytes of the KV pool.  The dense pool is always fully
@@ -378,6 +467,14 @@ class Scheduler(_EngineBase):
         self._slot_req[slot] = req
         return True
 
+    @property
+    def decode_per_slot(self) -> bool:
+        """Whether the reference decodes this pool one slot per call (it
+        vmaps a one-slot decode over the dense pool): the device MAC then
+        takes each slot's row as its own call, with its own input scale
+        and a one-row call's ADC noise (``faults.rows_as_calls``)."""
+        return True
+
     def _decode_step(self, tok: torch.Tensor, live: torch.Tensor
                      ) -> torch.Tensor:
         """One batched decode step of every slot at its own position;
@@ -401,17 +498,19 @@ class Scheduler(_EngineBase):
         steps = torch.zeros((), dtype=torch.int32, device=dev)
         occ = torch.zeros((), dtype=torch.int32, device=dev)
         tok, live, made = self.tok, self.live, self.made
-        for _ in range(self.chunk):
-            steps += live.any().to(torch.int32)
-            occ += live.sum(dtype=torch.int32)
-            tok = self._decode_step(tok, live)
-            at = cnt[:, None].long()
-            buf.scatter_(1, at, torch.where(live, tok,
-                                            buf.gather(1, at)[:, 0])[:, None])
-            step = live.to(torch.int32)
-            cnt = cnt + step
-            made = made + step
-            live = live & (made < self.max_new_row) & (tok != self.eos_row)
+        with faults.rows_as_calls(self.decode_per_slot):
+            for _ in range(self.chunk):
+                steps += live.any().to(torch.int32)
+                occ += live.sum(dtype=torch.int32)
+                tok = self._decode_step(tok, live)
+                at = cnt[:, None].long()
+                buf.scatter_(1, at, torch.where(
+                    live, tok, buf.gather(1, at)[:, 0])[:, None])
+                step = live.to(torch.int32)
+                cnt = cnt + step
+                made = made + step
+                live = (live & (made < self.max_new_row)
+                        & (tok != self.eos_row))
         self.tok, self.live, self.made = tok, live, made
         return buf, cnt, steps, occ
 
@@ -421,17 +520,23 @@ class Scheduler(_EngineBase):
         self._slot_req[slot] = None
 
     def _serve_round(self, elapsed) -> None:
-        """One scheduling round: one chunk on the device, then ONE
-        transfer carrying the tokens, counts, live mask, steps and
-        occupancy."""
+        """One scheduling round: the drift hook, one chunk on the device,
+        then ONE transfer carrying the tokens, counts, live mask, steps,
+        occupancy and any fidelity extras (the ADC clip counters), then
+        the scrub hook."""
         occupied = [i for i, r in enumerate(self._slot_req)
                     if r is not None]
+        self._pre_chunk()
         buf, cnt, steps, occ = self._run_chunk()
         self.fresh = torch.zeros_like(self.fresh)
         p, c = self.slots, self.chunk + 1
+        extras = [e.to(torch.int32).expand(p)[:, None]
+                  for e in self._round_extras()]
         out = self._device_get(torch.cat(
             [buf, cnt[:, None], self.live[:, None].to(torch.int32),
-             steps.expand(p)[:, None], occ.expand(p)[:, None]], dim=1))
+             steps.expand(p)[:, None], occ.expand(p)[:, None]] + extras,
+            dim=1))
+        self._absorb_round_extras(out[0, c + 4:])
         self.chunks_run += 1
         self.decode_steps += int(out[0, c + 2])
         self.steps_run += int(out[0, c + 2])
@@ -445,6 +550,7 @@ class Scheduler(_EngineBase):
                 req.latency_s = done_t - req.arrival_s
                 self.completed.append(req)
                 self._retire_slot(s)
+        self._maybe_scrub()
 
     # ---------------------------------------------------- external pump
 
@@ -524,7 +630,8 @@ class PagedScheduler(Scheduler):
                  chunk: int = 8, page_size: int = 16,
                  num_pages: Optional[int] = None, cim=None,
                  clock=time.monotonic, sleep=time.sleep,
-                 fused_attn="auto", device="cuda"):
+                 fused_attn="auto", device="cuda",
+                 scrub_every: Optional[int] = 8):
         if not model.supports_paged_kv:
             raise ValueError(f"{type(model).__name__} does not support "
                              f"paged KV; use the dense-pool Scheduler")
@@ -543,7 +650,7 @@ class PagedScheduler(Scheduler):
             cim = dataclasses.replace(cim, kv_layout="paged")
         super().__init__(model, params, capacity=capacity, slots=slots,
                          chunk=chunk, cim=cim, clock=clock, sleep=sleep,
-                         device=device)
+                         device=device, scrub_every=scrub_every)
 
     def _resolve_attn_plan(self):
         """The attention plan for this pool's geometry and device, or
@@ -676,6 +783,12 @@ class PagedScheduler(Scheduler):
         if self._page_table_dev is None:
             self._page_table_dev = torch.from_numpy(
                 self._page_table.copy()).to(self.device)
+
+    @property
+    def decode_per_slot(self) -> bool:
+        """The reference's gather read vmaps a one-slot decode; its fused
+        read is one call over every slot."""
+        return self.attn_plan is None
 
     def _decode_step(self, tok: torch.Tensor, live: torch.Tensor
                      ) -> torch.Tensor:

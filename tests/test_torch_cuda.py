@@ -23,6 +23,12 @@ more, ``groups`` below) and both entries (trit planes and codes); the
 int32 epilogue of both int8 ternary routes bitwise equal to the integer
 product; and the smoke model's exact-mode logits bitwise equal between
 the cuda and the plain torch backend, with each weight ternarized once.
+The threefry kernel: bits bitwise equal to the plain version on the CPU
+for flat, strided and past-2^32 blocks; on the card, uniform, bernoulli
+and randint bitwise equal to the CPU's and normal within 4 ulp (another
+``log1p``); the device MAC bitwise equal to the CPU's with variation off;
+disturb and scrub give the CPU's bytes; device-fidelity serving keeps one
+transfer per chunk and serves the CPU run's weights.
 """
 import dataclasses
 
@@ -30,7 +36,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, faults
+from repro_torch.core import prng
 from repro_torch.core.cim_linear import CIMConfig, ternarize_params
 from repro_torch.core.ternary import from_balanced_ternary
 from repro_torch.kernels import backends
@@ -38,6 +45,7 @@ from repro_torch.kernels import cim_mac as cm
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ternary_matmul as tm
+from repro_torch.kernels import threefry
 from repro_torch.models import registry
 from repro_torch.serve import PagedScheduler, Request, Scheduler, ServeEngine
 
@@ -850,3 +858,116 @@ def test_exact_mode_ternarizes_each_weight_once_on_the_card(dev):
     assert torch.equal(lg3, model.prefill(params, prompt, 16,
                                           cim=torch_cfg)[0])
     backends.CODE_WEIGHTS.clear()
+
+
+# ------------------------------------------------------------- faults
+
+@pytest.mark.parametrize("seed,blk", [
+    (0, prng.flat_range(0, 1000)),
+    (7, prng.flat_range(2**31 - 300, 777)),
+    (2**31 - 1, prng.flat_range(2**32 - 5, 4099)),
+    (12345, prng.Block(3 * 2**32 + 11, 7, 50_000, 333)),
+    (3, prng.Block(0, 70_000, 5, 3))])          # rows past gridDim.y
+def test_threefry_kernel_matches_plain_version(dev, seed, blk):
+    k = prng.key(seed)
+    before = threefry.LAUNCHES["threefry"]
+    got = threefry.random_bits(k, blk, dev)
+    assert threefry.LAUNCHES["threefry"] == before + 1
+    assert torch.equal(got.cpu(), prng.bits_torch(k, blk))
+    assert torch.equal(got, prng.bits_torch(k, blk, dev))
+
+
+def test_draws_on_the_card_match_the_cpu(dev):
+    k, shape = prng.key(11), (5, 3, 64, 96)
+    for b in (None, prng.Block(64 * 96, 5, 3 * 64 * 96, 64 * 96)):
+        pairs = [(prng.uniform(k, shape, device=dev, block=b),
+                  prng.uniform(k, shape, block=b)),
+                 (prng.bernoulli(k, 0.01, shape, dev, b),
+                  prng.bernoulli(k, 0.01, shape, "cpu", b))]
+        for lo, hi in ((-1, 2), (0, 2**15 - 1)):
+            pairs.append((prng.randint(k, shape, lo, hi, dev, b),
+                          prng.randint(k, shape, lo, hi, "cpu", b)))
+        for got, want in pairs:
+            assert torch.equal(got.cpu(), want)
+        z = prng.normal(k, shape, dev, b).cpu().numpy()
+        zc = prng.normal(k, shape, "cpu", b).numpy()
+        ulps = np.abs(z.view(np.int32).astype(np.int64)
+                      - zc.view(np.int32).astype(np.int64))
+        assert ulps.max() <= 4
+
+
+@pytest.mark.parametrize("packing", ["base3", "trit2"])
+def test_device_mac_on_the_card_matches_the_cpu(dev, packing):
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal((8, 520)).astype(np.float32))
+    w = ops.pack_weights(torch.from_numpy(
+        rng.standard_normal((520, 300)).astype(np.float32)), packing)
+    planes = faults.weight_trit_planes(w)
+    for variation, sigma in ((False, 0.0), (False, 0.5), (True, 0.5)):
+        fm = faults.FaultModel(seed=2, restore_yield=(0.97, 0.995, 0.96),
+                               stuck_rate=0.01, variation=variation,
+                               adc_noise_sigma=sigma)
+        for per_row in (False, True):
+            yc, loc, hic = faults.device_ternary_mac(
+                x, planes, w.scale, fm, with_stats=True, per_row=per_row)
+            yd, lod, hid = faults.device_ternary_mac(
+                x.to(dev), planes.to(dev), w.scale.to(dev), fm,
+                with_stats=True, per_row=per_row)
+            yd = yd.cpu()
+            if not variation:
+                assert torch.equal(yd, yc)
+                assert (int(lod), int(hid)) == (int(loc), int(hic))
+            else:
+                assert (yd != yc).float().mean() <= 0.01
+                assert abs(int(lod) - int(loc)) <= 1
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, ops.PackedTernary):
+        return ops.PackedTernary(tree.data.cpu(), tree.scale.cpu(),
+                                 tree.mode)
+    return tree.cpu()
+
+
+def _same_packed(a, b):
+    la, lb = faults.scrub.packed_leaves(a), faults.scrub.packed_leaves(b)
+    return len(la) == len(lb) > 0 and all(
+        torch.equal(x.data.cpu(), y.data.cpu())
+        for (_, x), (_, y) in zip(la, lb))
+
+
+def test_disturb_scrub_and_serving_on_the_card_match_the_cpu(dev):
+    _, model, params = _smoke(dev, "base3")
+    cpu_params = _to_cpu(params)
+    key, ys = prng.key(9), (0.97, 0.995, 0.96)
+    a = faults.disturb_packed_params(params, 0.01, key)
+    b = faults.disturb_packed_params(cpu_params, 0.01, key)
+    assert _same_packed(a, b)
+    assert _same_packed(faults.scrub_packed_params(params, ys, key),
+                        faults.scrub_packed_params(cpu_params, ys, key))
+    assert tuple(int(v) for v in faults.adc_probe(a)) == tuple(
+        int(v) for v in faults.adc_probe(b))
+    prev = faults.set_fault_model(faults.FaultModel(
+        seed=0, restore_yield=ys, drift_rate=0.002, variation=False))
+    try:
+        served = {}
+        for where, p in (("card", params), ("cpu", cpu_params)):
+            s = Scheduler(model, p, capacity=32, slots=2, chunk=2,
+                          cim=CIMConfig(mode="ternary", packing="base3",
+                                        fidelity="device"), scrub_every=2,
+                          device=dev if where == "card" else "cpu")
+            for i in range(3):
+                s.submit(Request(uid=i, prompt=np.arange(5 + i) % 64,
+                                 max_new=4))
+            threefry.reset_launches()
+            done = s.run()
+            assert s.host_transfers == s.chunks_run and s.scrubs_run >= 1
+            assert all(len(r.out_tokens) == 4 for r in done)
+            assert s.cim.backend == "device"
+            assert (threefry.LAUNCHES["threefry"] > 0) == (where == "card")
+            served[where] = s.params
+        assert _same_packed(served["card"], served["cpu"])
+    finally:
+        faults.set_fault_model(prev)
