@@ -43,7 +43,10 @@ Phases, each of which raises on failure:
               grouped queries, pages of 5 at hd 40, hd 20 whose rows of
               40 bytes take the plain-loads route, glm4-9b's 2 KV x 16
               grouping, phi3-mini-3.8b's 32 KV x 1 at hd 96, qwen3-14b's
-              8 KV x 5), each through its load route (``ROUTES``: tma or
+              8 KV x 5, and the front-end pools' geometry for
+              internlm2-1.8b and qwen3-14b: 4 slots, 16 windows of 16,
+              plan splits 8, per_rank 2, stages 2), each printed with its
+              plan and taken through its load route (``ROUTES``: tma or
               loads), a second call bitwise equal to the first, and live
               slots bitwise unchanged with the null page zeroed.  Then
               three timed cases on realistic data: the serve shape (8
@@ -177,6 +180,34 @@ Phases, each of which raises on failure:
               fused, on the first burst of the bursty trace (8
               requests), held as the sched phase holds it.
 
+12. frontend - the serving front-end (``repro_torch.frontend``) over
+              internlm2-1.8b and qwen3-14b at full width and depth (bf16
+              float weights from seeded torch generators; paged pools of
+              4 slots, chunk 4, capacity 256, pages of 16) behind one
+              FrontendServer.  Eight records at t=0 (prompts of 96 and
+              128 tokens, 16 and 24 new, cycled over both models), after
+              a warm-up replay: the open-loop replay through the server
+              (wall clock), counts zeroed just before and read after,
+              then replay_direct on the same pools.  Checks: both pools'
+              attention plan is paged_attn; per-request tokens equal;
+              host_transfers == chunks; on_tokens sees every token once;
+              paged_attention launched layers x decode steps per model
+              (24 and 40 layers; each round's launches read around it)
+              and no ternary kernel.  Then one profiled round per pool
+              (wall ms, device busy ms, idle share); the same records
+              into queue_limit=2 (pending <= 2, every submit accounted,
+              queue-full rejects); and a 12-request overload trace (8
+              batch requests at priority 1 with no deadline ahead of 4
+              interactive ones at priority 0 with a deadline) under a
+              VirtualClock ticking the parity replay's median round time,
+              the deadline and the shedding floor fractions of the
+              parity records' virtual makespan: SLOAdmission twice
+              (identical admission logs) and FIFOAdmission, SLO goodput
+              above FIFO's.  Last, the launcher's front-end mode on the
+              card at full width (internlm2-1.8b, f32 as its registry's
+              default): 8 x 128 tokens, 16 new, --admission slo,
+              host_transfers == chunks in its JSON.
+
 Each phase prints its seconds and torch.cuda.max_memory_allocated().
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
@@ -234,6 +265,23 @@ FID_SCRUB_EVERY, FID_CAPACITY, FID_PAGE = 2, 256, 16
 FID_VAR_SHARE = 0.01         # device MAC with variation: outputs that may
                              # differ between card and CPU (f32 counts
                              # summed in another order)
+# the frontend phase: the reference's two front-end models at full width
+# and depth (bf16), one paged pool each behind one FrontendServer
+FE_MODELS = ("internlm2-1.8b", "qwen3-14b")
+FE_SLOTS, FE_CHUNK, FE_CAPACITY, FE_PAGE = 4, 4, 256, 16
+FE_REQUESTS = 8              # parity records, all at t=0, cycled over
+FE_PROMPTS = [96, 128, 128, 96]          # both models
+FE_NEWS = [16, 24, 24, 16]
+# the overload trace: 12 requests, the batch class (priority 1, no
+# deadline) ahead of the interactive class (priority 0, a deadline) in
+# arrival order; (prompt, max_new) of each class
+FE_OVERLOAD, FE_INTERACTIVE = 12, 4
+FE_BATCH, FE_INTER = (128, 24), (96, 8)
+FE_TIGHT, FE_FLOOR = 0.6, 0.1  # deadline, shedding floor: x the parity
+                               # records' virtual makespan
+FE_LAUNCHER_ARGS = ["--frontend", "--requests", "8", "--prompt-len", "128",
+                    "--max-new", "16", "--admission", "slo",
+                    "--deadline-s", "30"]
 INT32_OPS_PER_S = 132 * 64 * 1.98e9   # H100 SXM: 64 INT32 lanes an SM
 THREEFRY_REPLACES = "src/repro/faults/scrub.py:85"
 KERNEL_NAMES = {"float": "ternary_matmul", "int8": "ternary_matmul_int8"}
@@ -887,6 +935,7 @@ def phase_paged_kernel(torch, np, cfg, other=False):
     `other` (another checkout's package, timed on the same cases) a case
     its wrapper refuses is recorded as refused; this checkout's kernel
     must take every case, each through the route ``load_route`` names."""
+    from repro_torch import configs
     from repro_torch.kernels import paged_attention as pa
     dev = torch.device("cuda")
     kvh, hd = cfg.num_kv_heads, cfg.hd
@@ -922,6 +971,18 @@ def phase_paged_kernel(torch, np, cfg, other=False):
              ("qwen3-14b grouping (8 KV x 5), garbage null page", SLOTS, 8,
               5, hd, PAGE, windows, [0, 1, 15, 16, 17, 511, 512, 256],
               True)]
+    # the front-end pools' geometry (4 slots, 16 windows of 16), one case
+    # a model, with its grouping and head dim read from its config
+    for j, arch in enumerate(FE_MODELS):
+        fc = configs.get(arch)
+        cases.append((f"front-end {arch} ({FE_SLOTS} slots, "
+                      f"{fc.num_kv_heads} KV x "
+                      f"{fc.num_heads // fc.num_kv_heads}, hd {fc.hd}, "
+                      f"{FE_CAPACITY // FE_PAGE} windows of {FE_PAGE}), "
+                      "garbage null page", FE_SLOTS, fc.num_kv_heads,
+                      fc.num_heads // fc.num_kv_heads, fc.hd, FE_PAGE,
+                      FE_CAPACITY // FE_PAGE,
+                      [[0, 17, 129, 256], [1, 16, 200, 255]][j], True))
     for i, (name, *shape, pos, garbage) in enumerate(cases):
         q, kv = paged_operands(torch, np, dev, *shape, pos=pos, seed=i,
                                garbage=garbage)
@@ -947,8 +1008,10 @@ def phase_paged_kernel(torch, np, cfg, other=False):
         check(all(torch.equal(a[live], b[live]) for a, b in
                   zip(got, pa.paged_attention(q, clean))),
               f"the null page leaks into a live slot at {name}")
+        plan = (pa.paged_plan(*shape[:6], 2)._asdict()
+                if hasattr(pa, "paged_plan") else None)
         print(f"[paged-kernel] {name}: ok through {route}, max abs error "
-              f"{err:.3g}")
+              f"{err:.3g}, plan {plan}")
     # timed, realistic data (no garbage): the serve shape, capacity 2048
     # (a pool of 1025 pages, 67 MB of K+V), glm4-9b's grouping,
     # phi3-mini-3.8b's (32 KV x 1 at hd 96) and capacity 4096 (256
@@ -1345,6 +1408,281 @@ def phase_model(torch, np, arch):
     return rec
 
 
+def frontend_registry():
+    """The front-end's two models at full width and depth, bf16, one
+    paged pool each, built on their first request."""
+    from repro_torch.frontend import ModelRegistry, ModelSpec
+    reg = ModelRegistry(device="cuda")
+    for name in FE_MODELS:
+        reg.register(ModelSpec(
+            name=name, arch=name, smoke=False, kind="paged",
+            capacity=FE_CAPACITY, slots=FE_SLOTS, chunk=FE_CHUNK,
+            page_size=FE_PAGE, dtype="bfloat16"))
+    return reg
+
+
+def meter_rounds(reg, pa):
+    """Wrap every pool's round (the front-end's ``step_round`` and the
+    direct ``run()`` both go through it): each round appends (model,
+    seconds, paged_attention launches in it) to the returned list."""
+    rounds = []
+    for name in reg.names():
+        sched = reg.entry(name).scheduler
+        serve_round = sched._serve_round
+
+        def timed(elapsed, serve_round=serve_round, name=name):
+            n0, t = pa.LAUNCHES["paged_attention"], time.monotonic()
+            serve_round(elapsed)    # ends in the round's one transfer
+            rounds.append((name, time.monotonic() - t,
+                           pa.LAUNCHES["paged_attention"] - n0))
+        sched._serve_round = timed
+    return rounds
+
+
+def per_model(reg, streams, rounds, chunks0, transfers0, wall):
+    """Per-model numbers of one replay: tokens, tok/s over the replay's
+    wall (the pools share it, round-robin), TTFT and latency, chunks and
+    transfers, rounds and paged_attention launches."""
+    from repro_torch.serve import latency_stats, percentile
+    out = {}
+    for name in reg.names():
+        sched = reg.entry(name).scheduler
+        mine = [s for s in streams if s.model == name]
+        ttft = sorted(s.ttft_s for s in mine)
+        mr = [r for r in rounds if r[0] == name]
+        tokens = sum(len(s.tokens) for s in mine)
+        out[name] = dict(
+            requests=len(mine), tokens=tokens, tok_per_s=tokens / wall,
+            ttft_p50_s=percentile(ttft, 0.5), ttft_p99_s=percentile(
+                ttft, 0.99), **latency_stats([s.req for s in mine]),
+            chunks=sched.chunks_run - chunks0[name],
+            host_transfers=sched.host_transfers - transfers0[name],
+            rounds=len(mr), round_ms_median=statistics.median(
+                r[1] for r in mr) * 1e3,
+            decode_ms_per_step=sum(r[1] for r in mr) * 1e3
+            / (len(mr) * sched.chunk),
+            paged_attention_launches=sum(r[2] for r in mr),
+            layers=reg.config(name).num_layers)
+    return out
+
+
+def profile_round(torch, sched):
+    """One round of an idle pool (a chunk of decode steps of every slot
+    and its one transfer): wall ms (median of 3) beside its device busy
+    ms and kernels under torch.profiler."""
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        sched.step_round(lambda: 0.0)
+        walls.append((time.monotonic() - t) * 1e3)
+    busy, kernels, _ = device_busy(torch,
+                                   lambda: sched.step_round(lambda: 0.0))
+    wall = statistics.median(walls)
+    return dict(round_ms=wall, device_busy_ms=busy, kernels=kernels,
+                device_idle_share=1.0 - busy / wall)
+
+
+def fe_virtual_replay(reg, records, policy, tick, queue_limit):
+    """One replay under a VirtualClock charging `tick` a busy poll; the
+    report, the admission log, the virtual makespan and the wall s."""
+    from repro_torch.frontend import FrontendServer, VirtualClock, replay
+    clock = VirtualClock()
+    server = FrontendServer(reg, policy, queue_limit=queue_limit,
+                            clock=clock)
+    t = time.monotonic()
+    rep = replay(server, records, sleep=clock.advance,
+                 tick=lambda: clock.advance(tick))
+    return dict(report=rep, log=server.admission_log, makespan=clock(),
+                wall_s=time.monotonic() - t)
+
+
+def fe_overload(reg, records, tick):
+    """The overload trace under a virtual clock whose tick is `tick` a
+    round: the interactive deadline and the shedding floor are fractions
+    of the parity records' virtual makespan (FIFO), so the outcome does
+    not depend on the card's speed.  SLO admission twice (identical
+    logs) and FIFO once."""
+    from repro_torch.frontend import (FIFOAdmission, SLOAdmission,
+                                      trace_requests)
+    from repro_torch.serve import make_trace
+    makespan = fe_virtual_replay(reg, records, FIFOAdmission(), tick,
+                                 64)["makespan"]
+    tight = round(FE_TIGHT * makespan, 4)
+    floor = round(FE_FLOOR * makespan, 4)
+    n_batch = FE_OVERLOAD - FE_INTERACTIVE
+    trace = make_trace(
+        [0.0] * FE_OVERLOAD,
+        prompt_lens=[FE_BATCH[0]] * n_batch + [FE_INTER[0]] * FE_INTERACTIVE,
+        max_news=[FE_BATCH[1]] * n_batch + [FE_INTER[1]] * FE_INTERACTIVE,
+        priorities=[1] * n_batch + [0] * FE_INTERACTIVE,
+        deadlines=[None] * n_batch + [tight] * FE_INTERACTIVE)
+    over = trace_requests(trace, reg, list(FE_MODELS), seed=1)
+    slo = [fe_virtual_replay(reg, over, SLOAdmission(service_floor_s=floor),
+                             tick, FE_OVERLOAD) for _ in range(2)]
+    fifo = fe_virtual_replay(reg, over, FIFOAdmission(), tick, FE_OVERLOAD)
+    keys = ("tok_per_s_goodput", "tok_per_s", "goodput_tokens", "tokens",
+            "deadline_met", "deadline_total", "shed", "wall_s",
+            "ttft_p50_s", "ttft_p99_s", "p50_s", "p99_s", "p999_s",
+            "mean_s", "queue_wait_mean_s", "queue_wait_p99_s",
+            "service_mean_s", "service_p99_s", "host_transfers", "chunks")
+    rec = dict(tick_s=tick, parity_makespan_s=makespan, tight_s=tight,
+               service_floor_s=floor,
+               slo={k: slo[0]["report"][k] for k in keys},
+               fifo={k: fifo["report"][k] for k in keys},
+               slo_wall_s=[r["wall_s"] for r in slo],
+               fifo_wall_s=fifo["wall_s"],
+               slo_logs_identical=slo[0]["log"] == slo[1]["log"])
+    check(rec["slo_logs_identical"],
+          "frontend: two SLO replays gave different admission logs")
+    check(rec["slo"]["tok_per_s_goodput"] > rec["fifo"]["tok_per_s_goodput"],
+          f"frontend: SLO goodput {rec['slo']['tok_per_s_goodput']} does "
+          f"not beat FIFO's {rec['fifo']['tok_per_s_goodput']}")
+    for r in slo + [fifo]:
+        check(r["report"]["host_transfers"] == r["report"]["chunks"],
+              "frontend: overload replay transfers != chunks")
+    return rec
+
+
+def fe_launcher():
+    """The launcher in front-end mode on the card at full width
+    (internlm2-1.8b only, f32 weights as its registry's default), its
+    JSON line read back."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve as launch_serve
+    buf = io.StringIO()
+    t = time.monotonic()
+    with contextlib.redirect_stdout(buf):
+        out = launch_serve.main(FE_LAUNCHER_ARGS)
+    wall = time.monotonic() - t
+    check(out["host_transfers"] == out["chunks"] > 0,
+          f"launcher --frontend: {out['host_transfers']} transfers for "
+          f"{out['chunks']} chunks")
+    check(out["completed"] == out["submitted"] == 8,
+          f"launcher --frontend: {out['completed']} of {out['submitted']} "
+          f"completed")
+    keys = ("decode_loop", "models", "admission", "kv", "completed",
+            "tokens", "tok_per_s", "tok_per_s_goodput", "deadline_met",
+            "deadline_total", "ttft_p50_s", "ttft_p99_s", "p99_s",
+            "host_transfers", "chunks", "wall_s")
+    return dict({k: out[k] for k in keys}, process_wall_s=wall,
+                capacity_report=out["capacity_report"])
+
+
+def phase_frontend(torch, np):
+    """The serving front-end over internlm2-1.8b and qwen3-14b at full
+    width and depth (bf16 float weights, paged pools read through the
+    paged_attention kernel) behind one FrontendServer: parity and
+    streaming against replay_direct, backpressure, SLO vs FIFO admission
+    under a virtual clock, and the launcher's front-end mode."""
+    from repro_torch.frontend import (FIFOAdmission, FrontendServer,
+                                      replay, replay_direct,
+                                      trace_requests)
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.serve import make_trace
+    torch.cuda.empty_cache()
+    reg = frontend_registry()
+    t = time.monotonic()
+    for name in FE_MODELS:
+        sched = reg.entry(name).scheduler
+        check(sched.attn_plan is not None
+              and sched.attn_plan.backend == "paged_attn",
+              f"frontend {name}: attention plan {sched.attn_plan}")
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t
+    records = trace_requests(
+        make_trace([0.0] * FE_REQUESTS, FE_PROMPTS, FE_NEWS), reg,
+        list(FE_MODELS), seed=0)
+    rounds = meter_rounds(reg, pa)
+    replay(FrontendServer(reg, FIFOAdmission()), records)      # warm-up
+
+    # -- parity and streaming: the server against the direct pools
+    server = FrontendServer(reg, FIFOAdmission())
+    seen, submit = {}, server.submit
+
+    def hooked(*a, **kw):
+        return submit(*a, on_tokens=lambda s, new: seen.setdefault(
+            s.uid, []).extend(new), **kw)
+    server.submit = hooked
+    live = {n: reg.entry(n).scheduler for n in FE_MODELS}
+    chunks0 = {n: s.chunks_run for n, s in live.items()}
+    transfers0 = {n: s.host_transfers for n, s in live.items()}
+    del rounds[:]
+    torch.cuda.synchronize()
+    tm.reset_launches()
+    pa.reset_launches()
+    t = time.monotonic()
+    rep = replay(server, records, collect_tokens=True)
+    wall = time.monotonic() - t
+    launches = {**tm.LAUNCHES, **pa.LAUNCHES}
+    models = per_model(reg, server.completed, rounds, chunks0, transfers0,
+                       wall)
+    tick = statistics.median(r[1] for r in rounds)
+    _, direct = replay_direct(reg, records)
+    fe_tokens = [rep["out_tokens"][u] for u in sorted(rep["out_tokens"])]
+    dt_tokens = [direct[r["uid"]] for r in records]
+    check(rep["completed"] == FE_REQUESTS and all(
+        len(t) == r["max_new"] for t, r in zip(fe_tokens, records)),
+        "frontend: a request is missing tokens")
+    check(fe_tokens == dt_tokens,
+          "frontend: served tokens differ from replay_direct's")
+    check(rep["host_transfers"] == rep["chunks"] > 0,
+          f"frontend: {rep['host_transfers']} transfers for "
+          f"{rep['chunks']} chunks")
+    check(all(seen[s.uid] == s.tokens for s in server.completed),
+          "frontend: on_tokens did not see each token once")
+    check(launches["ternary_matmul"] == launches["ternary_matmul_int8"]
+          == 0, f"frontend: float pools launched {launches}")
+    total = 0
+    for name, m in models.items():
+        want = m["layers"] * FE_CHUNK * m["chunks"]
+        check(m["paged_attention_launches"] == want,
+              f"frontend {name}: paged_attention launched "
+              f"{m['paged_attention_launches']} times, expected {want} "
+              f"({m['layers']} layers x {FE_CHUNK * m['chunks']} steps)")
+        total += want
+    check(launches["paged_attention"] == total,
+          f"frontend: paged_attention launched "
+          f"{launches['paged_attention']} times, expected {total}")
+    parity = dict(
+        wall_s=wall, tick_s=tick, launches=launches, models=models,
+        report={k: v for k, v in rep.items() if k != "out_tokens"},
+        tokens_identical=True, transfers_eq_chunks=True)
+    print("[frontend] parity " + json.dumps(parity))
+    for name in FE_MODELS:
+        models[name]["profiled_round"] = profile_round(torch, live[name])
+        print(f"[frontend] {name} profiled round "
+              + json.dumps(models[name]["profiled_round"]))
+
+    # -- backpressure: the same records into a queue of 2
+    bp_server = FrontendServer(reg, FIFOAdmission(), queue_limit=2)
+    bp = replay(bp_server, records)
+    check(bp["max_pending_seen"] <= 2 and bp_server.in_flight == 0
+          and bp["submitted"] == bp["completed"] + bp["rejected"]
+          and bp["rejects_by_reason"].get("queue-full", 0) > 0,
+          f"frontend: backpressure {bp}")
+    backpressure = {k: bp[k] for k in ("submitted", "completed", "rejected",
+                                       "rejects_by_reason",
+                                       "max_pending_seen")}
+    print("[frontend] backpressure " + json.dumps(backpressure))
+
+    # -- admission under overload, on a virtual clock
+    overload = fe_overload(reg, records, tick)
+    print("[frontend] overload " + json.dumps(overload))
+    rec = dict(build_s=build_s, parity=parity, backpressure=backpressure,
+               overload=overload, capacity_report=reg.capacity_report(),
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    del reg, live, server, bp_server
+    torch.cuda.empty_cache()
+
+    # -- the launcher
+    rec["launcher"] = fe_launcher()
+    print("[frontend] launcher " + json.dumps(rec["launcher"]))
+    return rec
+
+
 def phase_long(torch, np, cfg, model, params):
     """Prompts past 2048 tokens on internlm2-1.8b at full width (base3,
     float domain): the bucket engine with LONG_BATCH prompts of
@@ -1521,7 +1859,7 @@ def phase_fidelity(torch, np, cfg, model, params, card):
               f"threefry differs from its plain version: {name}")
         if blk.rows * blk.cols <= 1 << 20:
             check(torch.equal(got.reshape(want.shape).cpu(),
-                              prng.bits_torch(key, blk)),
+                              prng.bits_torch(key, blk, "cpu")),
                   f"threefry on the card differs from the CPU: {name}")
         draws.append(dict(name=name, words=blk.rows * blk.cols))
     key, shape, blk = fid_draw_cases(prng)[3][1:]
@@ -1731,12 +2069,13 @@ def kernel_summary_threefry(fid):
                  f"planes of internlm2-1.8b's stacked w1")
 
 
-def kernel_summary_paged(paged, runs, models, long):
+def kernel_summary_paged(paged, runs, models, long, frontend):
+    fe = frontend["parity"]["launches"]["paged_attention"]
     return dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:96",
-        launches=runs["fused"]["launches"]["paged_attention"],
+        launches=runs["fused"]["launches"]["paged_attention"] + fe,
         max_abs_err=paged["max_abs_err"], ms=paged["ms"],
         plain_ms=paged["plain_ms"], bound_ms=paged["bound_ms"],
         bound_by=paged["bound_by"], library_ms=None,
@@ -1756,6 +2095,11 @@ def kernel_summary_paged(paged, runs, models, long):
             if "sched" in m},
         launches_long_sched=long["sched"]["fused"]["launches"][
             "paged_attention"],
+        launches_sched_fused=runs["fused"]["launches"]["paged_attention"],
+        launches_frontend=fe,
+        launches_frontend_models={
+            name: m["paged_attention_launches"]
+            for name, m in frontend["parity"]["models"].items()},
         workload="one layer's read at the serve shape: 8 slots x 8 KV heads "
                  "x 2 queries, hd 128, 32 pages of 16, bf16")
 
@@ -2234,13 +2578,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     models = {arch: run(f"models {arch}", phase_model, torch, np, arch)
               for arch in MODEL_ARCHS}
+    frontend = run("frontend", phase_frontend, torch, np)
 
     details = dict(card=card, device=torch.cuda.get_device_name(0),
                    harness_floor_ms=floor_ms, cases=cases, serve=runs,
                    parity=parity, paged_kernel=paged, sched=sched,
                    sched_parity=sched_parity, long=long, cim_cases=cim_cases,
                    exact=exact, models=models, fidelity=fid,
-                   phases=phases,
+                   frontend=frontend, phases=phases,
                    seconds=time.monotonic() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2253,7 +2598,8 @@ def main(argv=None) -> int:
     print(f"[done] {details['seconds']:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernel_summary(cases, runs, cfg, models)
-                      + [kernel_summary_paged(paged, sched, models, long),
+                      + [kernel_summary_paged(paged, sched, models, long,
+                                              frontend),
                          kernel_summary_cim(cim_cases, exact, cfg),
                          kernel_summary_threefry(fid)]}))
     print(json.dumps({"ok": True, "device": {

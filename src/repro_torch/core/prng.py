@@ -36,6 +36,8 @@ are its oracle.
 agrees with ``jax.random.normal`` to a few ulp, not bitwise
 (``tests/test_torch_prng.py`` states the bar); every other draw is
 bitwise.
+
+Every draw runs on ``cuda`` unless the caller asks for ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -44,6 +46,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from .. import resolve_device
 
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -158,12 +162,13 @@ def _block_indices(blk: Block, device) -> torch.Tensor:
     return idx + blk.base
 
 
-def bits_torch(k: Key, blk: Block, device="cpu") -> torch.Tensor:
+def bits_torch(k: Key, blk: Block, device="cuda") -> torch.Tensor:
     """The plain version of a block's bits: (rows, cols) int32, drawn in
     cache-sized pieces."""
+    device = resolve_device(device)
     idx = _block_indices(blk, device)
     out = torch.empty(idx.shape, dtype=torch.int32, device=device)
-    piece = _CPU_PIECE if torch.device(device).type == "cpu" else 1 << 26
+    piece = _CPU_PIECE if device.type == "cpu" else 1 << 26
     for s in range(0, idx.numel(), piece):
         part = idx[s:s + piece]
         hi = (part >> 32).to(torch.int32)
@@ -184,13 +189,13 @@ def _resolve_block(shape, blk: Optional[Block]) -> tuple[Block, tuple]:
     return blk, (blk.rows, blk.cols) if blk.rows > 1 else (blk.cols,)
 
 
-def bits(k: Key, shape, device="cpu", block: Optional[Block] = None
+def bits(k: Key, shape, device="cuda", block: Optional[Block] = None
          ) -> torch.Tensor:
     """``jax.random.bits(k, shape, uint32)`` as int32 bit patterns, or
     the elements of ``block`` of that draw.  A CUDA device launches the
     ``threefry`` kernel; the CPU runs :func:`bits_torch`."""
     blk, out_shape = _resolve_block(shape, block)
-    device = torch.device(device)
+    device = resolve_device(device)
     if device.type == "cuda":
         from ..kernels import threefry
         out = threefry.random_bits(k, blk, device)
@@ -218,7 +223,7 @@ def bits_to_unit(b: torch.Tensor) -> torch.Tensor:
 
 
 def uniform(k: Key, shape, minval: float = 0.0, maxval: float = 1.0,
-            device="cpu", block: Optional[Block] = None) -> torch.Tensor:
+            device="cuda", block: Optional[Block] = None) -> torch.Tensor:
     """``jax.random.uniform(k, shape, float32, minval, maxval)`` for a
     span of 1 or 2 (the port's draws: [0, 1) and ``normal``'s range).
     XLA fuses ``u * span + minval`` into one multiply-add, rounded once;
@@ -234,7 +239,7 @@ def uniform(k: Key, shape, minval: float = 0.0, maxval: float = 1.0,
     return torch.clamp_min(u * span + lo, lo)
 
 
-def bernoulli(k: Key, p: float, shape, device="cpu",
+def bernoulli(k: Key, p: float, shape, device="cuda",
               block: Optional[Block] = None) -> torch.Tensor:
     """``jax.random.bernoulli(k, p, shape)``: uniform < p in f32."""
     return uniform(k, shape, device=device, block=block) < f32(p)
@@ -248,7 +253,7 @@ def _mod_u32(b: torch.Tensor, span: int) -> torch.Tensor:
     return (hi * ((1 << 16) % span) + lo) % span
 
 
-def randint(k: Key, shape, minval: int, maxval: int, device="cpu",
+def randint(k: Key, shape, minval: int, maxval: int, device="cuda",
             block: Optional[Block] = None) -> torch.Tensor:
     """``jax.random.randint(k, shape, minval, maxval, int32)`` for a span
     below 2^15 (the port draws ``randint(-1, 2)``): two draws from
@@ -304,7 +309,7 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = f32(math.sqrt(2))
 
 
-def normal(k: Key, shape, device="cpu", block: Optional[Block] = None
+def normal(k: Key, shape, device="cuda", block: Optional[Block] = None
            ) -> torch.Tensor:
     """``jax.random.normal(k, shape, float32)`` to a few ulp."""
     u = uniform(k, shape, _NORMAL_LO, 1.0, device, block)

@@ -9,11 +9,14 @@ clusters.  Every draw comes from ``core.prng`` keys in the reference's
 order (``jax.random.split`` / ``fold_in`` of the same key), so the trials
 are the reference's up to the few-ulp difference of ``prng.normal``: a
 trial flips only where a sampled margin lies within a few ulp of its
-threshold.
+threshold.  The trials run on ``cuda`` unless the caller asks for
+``device="cpu"``.
 """
 from __future__ import annotations
 
 import torch
+
+from .. import resolve_device
 
 from . import device_models as dm
 from . import prng
@@ -28,8 +31,9 @@ SPARSE_PRIOR = (0.25, 0.50, 0.25)
 
 def tl_restore_trials(key: prng.Key, n: int, m: int, num_mc: int,
                       d: dm.DeviceParams = dm.DeviceParams(),
-                      device="cpu") -> torch.Tensor:
+                      device="cuda") -> torch.Tensor:
     """(3, num_mc) bool: per-state restore success for TL-nvSRAM-CIM."""
+    device = resolve_device(device)
     shape = (3, num_mc)
     trits = torch.tensor(STATE_TRITS, dtype=torch.int8, device=device)
     levels = store_trits_to_levels(trits)[:, None]          # (3, 1)
@@ -66,17 +70,18 @@ def _summary(ok: torch.Tensor, prior) -> dict:
 
 def tl_restore_yield(key: prng.Key, n: int, m: int = 4, num_mc: int = 4096,
                      d: dm.DeviceParams = dm.DeviceParams(),
-                     prior=SPARSE_PRIOR, device="cpu") -> dict:
+                     prior=SPARSE_PRIOR, device="cuda") -> dict:
     return _summary(tl_restore_trials(key, n, m, num_mc, d, device), prior)
 
 
 def sl_restore_trials(key: prng.Key, n: int, num_mc: int,
                       d: dm.DeviceParams = dm.DeviceParams(),
-                      device="cpu") -> torch.Tensor:
+                      device="cuda") -> torch.Tensor:
     """(2, num_mc) bool: HRS/LRS restore success for the voltage-divider
     select scheme of SL-nvSRAM-CIM [12].  The unselected SL-ReRAMs hold
     random binary data; their parallel resistance moves the divider
     output, squeezing the margin as n grows."""
+    device = resolve_device(device)
     keys = prng.split(key, 4)
     un = max(n - 1, 1)
     states = torch.tensor([d.r_hrs, d.r_lrs], dtype=torch.float32,
@@ -96,7 +101,7 @@ def sl_restore_trials(key: prng.Key, n: int, num_mc: int,
 
 def sl_restore_yield(key: prng.Key, n: int, num_mc: int = 4096,
                      d: dm.DeviceParams = dm.DeviceParams(),
-                     device="cpu") -> dict:
+                     device="cuda") -> dict:
     ok = sl_restore_trials(key, n, num_mc, d, device)
     per_state = ok.to(torch.float32).mean(dim=1).cpu()
     return {"per_state": per_state, "weighted": float(per_state.mean()),
@@ -105,7 +110,7 @@ def sl_restore_yield(key: prng.Key, n: int, num_mc: int = 4096,
 
 def yield_sweep(key: prng.Key, ns=(6, 12, 18, 30, 45, 60), m: int = 4,
                 num_mc: int = 4096, scheme: str = "tl",
-                device="cpu") -> dict:
+                device="cuda") -> dict:
     """Fig. 6(a): yield vs the number of ReRAMs per cluster / group.
     Per-point keys fold in ``stable_seed`` of the point's configuration,
     so a point's draw does not depend on which other points run."""
@@ -120,7 +125,7 @@ def yield_sweep(key: prng.Key, ns=(6, 12, 18, 30, 45, 60), m: int = 4,
 
 
 def cluster_sweep(key: prng.Key, ms=(1, 2, 3, 4), n: int = 60,
-                  num_mc: int = 4096, device="cpu") -> dict:
+                  num_mc: int = 4096, device="cuda") -> dict:
     """Fig. 6(b): yield vs the number of clusters m (TL scheme), keyed
     like :func:`yield_sweep`."""
     return {m: tl_restore_yield(

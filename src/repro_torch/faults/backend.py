@@ -28,14 +28,12 @@ Registered through ``register_backend`` with ``fidelities={'device'}``
 only: it never shadows an exact request, and no exact backend serves a
 device plan.  The active fault model is module state
 (:func:`set_fault_model`); swapping campaigns does not change plan
-resolution.  So is whether a call's rows are separate calls
-(:func:`rows_as_calls`): that follows from how the caller batches, not
-from the plan.
+resolution.  Whether a call's rows are separate calls
+(``kernels.plan.rows_as_calls``, public here as well) follows from how
+the caller batches, not from the plan.
 """
 from __future__ import annotations
 
-import contextlib
-import contextvars
 from typing import Optional
 
 import torch
@@ -45,6 +43,7 @@ from ..core.cim import MacroConfig, adc_transfer
 from ..core.ternary import encode_inputs
 from ..kernels import plan as _plan
 from ..kernels.ops import PackedTernary
+from ..kernels.plan import rows_as_calls  # noqa: F401  (public here too)
 from .model import FaultModel
 from .scrub import packed_to_trits
 
@@ -53,7 +52,6 @@ ROWS_ACTIVE = MacroConfig().rows_active      # 16 rows per CBL sense
 COUNT_PIECE = 1 << 26                        # count elements per piece
 
 _ACTIVE_MODEL = FaultModel()
-_ROWS_AS_CALLS = contextvars.ContextVar("rows_as_calls", default=False)
 
 
 def get_fault_model() -> FaultModel:
@@ -69,20 +67,6 @@ def set_fault_model(model: FaultModel) -> FaultModel:
         raise TypeError(f"expected a FaultModel, got {type(model).__name__}")
     prev, _ACTIVE_MODEL = _ACTIVE_MODEL, model
     return prev
-
-
-@contextlib.contextmanager
-def rows_as_calls(on: bool = True):
-    """Within the block, the device backend runs each row of x as its
-    own MAC call (``device_ternary_mac(per_row=True)``).  The schedulers
-    enter it where they batch slots that the reference decodes one slot
-    per call (its dense pool and paged gather read); its fused paged read
-    is one call over every slot, and so is the bucket engine's decode."""
-    token = _ROWS_AS_CALLS.set(bool(on))
-    try:
-        yield
-    finally:
-        _ROWS_AS_CALLS.reset(token)
 
 
 def weight_trit_planes(w: PackedTernary, num_trits: int = 5
@@ -192,7 +176,7 @@ def _run_device(plan, x, w):
     return device_ternary_mac(x, planes, w.scale, get_fault_model(),
                               num_trits=num_trits,
                               adc_bits=plan.adc_bits or 5,
-                              per_row=_ROWS_AS_CALLS.get())
+                              per_row=_plan.rows_are_calls())
 
 
 def register_device_backend(model: Optional[FaultModel] = None, *,

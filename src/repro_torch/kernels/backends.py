@@ -9,8 +9,9 @@
           runs only when named.
   ref   - the oracles (kernels/ref.py), priority 10; ternary op only.
 
-A cim plan (the macro-exact mode) quantizes the activations per call,
-ternarizes a float weight with one per-tensor scale (or unpacks a base3
+A cim plan (the macro-exact mode) quantizes the activations per call
+(per row inside :func:`~.plan.rows_as_calls`, where each row stands for a
+call of the reference's), ternarizes a float weight with one per-tensor scale (or unpacks a base3
 ``PackedTernary`` into its planes), runs the CIM MAC and rescales, as the
 reference's pallas runner does.  The torch backend does all of it on
 every call.  The cuda backend at the code route (``adc_bits >= 5``)
@@ -44,7 +45,7 @@ from . import cim_mac as cm
 from . import ops, ref
 from . import paged_attention as pa
 from . import ternary_matmul as tm
-from .plan import BackendSpec, register_backend
+from .plan import BackendSpec, register_backend, rows_are_calls
 
 
 def _pad_k(x2: torch.Tensor, w: ops.PackedTernary) -> torch.Tensor:
@@ -67,12 +68,20 @@ def _weight_trits(w, num_trits: int):
     return tt.trits, tt.scale
 
 
+def _input_axis():
+    """The activation scale's axis: one scale per call, or one per row
+    where each row stands for a call (``rows_as_calls``); the scale is
+    then (M, 1) and broadcasts in the epilogue."""
+    return -1 if rows_are_calls() else None
+
+
 def _run_cim(plan, x, w, mac):
     """x (..., K) float against a float (K, N) weight or a base3
     PackedTernary through the CIM MAC ``mac(x_trits, w_trits, adc_bits)``
     -> (..., N) f32."""
     lead = x.shape[:-1]
-    xt = encode_inputs(x.reshape(-1, x.shape[-1]), plan.num_trits)
+    xt = encode_inputs(x.reshape(-1, x.shape[-1]), plan.num_trits,
+                       axis=_input_axis())
     w_trits, w_scale = _weight_trits(w, plan.num_trits)
     y = mac(xt.trits, w_trits, plan.adc_bits).to(torch.float32)
     return (y * xt.scale * w_scale).reshape(*lead, w_trits.shape[-1])
@@ -128,7 +137,8 @@ def _run_cim_codes(plan, x, w):
     """The cuda backend's cim plan at the code route: x quantized to
     5-trit codes (the scale of ``encode_inputs``), the cached weight."""
     lead = x.shape[:-1]
-    q = quantize_8b_truncate_5t(x.reshape(-1, x.shape[-1]), plan.num_trits)
+    q = quantize_8b_truncate_5t(x.reshape(-1, x.shape[-1]), plan.num_trits,
+                                axis=_input_axis())
     cw, w_scale = CODE_WEIGHTS.get(w, plan.num_trits)
     y = cm.cim_mac_codes(q.values.to(torch.int8), cw,
                          plan.adc_bits).to(torch.float32)

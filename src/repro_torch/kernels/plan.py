@@ -26,9 +26,18 @@ request is first routed per phase (:func:`route_fidelity`: prefill runs
 exact even under a device request), then matched like any capability,
 so a device backend never serves an exact request and an exact backend
 never a device one.
+
+Whether the rows of a call are separate calls (:func:`rows_as_calls`) is
+not part of a plan: it follows from how the caller batches.  The
+schedulers batch slots that the reference decodes one slot per call;
+inside the context, the backends whose result depends on the call's
+extent (the exact cim plans' input scale, the device MAC's input scale
+and ADC noise) treat every row of x as its own call.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import functools
 from typing import Any, Callable, Optional
@@ -42,6 +51,29 @@ PHASES = ("auto", "decode", "prefill")
 FIDELITIES = ("exact", "device")
 
 PLAN_CACHE_SIZE = 4096
+
+_ROWS_AS_CALLS = contextvars.ContextVar("rows_as_calls", default=False)
+
+
+@contextlib.contextmanager
+def rows_as_calls(on: bool = True):
+    """Within the block, a backend whose result depends on the call's
+    extent runs each row of x as its own call: the exact cim plans
+    quantize each row with its own scale, and the device MAC also takes
+    a one-row call's ADC noise.  The schedulers enter it where they
+    batch slots that the reference decodes one slot per call (its dense
+    pool and paged gather read); its fused paged read is one call over
+    every slot, and so is the bucket engine's decode."""
+    token = _ROWS_AS_CALLS.set(bool(on))
+    try:
+        yield
+    finally:
+        _ROWS_AS_CALLS.reset(token)
+
+
+def rows_are_calls() -> bool:
+    """Whether the current context runs each row as its own call."""
+    return _ROWS_AS_CALLS.get()
 
 
 def check_choice(kind: str, value: Any, choices) -> None:

@@ -40,6 +40,22 @@ the served weights drift every chunk and are restore-scrubbed every
       --packed base3 --continuous --kv paged --fidelity device \
       --scrub-every 2
 
+``--frontend`` serves through the SLO-aware front-end
+(``repro_torch.frontend``): a model registry (``--frontend-models``, one
+scheduler pool per architecture, float weights, paged KV unless ``--kv
+dense``) behind one bounded-queue submit path (``--queue-limit``), with
+FIFO or priority/deadline admission (``--admission slo``, ``--deadline-s``,
+``--service-floor-s``) and the open-loop trace replay as the request
+stream:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --frontend \
+      --frontend-models internlm2-1.8b,qwen3-14b --smoke --device cpu \
+      --admission slo --deadline-s 30
+
+``--legacy-loop`` runs the bucket engine's per-step decode loop (one host
+sync per token) instead of the on-device loop, and ``--backend`` names a
+registered kernel backend for the packed matmuls (``auto`` by default).
+
 ``--device cpu --smoke`` runs the same paths on the CPU through the plain
 PyTorch versions of the kernels.
 """
@@ -68,6 +84,9 @@ def main(argv=None) -> dict:
     p.add_argument("--packed", choices=("base3", "trit2"))
     p.add_argument("--domain", default="float", choices=("float", "int8"),
                    help="arithmetic domain of the packed matmuls")
+    p.add_argument("--backend", default="auto",
+                   help="kernel backend of the packed matmuls (a "
+                        "registered name; 'auto' = capability match)")
     p.add_argument("--fidelity", default="exact",
                    choices=("exact", "device"),
                    help="execution fidelity: 'device' serves decode "
@@ -78,6 +97,10 @@ def main(argv=None) -> dict:
                    help="decode chunks between restore-scrub repairs "
                         "under --fidelity device (0 disables scrubbing: "
                         "degradation accumulates)")
+    p.add_argument("--legacy-loop", action="store_true",
+                   help="per-step decode loop of the bucket engine (one "
+                        "host sync per token) instead of the on-device "
+                        "loop")
     p.add_argument("--continuous", action="store_true",
                    help="continuous-batching Scheduler (slot pool + "
                         "chunked decode) instead of the bucket engine")
@@ -86,9 +109,11 @@ def main(argv=None) -> dict:
                         "--max-batch)")
     p.add_argument("--chunk", type=int, default=8,
                    help="decode steps per scheduling round (host yield)")
-    p.add_argument("--kv", default="dense", choices=("dense", "paged"),
-                   help="--continuous KV layout: dense per-slot caches or "
-                        "the paged, prefix-shared page pool")
+    p.add_argument("--kv", default=None, choices=("dense", "paged"),
+                   help="--continuous/--frontend KV layout: dense per-slot "
+                        "caches or the paged, prefix-shared page pool "
+                        "(default: dense for --continuous, paged for "
+                        "--frontend pools)")
     p.add_argument("--page-size", type=int, default=16,
                    help="positions per KV page for --kv paged")
     p.add_argument("--num-pages", type=int, default=0,
@@ -105,13 +130,46 @@ def main(argv=None) -> dict:
                    help="JSON arrival trace: list of {arrival_s, "
                         "prompt_len, max_new, eos_id} (overrides "
                         "--requests/--prompt-len/--max-new/--arrival-rate)")
+    p.add_argument("--frontend", action="store_true",
+                   help="serve through the SLO-aware front-end "
+                        "(repro_torch.frontend): model registry + bounded "
+                        "queue + admission policy + open-loop replay")
+    p.add_argument("--frontend-models", default=None, metavar="A,B",
+                   help="comma-separated architecture names to register "
+                        "as front-end pools (default: --arch)")
+    p.add_argument("--queue-limit", type=int, default=64,
+                   help="--frontend pending-queue bound; past it submits "
+                        "are rejected with 'queue-full'")
+    p.add_argument("--admission", default="fifo", choices=("fifo", "slo"),
+                   help="--frontend admission policy: fifo, or slo "
+                        "(priority classes + earliest-deadline-first + "
+                        "shedding of unmeetable requests)")
+    p.add_argument("--deadline-s", type=float, default=0.0,
+                   help="--frontend relative completion budget of every "
+                        "generated request (0 = no deadline; a "
+                        "--trace-file's per-record deadline_s wins)")
+    p.add_argument("--service-floor-s", type=float, default=0.0,
+                   help="--admission slo minimum-service estimate: "
+                        "pending requests whose deadline cannot be met "
+                        "within it are shed")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default) or 'cpu'")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
-    if args.kv == "paged" and not args.continuous:
-        p.error("--kv paged requires --continuous (the paged pool is a "
-                "slot-pool layout)")
+    kv = args.kv or ("paged" if args.frontend else "dense")
+    if kv == "paged" and not (args.continuous or args.frontend):
+        p.error("--kv paged requires --continuous or --frontend (the paged "
+                "pool is a slot-pool layout)")
+    if args.frontend and args.continuous:
+        p.error("--frontend drives its registry's scheduler pools itself; "
+                "drop --continuous")
+    if args.frontend and (args.packed or args.fidelity == "device"):
+        p.error("--frontend pools serve float weights through the model "
+                "registry; packed/device-fidelity serving is the "
+                "bucket/--continuous path")
+    if args.frontend and args.legacy_loop:
+        p.error("--frontend has no legacy per-step loop; its pools are "
+                "chunked schedulers")
     if args.fidelity == "device" and not args.packed:
         p.error("--fidelity device requires --packed (the device model "
                 "faults packed ternary weights; float serving has no "
@@ -119,6 +177,8 @@ def main(argv=None) -> dict:
     if args.fidelity == "device" and not args.continuous:
         p.error("--fidelity device requires --continuous (drift and "
                 "restore-scrub are per-chunk hooks of the Scheduler)")
+    if args.frontend:
+        return _run_frontend(args, kv)
 
     from repro_torch import configs, resolve_device
     from repro_torch.core.cim_linear import (CIMConfig, hbm_bytes,
@@ -143,7 +203,8 @@ def main(argv=None) -> dict:
             faults.set_fault_model(faults.measured_fault_model(
                 seed=args.seed, drift_rate=0.001))
         cim = CIMConfig(mode="ternary", packing=args.packed,
-                        domain=args.domain, fidelity=args.fidelity)
+                        domain=args.domain, backend=args.backend,
+                        fidelity=args.fidelity)
         # fail fast for both phases the engines resolve
         cim.resolve(device.type)
         cim.resolve(device.type, phase="prefill")
@@ -155,7 +216,7 @@ def main(argv=None) -> dict:
                                     seed=args.seed)
         trace = make_trace(arrivals, [args.prompt_len], [args.max_new])
     slots = args.slots or args.max_batch
-    if args.continuous and args.kv == "paged":
+    if args.continuous and kv == "paged":
         eng = PagedScheduler(
             model, params, capacity=args.capacity, slots=slots,
             chunk=args.chunk, page_size=args.page_size,
@@ -169,7 +230,8 @@ def main(argv=None) -> dict:
                         scrub_every=args.scrub_every)
     else:
         eng = ServeEngine(model, params, capacity=args.capacity,
-                          max_batch=args.max_batch, cim=cim, device=device)
+                          max_batch=args.max_batch, cim=cim,
+                          on_device_loop=not args.legacy_loop, device=device)
     rng = np.random.default_rng(args.seed + 1)
     for i, rec in enumerate(trace):
         prompt = rng.integers(0, cfg.vocab_size, size=rec["prompt_len"])
@@ -203,11 +265,11 @@ def main(argv=None) -> dict:
     if args.continuous:
         out.update(decode_loop="continuous", slots=eng.slots,
                    chunk=eng.chunk, chunks=eng.chunks_run,
-                   slot_occupancy=eng.slot_occupancy, kv=args.kv)
+                   slot_occupancy=eng.slot_occupancy, kv=kv)
         if eng.cim is not None and eng.cim.fidelity == "device":
             out.update(scrubs=eng.scrubs_run, adc_clip_lo=eng.adc_clip_lo,
                        adc_clip_hi=eng.adc_clip_hi)
-        if args.kv == "paged":
+        if kv == "paged":
             out.update(page_size=eng.page_size, num_pages=eng.num_pages,
                        attn_backend=(eng.attn_plan.backend
                                      if eng.attn_plan else "gather"),
@@ -216,7 +278,45 @@ def main(argv=None) -> dict:
                        kv_bytes_resident_peak=eng.kv_bytes_resident_peak,
                        prefix_hit_rate=eng.prefix_hit_rate)
     else:
-        out["decode_loop"] = "device"
+        out["decode_loop"] = "legacy" if args.legacy_loop else "device"
+    print(json.dumps(out))
+    return out
+
+
+def _run_frontend(args, kv: str) -> dict:
+    """The --frontend mode: registry + bounded-queue server + open-loop
+    replay, reporting the load harness's numbers (goodput, TTFT, the
+    latency split) and the registry's capacity report."""
+    from repro_torch.frontend import (FIFOAdmission, FrontendServer,
+                                      ModelRegistry, ModelSpec,
+                                      SLOAdmission, replay, trace_requests)
+    from repro_torch.serve import load_trace, make_trace, poisson_arrivals
+
+    names = [m.strip()
+             for m in (args.frontend_models or args.arch).split(",")
+             if m.strip()]
+    reg = ModelRegistry(device=args.device)
+    for name in names:
+        reg.register(ModelSpec(
+            name=name, arch=name, smoke=args.smoke, kind=kv,
+            capacity=args.capacity, slots=args.slots or args.max_batch,
+            chunk=args.chunk, page_size=args.page_size,
+            num_pages=args.num_pages or None, seed=args.seed))
+    if args.trace_file:
+        trace = load_trace(args.trace_file)
+    else:
+        arrivals = poisson_arrivals(args.requests, args.arrival_rate,
+                                    seed=args.seed)
+        trace = make_trace(arrivals, [args.prompt_len], [args.max_new],
+                           deadlines=[args.deadline_s or None])
+    records = trace_requests(trace, reg, names, seed=args.seed)
+    policy = (SLOAdmission(service_floor_s=args.service_floor_s)
+              if args.admission == "slo" else FIFOAdmission())
+    server = FrontendServer(reg, policy, queue_limit=args.queue_limit)
+    report = replay(server, records)
+    out = {"decode_loop": "frontend", "models": names,
+           "admission": policy.name, "queue_limit": args.queue_limit,
+           "kv": kv, **report, "capacity_report": reg.capacity_report()}
     print(json.dumps(out))
     return out
 

@@ -56,4 +56,5 @@ class ParamSpec(NamedTuple):
         std = 1.0 / math.sqrt(fan_in)
         draw = torch.randn(self.shape, generator=generator,
                            dtype=torch.float32, device=device)
-        return (draw * std).to(dtype)
+        # scaled in place: a full-width leaf is held once, not twice
+        return draw.mul_(std).to(dtype)

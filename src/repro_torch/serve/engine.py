@@ -46,6 +46,12 @@ slot per call (the dense pool and the paged gather read), the device MAC
 takes each slot's row as its own call (``decode_per_slot``); the fused
 paged read is one call over every slot, as the reference's is.  Under
 exact fidelity every hook is inert.
+
+The same per-slot rule holds in the macro-exact mode
+(``CIMConfig(mode="exact")``): the reference quantizes each call's
+activations with one scale, so inside ``kernels.plan.rows_as_calls``
+the exact cim plans give each slot's row its own scale, where the
+reference decodes one slot per call.
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ import torch
 
 from .. import faults, resolve_device
 from ..core import prng
+from ..kernels.plan import rows_as_calls
 from ..models import paged_kv
 
 _LOG = logging.getLogger("repro_torch.serve.engine")
@@ -74,11 +81,22 @@ class Request:
     prompt: Any                      # (S,) int token ids
     max_new: int = 16
     eos_id: int = -1                 # -1: never
-    arrival_s: float = 0.0
+    arrival_s: float = 0.0           # offset from serve start (traces)
+    priority: int = 0                # SLO class: lower is more urgent
+    deadline_s: Optional[float] = None   # RELATIVE completion budget
     out_tokens: list = dataclasses.field(default_factory=list)
     done: bool = False
-    latency_s: float = 0.0
-    admit_s: float = 0.0
+    latency_s: float = 0.0           # trace runs: completion - arrival
+    admit_s: float = 0.0             # trace runs: admission - serve start
+
+    @property
+    def deadline_met(self) -> bool:
+        """True when the request carries no deadline or completed within
+        its relative budget (``latency_s <= deadline_s``).  The engines
+        carry ``priority`` and ``deadline_s`` untouched (they admit FIFO
+        by ``(arrival_s, uid)``); the front-end's admission policies read
+        them (``repro_torch.frontend``)."""
+        return self.deadline_s is None or self.latency_s <= self.deadline_s
 
 
 def percentile(vals: list, q: float) -> float:
@@ -470,9 +488,10 @@ class Scheduler(_EngineBase):
     @property
     def decode_per_slot(self) -> bool:
         """Whether the reference decodes this pool one slot per call (it
-        vmaps a one-slot decode over the dense pool): the device MAC then
-        takes each slot's row as its own call, with its own input scale
-        and a one-row call's ADC noise (``faults.rows_as_calls``)."""
+        vmaps a one-slot decode over the dense pool): the exact cim plans
+        and the device MAC then take each slot's row as its own call,
+        with its own input scale (and, for the device MAC, a one-row
+        call's ADC noise; ``kernels.plan.rows_as_calls``)."""
         return True
 
     def _decode_step(self, tok: torch.Tensor, live: torch.Tensor
@@ -498,7 +517,7 @@ class Scheduler(_EngineBase):
         steps = torch.zeros((), dtype=torch.int32, device=dev)
         occ = torch.zeros((), dtype=torch.int32, device=dev)
         tok, live, made = self.tok, self.live, self.made
-        with faults.rows_as_calls(self.decode_per_slot):
+        with rows_as_calls(self.decode_per_slot):
             for _ in range(self.chunk):
                 steps += live.any().to(torch.int32)
                 occ += live.sum(dtype=torch.int32)

@@ -22,7 +22,10 @@ the all-saturating case, through both routes (``codes`` at 5 bits and
 more, ``groups`` below) and both entries (trit planes and codes); the
 int32 epilogue of both int8 ternary routes bitwise equal to the integer
 product; and the smoke model's exact-mode logits bitwise equal between
-the cuda and the plain torch backend, with each weight ternarized once.
+the cuda and the plain torch backend, with each weight ternarized once;
+in exact mode the dense Scheduler and the gather PagedScheduler give the
+plain backend's tokens, and a batched decode inside ``rows_as_calls``
+equals one call per slot, bitwise.
 The threefry kernel: bits bitwise equal to the plain version on the CPU
 for flat, strided and past-2^32 blocks; on the card, uniform, bernoulli
 and randint bitwise equal to the CPU's and normal within 4 ulp (another
@@ -860,6 +863,87 @@ def test_exact_mode_ternarizes_each_weight_once_on_the_card(dev):
     backends.CODE_WEIGHTS.clear()
 
 
+def _exact_smoke(dev, seed):
+    cfg = dataclasses.replace(configs.smoke("internlm2-1.8b"),
+                              dtype=torch.float32)
+    model = registry.build(cfg)
+    return cfg, model, model.init(
+        torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+
+@pytest.mark.parametrize("kind", ["dense", "gather"])
+def test_exact_schedulers_on_the_card_match_the_plain_backend(dev, kind):
+    """The dense Scheduler and the gather PagedScheduler in exact mode
+    decode every slot in one call inside ``rows_as_calls``, each slot's
+    activations quantized alone: the cuda backend (code route) gives the
+    plain torch backend's tokens, per request, one transfer per chunk."""
+    cfg, model, params = _exact_smoke(dev, 2)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n)
+               for n in (6, 9, 5, 8, 7, 10)]
+    tokens = {}
+    for backend in ("cuda", "torch"):
+        cim = CIMConfig(mode="exact", backend=backend)
+        kw = dict(capacity=32, slots=3, chunk=3, cim=cim, device=dev)
+        eng = (Scheduler(model, params, **kw) if kind == "dense" else
+               PagedScheduler(model, params, page_size=4, fused_attn=False,
+                              **kw))
+        assert eng.decode_per_slot and eng.cim.backend == backend
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new=8))
+        cm.reset_launches()
+        done = eng.run()
+        assert cm.ROUTES["codes"] == cm.LAUNCHES["cim_mac"]
+        assert (cm.LAUNCHES["cim_mac"] > 0) == (backend == "cuda")
+        assert eng.host_transfers == eng.chunks_run
+        tokens[backend] = {r.uid: list(r.out_tokens) for r in done}
+        assert all(len(t) == 8 for t in tokens[backend].values())
+    assert tokens["cuda"] == tokens["torch"]
+
+
+def test_rows_as_calls_decode_equals_one_slot_per_call_on_the_card(dev):
+    """A batched exact decode of three slots at their own positions
+    inside ``rows_as_calls`` against one call per slot: each slot's
+    logits bitwise equal, and the layer's output too (the MAC is integer
+    exact, the scale is per row); outside the context the rows share one
+    scale, and the slot with the smaller activations moves."""
+    from repro_torch.kernels.plan import rows_as_calls
+    from repro_torch.models import layers
+    cfg, model, params = _exact_smoke(dev, 3)
+    cim = CIMConfig(mode="exact", backend="cuda").resolve("cuda")
+    rng = np.random.default_rng(8)
+    state = model.init_cache(3, 32, dev)
+    state["pos"] = torch.zeros(3, dtype=torch.int32, device=dev)
+    for n in range(4):                 # three slots at positions 4, 4, 4
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (3, 1)),
+                              device=dev)
+        _, state = model.decode(params, tok, state, cim=cim)
+    state["pos"] = state["pos"] + torch.tensor([0, 3, 7], device=dev,
+                                               dtype=torch.int32)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, (3, 1)),
+                          device=dev)
+    singles = []
+    for i in range(3):
+        one = {"k": state["k"][:, i:i + 1].clone(),
+               "v": state["v"][:, i:i + 1].clone(),
+               "pos": state["pos"][i:i + 1].clone()}
+        singles.append(model.decode(params, tok[i:i + 1], one,
+                                    cim=cim)[0])
+    with rows_as_calls():
+        batched, _ = model.decode(params, tok, state, cim=cim)
+    assert torch.equal(batched, torch.cat(singles))
+    x = torch.randn(3, 1, cfg.d_model, device=dev) * torch.tensor(
+        [1.0, 30.0, 0.02], device=dev)[:, None, None]
+    w = params["blocks"]["w1"][0]
+    one_by_one = torch.cat([layers.dense(x[i:i + 1], w, cim)
+                            for i in range(3)])
+    cm.reset_launches()
+    with rows_as_calls():
+        assert torch.equal(layers.dense(x, w, cim), one_by_one)
+    assert cm.ROUTES["codes"] == 1
+    assert not torch.equal(layers.dense(x, w, cim)[2], one_by_one[2])
+
+
 # ------------------------------------------------------------- faults
 
 @pytest.mark.parametrize("seed,blk", [
@@ -873,7 +957,7 @@ def test_threefry_kernel_matches_plain_version(dev, seed, blk):
     before = threefry.LAUNCHES["threefry"]
     got = threefry.random_bits(k, blk, dev)
     assert threefry.LAUNCHES["threefry"] == before + 1
-    assert torch.equal(got.cpu(), prng.bits_torch(k, blk))
+    assert torch.equal(got.cpu(), prng.bits_torch(k, blk, "cpu"))
     assert torch.equal(got, prng.bits_torch(k, blk, dev))
 
 
@@ -881,7 +965,7 @@ def test_draws_on_the_card_match_the_cpu(dev):
     k, shape = prng.key(11), (5, 3, 64, 96)
     for b in (None, prng.Block(64 * 96, 5, 3 * 64 * 96, 64 * 96)):
         pairs = [(prng.uniform(k, shape, device=dev, block=b),
-                  prng.uniform(k, shape, block=b)),
+                  prng.uniform(k, shape, device="cpu", block=b)),
                  (prng.bernoulli(k, 0.01, shape, dev, b),
                   prng.bernoulli(k, 0.01, shape, "cpu", b))]
         for lo, hi in ((-1, 2), (0, 2**15 - 1)):

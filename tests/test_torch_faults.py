@@ -143,24 +143,28 @@ def test_expected_rate_equal():
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_restore_yields_equal(seed):
     want = jyield.tl_restore_yield(jax.random.key(seed), 60, num_mc=2048)
-    got = yield_model.tl_restore_yield(prng.key(seed), 60, num_mc=2048)
+    got = yield_model.tl_restore_yield(prng.key(seed), 60, num_mc=2048,
+                                       device="cpu")
     assert np.array_equal(_np(want["per_state"]), got["per_state"].numpy())
     assert want["weighted"] == got["weighted"]
     for n in (6, 30):
         want = jyield.sl_restore_yield(jax.random.key(seed), n, num_mc=1024)
-        got = yield_model.sl_restore_yield(prng.key(seed), n, num_mc=1024)
+        got = yield_model.sl_restore_yield(prng.key(seed), n, num_mc=1024,
+                                           device="cpu")
         assert np.array_equal(_np(want["per_state"]),
                               got["per_state"].numpy())
 
 
 def test_sweeps_and_measured_model_equal():
     want = jyield.yield_sweep(jax.random.key(5), ns=(6, 60), num_mc=512)
-    got = yield_model.yield_sweep(prng.key(5), ns=(6, 60), num_mc=512)
+    got = yield_model.yield_sweep(prng.key(5), ns=(6, 60), num_mc=512,
+                                  device="cpu")
     for n in (6, 60):
         assert np.array_equal(_np(want[n]["per_state"]),
                               got[n]["per_state"].numpy())
     want = jyield.cluster_sweep(jax.random.key(5), ms=(1, 4), num_mc=512)
-    got = yield_model.cluster_sweep(prng.key(5), ms=(1, 4), num_mc=512)
+    got = yield_model.cluster_sweep(prng.key(5), ms=(1, 4), num_mc=512,
+                                    device="cpu")
     for m in (1, 4):
         assert np.array_equal(_np(want[m]["per_state"]),
                               got[m]["per_state"].numpy())

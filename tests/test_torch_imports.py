@@ -43,7 +43,11 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                 "repro_torch.serve.engine", "repro_torch.launch.serve",
                 "repro_torch.models.registry", "repro_torch.core.prng",
                 "repro_torch.kernels.threefry", "repro_torch.faults.backend",
-                "repro_torch.faults.scrub", "repro_torch.core.yield_model"):
+                "repro_torch.faults.scrub", "repro_torch.core.yield_model",
+                "repro_torch.frontend", "repro_torch.frontend.admission",
+                "repro_torch.frontend.registry",
+                "repro_torch.frontend.server",
+                "repro_torch.frontend.loadgen"):
         assert mod in report["modules"]
 
 

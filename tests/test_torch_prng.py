@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import prng
+from repro_torch.core import prng, yield_model
 from repro_torch.kernels import threefry
 
 jax.config.update("jax_platform_name", "cpu")
@@ -60,33 +60,33 @@ def test_key_split_fold_in_bitwise(seed):
 def test_draws_bitwise(seed, shape):
     jk, k = jax.random.key(seed), prng.key(seed)
     bits = np.asarray(jax.random.bits(jk, shape, jnp.uint32))
-    assert np.array_equal(bits.view(np.int32), prng.bits(k, shape).numpy())
+    assert np.array_equal(bits.view(np.int32), prng.bits(k, shape, "cpu").numpy())
     u = np.asarray(jax.random.uniform(jk, shape))
     assert np.array_equal(u.view(np.int32),
-                          prng.uniform(k, shape).numpy().view(np.int32))
+                          prng.uniform(k, shape, device="cpu").numpy().view(np.int32))
     for lo, hi in ((-1.0, 1.0), (-3.5, -2.5), (np.nextafter(
             np.float32(-1), np.float32(0)), 1.0)):
         u = np.asarray(jax.random.uniform(jk, shape, minval=lo, maxval=hi))
-        assert np.array_equal(u, prng.uniform(k, shape, lo, hi).numpy())
+        assert np.array_equal(u, prng.uniform(k, shape, lo, hi, "cpu").numpy())
     with pytest.raises(ValueError, match="spans of 1 or 2"):
-        prng.uniform(k, shape, -3.5, 2.25)
+        prng.uniform(k, shape, -3.5, 2.25, "cpu")
     for p in (0.002, 0.3, 0.5):
         assert np.array_equal(np.asarray(jax.random.bernoulli(jk, p, shape)),
-                              prng.bernoulli(k, p, shape).numpy())
+                              prng.bernoulli(k, p, shape, "cpu").numpy())
     for lo, hi in ((-1, 2), (0, 1000), (-5, 7), (3, 2**15 + 2)):
         assert np.array_equal(
             np.asarray(jax.random.randint(jk, shape, lo, hi)),
-            prng.randint(k, shape, lo, hi).numpy()), (lo, hi)
+            prng.randint(k, shape, lo, hi, "cpu").numpy()), (lo, hi)
     for lo, hi in ((3, 2**15 + 3), (2, 2)):
         with pytest.raises(ValueError, match="spans in"):
-            prng.randint(k, shape, lo, hi)
+            prng.randint(k, shape, lo, hi, "cpu")
 
 
 @pytest.mark.parametrize("seed", [0, 3])
 def test_normal_within_ulp_bar(seed):
     shape = (1 << 16,)
     want = np.asarray(jax.random.normal(jax.random.key(seed), shape))
-    got = prng.normal(prng.key(seed), shape).numpy()
+    got = prng.normal(prng.key(seed), shape, "cpu").numpy()
     ulps = _ulps(want, got)
     assert ulps.max() <= 4
     assert (ulps > 0).mean() <= 0.02
@@ -96,29 +96,30 @@ def test_normal_within_ulp_bar(seed):
 def test_pieces_equal_the_whole_draw():
     k = prng.key(9)
     shape = (5, 3, 16, 24)                   # (planes, layers, K, N)
-    whole = {"bits": prng.bits(k, shape),
-             "uniform": prng.uniform(k, shape),
-             "randint": prng.randint(k, shape, -1, 2),
-             "normal": prng.normal(k, shape)}
+    whole = {"bits": prng.bits(k, shape, "cpu"),
+             "uniform": prng.uniform(k, shape, device="cpu"),
+             "randint": prng.randint(k, shape, -1, 2, "cpu"),
+             "normal": prng.normal(k, shape, "cpu")}
     kn = 16 * 24
     for layer in range(3):
         blk = prng.Block(layer * kn, 5, 3 * kn, kn)
         for name, full in whole.items():
             fn = getattr(prng, name)
             args = (-1, 2) if name == "randint" else ()
-            piece = fn(k, shape, *args, block=blk)
+            piece = fn(k, shape, *args, device="cpu", block=blk)
             assert torch.equal(piece, full[:, layer].reshape(5, kn)), name
     flat = whole["uniform"].reshape(-1)
-    assert torch.equal(prng.uniform(k, shape, block=prng.flat_range(17, 100)),
+    assert torch.equal(prng.uniform(k, shape, device="cpu",
+                                    block=prng.flat_range(17, 100)),
                        flat[17:117])
     with pytest.raises(ValueError, match="outside"):
-        prng.bits(k, shape, block=prng.flat_range(5 * 3 * kn - 2, 3))
+        prng.bits(k, shape, "cpu", prng.flat_range(5 * 3 * kn - 2, 3))
 
 
 def test_indices_past_2_31_and_2_32():
     k = prng.key(4)
     for start in (2**31 - 3, 2**32 - 2, 3 * 2**32 + 5):
-        got = prng.bits(k, (start + 8,), block=prng.flat_range(start, 6))
+        got = prng.bits(k, (start + 8,), "cpu", prng.flat_range(start, 6))
         want = []
         for idx in range(start, start + 6):
             y0, y1 = prng.threefry2x32(k, idx >> 32, idx & prng.MASK32)
@@ -131,5 +132,27 @@ def test_kernel_wrapper_takes_the_plain_version_on_the_cpu():
     k, blk = prng.key(2), prng.Block(7, 3, 100, 40)
     before = threefry.LAUNCHES["threefry"]
     assert torch.equal(threefry.random_bits(k, blk, "cpu"),
-                       prng.bits_torch(k, blk))
+                       prng.bits_torch(k, blk, "cpu"))
     assert threefry.LAUNCHES["threefry"] == before
+
+
+ENTRY_POINTS = {
+    "bits": lambda k: prng.bits(k, (4,)),
+    "bits_torch": lambda k: prng.bits_torch(k, prng.flat_range(0, 4)),
+    "uniform": lambda k: prng.uniform(k, (4,)),
+    "bernoulli": lambda k: prng.bernoulli(k, 0.5, (4,)),
+    "randint": lambda k: prng.randint(k, (4,), 0, 8),
+    "normal": lambda k: prng.normal(k, (4,)),
+    "tl_restore_yield": lambda k: yield_model.tl_restore_yield(k, 60),
+    "sl_restore_yield": lambda k: yield_model.sl_restore_yield(k, 60),
+}
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present: "
+                    "the default device resolves")
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_ask_for_the_card_by_default(name):
+    """With no ``device`` the draws and the yield Monte-Carlos ask for
+    the card, and raise on a host without one."""
+    with pytest.raises(RuntimeError, match="cuda"):
+        ENTRY_POINTS[name](prng.key(0))

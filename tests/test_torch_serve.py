@@ -7,6 +7,7 @@ on-device loop; the same ``steps_run``; the legacy per-step loop gives
 the same tokens; ``latency_stats`` and ``percentile`` equal.
 """
 import dataclasses
+import json
 import functools
 
 import jax
@@ -141,3 +142,75 @@ def test_engine_refuses_a_missing_card():
     _, tm, _, tparams, _ = _setup()
     with pytest.raises(RuntimeError, match="cuda"):
         ServeEngine(tm, tparams, capacity=CAP)
+
+
+# ------------------------------------------------------------- launcher
+
+def _launch(argv):
+    from repro_torch.launch import serve as launch_serve
+    return launch_serve.main(["--smoke", "--device", "cpu"] + argv)
+
+
+@pytest.mark.parametrize("argv,msg", [
+    (["--frontend", "--continuous"], "drop --continuous"),
+    (["--frontend", "--packed", "base3"], "float weights"),
+    (["--frontend", "--fidelity", "device"], "float weights"),
+    (["--frontend", "--legacy-loop"], "no legacy per-step loop"),
+    (["--kv", "paged"], "--continuous or --frontend"),
+])
+def test_launcher_refuses_what_the_reference_refuses(argv, msg, capsys):
+    from repro.launch import serve as jlaunch
+    for main in (_launch, lambda a: jlaunch.main(["--smoke"] + a)):
+        with pytest.raises(SystemExit):
+            main(argv)
+        assert msg in capsys.readouterr().err
+
+
+def test_launcher_frontend_prints_the_reference_keys(capsys):
+    """--frontend over both front-end models: the reference's keys, top
+    level and per model, and one transfer per chunk."""
+    from repro.launch import serve as jlaunch
+    argv = ["--frontend", "--frontend-models", "internlm2-1.8b,qwen3-14b",
+            "--admission", "slo", "--requests", "4", "--prompt-len", "8",
+            "--max-new", "5", "--deadline-s", "30", "--slots", "2",
+            "--chunk", "2", "--capacity", "32"]
+    out = _launch(argv)
+    capsys.readouterr()
+    jlaunch.main(["--smoke"] + argv)
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(out) == set(want)
+    assert out["decode_loop"] == "frontend" and out["kv"] == "paged"
+    assert out["models"] == want["models"] == ["internlm2-1.8b",
+                                               "qwen3-14b"]
+    assert out["admission"] == "slo" and out["queue_limit"] == 64
+    assert out["host_transfers"] == out["chunks"] > 0
+    assert out["completed"] == out["submitted"] == 4
+    assert out["deadline_total"] == 4
+    for name, row in out["capacity_report"].items():
+        assert set(row) == set(want["capacity_report"][name])
+        assert row["instantiated"] and row["kind"] == "paged"
+
+
+def test_launcher_legacy_loop_and_backend_keep_the_tokens(monkeypatch):
+    """The bucket engine's --legacy-loop and --backend torch give the
+    default run's tokens; a backend the platform lacks fails loudly."""
+    import repro_torch.serve as serve_pkg
+    runs = []
+
+    class Recording(serve_pkg.ServeEngine):
+        def run_trace(self, *a, **kw):
+            done = super().run_trace(*a, **kw)
+            runs.append({r.uid: list(r.out_tokens) for r in done})
+            return done
+
+    monkeypatch.setattr(serve_pkg, "ServeEngine", Recording)
+    base = ["--packed", "base3", "--requests", "3", "--prompt-len", "8",
+            "--max-new", "5", "--capacity", "32"]
+    outs = [_launch(base), _launch(base + ["--legacy-loop"]),
+            _launch(base + ["--backend", "torch"])]
+    assert runs[1] == runs[0] and runs[2] == runs[0]
+    assert [o["decode_loop"] for o in outs] == ["device", "legacy", "device"]
+    assert outs[0]["host_transfers"] == 1 < outs[1]["host_transfers"]
+    assert outs[2]["backend"] == "torch"
+    with pytest.raises(ValueError, match="platform"):
+        _launch(base + ["--backend", "cuda"])
