@@ -20,7 +20,9 @@ Phases, each of which raises on failure:
               5120), at M = 8 and 1024; at M = 1024 the float route's
               error against an f64 sum is recorded beside the plain
               version's and that of one unsplit accumulator chain, and
-              must stay within 1e-5 of max|y|.
+              must stay within 1e-5 of max|y|.  And mixtral-8x7b's expert
+              weights, w1 (4096 x 14336) and w2 (14336 x 4096), at the
+              bucket's expert rows: M = 2 (decode) and M = 320 (prefill).
               Each case names the route it took (``ROUTES``: bf16 and int8
               take ``gemv`` at M <= 8 and ``mma`` above, f32 takes
               ``cuda_core``) and prints the kernel's median device time
@@ -207,17 +209,55 @@ Phases, each of which raises on failure:
               card at full width (internlm2-1.8b, f32 as its registry's
               default): 8 x 128 tokens, 16 new, --admission slo,
               host_transfers == chunks in its JSON.
+13. moe     - mixtral-8x7b (32 layers, d_model 4096, 32/8 heads, 8
+              experts of d_ff 14336, top 2, window 4096, vocab 32000)
+              at full width and depth: seeded random bf16 weights drawn
+              and packed to base3 one layer at a time
+              (``init_packed``; the 93 GB float tree never exists),
+              printing the seconds and the peak device memory.  The
+              bucket ServeEngine on 8 requests x 128 prompt tokens x 16
+              new, counts zeroed just before the run: 32 x (4 + 3 x 8) +
+              1 = 897 ternary_matmul launches a forward (one per expert
+              and weight over the routing group's capacity rows),
+              prefill on mma and decode on gemv, one transfer, every
+              token there; one prefill's and one decode step's matmul
+              shapes (experts at M = 320 and M = 2; w2's prefill K of
+              14336 is split by the float chain cap); prefill ms, decode
+              ms/step, tok/s, a profiled decode step (device ms, kernels,
+              idle share) beside the bytes floor (every expert is read
+              each step).  Then the window run: the dense Scheduler, 2
+              slots, chunk 8, capacity 4224 (the pool holds the window,
+              4096 positions, and its bytes are checked), on a
+              4160-token prompt (its prefill rolls) and a 4064-token one
+              (its decode crosses position 4096), 64 new each: launches
+              of a forward per prefill and per decode step launched, one
+              transfer per chunk.  Last, on the first 4 layers of the
+              same packed params (every width kept), the window run
+              through the cuda backend ('auto' must resolve it) and the
+              plain torch backend: tokens equal or a near tie at the
+              first divergence, and the logits of each prompt's prefill
+              and 63 decode steps (every routing call of both paths
+              recorded) within 10% of the logit scale at every step
+              whose routing choices agree in every layer; at a step
+              where they differ, the first layer to differ may differ
+              only at router near ties (the gap among a token's k + 1
+              largest router logits <= 2% of its largest).
+              ``--moe-only`` builds and runs this phase alone.
 
-Each phase prints its seconds and torch.cuda.max_memory_allocated().
+Each phase prints its seconds, torch.cuda.max_memory_allocated() and the
+bytes still allocated when it began (after a gc.collect()).
 The last two lines are a JSON object of per-kernel numbers and
 ``{"ok": true, "device": {...}}``.  Run from the repository root:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --paged-only [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --moe-only
 """
 from __future__ import annotations
 
+import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -282,6 +322,21 @@ FE_TIGHT, FE_FLOOR = 0.6, 0.1  # deadline, shedding floor: x the parity
 FE_LAUNCHER_ARGS = ["--frontend", "--requests", "8", "--prompt-len", "128",
                     "--max-new", "16", "--admission", "slo",
                     "--deadline-s", "30"]
+# the moe phase: mixtral-8x7b at full width and depth, base3, drawn and
+# packed one layer at a time; kernel cases at its expert weights, at the
+# bucket's decode M (8 rows, one group: capacity 2; the window run's 2
+# slots, a group each of capacity 1, make M = 2 as well), its prefill M
+# (8 x 128 tokens, one group: capacity 320) and the window run's prefill
+# M (4064 and 4160 tokens: 4 and 5 groups of 1024 at capacity 320)
+MOE_ARCH = "mixtral-8x7b"
+MOE_SHAPES = [("mixtral-8x7b", "w1,w3 expert", 4096, 14336),
+              ("mixtral-8x7b", "w2 expert", 14336, 4096)]
+MOE_MS = (2, 320, 1280, 1600)
+MOE_NEW = 16                 # new tokens per request in the bucket run
+# the window run: the dense Scheduler past mixtral's window of 4096 (a
+# prompt longer than it, one decoding across it) at a capacity above it
+WIN_SLOTS, WIN_CHUNK, WIN_CAPACITY, WIN_NEW = 2, 8, 4224, 64
+WIN_PROMPTS = (4160, 4064)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9   # H100 SXM: 64 INT32 lanes an SM
 THREEFRY_REPLACES = "src/repro/faults/scrub.py:85"
 KERNEL_NAMES = {"float": "ternary_matmul", "int8": "ternary_matmul_int8"}
@@ -349,7 +404,15 @@ def time_ms(torch, fn, reps, flush):
 
 def device_busy(torch, fn, tries=5):
     """(summed kernel device ms, kernels launched, their names) of one
-    call of `fn` under torch.profiler.  Each capture ends with a marker
+    call of `fn` under torch.profiler (``device_kernels``)."""
+    per = device_kernels(torch, fn, tries)
+    return (sum(ms for ms, _ in per.values()),
+            sum(n for _, n in per.values()), sorted(per))
+
+
+def device_kernels(torch, fn, tries=5):
+    """{kernel name: (device ms, launches)} of one call of `fn` under
+    torch.profiler.  Each capture ends with a marker
     (a short spin kernel, which `fn` never launches) after `fn`'s work
     has finished; the marker is left out of the result.  Now and then
     CUPTI hands over no device record of a whole session, the marker's
@@ -372,11 +435,9 @@ def device_busy(torch, fn, tries=5):
     else:
         raise SmokeError(f"the profiler recorded no marker in {tries} "
                          f"captures")
-    busy_us = sum(float(getattr(e, "self_device_time_total",
-                                getattr(e, "self_cuda_time_total", 0.0)))
-                  for e in kernels)
-    return (busy_us / 1e3, sum(e.count for e in kernels),
-            sorted(e.key for e in kernels))
+    return {e.key: (float(getattr(e, "self_device_time_total",
+                                  getattr(e, "self_cuda_time_total", 0.0)))
+                    / 1e3, e.count) for e in kernels}
 
 
 def phase_build():
@@ -462,6 +523,10 @@ def phase_kernels(torch, cfg):
     for arch, name, k, n in OTHER_MODEL_SHAPES:
         cases += matmul_cases(torch, gen, flush, arch, "base3", name, k, n,
                               0, (8, BATCH * PROMPT))
+    # mixtral's expert weights at the bucket's expert rows
+    for arch, name, k, n in MOE_SHAPES:
+        cases += matmul_cases(torch, gen, flush, arch, "base3", name, k, n,
+                              0, MOE_MS)
     return cases, floor_ms
 
 
@@ -769,12 +834,14 @@ def matmul_sums(cases, kernel, mode, m):
     return out
 
 
-def kernel_summary(cases, runs, cfg, models):
+def kernel_summary(cases, runs, cfg, models, moe):
     """One record per kernel: the numbers of one decode step's packed
     matmuls (M = 8, base3, every weight at its multiplicity), prefill_*
     over one prefill's (M = 8 x 128, base3), and the launches of the
     base3 serve run in the kernel's domain.  Each serve run's own count
-    is under ``launches_per_run``."""
+    is under ``launches_per_run``, the other models' under
+    ``launches_models``, mixtral's (bucket and window runs) under
+    ``launches_mixtral``."""
     out = []
     prefill_m = BATCH * PROMPT
     for domain, name in KERNEL_NAMES.items():
@@ -803,6 +870,9 @@ def kernel_summary(cases, runs, cfg, models):
                               r["launches"][name] for r in runs},
             launches_models={arch: m["launches"][name]
                              for arch, m in models.items()},
+            launches_mixtral=dict(
+                bucket=moe["launches"][name],
+                window=moe["window_run"]["launches"][name]),
             other_model_cases=[
                 {key: c[key] for key in (
                     "arch", "weight", "m", "k", "n", "route", "max_abs_err",
@@ -1406,6 +1476,433 @@ def phase_model(torch, np, arch):
     del packed
     torch.cuda.empty_cache()
     return rec
+
+
+def moe_forward_matmuls(cfg):
+    """Packed matmuls of one MoE forward: each layer's four attention
+    projections and its experts' three weights (one call per expert and
+    weight over every routing group), then the unembedding."""
+    return cfg.num_layers * (4 + 3 * cfg.num_experts) + 1
+
+
+def matmul_shapes(torch, tm, fn):
+    """fn()'s result and a count of the (M, K, N) of every float-domain
+    ternary_matmul call it made (the wrapper runs as always)."""
+    seen = {}
+    wrapped = tm.matmul_float
+
+    def recording(x, data, scale, mode):
+        k = x.shape[1]
+        key = (x.shape[0], k, data.shape[1])
+        seen[key] = seen.get(key, 0) + 1
+        return wrapped(x, data, scale, mode)
+    tm.matmul_float = recording
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        tm.matmul_float = wrapped
+    return out, seen
+
+
+def moe_window_run(torch, np, model, params, cfg, cim, prompts, tag):
+    """The dense Scheduler (WIN_SLOTS slots, chunk WIN_CHUNK, capacity
+    WIN_CAPACITY) on one request per prompt with WIN_NEW new tokens:
+    (record, tokens by uid).  The pool must hold the window, not the
+    capacity, and take one transfer per chunk."""
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.serve import Request, Scheduler
+    eng = Scheduler(model, params, capacity=WIN_CAPACITY, slots=WIN_SLOTS,
+                    chunk=WIN_CHUNK, cim=cim, device="cuda")
+    window = cfg.sliding_window
+    kv = eng.kv_bytes()
+    want_kv = (2 * cfg.num_layers * WIN_SLOTS * window * cfg.num_kv_heads
+               * cfg.hd * 2)
+    check(eng.pool["k"].shape[2] == window and kv == want_kv,
+          f"{tag}: the pool holds {tuple(eng.pool['k'].shape)} "
+          f"({kv} bytes), not the window's {want_kv}")
+    for uid, prompt in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new=WIN_NEW))
+    torch.cuda.synchronize()
+    tm.reset_launches()
+    t0 = time.monotonic()
+    done = eng.run()
+    wall = time.monotonic() - t0
+    launches, routes = dict(tm.LAUNCHES), dict(tm.ROUTES)
+    steps_launched = eng.chunk * eng.chunks_run
+    want = (moe_forward_matmuls(cfg) * (len(prompts) + steps_launched)
+            if eng.cim.backend == "cuda" else 0)
+    check(launches["ternary_matmul"] == want,
+          f"{tag}: {launches} ternary launches, expected {want} (a forward "
+          f"per prefill and per decode step launched)")
+    check(eng.host_transfers == eng.chunks_run,
+          f"{tag}: {eng.host_transfers} host transfers for "
+          f"{eng.chunks_run} chunks")
+    check(len(done) == len(prompts) and all(
+        len(r.out_tokens) == WIN_NEW
+        and all(0 <= t < cfg.padded_vocab for t in r.out_tokens)
+        for r in done), f"{tag}: a request is missing tokens")
+    rec = dict(backend=eng.cim.backend, prompts=[len(p) for p in prompts],
+               new=WIN_NEW, capacity=WIN_CAPACITY, window=window,
+               pool_positions=eng.pool["k"].shape[2], kv_bytes_pool=kv,
+               kv_bytes_at_capacity=want_kv * WIN_CAPACITY // window,
+               chunks=eng.chunks_run, host_transfers=eng.host_transfers,
+               decode_steps=eng.decode_steps, steps_launched=steps_launched,
+               wall_s=wall, tok_per_s=eng.generated_tokens / wall,
+               launches=launches, routes=routes)
+    print(f"[{tag}] " + json.dumps(rec))
+    return rec, {r.uid: [int(t) for t in r.out_tokens] for r in done}
+
+
+def moe_parity(torch, np, cfg, model, params, prompts):
+    """The window run's requests on the first PARITY_LAYERS layers
+    through the cuda backend (resolved by 'auto') and the plain torch
+    backend: Scheduler tokens equal or a near tie at the first
+    divergence; and the logits of a prefill and WIN_NEW - 1 decode steps
+    per prompt, fed the cuda run's tokens (the 4064-token prompt decodes
+    across the window), with every routing call of the torch run taking
+    the cuda run's top-k choices of the same call: the two then differ
+    by the products' round-off alone, and every step's logits, the
+    prefills' included, must agree within MODEL_FLOAT_TOL of the logit
+    scale.  Where the torch run's own top-k would have chosen otherwise,
+    the choice must be a router near tie (top-k turns round-off at a
+    near tie into another expert)."""
+    from repro_torch.core.cim_linear import CIMConfig
+    runs = {}
+    for backend in ("auto", "torch"):
+        cim = CIMConfig(mode="ternary", packing="base3", domain="float",
+                        backend=backend)
+        rec, toks = moe_window_run(torch, np, model, params, cfg, cim,
+                                   prompts, f"moe parity {backend}")
+        runs[backend] = (rec, toks)
+    check(runs["auto"][0]["backend"] == "cuda",
+          f"'auto' resolved {runs['auto'][0]['backend']!r} on the card")
+    cuda_toks, plain_toks = runs["auto"][1], runs["torch"][1]
+    ties = []
+    for uid, prompt in enumerate(prompts):
+        if cuda_toks[uid] != plain_toks[uid]:
+            cim = CIMConfig(mode="ternary", packing="base3", domain="float",
+                            backend="cuda")
+            ties.append(dict(uid=uid, **first_divergence(
+                torch, model, params, cim, prompt, plain_toks[uid],
+                cuda_toks[uid], WIN_CAPACITY)))
+    steps = []
+    for uid, prompt in enumerate(prompts):
+        feed = cuda_toks[uid][:-1]
+        cuda = routed_logits(torch, model, params, CIMConfig(
+            mode="ternary", packing="base3", domain="float",
+            backend="cuda"), prompt, feed)
+        plain = routed_logits(torch, model, params, CIMConfig(
+            mode="ternary", packing="base3", domain="float",
+            backend="torch"), prompt, feed, forced=cuda)
+        for j, (a, b) in enumerate(zip(cuda, plain)):
+            margins = routing_flips(torch, a[1], b[1])
+            scale = b[0].abs().max().item()
+            steps.append(dict(
+                uid=uid, step=j, max_abs_err=(a[0] - b[0]).abs().max()
+                .item(), logit_scale=scale,
+                same_argmax=bool(a[0].argmax() == b[0].argmax()),
+                routing_flips=len(margins),
+                largest_flip_margin=max(margins, default=None)))
+    worst = max(steps, key=lambda d: d["max_abs_err"] / d["logit_scale"])
+    flipped = [d for d in steps if d["routing_flips"]]
+    out = dict(layers=cfg.num_layers, tokens_identical=not ties,
+               first_divergences=ties, logit_steps=len(steps),
+               worst_step=worst, prefills=[d for d in steps
+                                           if d["step"] == 0],
+               flipped_steps=flipped,
+               argmax_agreement=sum(d["same_argmax"] for d in steps)
+               / len(steps),
+               window_runs={k: v[0] for k, v in runs.items()})
+    print("[moe parity] " + json.dumps({k: v for k, v in out.items()
+                                        if k != "window_runs"}))
+    check(all(d["margin"] <= NEAR_TIE * d["scale"] for d in ties),
+          f"cuda tokens differ from the plain path's beyond a near tie: "
+          f"{ties}")
+    check(all(d["largest_flip_margin"] <= NEAR_TIE for d in flipped),
+          f"a routing choice of the torch run differs from the cuda "
+          f"run's beyond a router near tie: {flipped}")
+    check(all(d["max_abs_err"] <= MODEL_FLOAT_TOL * d["logit_scale"]
+              for d in steps), f"cuda vs torch logits: {worst}")
+    return out
+
+
+def routed_logits(torch, model, params, cim, prompt, feed, forced=None):
+    """[(last-position logits, [(router logits (G, g, E), own top-k
+    choices (G, g, k)) of each routing call])] of a prefill of `prompt`
+    and a decode step per token of `feed`, at capacity WIN_CAPACITY.
+    With `forced` (another run's result on the same prompt and feed),
+    each routing call takes the choices that run made in the same call,
+    its gates renormalised from its own probabilities; its own choices
+    are recorded all the same."""
+    from repro_torch.models import moe
+    real_route, real_top_k = moe.route, moe.top_k
+    queue = iter([c for _, step in forced for _, c in step]
+                 if forced is not None else [])
+    calls, own = [], []
+
+    def top_k(probs, k):
+        gates, idx = real_top_k(probs, k)
+        own.append(idx)
+        if forced is None:
+            return gates, idx
+        want = next(queue, None)
+        check(want is not None and want.shape == idx.shape,
+              f"the forced run has no routing call of shape "
+              f"{tuple(idx.shape)} at call {len(own)}")
+        gates = probs.gather(-1, want)
+        return gates / gates.sum(dim=-1, keepdim=True), want
+
+    def recording(xg, router, cfg, dtype):
+        out = real_route(xg, router, cfg, dtype)
+        calls.append((torch.einsum("ngd,de->nge", xg.float(),
+                                   router.float()), own.pop()))
+        return out
+    moe.route, moe.top_k = recording, top_k
+    try:
+        lg, state = model.prefill(
+            params, torch.as_tensor(prompt[None], device="cuda"),
+            WIN_CAPACITY, cim=cim)
+        steps = [(lg[0, -1].float(), list(calls))]
+        for t in feed:
+            calls.clear()
+            lg, state = model.decode(
+                params, torch.tensor([[t]], device="cuda"), state, cim=cim)
+            steps.append((lg[0, -1].float(), list(calls)))
+    finally:
+        moe.route, moe.top_k = real_route, real_top_k
+    check(next(queue, None) is None,
+          "the forced run made more routing calls than this one")
+    return steps
+
+
+def routing_flips(torch, calls_a, calls_b):
+    """The margins in run b of every token whose own top-k choices
+    differ from run a's, over all routing calls: each the smallest gap
+    between neighbours among its k + 1 largest router logits, over its
+    largest |logit| (a routing near tie is a margin <= NEAR_TIE)."""
+    check(len(calls_a) == len(calls_b),
+          f"{len(calls_a)} routing calls against {len(calls_b)}")
+    margins = []
+    for (_, ia), (lb, ib) in zip(calls_a, calls_b):
+        diff = (ia != ib).any(-1)
+        if bool(diff.any()):
+            k = ia.shape[-1]
+            top = lb[diff].sort(dim=-1, descending=True).values[:, :k + 1]
+            gap = (top[:, :-1] - top[:, 1:]).min(dim=-1).values
+            margins += (gap / lb[diff].abs().amax(dim=-1)).tolist()
+    return margins
+
+
+def moe_profile(torch, what, fn):
+    """One profiled call of `fn`: its device busy ms and kernels, and
+    the device ms and launches of ternary_matmul's kernels (``tm_*``)
+    among them, by kernel; None, with a line saying so, where the
+    profiler recorded nothing (the profile is a reading only)."""
+    try:
+        per = device_kernels(torch, fn)
+    except SmokeError as err:
+        print(f"[moe] no {what} profile ({err})")
+        return None
+    tm = {}
+    for key, (ms, n) in per.items():
+        hit = re.search(r"\b(tm_\w+?)(<|\(|$)", key)
+        if hit:
+            ms0, n0 = tm.get(hit.group(1), (0.0, 0))
+            tm[hit.group(1)] = (ms0 + ms, n0 + n)
+    return dict(device_busy_ms=sum(ms for ms, _ in per.values()),
+                kernels=sum(n for _, n in per.values()),
+                ternary_matmul_ms=sum(ms for ms, _ in tm.values()),
+                ternary_matmul_kernels=sum(n for _, n in tm.values()),
+                ternary_matmul_by_kernel={k: list(v) for k, v in tm.items()})
+
+
+def phase_moe(torch, np):
+    """mixtral-8x7b at full width and depth: seeded random bf16 weights
+    drawn and packed to base3 one layer at a time (init_packed), the
+    bucket ServeEngine on 8 x 128 x MOE_NEW (counts zeroed just before
+    and read just after: moe_forward_matmuls a forward, prefill on mma
+    and decode on gemv, one transfer), the expert products' shapes in one
+    prefill and one decode step, per-phase times beside the decode bytes
+    floor and a profiled decode step; then the window run (the dense
+    Scheduler on a 4160-token and a 4064-token prompt, 64 new each, at
+    capacity 4224: the cache rolls at the window of 4096) and the
+    cuda-vs-torch parity on the first PARITY_LAYERS layers of the same
+    packed params."""
+    from repro_torch import configs
+    from repro_torch.core.cim_linear import CIMConfig, hbm_bytes
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.models import registry
+    from repro_torch.serve import ServeEngine
+    cfg = configs.get(MOE_ARCH)
+    model = registry.build(cfg)
+    cim = CIMConfig(mode="ternary", packing="base3", domain="float")
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t = time.monotonic()
+    packed = model.init_packed(torch.Generator(device="cuda").manual_seed(0),
+                               cim, device="cuda")
+    torch.cuda.synchronize()
+    init_pack_s = time.monotonic() - t
+    init_peak = torch.cuda.max_memory_allocated()
+    packed_bytes = hbm_bytes(packed)
+    wbytes = packed_bytes - hbm_bytes(
+        {k: v for k, v in packed.items() if k == "embed"})
+    print("[moe] " + json.dumps(dict(
+        arch=cfg.name, init_pack_s=init_pack_s, peak_bytes=init_peak,
+        resident_before_bytes=resident,
+        bf16_weight_bytes=model.param_bytes(),
+        packed_weight_bytes=packed_bytes)))
+
+    rng = np.random.default_rng(23)
+    warm = ServeEngine(model, packed, capacity=CAPACITY, max_batch=BATCH,
+                       cim=cim, device="cuda")
+    for r in _requests(rng, cfg.vocab_size, BATCH):
+        r.max_new = 2
+        warm.submit(r)
+    warm.run()
+    del warm
+    eng = ServeEngine(model, packed, capacity=CAPACITY, max_batch=BATCH,
+                      cim=cim, device="cuda")
+    check(eng.cim.backend == "cuda",
+          f"{MOE_ARCH}: auto resolved to {eng.cim.backend!r} on the card")
+    reqs = _requests(rng, cfg.vocab_size, BATCH)
+    for r in reqs:
+        r.max_new = MOE_NEW
+        eng.submit(r)
+    tm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    done = eng.run()
+    wall = time.monotonic() - t0
+    launches, routes = dict(tm.LAUNCHES), dict(tm.ROUTES)
+    per_forward = moe_forward_matmuls(cfg)
+    check(launches["ternary_matmul"] == per_forward * MOE_NEW
+          and launches["ternary_matmul_int8"] == 0,
+          f"{MOE_ARCH}: {launches} ternary launches, expected "
+          f"{per_forward} a forward x {MOE_NEW} forwards")
+    check(routes["mma"] > 0 and routes["gemv"] > 0
+          and routes["cuda_core"] == 0,
+          f"{MOE_ARCH}: prefill must take the mma route and decode the "
+          f"gemv route, got {routes}")
+    check(eng.host_transfers == 1,
+          f"{MOE_ARCH}: {eng.host_transfers} host transfers for 1 bucket")
+    check(len(done) == BATCH and all(
+        len(r.out_tokens) == MOE_NEW
+        and all(0 <= tok < cfg.padded_vocab for tok in r.out_tokens)
+        for r in done), f"{MOE_ARCH}: a request is missing tokens")
+
+    tokens = torch.as_tensor(np.stack([r.prompt for r in reqs]),
+                             device="cuda")
+    (logits, state), pre_shapes = matmul_shapes(
+        torch, tm, lambda: model.prefill(packed, tokens, CAPACITY,
+                                         cim=eng.cim))
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    _, dec_shapes = matmul_shapes(torch, tm, lambda: model.decode(
+        packed, tok, state, cim=eng.cim))
+    d, f, e, L = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.num_layers
+    g = BATCH * PROMPT
+    cap = max(1, int(g * cfg.experts_per_token * cfg.moe_capacity_factor
+                     / e))
+    dec_cap = max(1, int(BATCH * cfg.experts_per_token
+                         * cfg.moe_capacity_factor / e))
+    for shapes, m, what in ((pre_shapes, cap, "prefill"),
+                            (dec_shapes, dec_cap, "decode")):
+        got = (shapes.get((m, d, f), 0), shapes.get((m, f, d), 0))
+        check(got == (2 * e * L, e * L),
+              f"{MOE_ARCH} {what}: expert products {got} at M={m}, "
+              f"expected {(2 * e * L, e * L)}; all calls {shapes}")
+    sms = tm._sm_count(torch.device("cuda"))
+    w2_plan = tm.mma_plan(cap, f, d, sms, tm.MMA_FLOAT_CHAIN)
+    check(w2_plan[1] > 1, f"w2's prefill products (K={f}) must split K: "
+                          f"plan {w2_plan}")
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        logits, state = model.prefill(packed, tokens, CAPACITY, cim=eng.cim)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.monotonic() - t) * 1e3)
+    check(bool(torch.isfinite(logits).all()), f"{MOE_ARCH}: non-finite "
+                                               f"logits")
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    steps = MOE_NEW - 2
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    for _ in range(steps):
+        logits, state = model.decode(packed, tok, state, cim=eng.cim)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - t) * 1e3 / steps
+    check(bool(torch.isfinite(logits).all()), f"{MOE_ARCH}: non-finite "
+                                               f"logits")
+    dec_prof = moe_profile(torch, "decode", lambda: model.decode(
+        packed, tok, state, cim=eng.cim))
+    pre_prof = moe_profile(torch, "prefill", lambda: model.prefill(
+        packed, tokens, CAPACITY, cim=eng.cim))
+    busy = dec_prof and dec_prof["device_busy_ms"]
+    del state, logits, eng
+    bucket = dict(
+        requests=len(done), generated_tokens=sum(len(r.out_tokens)
+                                                 for r in done),
+        host_transfers=1, launches=launches, routes=routes,
+        matmuls_per_forward=per_forward, wall_s=wall,
+        tok_per_s=sum(len(r.out_tokens) for r in done) / wall,
+        prefill_ms=statistics.median(prefill_ms), decode_step_ms=step_ms,
+        decode_device_busy_ms=busy,
+        decode_kernels=dec_prof and dec_prof["kernels"],
+        decode_device_idle_share=(1.0 - busy / step_ms if busy else None),
+        decode_profile=dec_prof, prefill_profile=pre_prof,
+        decode_weight_bytes=wbytes,
+        decode_step_bound_ms=wbytes / HBM_BYTES_PER_S * 1e3,
+        expert_m=dict(prefill=cap, decode=dec_cap),
+        w2_prefill_plan=list(w2_plan),
+        matmul_shapes_prefill={str(k): v for k, v in pre_shapes.items()},
+        matmul_shapes_decode={str(k): v for k, v in dec_shapes.items()})
+    print("[moe bucket] " + json.dumps(bucket))
+
+    prompts = [np.random.default_rng(29 + i).integers(
+        0, cfg.vocab_size, n).astype(np.int32)
+        for i, n in enumerate(WIN_PROMPTS)]
+    t = time.monotonic()
+    _, st = model.prefill(packed, torch.as_tensor(prompts[0][None],
+                                                  device="cuda"),
+                          WIN_CAPACITY, cim=cim)
+    torch.cuda.synchronize()
+    long_prefill_ms = (time.monotonic() - t) * 1e3
+    check(st["k"].shape[2] == cfg.sliding_window,
+          f"the {WIN_PROMPTS[0]}-token prefill's cache holds "
+          f"{st['k'].shape[2]} positions")
+    del st
+    # the window prefills' expert rows: a group of 1024 per started 1024
+    # tokens at capacity 320, the kernel cases' larger M
+    for n in WIN_PROMPTS:
+        groups = -(-n // 1024)
+        m = groups * max(1, int(1024 * cfg.experts_per_token
+                                * cfg.moe_capacity_factor / e))
+        (_, st), shapes = matmul_shapes(torch, tm, lambda: model.prefill(
+            packed, torch.as_tensor(prompts[WIN_PROMPTS.index(n)][None],
+                                    device="cuda"), WIN_CAPACITY, cim=cim))
+        del st
+        got = (shapes.get((m, d, f), 0), shapes.get((m, f, d), 0))
+        check(m in MOE_MS and got == (2 * e * L, e * L),
+              f"the {n}-token prefill: expert products {got} at M={m} "
+              f"(kernel cases at {MOE_MS}); all calls {shapes}")
+    window, _ = moe_window_run(torch, np, model, packed, cfg, cim, prompts,
+                               "moe window")
+    window["long_prefill_ms"] = long_prefill_ms
+    cut_cfg, cut_params = cut_depth(cfg, packed, PARITY_LAYERS)
+    parity = moe_parity(torch, np, cut_cfg, registry.build(cut_cfg),
+                        cut_params, prompts)
+    del cut_params, packed
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, layers=cfg.num_layers, d_model=d,
+                experts=e, experts_per_token=cfg.experts_per_token,
+                d_ff=f, window=cfg.sliding_window, init_pack_s=init_pack_s,
+                init_peak_bytes=init_peak,
+                bf16_weight_bytes=model.param_bytes(),
+                packed_weight_bytes=packed_bytes, bucket=bucket,
+                window_run=window, parity=parity, launches=launches)
 
 
 def frontend_registry():
@@ -2484,6 +2981,8 @@ def parse_args(argv):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paged-only", action="store_true",
                     help="build, then run only the paged-kernel phase")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="build, then run only the moe phase")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree holding the repro_torch package to run "
                          "(with --paged-only: another checkout's, to time "
@@ -2515,14 +3014,21 @@ def main(argv=None) -> int:
     phases = []
 
     def run(name, fn, *args, **kwargs):
-        """One phase, with its seconds and its device-memory peak."""
+        """One phase, with its seconds and its device-memory peak.  What
+        earlier phases left behind in reference cycles is collected
+        first (the frontend phase's server and its hooked submit form
+        one, holding two models' weights)."""
+        gc.collect()
+        torch.cuda.empty_cache()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
         t = time.monotonic()
         result = fn(*args, **kwargs)
         torch.cuda.synchronize()
         rec = dict(phase=name, seconds=time.monotonic() - t,
-                   max_memory_allocated=torch.cuda.max_memory_allocated())
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   resident_before=resident)
         print("[phase] " + json.dumps(rec))
         phases.append(rec)
         return result
@@ -2538,6 +3044,14 @@ def main(argv=None) -> int:
         print(f"[done] {time.monotonic() - t_start:.1f} s, {src}")
         print(card)
         print(json.dumps({"paged_kernel": paged}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if args.moe_only:
+        run("moe", phase_moe, torch, np)
+        print(f"[done] {time.monotonic() - t_start:.1f} s")
+        print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -2579,13 +3093,15 @@ def main(argv=None) -> int:
     models = {arch: run(f"models {arch}", phase_model, torch, np, arch)
               for arch in MODEL_ARCHS}
     frontend = run("frontend", phase_frontend, torch, np)
+    torch.cuda.empty_cache()
+    moe = run("moe", phase_moe, torch, np)
 
     details = dict(card=card, device=torch.cuda.get_device_name(0),
                    harness_floor_ms=floor_ms, cases=cases, serve=runs,
                    parity=parity, paged_kernel=paged, sched=sched,
                    sched_parity=sched_parity, long=long, cim_cases=cim_cases,
                    exact=exact, models=models, fidelity=fid,
-                   frontend=frontend, phases=phases,
+                   frontend=frontend, moe=moe, phases=phases,
                    seconds=time.monotonic() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2597,7 +3113,16 @@ def main(argv=None) -> int:
             "decode_device_idle_share")} for arch, m in models.items()}))
     print(f"[done] {details['seconds']:.1f} s")
     print(card)
-    print(json.dumps({"kernels": kernel_summary(cases, runs, cfg, models)
+    print("[moe] summary " + json.dumps(dict(
+        init_pack_s=moe["init_pack_s"], init_peak_bytes=moe[
+            "init_peak_bytes"], **{key: moe["bucket"][key] for key in (
+                "prefill_ms", "decode_step_ms", "tok_per_s",
+                "decode_step_bound_ms", "decode_device_idle_share")},
+        window_wall_s=moe["window_run"]["wall_s"],
+        window_long_prefill_ms=moe["window_run"]["long_prefill_ms"],
+        window_kv_bytes_pool=moe["window_run"]["kv_bytes_pool"])))
+    print(json.dumps({"kernels": kernel_summary(cases, runs, cfg, models,
+                                                moe)
                       + [kernel_summary_paged(paged, sched, models, long,
                                               frontend),
                          kernel_summary_cim(cim_cases, exact, cfg),

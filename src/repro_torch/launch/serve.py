@@ -9,8 +9,10 @@ once, as a Poisson stream (``--arrival-rate``), or from a JSON trace
 (``--trace-file``).
 
 The weights are random, drawn from a seeded ``torch.Generator`` on the
-device, then packed with ``ternarize_params`` when ``--packed`` is given:
-base3 stores one byte per 5-trit weight, trit2 two bits per trit, and the
+device.  With ``--packed`` they are drawn and packed one layer at a time
+(``TransformerLM.init_packed``), so the float tree never exists
+(mixtral-8x7b's weights are 93.4 GB in bf16, 46.6 GB in base3): base3
+stores one byte per 5-trit weight, trit2 two bits per trit, and the
 packed bytes are decoded only inside the matmul kernels.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
@@ -21,8 +23,11 @@ packed bytes are decoded only inside the matmul kernels.
       --capacity 512 --arrival-rate 50
 
 ``--arch`` takes every name of ``repro_torch.configs.ARCHS``
-(internlm2-1.8b, glm4-9b, phi3-mini-3.8b, qwen3-14b).  A prompt past
-2048 tokens is prefilled through the flash recurrence
+(internlm2-1.8b, glm4-9b, phi3-mini-3.8b, qwen3-14b, and the MoE models
+mixtral-8x7b and kimi-k2-1t-a32b; kimi fits one card only at
+``--smoke`` size).  mixtral's attention is windowed (4096): its cache
+holds at most the window and rolls, and ``--kv paged`` refuses it.  A
+prompt past 2048 tokens is prefilled through the flash recurrence
 (``models.attention.flash_attention``); size ``--capacity`` to hold the
 prompt and its new tokens:
 
@@ -181,8 +186,7 @@ def main(argv=None) -> dict:
         return _run_frontend(args, kv)
 
     from repro_torch import configs, resolve_device
-    from repro_torch.core.cim_linear import (CIMConfig, hbm_bytes,
-                                             ternarize_params)
+    from repro_torch.core.cim_linear import CIMConfig, hbm_bytes
     from repro_torch.models import registry
     from repro_torch.serve import (PagedScheduler, Request, Scheduler,
                                    ServeEngine, latency_stats, load_trace,
@@ -192,8 +196,7 @@ def main(argv=None) -> dict:
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     model = registry.build(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = model.init(gen, device=device)
-    raw_bytes = hbm_bytes(params)
+    raw_bytes = model.param_bytes()
     cim = None
     if args.packed:
         if args.fidelity == "device":
@@ -208,7 +211,8 @@ def main(argv=None) -> dict:
         # fail fast for both phases the engines resolve
         cim.resolve(device.type)
         cim.resolve(device.type, phase="prefill")
-        params = ternarize_params(params, cim)
+    params = (model.init_packed(gen, cim, device=device) if args.packed
+              else model.init(gen, device=device))
     if args.trace_file:
         trace = load_trace(args.trace_file)
     else:

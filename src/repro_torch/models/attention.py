@@ -148,19 +148,40 @@ def attend(q, k, v, cfg: ModelConfig, causal: bool = True, q_offset=0):
     return flash_attention(q, k, v, cfg, causal=causal, q_offset=q_offset)
 
 
+def rolling(cfg: ModelConfig, cap: int) -> bool:
+    """Whether a cache of `cap` slots rolls: a windowed model's cache
+    whose capacity is its window (the model caps it there), where the
+    token at position p lives in slot p % window."""
+    return bool(cfg.sliding_window) and cap == cfg.sliding_window
+
+
 def prefill_attention(x, w, cfg: ModelConfig, cache: KVCache,
                       cim_cfg=None) -> tuple[torch.Tensor, KVCache]:
     """Causal attention over the prompt; writes k/v into the cache in
-    place (the reference returns an updated copy)."""
+    place (the reference returns an updated copy).  A rolling cache keeps
+    the last min(S, window) positions, each at slot position % window,
+    and zeros elsewhere (the cache comes in zeroed)."""
     b, s, _ = x.shape
-    if s > cache.k.shape[1]:
+    cap = cache.k.shape[1]
+    roll = rolling(cfg, cap)
+    if s > cap and not roll:
         raise ValueError(f"prompt of {s} tokens exceeds cache capacity "
-                         f"{cache.k.shape[1]}")
+                         f"{cap}")
     positions = torch.arange(s, device=x.device)
     q, k, v = _project_qkv(x, w, cfg, positions, cim_cfg)
     out = attend(q, k, v, cfg, causal=True)
-    cache.k[:, :s] = k.to(cache.k.dtype)
-    cache.v[:, :s] = v.to(cache.v.dtype)
+    k, v = k.to(cache.k.dtype), v.to(cache.v.dtype)
+    if s <= cap:
+        cache.k[:, :s] = k
+        cache.v[:, :s] = v
+    else:
+        # positions s-cap .. s-1: slots r .. cap-1, then 0 .. r-1
+        start = s - cap
+        r = start % cap
+        cache.k[:, r:] = k[:, start:start + cap - r]
+        cache.v[:, r:] = v[:, start:start + cap - r]
+        cache.k[:, :r] = k[:, start + cap - r:]
+        cache.v[:, :r] = v[:, start + cap - r:]
     return dense(out, w["wo"], cim_cfg), KVCache(cache.k, cache.v, s)
 
 
@@ -176,7 +197,10 @@ def decode_attention_read(x, w, cfg: ModelConfig, cache: KVCache,
     """One-token decode that does not write the cache: attends over the
     cache's first `index` slots plus the fresh token's own k/v, merged
     with the flash two-block rule.  ``cache.index`` is a host int or a
-    ``(B,)`` device tensor of per-row positions.  Returns (out, k_new
+    ``(B,)`` device tensor of per-row positions.  A rolling cache
+    (:func:`rolling`) attends over its first min(index, cap) slots but
+    the slot ``index % cap`` that the fresh token will overwrite (it
+    holds the position that just left the window).  Returns (out, k_new
     (B,1,KV,hd), v_new)."""
     b, s, _ = x.shape
     if s != 1:
@@ -184,14 +208,18 @@ def decode_attention_read(x, w, cfg: ModelConfig, cache: KVCache,
     pos = cache.index
     ck, cv = cache.k, cache.v
     cap = ck.shape[1]
+    roll = rolling(cfg, cap)
     kpos = torch.arange(cap, device=x.device)
     if isinstance(pos, torch.Tensor):
         positions = pos.reshape(b, 1)
-        valid = (kpos[None, :] < pos[:, None])[:, None, None, None, :]
+        p = pos[:, None]
+        valid = ((kpos < torch.clamp(p, max=cap)) & (kpos != p % cap)
+                 if roll else kpos < p)[:, None, None, None, :]
     else:
         positions = torch.full((1, 1), pos, dtype=torch.int64,
                                device=x.device)
-        valid = kpos < pos
+        valid = ((kpos < min(pos, cap)) & (kpos != pos % cap)
+                 if roll else kpos < pos)
     q, k, v = _project_qkv(x, w, cfg, positions, cim_cfg)
     h, hd = q.shape[2], q.shape[3]
     kv = ck.shape[2]

@@ -11,7 +11,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense (the only family ported so far)
+    family: str                    # dense | moe
     num_layers: int
     d_model: int
     num_heads: int
@@ -21,9 +21,12 @@ class ModelConfig:
     head_dim: int = 0              # 0 -> d_model // num_heads
     rope_theta: float = 10_000.0
     qk_norm: bool = False          # RMSNorm of each head's q and k
-    sliding_window: int = 0        # 0 = full attention; the attention
-                                   # functions mask a window, but the
-                                   # model refuses one (no rolling cache)
+    sliding_window: int = 0        # 0 = full attention; else a window,
+                                   # decoded against a rolling cache
+    # MoE (family "moe"): experts routed top-k with per-group capacity
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_capacity_factor: float = 1.25
     norm_eps: float = 1e-6
     dtype: Any = torch.bfloat16
     kv_cache_dtype: str = ""       # "" (= dtype); "int8" is not ported yet
@@ -40,14 +43,17 @@ class ModelConfig:
 
 
 class ParamSpec(NamedTuple):
-    """A parameter's shape and init style (normal | ones | embed)."""
+    """A parameter's shape, init style (normal | ones | embed) and dtype
+    (None: the model's; the MoE router is f32)."""
     shape: tuple
     init: str = "normal"
+    dtype: Any = None
 
     def initialize(self, generator: torch.Generator, device, dtype
                    ) -> torch.Tensor:
         """std 1/sqrt(shape[-2]) (shape[-1] for 1-D), std 1 for the
         embedding table, ones for norms."""
+        dtype = self.dtype or dtype
         if self.init == "ones":
             return torch.ones(self.shape, dtype=dtype, device=device)
         fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]

@@ -51,7 +51,11 @@ The same per-slot rule holds in the macro-exact mode
 (``CIMConfig(mode="exact")``): the reference quantizes each call's
 activations with one scale, so inside ``kernels.plan.rows_as_calls``
 the exact cim plans give each slot's row its own scale, where the
-reference decodes one slot per call.
+reference decodes one slot per call.  It holds for MoE routing too
+(``models/moe.py``): there each slot's row forms its own routing group
+(one token, capacity 1 per expert for mixtral), where a group of every
+slot would drop assignments that the reference keeps.  The bucket
+engine's batch is one group, as the fused paged read's slots are.
 """
 from __future__ import annotations
 
@@ -637,12 +641,16 @@ class PagedScheduler(Scheduler):
     ``fused_attn`` selects the decode read.  ``'auto'`` (the default)
     and ``True`` both resolve an ``op='attention'`` plan for the pool's
     device and read the pages through it: the ``paged_attn`` kernel on
-    the card, its plain version on the CPU.  The reference's reasons for
-    ``'auto'`` to decline the fused read (interpret mode, sharded pools,
-    MoE routing) do not arise here, and int8-KV pools are not ported, so
-    the two differ only in their error message when no backend is
-    capable.  ``False`` names the ``slot_view`` gather path, and the
-    scheduler logs that it was named.
+    the card, its plain version on the CPU.  Under MoE routing ``'auto'``
+    declines it and logs why, as the reference does: top-k routing turns
+    the fused read's f32 round-off into other experts at a router
+    near-tie, and the gather graph is the one whose tokens equal the
+    dense pool's; ``True`` still takes it (one routing group over every
+    slot, as the reference's unvmapped fused read).  The reference's
+    other reasons to decline (interpret mode, sharded pools) do not
+    arise here, and int8-KV pools are not ported.  ``False`` names the
+    ``slot_view`` gather path, and the scheduler logs that it was named.
+    A windowed model is refused (its rolling cache does not page).
     """
 
     def __init__(self, model, params, capacity: int = 512, slots: int = 8,
@@ -652,7 +660,8 @@ class PagedScheduler(Scheduler):
                  fused_attn="auto", device="cuda",
                  scrub_every: Optional[int] = 8):
         if not model.supports_paged_kv:
-            raise ValueError(f"{type(model).__name__} does not support "
+            raise ValueError(f"{type(model).__name__} (family "
+                             f"{model.cfg.family!r}) does not support "
                              f"paged KV; use the dense-pool Scheduler")
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
@@ -683,6 +692,13 @@ class PagedScheduler(Scheduler):
             return None
         from ..kernels import plan_matmul
         cfg = self.model.cfg
+        if cfg.num_experts and self.fused_attn == "auto":
+            _LOG.info("PagedScheduler: fused paged-attention read "
+                      "declined under MoE routing (top-k amplifies f32 "
+                      "round-off; token parity with the dense pool needs "
+                      "the gather graph); serving through the slot_view "
+                      "gather path")
+            return None
         shape = (self.slots * cfg.num_heads, cfg.hd,
                  self.pages_per_slot * self.page_size)
         try:

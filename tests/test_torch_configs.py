@@ -118,11 +118,11 @@ def test_smoke_logits_match_reference_bf16(arch, weights, packing, domain):
         np.testing.assert_allclose(got, want, rtol=0, atol=0.1 * scale)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", configs.ARCHS)
 def test_configs_copy_the_reference(arch):
     """Every field the port has holds the reference's value, at full size
-    and at smoke size (the port leaves out ``remat`` and the fields of
-    other families)."""
+    and at smoke size, for every ported architecture (the port leaves out
+    ``remat`` and the fields of the families it has not ported)."""
     for get in ("get", "smoke"):
         mine = getattr(configs, get)(arch)
         ref = getattr(jconfigs, get)(arch)
@@ -183,12 +183,6 @@ def test_stacked_packing_per_layer_equals_whole(mode, dtype):
     for i in range(3):
         one = ops.pack_weights(w[i, 1], mode)
         assert torch.equal(got[i].data[1], one.data)
-
-
-def test_sliding_window_models_are_refused():
-    cfg = dataclasses.replace(configs.smoke("glm4-9b"), sliding_window=16)
-    with pytest.raises(NotImplementedError, match="rolling cache"):
-        registry.build(cfg)
 
 
 @pytest.mark.parametrize("m,k,n", [(1024, 13696, 4096), (1024, 17408, 5120),

@@ -32,6 +32,11 @@ and randint bitwise equal to the CPU's and normal within 4 ulp (another
 ``log1p``); the device MAC bitwise equal to the CPU's with variation off;
 disturb and scrub give the CPU's bytes; device-fidelity serving keeps one
 transfer per chunk and serves the CPU run's weights.
+MoE and the window: ``moe_block`` with base3 experts through the kernel
+gives the plain version's output (f32 within 1e-4 of max|y|, bf16 within
+2e-2), 3 x E launches a call on the route its rows take; mixtral-smoke's
+rolling decode through the kernels gives the plain path's logits (1e-4
+of their scale), caches and Scheduler tokens.
 """
 import dataclasses
 
@@ -1055,3 +1060,89 @@ def test_disturb_scrub_and_serving_on_the_card_match_the_cpu(dev):
         assert _same_packed(served["card"], served["cpu"])
     finally:
         faults.set_fault_model(prev)
+
+
+# ------------------------------------------------ MoE and the window
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tokens", [8, 300])
+def test_moe_block_cuda_matches_plain_version(dev, tokens, dtype):
+    """moe_block at a small width (d 256, f 512, 4 experts, top 2) with
+    base3 experts: the expert products through the ternary kernel give
+    the plain version's output (routing is the same f32 torch op on
+    both), 3 x 4 launches a call, bf16 on gemv at M <= 8 and on mma
+    above, f32 on cuda_core.  Bars: f32 within 1e-4 of max|y|; bf16,
+    whose expert products round to bf16, within 2e-2."""
+    from repro_torch.models import moe
+    cfg = dataclasses.replace(configs.smoke("mixtral-8x7b"), d_model=256,
+                              d_ff=512, dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    w = {k: spec._replace(shape=spec.shape[1:]).initialize(gen, dev, dtype)
+         for k, spec in moe.moe_defs(cfg, 1).items()}
+    w = ternarize_params(w, CIMConfig(mode="ternary", packing="base3"))
+    assert isinstance(w["w1"], ops.PackedTernary)
+    x = torch.randn((2, tokens // 2, cfg.d_model), generator=gen,
+                    device=dev).to(dtype)
+    out = {}
+    for backend in ("cuda", "torch"):
+        tm.reset_launches()
+        out[backend], _ = moe.moe_block(
+            x, w, cfg, CIMConfig(mode="ternary", backend=backend))
+        launched = tm.LAUNCHES["ternary_matmul"]
+        assert launched == (3 * cfg.num_experts if backend == "cuda" else 0)
+    m = max(1, int(tokens * 2 * cfg.moe_capacity_factor / 4))
+    want_route = ("cuda_core" if dtype == torch.float32
+                  else "gemv" if m <= 8 else "mma")
+    tm.reset_launches()
+    moe.moe_block(x, w, cfg, CIMConfig(mode="ternary", backend="cuda"))
+    assert tm.ROUTES[want_route] == 3 * cfg.num_experts
+    got, want = out["cuda"].float(), out["torch"].float()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=tol * want.abs().max().item())
+
+
+def test_rolling_decode_on_the_card_matches_the_plain_path(dev):
+    """mixtral-smoke (window 16), f32, base3: a 20-token prefill into
+    the rolling cache and 10 decode steps, and the dense Scheduler over
+    it, through the kernels and through the plain backend: logits within
+    1e-4 of their scale, the same caches to round-off, the same tokens,
+    one transfer per chunk."""
+    cfg = dataclasses.replace(configs.smoke("mixtral-8x7b"),
+                              dtype=torch.float32)
+    model = registry.build(cfg)
+    params = ternarize_params(
+        model.init(torch.Generator(device=dev).manual_seed(0), device=dev),
+        CIMConfig(mode="ternary", packing="base3"))
+    rng = np.random.default_rng(6)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 20)),
+                             device=dev)
+    feed = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(10, 2, 1)),
+                           device=dev)
+    prompts = [rng.integers(0, cfg.vocab_size, 12 + 4 * i) for i in range(3)]
+    logits, caches, tokens = {}, {}, {}
+    for backend in ("cuda", "torch"):
+        cim = CIMConfig(mode="ternary", packing="base3", backend=backend)
+        lg, state = model.prefill(params, prompt, 32, cim=cim)
+        assert state["k"].shape[2] == cfg.sliding_window
+        steps = [lg]
+        for tok in feed:
+            lg, state = model.decode(params, tok, state, cim=cim)
+            steps.append(lg)
+        logits[backend] = torch.stack(steps)
+        caches[backend] = state["k"]
+        s = Scheduler(model, params, capacity=32, slots=2, chunk=3, cim=cim,
+                      device=dev)
+        for i, p in enumerate(prompts):
+            s.submit(Request(uid=i, prompt=p, max_new=8))
+        tm.reset_launches()
+        done = s.run()
+        assert s.host_transfers == s.chunks_run
+        assert (tm.LAUNCHES["ternary_matmul"] > 0) == (backend == "cuda")
+        tokens[backend] = {r.uid: r.out_tokens for r in done}
+    got, want = logits["cuda"], logits["torch"]
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * want.abs().max().item())
+    torch.testing.assert_close(caches["cuda"], caches["torch"], rtol=0,
+                               atol=1e-4 * caches["torch"].abs().max().item())
+    assert tokens["cuda"] == tokens["torch"]

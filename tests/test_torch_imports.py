@@ -41,7 +41,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                 "repro_torch.kernels.cim_mac", "repro_torch.core.cim",
                 "repro_torch.core.device_models",
                 "repro_torch.serve.engine", "repro_torch.launch.serve",
-                "repro_torch.models.registry", "repro_torch.core.prng",
+                "repro_torch.models.registry", "repro_torch.models.moe",
+                "repro_torch.core.prng",
                 "repro_torch.kernels.threefry", "repro_torch.faults.backend",
                 "repro_torch.faults.scrub", "repro_torch.core.yield_model",
                 "repro_torch.frontend", "repro_torch.frontend.admission",
