@@ -23,6 +23,10 @@ Phases, each of which raises on failure:
               must stay within 1e-5 of max|y|.  And mixtral-8x7b's expert
               weights, w1 (4096 x 14336) and w2 (14336 x 4096), at the
               bucket's expert rows: M = 2 (decode) and M = 320 (prefill).
+              And the recurrent models' new shapes at M = 8 and 1024:
+              zamba2-7b's Mamba2 in_proj (3584 x 14576, a partial last
+              column tile) and out_proj (7168 x 3584), and xlstm-125m's
+              wif (1536 x 8).
               Each case names the route it took (``ROUTES``: bf16 and int8
               take ``gemv`` at M <= 8 and ``mma`` above, f32 takes
               ``cuda_core``) and prints the kernel's median device time
@@ -243,6 +247,45 @@ Phases, each of which raises on failure:
               only at router near ties (the gap among a token's k + 1
               largest router logits <= 2% of its largest).
               ``--moe-only`` builds and runs this phase alone.
+14. int8-kv - internlm2-1.8b at full width with an int8 KV cache
+              (``kv_cache_dtype="int8"``, base3/float, the sched phase's
+              weights): ``quantize_kv`` on one (24, 8, 512, 8, 128) bf16
+              slab bitwise equal on the card and the CPU; the bucket
+              engine on 8 x 128 + 32 at capacity 256 beside the float-KV
+              run: prefill logits equal, one transfer, every token, the
+              token agreement printed (not gated), decode ms/step of
+              both; the dense Scheduler and the gather PagedScheduler on
+              the bursty trace (gather tokens equal dense tokens, one
+              transfer per chunk), fused_attn='auto' declining the fused
+              read (no paged_attention launch, the gather's tokens) and
+              fused_attn=True refused; the int8 dense pool exactly
+              207,618,048 bytes against the float pool's 402,653,184.
+              Runs after the sync-free chunk; ``--int8-kv-only`` runs it
+              alone on its own draw of the weights.
+15. recurrent - zamba2-7b (81 Mamba2 layers, 13 shared-block
+              invocations, a tail of 3) and xlstm-125m (6 mLSTM/sLSTM
+              pairs) at full width and depth, base3/float, one at a time:
+              the default packing predicate's faults named (stacked norms
+              of 81 layers; sLSTM's wr) and the launcher's refusal of
+              xlstm-125m --packed base3 checked; the weights drawn and
+              packed a layer at a time (init_packed) through the model's
+              pack_predicate; the bucket engine on 8 x 128 + 16,
+              counts zeroed just before and read just after: 254 (zamba2)
+              and 55 (xlstm) ternary_matmul launches a forward, prefill
+              on mma (its unembedding at M = 8 on gemv) and decode on
+              gemv, one transfer, every token; prefill ms, decode ms/step,
+              tok/s, a profiled decode step (device ms, kernels, idle
+              share) beside the decode floor (packed bytes plus the state
+              read and written a step, at 3.35 TB/s); the dense Scheduler
+              (4 slots, chunk 8, capacity 1024) on 7 prompts of 128 and
+              one of 600 (zamba2's padded SSD chunks), 16 new each: the
+              launches of every prefill and chunk step, one transfer per
+              chunk, every token; the PagedScheduler refused with the
+              reference's message; the cuda-vs-torch parity (prefill and
+              4 decode steps, every step within 10% of the logit scale,
+              the worst printed), zamba2 on its first 7 layers (one
+              invocation, a tail of 1), xlstm at full depth.
+              ``--recurrent-only`` runs these alone.
 
 Each phase prints its seconds, torch.cuda.max_memory_allocated() and the
 bytes still allocated when it began (after a gc.collect()).
@@ -252,6 +295,7 @@ The last two lines are a JSON object of per-kernel numbers and
     python3 chip_smoke.py
     python3 chip_smoke.py --paged-only [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --moe-only
+    python3 chip_smoke.py --int8-kv-only --recurrent-only
 """
 from __future__ import annotations
 
@@ -337,6 +381,20 @@ MOE_NEW = 16                 # new tokens per request in the bucket run
 # prompt longer than it, one decoding across it) at a capacity above it
 WIN_SLOTS, WIN_CHUNK, WIN_CAPACITY, WIN_NEW = 2, 8, 4224, 64
 WIN_PROMPTS = (4160, 4064)
+# the recurrent phase: zamba2-7b and xlstm-125m at full width and
+# depth, base3/float; the bucket engine on 8 x PROMPT + REC_NEW, the dense
+# Scheduler on 7 prompts of 128 and one of 600 (past the SSD chunk of
+# 256 and not a multiple of it), REC_NEW new each; kernel cases at
+# zamba2's Mamba2 projections (N = 14576 is 113.875 column tiles of 128)
+# and xlstm's wif (N = 8, packed on every call)
+REC_ARCHS = ("zamba2-7b", "xlstm-125m")
+REC_NEW = 16
+REC_SLOTS, REC_CHUNK, REC_CAPACITY = 4, 8, 1024
+REC_PROMPTS = [128] * 7 + [600]
+ZAMBA_PARITY_LAYERS = 7      # one shared-block invocation, a tail of 1
+RECURRENT_SHAPES = [("zamba2-7b", "mamba in_proj", 3584, 14576),
+                    ("zamba2-7b", "mamba out_proj", 7168, 3584),
+                    ("xlstm-125m", "mlstm wif", 1536, 8)]
 INT32_OPS_PER_S = 132 * 64 * 1.98e9   # H100 SXM: 64 INT32 lanes an SM
 THREEFRY_REPLACES = "src/repro/faults/scrub.py:85"
 KERNEL_NAMES = {"float": "ternary_matmul", "int8": "ternary_matmul_int8"}
@@ -527,6 +585,10 @@ def phase_kernels(torch, cfg):
     for arch, name, k, n in MOE_SHAPES:
         cases += matmul_cases(torch, gen, flush, arch, "base3", name, k, n,
                               0, MOE_MS)
+    # the recurrent models' new shapes, decode and prefill
+    for arch, name, k, n in RECURRENT_SHAPES:
+        cases += matmul_cases(torch, gen, flush, arch, "base3", name, k, n,
+                              0, (8, BATCH * PROMPT))
     return cases, floor_ms
 
 
@@ -740,14 +802,9 @@ def phase_serve(torch, np, cfg, model, packed):
         prefill_busy, prefill_kernels, _ = device_busy(
             torch, lambda: model.prefill(params, tokens, CAPACITY,
                                          cim=eng.cim))
-        tok = logits[:, -1].argmax(-1, keepdim=True)
-        torch.cuda.synchronize()
-        t = time.monotonic()
-        for _ in range(MAX_NEW - 2):
-            logits, state = model.decode(params, tok, state, cim=eng.cim)
-            tok = logits[:, -1].argmax(-1, keepdim=True)
-        torch.cuda.synchronize()
-        step_ms = (time.monotonic() - t) * 1e3 / (MAX_NEW - 2)
+        step_ms, tok, state = decode_step_ms(
+            torch, model, params, logits[:, -1].argmax(-1, keepdim=True),
+            state, eng.cim, MAX_NEW - 2)
         # the bucket's last step, under the profiler
         decode_busy, decode_kernels, _ = device_busy(
             torch, lambda: model.decode(params, tok, state, cim=eng.cim))
@@ -834,14 +891,16 @@ def matmul_sums(cases, kernel, mode, m):
     return out
 
 
-def kernel_summary(cases, runs, cfg, models, moe):
+def kernel_summary(cases, runs, cfg, models, moe, int8kv, recurrent):
     """One record per kernel: the numbers of one decode step's packed
     matmuls (M = 8, base3, every weight at its multiplicity), prefill_*
     over one prefill's (M = 8 x 128, base3), and the launches of the
     base3 serve run in the kernel's domain.  Each serve run's own count
     is under ``launches_per_run``, the other models' under
     ``launches_models``, mixtral's (bucket and window runs) under
-    ``launches_mixtral``."""
+    ``launches_mixtral``, the int8-KV runs' under ``launches_int8_kv``
+    and the recurrent models' (bucket and Scheduler runs) under
+    ``launches_recurrent``."""
     out = []
     prefill_m = BATCH * PROMPT
     for domain, name in KERNEL_NAMES.items():
@@ -873,6 +932,14 @@ def kernel_summary(cases, runs, cfg, models, moe):
             launches_mixtral=dict(
                 bucket=moe["launches"][name],
                 window=moe["window_run"]["launches"][name]),
+            launches_int8_kv=dict(
+                bucket=int8kv["bucket"]["int8"]["launches"][name],
+                **{kind: r["launches"][name]
+                   for kind, r in int8kv["sched"].items()}),
+            launches_recurrent={
+                arch: dict(bucket=r["launches"][name],
+                           sched=r["sched"]["launches"][name])
+                for arch, r in recurrent.items()},
             other_model_cases=[
                 {key: c[key] for key in (
                     "arch", "weight", "m", "k", "n", "route", "max_abs_err",
@@ -1193,7 +1260,7 @@ def phase_sched(torch, np, cfg, model, params, specs=None,
                 tag="sched"):
     """Schedulers of `kinds` (dense, gather, fused) on one trace (by
     default the bursty trace); returns records and the fused-vs-gather
-    parity."""
+    parity (without a fused run: every run's tokens)."""
     from repro_torch.core.cim_linear import CIMConfig
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ternary_matmul as tm
@@ -1266,7 +1333,7 @@ def phase_sched(torch, np, cfg, model, params, specs=None,
     prompts = {uid: prompt for uid, prompt, _, _ in specs}
     if "dense" in runs:
         dense_peak = runs["dense"]["kv_bytes_resident_peak"]
-        for kind in ("gather", "fused"):
+        for kind in [k for k in ("gather", "fused") if k in runs]:
             peak = runs[kind]["kv_bytes_resident_peak"]
             check(peak <= dense_peak / 2,
                   f"{kind}: resident KV peak {peak} is not <= half the "
@@ -1281,6 +1348,8 @@ def phase_sched(torch, np, cfg, model, params, specs=None,
                     torch, model, params, cim, prompts[u],
                     tokens["dense"][u], tokens["gather"][u], capacity))))
         check(not bad, f"gather tokens differ from dense for requests {bad}")
+    if "fused" not in runs:
+        return runs, tokens
     mism = [u for u in prompts if tokens["fused"][u] != tokens["gather"][u]]
     ties = []
     for u in mism:
@@ -1424,16 +1493,9 @@ def phase_model(torch, np, arch):
         torch.cuda.synchronize()
         prefill_ms.append((time.monotonic() - t) * 1e3)
     check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
-    tok = logits[:, -1].argmax(-1, keepdim=True)
-    steps = MODELS_NEW - 2
-    torch.cuda.synchronize()
-    t = time.monotonic()
-    for _ in range(steps):
-        logits, state = model.decode(packed, tok, state, cim=eng.cim)
-        tok = logits[:, -1].argmax(-1, keepdim=True)
-    torch.cuda.synchronize()
-    step_ms = (time.monotonic() - t) * 1e3 / steps
-    check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
+    step_ms, tok, state = decode_step_ms(
+        torch, model, packed, logits[:, -1].argmax(-1, keepdim=True), state,
+        eng.cim, MODELS_NEW - 2)
     try:
         busy, kernels, _ = device_busy(torch, lambda: model.decode(
             packed, tok, state, cim=eng.cim))
@@ -1694,29 +1756,6 @@ def routing_flips(torch, calls_a, calls_b):
     return margins
 
 
-def moe_profile(torch, what, fn):
-    """One profiled call of `fn`: its device busy ms and kernels, and
-    the device ms and launches of ternary_matmul's kernels (``tm_*``)
-    among them, by kernel; None, with a line saying so, where the
-    profiler recorded nothing (the profile is a reading only)."""
-    try:
-        per = device_kernels(torch, fn)
-    except SmokeError as err:
-        print(f"[moe] no {what} profile ({err})")
-        return None
-    tm = {}
-    for key, (ms, n) in per.items():
-        hit = re.search(r"\b(tm_\w+?)(<|\(|$)", key)
-        if hit:
-            ms0, n0 = tm.get(hit.group(1), (0.0, 0))
-            tm[hit.group(1)] = (ms0 + ms, n0 + n)
-    return dict(device_busy_ms=sum(ms for ms, _ in per.values()),
-                kernels=sum(n for _, n in per.values()),
-                ternary_matmul_ms=sum(ms for ms, _ in tm.values()),
-                ternary_matmul_kernels=sum(n for _, n in tm.values()),
-                ternary_matmul_by_kernel={k: list(v) for k, v in tm.items()})
-
-
 def phase_moe(torch, np):
     """mixtral-8x7b at full width and depth: seeded random bf16 weights
     drawn and packed to base3 one layer at a time (init_packed), the
@@ -1825,21 +1864,14 @@ def phase_moe(torch, np):
         prefill_ms.append((time.monotonic() - t) * 1e3)
     check(bool(torch.isfinite(logits).all()), f"{MOE_ARCH}: non-finite "
                                                f"logits")
-    tok = logits[:, -1].argmax(-1, keepdim=True)
-    steps = MOE_NEW - 2
-    torch.cuda.synchronize()
-    t = time.monotonic()
-    for _ in range(steps):
-        logits, state = model.decode(packed, tok, state, cim=eng.cim)
-        tok = logits[:, -1].argmax(-1, keepdim=True)
-    torch.cuda.synchronize()
-    step_ms = (time.monotonic() - t) * 1e3 / steps
-    check(bool(torch.isfinite(logits).all()), f"{MOE_ARCH}: non-finite "
-                                               f"logits")
-    dec_prof = moe_profile(torch, "decode", lambda: model.decode(
-        packed, tok, state, cim=eng.cim))
-    pre_prof = moe_profile(torch, "prefill", lambda: model.prefill(
-        packed, tokens, CAPACITY, cim=eng.cim))
+    step_ms, tok, state = decode_step_ms(
+        torch, model, packed, logits[:, -1].argmax(-1, keepdim=True), state,
+        eng.cim, MOE_NEW - 2)
+    dec_prof = profile_kernels(torch, "moe", "decode", lambda:
+                               model.decode(packed, tok, state, cim=eng.cim))
+    pre_prof = profile_kernels(torch, "moe", "prefill", lambda:
+                               model.prefill(packed, tokens, CAPACITY,
+                                             cim=eng.cim))
     busy = dec_prof and dec_prof["device_busy_ms"]
     del state, logits, eng
     bucket = dict(
@@ -1903,6 +1935,477 @@ def phase_moe(torch, np):
                 bf16_weight_bytes=model.param_bytes(),
                 packed_weight_bytes=packed_bytes, bucket=bucket,
                 window_run=window, parity=parity, launches=launches)
+
+
+def profile_kernels(torch, tag, what, fn):
+    """One profiled call of `fn`: its device busy ms and kernels, the
+    device ms and launches of ternary_matmul's kernels (``tm_*``) among
+    them, by kernel, and the five kernels of most device time; None,
+    with a line saying so, where the profiler recorded nothing (the
+    profile is a reading only)."""
+    try:
+        per = device_kernels(torch, fn)
+    except SmokeError as err:
+        print(f"[{tag}] no {what} profile ({err})")
+        return None
+    tm = {}
+    for key, (ms, n) in per.items():
+        hit = re.search(r"\b(tm_\w+?)(<|\(|$)", key)
+        if hit:
+            ms0, n0 = tm.get(hit.group(1), (0.0, 0))
+            tm[hit.group(1)] = (ms0 + ms, n0 + n)
+    return dict(device_busy_ms=sum(ms for ms, _ in per.values()),
+                kernels=sum(n for _, n in per.values()),
+                ternary_matmul_ms=sum(ms for ms, _ in tm.values()),
+                ternary_matmul_kernels=sum(n for _, n in tm.values()),
+                ternary_matmul_by_kernel={k: list(v) for k, v in tm.items()},
+                top_kernels=[[k[:80], ms, n] for k, (ms, n) in sorted(
+                    per.items(), key=lambda kv: -kv[1][0])[:5]])
+
+
+def decode_step_ms(torch, model, params, tok, state, cim, steps):
+    """Host ms per decode step over `steps` steps (synchronized), the
+    state after them and the last token."""
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    for _ in range(steps):
+        logits, state = model.decode(params, tok, state, cim=cim)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits).all()), f"{model.cfg.name}: "
+                                               f"non-finite logits")
+    return (time.monotonic() - t) * 1e3 / steps, tok, state
+
+
+def phase_int8_kv(torch, np, cfg, model, params):
+    """internlm2-1.8b at full width with an int8 KV cache (base3/float,
+    the weights the sched phase holds): quantize_kv on the card bitwise
+    equal to the CPU's on one (L, SLOTS, SCHED_CAPACITY, KV, hd) bf16
+    slab; the bucket engine on 8 x 128 + 32 at capacity 256 beside the
+    float-KV run (equal prefill logits, one transfer, every token; the
+    token agreement printed, not gated; decode ms/step of both); the
+    dense Scheduler and the gather PagedScheduler with int8 KV on the
+    bursty trace (gather tokens equal dense tokens, one transfer per
+    chunk), fused_attn='auto' serving through the gather (no
+    paged_attention launch, the same tokens) and fused_attn=True
+    refused; the dense pools' bytes.  Each bucket run also times its
+    prefill and decode step, profiles one decode step and reckons the
+    decode floor (the packed weights and the KV the step reads and
+    writes, at 3.35 TB/s)."""
+    import dataclasses
+    from repro_torch.core.cim_linear import CIMConfig, hbm_bytes
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.models import attention, registry
+    from repro_torch.serve import PagedScheduler, Request, Scheduler, \
+        ServeEngine
+    cim = CIMConfig(mode="ternary", packing="base3", domain="float")
+    cfg8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    model8 = registry.build(cfg8)
+    out = dict(arch=cfg.name)
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    slab = torch.randn((cfg.num_layers, SLOTS, SCHED_CAPACITY,
+                        cfg.num_kv_heads, cfg.hd), generator=gen,
+                       device="cuda", dtype=torch.bfloat16)
+    q, sc = attention.quantize_kv(slab)
+    qc, scc = attention.quantize_kv(slab.cpu())
+    check(torch.equal(q.cpu(), qc) and torch.equal(sc.cpu(), scc),
+          "quantize_kv on the card differs from the CPU's: codes "
+          f"{int((q.cpu() != qc).sum())}, scales "
+          f"{int((sc.cpu() != scc).sum())} differ")
+    out["quantize_kv_slab"] = list(slab.shape)
+    print("[int8-kv] quantize_kv: card == CPU, bitwise, on "
+          f"{tuple(slab.shape)}")
+    del slab, q, sc, qc, scc
+
+    rng = np.random.default_rng(37)
+    reqs = _requests(rng, cfg.vocab_size, BATCH)
+    tokens = torch.as_tensor(np.stack([r.prompt for r in reqs]),
+                             device="cuda")
+    lf, _ = model.prefill(params, tokens, CAPACITY, cim=cim)
+    l8, st8 = model8.prefill(params, tokens, CAPACITY, cim=cim)
+    check(st8["k"].dtype == torch.int8 and "k_scale" in st8,
+          "the int8 prefill state holds no codes and scales")
+    check(torch.equal(lf, l8), "int8-KV prefill logits differ from the "
+                               "float-KV run's")
+    del st8
+    wbytes = hbm_bytes(params) - hbm_bytes({"embed": params["embed"]})
+    bucket, served = {}, {}
+    for kv, m in (("float", model), ("int8", model8)):
+        eng = ServeEngine(m, params, capacity=CAPACITY, max_batch=BATCH,
+                          cim=cim, device="cuda")
+        for r in reqs:
+            eng.submit(Request(uid=r.uid, prompt=r.prompt, max_new=MAX_NEW))
+        tm.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        done = eng.run()
+        wall = time.monotonic() - t0
+        check(eng.host_transfers == 1,
+              f"int8-kv bucket ({kv}): {eng.host_transfers} transfers")
+        check(len(done) == BATCH and all(
+            len(r.out_tokens) == MAX_NEW
+            and all(0 <= t < cfg.padded_vocab for t in r.out_tokens)
+            for r in done), f"int8-kv bucket ({kv}): a request is "
+                            f"missing tokens")
+        served[kv] = {r.uid: list(r.out_tokens) for r in done}
+        launches = dict(tm.LAUNCHES)
+        prefill_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            logits, state = m.prefill(params, tokens, CAPACITY, cim=cim)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.monotonic() - t) * 1e3)
+        step_ms, tok, state = decode_step_ms(
+            torch, m, params, logits[:, -1].argmax(-1, keepdim=True), state,
+            cim, MAX_NEW - 2)
+        prof = profile_kernels(torch, "int8-kv", f"{kv} decode", lambda:
+                               m.decode(params, tok, state, cim=cim))
+        busy = prof and prof["device_busy_ms"]
+        # the floor: the packed weights, and the cache's positions so far
+        # (the bucket's mean) read and one written, k and v, every layer
+        per_pos = sum(t.element_size() * t[0, 0, 0].numel()
+                      for name, t in state.items()
+                      if name in ("k", "v", "k_scale", "v_scale"))
+        kv_bytes = (cfg.num_layers * BATCH * per_pos
+                    * (PROMPT + MAX_NEW // 2 + 1))
+        del logits, state
+        bucket[kv] = dict(
+            wall_s=wall, tok_per_s=eng.generated_tokens / wall,
+            prefill_ms=statistics.median(prefill_ms), decode_step_ms=step_ms,
+            decode_device_busy_ms=busy,
+            decode_kernels=prof and prof["kernels"],
+            decode_device_idle_share=(1.0 - busy / step_ms if busy
+                                      else None),
+            decode_kv_bytes=kv_bytes,
+            decode_step_bound_ms=(wbytes + kv_bytes) / HBM_BYTES_PER_S * 1e3,
+            launches=launches)
+    agree = sum(a == b for u in served["float"]
+                for a, b in zip(served["float"][u], served["int8"][u]))
+    bucket["token_agreement_with_float_kv"] = agree / (BATCH * MAX_NEW)
+    out["bucket"] = bucket
+    print("[int8-kv bucket] " + json.dumps(bucket))
+
+    sched, sched_tokens = phase_sched(torch, np, cfg8, model8, params,
+                                      kinds=("dense", "gather"),
+                                      tag="int8-kv sched")
+    specs = sched_requests(np, cfg, seed=21)
+    auto = make_scheduler("fused", model8, params, cim)
+    check(auto.attn_plan is None,
+          f"fused_attn='auto' resolved {auto.attn_plan} for an int8 pool")
+    for uid, prompt, max_new, arrival in specs:
+        auto.submit(Request(uid=uid, prompt=prompt, max_new=max_new,
+                            arrival_s=arrival))
+    tm.reset_launches()
+    pa.reset_launches()
+    done = auto.run()
+    check(pa.LAUNCHES["paged_attention"] == 0,
+          f"fused_attn='auto' on an int8 pool launched paged_attention "
+          f"{pa.LAUNCHES['paged_attention']} times")
+    check(auto.host_transfers == auto.chunks_run,
+          f"int8 'auto': {auto.host_transfers} transfers for "
+          f"{auto.chunks_run} chunks")
+    check({r.uid: [int(t) for t in r.out_tokens] for r in done}
+          == sched_tokens["gather"], "int8 'auto' tokens differ from the "
+                                     "gather run's")
+    del auto
+    try:
+        PagedScheduler(model8, params, capacity=SCHED_CAPACITY, slots=SLOTS,
+                       chunk=CHUNK, page_size=PAGE, cim=cim,
+                       fused_attn=True, device="cuda")
+    except ValueError as err:
+        check("int8 KV pool" in str(err), f"fused_attn=True: {err}")
+    else:
+        raise SmokeError("fused_attn=True on an int8 pool was not refused")
+    pool8 = sched["dense"]["kv_bytes_pool"]
+    dense = Scheduler(model, params, capacity=SCHED_CAPACITY, slots=SLOTS,
+                      chunk=CHUNK, cim=cim, device="cuda")
+    pool = dense.kv_bytes()
+    del dense
+    L, kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.hd
+    want8 = 2 * L * SLOTS * SCHED_CAPACITY * kv * (hd + 4)
+    check(pool8 == want8 == 207_618_048,
+          f"int8 dense pool {pool8} bytes, expected {want8}")
+    check(pool == 2 * L * SLOTS * SCHED_CAPACITY * kv * hd * 2,
+          f"float dense pool {pool} bytes")
+    out.update(sched=sched, auto_declined=True, true_refused=True,
+               kv_bytes_pool_int8=pool8, kv_bytes_pool_float=pool)
+    print("[int8-kv] " + json.dumps(dict(
+        kv_bytes_pool_int8=pool8, kv_bytes_pool_float=pool,
+        sched_decode_ms_per_step={k: r["decode_ms_per_step"]
+                                  for k, r in sched.items()})))
+    return out
+
+
+def recurrent_forward_matmuls(model):
+    """Packed matmuls of one forward of a recurrent model: zamba2's two
+    per Mamba2 layer (in_proj, out_proj), seven per shared-block
+    invocation (wq, wk, wv, wo, w1, w3, w2); xlstm's six per mLSTM (up,
+    wq, wk, wv, wif packed on the call, down) and three per sLSTM (wx,
+    up1, up2); then the unembedding."""
+    cfg = model.cfg
+    if cfg.family == "hybrid":
+        return 2 * cfg.num_layers + 7 * model.n_groups + 1
+    return (6 + 3) * model.n_pairs + 1
+
+
+def recurrent_state_bytes(model, capacity):
+    """{leaf: bytes} of one slot's decode state at `capacity`."""
+    import math
+    return {name: math.prod(spec.shape) * (
+        spec.dtype or model.cfg.dtype).itemsize
+        for name, spec in model.cache_specs(1, capacity).items()}
+
+
+def recurrent_step_bytes(model, capacity, batch, positions):
+    """Bytes one decode step must move besides the weights: every
+    recurrent carry read and written, and of a KV cache the `positions`
+    written so far read and one position written, for `batch` rows."""
+    per = recurrent_state_bytes(model, capacity)
+    total = 0
+    for name, b in per.items():
+        if name in ("k", "v"):
+            total += b // capacity * (positions + 1)
+        else:
+            total += 2 * b
+    return batch * total
+
+
+def cut_recurrent(cfg, params, layers):
+    """zamba2's first `layers` Mamba2 layers (views, every width kept):
+    with attn_every 6, 7 layers make one shared-block invocation and a
+    tail of one."""
+    import dataclasses
+    cut = {**params, "mamba_ln": params["mamba_ln"][:layers],
+           "mamba": {k: v[:layers] for k, v in params["mamba"].items()}}
+    return dataclasses.replace(cfg, num_layers=layers), cut
+
+
+def recurrent_parity(torch, np, cfg, model, params, tag):
+    """The cuda backend against the plain torch backend named
+    explicitly: a prefill of 2 x PROMPT tokens and 4 decode steps fed the
+    cuda run's tokens, every step's logits within MODEL_FLOAT_TOL of the
+    logit scale; the worst step printed."""
+    import dataclasses
+    from repro_torch.core.cim_linear import CIMConfig
+    rng = np.random.default_rng(41)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          size=(2, PROMPT)), device="cuda")
+    base = CIMConfig(mode="ternary", packing="base3", domain="float")
+    logits, feed = {}, None
+    for backend in ("cuda", "torch"):
+        cim = dataclasses.replace(base, backend=backend)
+        lg, state = model.prefill(params, tokens, PROMPT + 8, cim=cim)
+        steps = [lg.float()]
+        if feed is None:
+            feed = [lg[:, -1].argmax(-1, keepdim=True)]
+        for i in range(4):
+            lg, state = model.decode(params, feed[i], state, cim=cim)
+            steps.append(lg.float())
+            if len(feed) < 5:
+                feed.append(lg[:, -1].argmax(-1, keepdim=True))
+        logits[backend] = steps
+        del state
+    rel = [((a - b).abs().max() / b.abs().max()).item()
+           for a, b in zip(logits["cuda"], logits["torch"])]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    agree = sum((a.argmax(-1) == b.argmax(-1)).float().mean().item()
+                for a, b in zip(logits["cuda"], logits["torch"])) / len(rel)
+    rec = dict(layers=cfg.num_layers, steps=len(rel), rel_err=rel,
+               worst_step=worst, worst_rel_err=rel[worst],
+               argmax_agreement=agree, bar=MODEL_FLOAT_TOL)
+    print(f"[{tag}] parity " + json.dumps(rec))
+    check(rel[worst] <= MODEL_FLOAT_TOL,
+          f"{cfg.name}: cuda vs torch logits {rel[worst]} of the scale at "
+          f"step {worst}")
+    return rec
+
+
+def phase_recurrent(torch, np, arch):
+    """One recurrent model at full width and depth, base3/float: the
+    default packing predicate's faults named (the launcher refuses
+    xlstm-125m --packed base3), the weights drawn and packed a layer at
+    a time (init_packed) through the model's pack_predicate; the
+    bucket engine on 8 x PROMPT + REC_NEW (counts zeroed just before and
+    read just after: recurrent_forward_matmuls a forward, prefill on mma
+    and decode on gemv, one transfer, every token), per-phase times, a
+    profiled decode step and the decode floor (packed bytes plus the
+    state moved a step); the dense Scheduler (REC_SLOTS slots, chunk
+    REC_CHUNK, capacity REC_CAPACITY) on REC_PROMPTS (the 600-token one
+    through the padded SSD chunks), REC_NEW new each: the launches, one
+    transfer per chunk, every token; the PagedScheduler refused; the
+    cuda-vs-torch parity (zamba2 on its first 7 layers)."""
+    from repro_torch import configs
+    from repro_torch.core.cim_linear import CIMConfig, hbm_bytes
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import registry
+    from repro_torch.serve import PagedScheduler, Request, Scheduler, \
+        ServeEngine
+    tag = f"recurrent {arch}"
+    cfg = configs.get(arch)
+    model = registry.build(cfg)
+    cim = CIMConfig(mode="ternary", packing="base3", domain="float")
+    faults = model.packing_faults()
+    check(faults, f"{arch}: the default predicate packs no leaf read "
+                  f"outside the matmuls")
+    if arch == "xlstm-125m":
+        try:
+            launch_serve.main(["--arch", arch, "--packed", "base3"])
+        except ValueError as err:
+            check("slstm.wr" in str(err), f"launcher refusal: {err}")
+        else:
+            raise SmokeError("the launcher served xlstm-125m --packed "
+                             "base3")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t = time.monotonic()
+    params = model.init_packed(gen, cim, device="cuda",
+                               predicate=model.pack_predicate)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t
+    packed_bytes = hbm_bytes(params)
+    wbytes = packed_bytes - hbm_bytes({"embed": params["embed"]})
+    capacity = PROMPT + REC_NEW
+    state_slot = recurrent_state_bytes(model, capacity)
+    step_bytes = recurrent_step_bytes(model, capacity, BATCH,
+                                      PROMPT + REC_NEW // 2)
+    info = dict(arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+                packing_faults=faults, init_pack_s=init_s,
+                bf16_weight_bytes=model.param_bytes(),
+                packed_weight_bytes=packed_bytes, weight_bytes_read=wbytes,
+                state_bytes_per_slot=state_slot,
+                state_bytes_per_step=step_bytes,
+                decode_step_bound_ms=(wbytes + step_bytes)
+                / HBM_BYTES_PER_S * 1e3)
+    print(f"[{tag}] " + json.dumps(info))
+
+    rng = np.random.default_rng(43)
+    warm = ServeEngine(model, params, capacity=capacity, max_batch=BATCH,
+                       cim=cim, device="cuda")
+    for r in _requests(rng, cfg.vocab_size, BATCH):
+        r.max_new = 2
+        warm.submit(r)
+    warm.run()
+    del warm
+    eng = ServeEngine(model, params, capacity=capacity, max_batch=BATCH,
+                      cim=cim, device="cuda")
+    check(eng.cim.backend == "cuda",
+          f"{arch}: auto resolved to {eng.cim.backend!r} on the card")
+    reqs = _requests(rng, cfg.vocab_size, BATCH)
+    for r in reqs:
+        r.max_new = REC_NEW
+        eng.submit(r)
+    tm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    done = eng.run()
+    wall = time.monotonic() - t0
+    launches, routes = dict(tm.LAUNCHES), dict(tm.ROUTES)
+    per_forward = recurrent_forward_matmuls(model)
+    check(launches["ternary_matmul"] == per_forward * REC_NEW
+          and launches["ternary_matmul_int8"] == 0,
+          f"{arch}: {launches} ternary launches, expected {per_forward} a "
+          f"forward x {REC_NEW} forwards")
+    # the prefill's unembedding reads the last position: M = 8, gemv
+    check(routes["mma"] == per_forward - 1 and routes["cuda_core"] == 0
+          and routes["gemv"] == per_forward * (REC_NEW - 1) + 1,
+          f"{arch}: prefill must take the mma route and decode the gemv "
+          f"route, got {routes}")
+    check(eng.host_transfers == 1,
+          f"{arch}: {eng.host_transfers} host transfers for 1 bucket")
+    check(len(done) == BATCH and all(
+        len(r.out_tokens) == REC_NEW
+        and all(0 <= tok < cfg.padded_vocab for tok in r.out_tokens)
+        for r in done), f"{arch}: a request is missing tokens")
+
+    tokens = torch.as_tensor(np.stack([r.prompt for r in reqs]),
+                             device="cuda")
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        logits, state = model.prefill(params, tokens, capacity, cim=eng.cim)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.monotonic() - t) * 1e3)
+    check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
+    step_ms, tok, state = decode_step_ms(
+        torch, model, params, logits[:, -1].argmax(-1, keepdim=True), state,
+        eng.cim, REC_NEW - 2)
+    dec_prof = profile_kernels(torch, tag, "decode", lambda: model.decode(
+        params, tok, state, cim=eng.cim))
+    busy = dec_prof and dec_prof["device_busy_ms"]
+    del state, logits, eng
+    bucket = dict(
+        requests=len(done), generated_tokens=sum(len(r.out_tokens)
+                                                 for r in done),
+        host_transfers=1, launches=launches, routes=routes,
+        matmuls_per_forward=per_forward, wall_s=wall,
+        tok_per_s=sum(len(r.out_tokens) for r in done) / wall,
+        prefill_ms=statistics.median(prefill_ms), decode_step_ms=step_ms,
+        decode_device_busy_ms=busy,
+        decode_kernels=dec_prof and dec_prof["kernels"],
+        decode_device_idle_share=(1.0 - busy / step_ms if busy else None),
+        decode_profile=dec_prof,
+        decode_step_bound_ms=info["decode_step_bound_ms"])
+    print(f"[{tag} bucket] " + json.dumps(bucket))
+
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in REC_PROMPTS]
+    sched = Scheduler(model, params, capacity=REC_CAPACITY, slots=REC_SLOTS,
+                      chunk=REC_CHUNK, cim=cim, device="cuda")
+    check(set(sched.pool) == set(model.cache_specs(1, 1)),
+          f"{arch}: pool lanes {sorted(sched.pool)}")
+    for i, p in enumerate(prompts):
+        sched.submit(Request(uid=i, prompt=p, max_new=REC_NEW))
+    tm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    done = sched.run()
+    swall = time.monotonic() - t0
+    slaunch = dict(tm.LAUNCHES)
+    forwards = len(prompts) + sched.chunk * sched.chunks_run
+    check(sched.host_transfers == sched.chunks_run,
+          f"{arch} Scheduler: {sched.host_transfers} transfers for "
+          f"{sched.chunks_run} chunks")
+    check(slaunch["ternary_matmul"] == per_forward * forwards,
+          f"{arch} Scheduler: {slaunch} launches, expected {per_forward} x "
+          f"{forwards} forwards")
+    check(len(done) == len(prompts) and all(
+        len(r.out_tokens) == REC_NEW for r in done),
+        f"{arch} Scheduler: a request is missing tokens")
+    srec = dict(requests=len(done), prompts=REC_PROMPTS, slots=REC_SLOTS,
+                chunk=REC_CHUNK, capacity=REC_CAPACITY,
+                chunks=sched.chunks_run,
+                host_transfers=sched.host_transfers, wall_s=swall,
+                tok_per_s=sched.generated_tokens / swall,
+                kv_bytes_pool=sched.kv_bytes(), launches=slaunch)
+    del sched
+    try:
+        PagedScheduler(model, params, capacity=REC_CAPACITY, slots=REC_SLOTS,
+                       chunk=REC_CHUNK, cim=cim, device="cuda")
+    except ValueError as err:
+        check("does not support paged KV" in str(err),
+              f"{arch}: PagedScheduler refused with {err}")
+    else:
+        raise SmokeError(f"{arch}: the PagedScheduler was not refused")
+    srec["paged_refused"] = True
+    print(f"[{tag} sched] " + json.dumps(srec))
+
+    if cfg.family == "hybrid":
+        cut_cfg, cut_params = cut_recurrent(cfg, params, ZAMBA_PARITY_LAYERS)
+        cut_model = registry.build(cut_cfg)
+        check((cut_model.n_groups, cut_model.n_tail) == (1, 1),
+              f"the cut zamba2: {cut_model.n_groups} groups, tail "
+              f"{cut_model.n_tail}")
+    else:
+        cut_cfg, cut_params, cut_model = cfg, params, model
+    parity = recurrent_parity(torch, np, cut_cfg, cut_model, cut_params, tag)
+    del cut_params, params
+    torch.cuda.empty_cache()
+    return dict(info, bucket=bucket, sched=srec, parity=parity,
+                launches=launches)
 
 
 def frontend_registry():
@@ -2983,6 +3486,11 @@ def parse_args(argv):
                     help="build, then run only the paged-kernel phase")
     ap.add_argument("--moe-only", action="store_true",
                     help="build, then run only the moe phase")
+    ap.add_argument("--int8-kv-only", action="store_true",
+                    help="build, then run only the int8-kv phase (on its "
+                         "own draw of internlm2-1.8b's weights)")
+    ap.add_argument("--recurrent-only", action="store_true",
+                    help="build, then run only the recurrent phases")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree holding the repro_torch package to run "
                          "(with --paged-only: another checkout's, to time "
@@ -3048,8 +3556,20 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    if args.moe_only:
-        run("moe", phase_moe, torch, np)
+    if args.moe_only or args.int8_kv_only or args.recurrent_only:
+        if args.moe_only:
+            run("moe", phase_moe, torch, np)
+        if args.int8_kv_only:
+            model = registry.build(cfg)
+            params = ternarize_params(
+                model.init(torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda"),
+                CIMConfig(mode="ternary", packing="base3"))
+            run("int8-kv", phase_int8_kv, torch, np, cfg, model, params)
+            del params
+        if args.recurrent_only:
+            for arch in REC_ARCHS:
+                run(f"recurrent {arch}", phase_recurrent, torch, np, arch)
         print(f"[done] {time.monotonic() - t_start:.1f} s")
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -3077,6 +3597,8 @@ def main(argv=None) -> int:
                               packed["base3"])
     run("sync-free chunk", phase_sync_free_chunk, torch, np, cfg, model,
         packed["base3"])
+    int8kv = run("int8-kv", phase_int8_kv, torch, np, cfg, model,
+                 packed["base3"])
     long = run("long", phase_long, torch, np, cfg, model, packed["base3"])
     fid = run("fidelity", phase_fidelity, torch, np, cfg, model,
               packed["base3"], card)
@@ -3095,13 +3617,16 @@ def main(argv=None) -> int:
     frontend = run("frontend", phase_frontend, torch, np)
     torch.cuda.empty_cache()
     moe = run("moe", phase_moe, torch, np)
+    recurrent = {arch: run(f"recurrent {arch}", phase_recurrent, torch, np,
+                           arch) for arch in REC_ARCHS}
 
     details = dict(card=card, device=torch.cuda.get_device_name(0),
                    harness_floor_ms=floor_ms, cases=cases, serve=runs,
                    parity=parity, paged_kernel=paged, sched=sched,
                    sched_parity=sched_parity, long=long, cim_cases=cim_cases,
                    exact=exact, models=models, fidelity=fid,
-                   frontend=frontend, moe=moe, phases=phases,
+                   frontend=frontend, moe=moe, int8_kv=int8kv,
+                   recurrent=recurrent, phases=phases,
                    seconds=time.monotonic() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -3121,8 +3646,24 @@ def main(argv=None) -> int:
         window_wall_s=moe["window_run"]["wall_s"],
         window_long_prefill_ms=moe["window_run"]["long_prefill_ms"],
         window_kv_bytes_pool=moe["window_run"]["kv_bytes_pool"])))
+    print("[int8-kv] summary " + json.dumps(dict(
+        kv_bytes_pool_int8=int8kv["kv_bytes_pool_int8"],
+        kv_bytes_pool_float=int8kv["kv_bytes_pool_float"],
+        **{f"bucket_{kv}_{key}": int8kv["bucket"][kv][key]
+           for kv in ("float", "int8")
+           for key in ("prefill_ms", "decode_step_ms", "tok_per_s",
+                       "decode_step_bound_ms", "decode_device_idle_share")},
+        token_agreement=int8kv["bucket"]["token_agreement_with_float_kv"])))
+    print("[recurrent] summary " + json.dumps({
+        arch: dict(packed_weight_bytes=r["packed_weight_bytes"],
+                   parity_worst_rel_err=r["parity"]["worst_rel_err"],
+                   **{key: r["bucket"][key] for key in (
+                       "matmuls_per_forward", "prefill_ms", "decode_step_ms",
+                       "tok_per_s", "decode_step_bound_ms",
+                       "decode_device_idle_share")})
+        for arch, r in recurrent.items()}))
     print(json.dumps({"kernels": kernel_summary(cases, runs, cfg, models,
-                                                moe)
+                                                moe, int8kv, recurrent)
                       + [kernel_summary_paged(paged, sched, models, long,
                                               frontend),
                          kernel_summary_cim(cim_cases, exact, cfg),

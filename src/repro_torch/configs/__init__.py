@@ -6,7 +6,7 @@ from __future__ import annotations
 import importlib
 
 ARCHS = ("internlm2-1.8b", "glm4-9b", "phi3-mini-3.8b", "qwen3-14b",
-         "mixtral-8x7b", "kimi-k2-1t-a32b")
+         "mixtral-8x7b", "kimi-k2-1t-a32b", "zamba2-7b", "xlstm-125m")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

@@ -23,9 +23,15 @@ packed bytes are decoded only inside the matmul kernels.
       --capacity 512 --arrival-rate 50
 
 ``--arch`` takes every name of ``repro_torch.configs.ARCHS``
-(internlm2-1.8b, glm4-9b, phi3-mini-3.8b, qwen3-14b, and the MoE models
-mixtral-8x7b and kimi-k2-1t-a32b; kimi fits one card only at
-``--smoke`` size).  mixtral's attention is windowed (4096): its cache
+(internlm2-1.8b, glm4-9b, phi3-mini-3.8b, qwen3-14b, the MoE models
+mixtral-8x7b and kimi-k2-1t-a32b, kimi fitting one card only at
+``--smoke`` size, and the recurrent zamba2-7b and xlstm-125m, which
+serve from the dense pool only: ``--kv paged`` refuses them).  A
+``--packed`` run is refused where ``ternarize_params``'s default
+predicate packs a leaf the model reads outside its matmuls, as the
+reference would pack it and then fail: zamba2-7b's stacked norms and
+biases (81 layers) and xlstm-125m's sLSTM ``wr`` (ROADMAP queue 3); both
+serve packed at ``--smoke`` size.  mixtral's attention is windowed (4096): its cache
 holds at most the window and rolls, and ``--kv paged`` refuses it.  A
 prompt past 2048 tokens is prefilled through the flash recurrence
 (``models.attention.flash_attention``); size ``--capacity`` to hold the
@@ -72,6 +78,21 @@ import time
 
 import numpy as np
 import torch
+
+
+def refuse_packing_faults(model, packing: str) -> None:
+    """Refuse a ``--packed`` run whose default packing predicate packs a
+    leaf the model reads outside its matmuls (sLSTM's recurrent ``wr``
+    at a head dim of 64 or more; zamba2-7b's 81-layer stacked norms and
+    biases): the reference packs them and then fails in the forward
+    pass (ROADMAP queue 3)."""
+    faults = model.packing_faults()
+    if faults:
+        raise ValueError(
+            f"--packed {packing}: the default packing predicate packs "
+            f"{', '.join(faults)} of {model.cfg.name}, which the model "
+            f"reads outside its matmuls; the reference packs them and "
+            f"fails (a known reference fault, ROADMAP queue 3)")
 
 
 def main(argv=None) -> dict:
@@ -195,6 +216,8 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     model = registry.build(cfg)
+    if args.packed:
+        refuse_packing_faults(model, args.packed)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     raw_bytes = model.param_bytes()
     cim = None

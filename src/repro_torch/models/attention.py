@@ -8,14 +8,20 @@ tensors or as ``paged_kv.PagedKV`` gather-views.  The decode reads take
 the cache position as a host int (the bucket engine: every row at one
 position) or as a ``(B,)`` device tensor (the slot pools: each row at
 its own), and never copy a device position to the host.
+
+An int8 cache (``kv_cache_dtype="int8"``) holds int8 codes with f32
+scales per (row, position, KV head) (:func:`quantize_kv`); its decode
+read factors the scales out of the dots, so no dequantized copy of the
+cache is made.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
+from .. import resolve_device
 from . import paged_kv
 from .config import ModelConfig
 from .layers import apply_rope, dense, rms_norm
@@ -28,6 +34,40 @@ class KVCache(NamedTuple):
     k: torch.Tensor       # (B, C, KV, hd)
     v: torch.Tensor
     index: Any            # next write position: a host int, or (B,) int
+    # int8 cache: k/v are int8 codes, scales (B, C, KV) f32
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., hd) -> (int8 codes, (...) f32 scales): the f32 amax over
+    hd, ``max(amax, 1e-6) / 127``, round half to even, clip to +/-127.
+    Both divisions are true divisions on either device (a Python-scalar
+    divisor would become a multiply by its reciprocal on the card)."""
+    xf = x.float()
+    amax = torch.clamp_min(xf.abs().amax(dim=-1), 1e-6)
+    scale = amax / amax.new_full((), 127.0)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def init_cache(batch: int, capacity: int, kv_heads: int, hd: int,
+               dtype=torch.bfloat16, kv_cache_dtype: str = "",
+               device="cuda") -> KVCache:
+    """A zeroed cache; ``kv_cache_dtype='int8'`` allocates the int8 code
+    buffers and their per-(B, C, KV) f32 scale buffers up front."""
+    device = resolve_device(device)
+    shape = (batch, capacity, kv_heads, hd)
+    if kv_cache_dtype == "int8":
+        return KVCache(torch.zeros(shape, dtype=torch.int8, device=device),
+                       torch.zeros(shape, dtype=torch.int8, device=device),
+                       0,
+                       torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=device),
+                       torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=device))
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device), 0)
 
 
 def _project_qkv(x, w, cfg: ModelConfig, positions, cim_cfg=None):
@@ -225,14 +265,25 @@ def decode_attention_read(x, w, cfg: ModelConfig, cache: KVCache,
     kv = ck.shape[2]
     rep = h // kv
     qg = (q / _root(hd, q.dtype)).reshape(b, 1, kv, rep, hd)
+    int8_kv = cache.k_scale is not None
     sc = torch.einsum("bskrd,btkd->bkrst", qg.float(), ck.float())
+    if int8_kv:
+        # s = k_scale * (q . k8): the scales factor out of the dot
+        sc = sc * cache.k_scale.permute(0, 2, 1)[:, :, None, None, :]
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     sc = sc + torch.where(valid, zero, NEG_INF)
     m_c = sc.amax(dim=-1)                                  # (b,kv,rep,1)
     p_c = torch.exp(sc - m_c[..., None])
     l_c = p_c.sum(dim=-1)
-    acc_c = torch.einsum("bkrst,btkd->bkrsd", p_c.to(ck.dtype).float(),
-                         cv.float())
+    if int8_kv:
+        # acc = sum (p * v_scale) v8, the weights rounded to q's dtype
+        p_eff = (p_c * cache.v_scale.permute(0, 2, 1)[:, :, None, None, :]
+                 ).to(q.dtype)
+        acc_c = torch.einsum("bkrst,btkd->bkrsd", p_eff.float(),
+                             cv.float())
+    else:
+        acc_c = torch.einsum("bkrst,btkd->bkrsd", p_c.to(ck.dtype).float(),
+                             cv.float())
     s_n = torch.einsum("bskrd,bukd->bkrs", qg.float(), k.float())
     v_n = v.float()[:, 0]                                  # (b, kv, hd)
     m = torch.maximum(m_c, s_n)
@@ -242,7 +293,51 @@ def decode_attention_read(x, w, cfg: ModelConfig, cache: KVCache,
     l = l_c * w_c + w_n
     out = (acc / l[..., None]).to(q.dtype)                 # (b,kv,rep,1,hd)
     out = out.permute(0, 3, 1, 2, 4).reshape(b, 1, h * hd)
+    if int8_kv:
+        # the caller quantizes the fresh k/v into the cache
+        return dense(out, w["wo"], cim_cfg), k, v
     return (dense(out, w["wo"], cim_cfg), k.to(ck.dtype), v.to(cv.dtype))
+
+
+def decode_attention(x, w, cfg: ModelConfig, cache: KVCache, cim_cfg=None
+                     ) -> tuple[torch.Tensor, KVCache]:
+    """One-token decode that writes the fresh k/v into the cache first
+    (in place) and then attends over the written slots, as the
+    reference's ``decode_attention`` does (the hybrid family's shared
+    block).  ``cache.index`` is a host int or a ``(B,)`` device tensor
+    of per-row positions; a rolling cache writes slot pos % cap, any
+    other clamps the slot at cap - 1.  Returns (out, the cache at
+    index + 1)."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError("decode_attention is single-token")
+    pos = cache.index
+    cap = cache.k.shape[1]
+    roll = rolling(cfg, cap)
+    kpos = torch.arange(cap, device=x.device)
+    if isinstance(pos, torch.Tensor):
+        positions = pos.reshape(b, 1)
+        p = pos[:, None].long()
+        slot = (pos % cap if roll else torch.clamp(pos, max=cap - 1)).long()
+        valid = (kpos < torch.clamp(p + 1, max=cap) if roll
+                 else kpos <= p)[:, None, None, None, :]
+    else:
+        positions = torch.full((1, 1), pos, dtype=torch.int64,
+                               device=x.device)
+        slot = pos % cap if roll else min(pos, cap - 1)
+        valid = kpos < min(pos + 1, cap) if roll else kpos <= pos
+    q, k, v = _project_qkv(x, w, cfg, positions, cim_cfg)
+    if isinstance(slot, torch.Tensor):
+        rows = torch.arange(b, device=x.device)
+        cache.k[rows, slot] = k[:, 0].to(cache.k.dtype)
+        cache.v[rows, slot] = v[:, 0].to(cache.v.dtype)
+    else:
+        cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
+        cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    out = _gqa_attend(q, cache.k, cache.v, torch.where(valid, zero, NEG_INF))
+    return (dense(out, w["wo"], cim_cfg),
+            KVCache(cache.k, cache.v, pos + 1))
 
 
 def paged_decode_attention_read(x, w, cfg: ModelConfig, k_pages, v_pages,

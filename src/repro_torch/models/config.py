@@ -11,7 +11,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe
+    family: str                    # dense | moe | ssm | hybrid
     num_layers: int
     d_model: int
     num_heads: int
@@ -27,9 +27,23 @@ class ModelConfig:
     num_experts: int = 0
     experts_per_token: int = 0
     moe_capacity_factor: float = 1.25
+    # SSM / hybrid (families "ssm" and "hybrid")
+    ssm_state: int = 0
+    ssm_kind: str = ""             # mamba2 | xlstm
+    ssm_heads: int = 0             # mamba2 value heads (0 -> d_model // 64)
+    attn_every: int = 0            # hybrid: the shared block after every k
+                                   # Mamba2 layers
+    slstm_every: int = 0           # xlstm: sLSTM block interval
     norm_eps: float = 1e-6
     dtype: Any = torch.bfloat16
-    kv_cache_dtype: str = ""       # "" (= dtype); "int8" is not ported yet
+    kv_cache_dtype: str = ""       # "" (= dtype) | "int8" (codes + f32
+                                   # per-(position, KV head) scales)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Recurrent state or a rolling window: the cache stays bounded
+        however long the sequence."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window > 0
 
     @property
     def hd(self) -> int:
@@ -41,10 +55,15 @@ class ModelConfig:
         unembedding tables use this width."""
         return -(-self.vocab_size // 256) * 256
 
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.ssm_heads or max(1, self.d_model // 64)
+
 
 class ParamSpec(NamedTuple):
-    """A parameter's shape, init style (normal | ones | embed) and dtype
-    (None: the model's; the MoE router is f32)."""
+    """A parameter's shape, init style (normal | zeros | ones | embed) and
+    dtype (None: the model's; the MoE router and the recurrent states
+    are f32)."""
     shape: tuple
     init: str = "normal"
     dtype: Any = None
@@ -52,10 +71,12 @@ class ParamSpec(NamedTuple):
     def initialize(self, generator: torch.Generator, device, dtype
                    ) -> torch.Tensor:
         """std 1/sqrt(shape[-2]) (shape[-1] for 1-D), std 1 for the
-        embedding table, ones for norms."""
+        embedding table, ones for norms, zeros for biases."""
         dtype = self.dtype or dtype
         if self.init == "ones":
             return torch.ones(self.shape, dtype=dtype, device=device)
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=dtype, device=device)
         fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
         if self.init == "embed":
             fan_in = 1.0

@@ -26,12 +26,14 @@ KV in a pool of fixed-size pages instead:
 
 The reference's functions return an updated copy of the pool; these
 update the pool's tensors in place (no second pool is ever allocated)
-and return the same pool, so call sites read alike.  Int8-KV scale pages
-are not ported yet.
+and return the same pool, so call sites read alike.  An int8 pool
+(``kv_cache_dtype="int8"``) holds int8 code pages with f32 scale pages
+``(L, P, page_size, KV)`` beside them, paged alike; the attention
+kernel reads float pools only (:func:`raw_pool_view`).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,9 +42,13 @@ from .config import ModelConfig
 
 class PagedKVCache(NamedTuple):
     """The device page pool shared by every slot of a scheduler:
-    k_pages/v_pages (L, P, page_size, KV, hd) in the cache dtype."""
+    k_pages/v_pages (L, P, page_size, KV, hd) in the cache dtype, and
+    for an int8 pool k_scale_pages/v_scale_pages (L, P, page_size, KV)
+    f32."""
     k_pages: torch.Tensor
     v_pages: torch.Tensor
+    k_scale_pages: Optional[torch.Tensor] = None
+    v_scale_pages: Optional[torch.Tensor] = None
 
     @property
     def page_size(self) -> int:
@@ -54,13 +60,14 @@ class PagedKVCache(NamedTuple):
 
     @property
     def page_bytes(self) -> int:
-        """Device bytes one page occupies across k and v."""
+        """Device bytes one page occupies across k and v (and scales)."""
         return sum(leaf.numel() * leaf.element_size() // leaf.shape[1]
-                   for leaf in self)
+                   for leaf in self if leaf is not None)
 
     @property
     def nbytes(self) -> int:
-        return sum(leaf.numel() * leaf.element_size() for leaf in self)
+        return sum(leaf.numel() * leaf.element_size() for leaf in self
+                   if leaf is not None)
 
 
 def init_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -72,12 +79,16 @@ def init_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
                          f"reserved null page), got {num_pages}")
     if page_size < 1:
         raise ValueError(f"page_size must be >= 1, got {page_size}")
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError("int8 KV page pools (scale pages) are "
-                                  "not ported yet")
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.hd)
-    return PagedKVCache(torch.zeros(shape, dtype=cfg.dtype, device=device),
-                        torch.zeros(shape, dtype=cfg.dtype, device=device))
+    if cfg.kv_cache_dtype != "int8":
+        return PagedKVCache(
+            torch.zeros(shape, dtype=cfg.dtype, device=device),
+            torch.zeros(shape, dtype=cfg.dtype, device=device))
+    return PagedKVCache(
+        torch.zeros(shape, dtype=torch.int8, device=device),
+        torch.zeros(shape, dtype=torch.int8, device=device),
+        torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        torch.zeros(shape[:-1], dtype=torch.float32, device=device))
 
 
 def slot_view(pool: PagedKVCache, page_table: torch.Tensor,
@@ -86,21 +97,32 @@ def slot_view(pool: PagedKVCache, page_table: torch.Tensor,
 
     ``page_table`` (W,) for one slot or (S, W) for S slots; ``pos`` the
     slots' next write positions.  Returns ``{"k", "v", "pos"}`` with k/v
-    (L, B, W * page_size, KV, hd), B = 1 for a single row.  Positions at
-    or past ``pos`` are masked by the dense read."""
+    (L, B, W * page_size, KV, hd), B = 1 for a single row, and for an
+    int8 pool ``k_scale``/``v_scale`` (L, B, W * page_size, KV).
+    Positions at or past ``pos`` are masked by the dense read."""
     table = page_table.reshape(-1, page_table.shape[-1]).long()
 
     def gather(pages):
-        g = pages[:, table]                      # (L, B, W, ps, KV, hd)
+        g = pages[:, table]                      # (L, B, W, ps, ...)
         return g.reshape((g.shape[0], g.shape[1], g.shape[2] * g.shape[3])
                          + tuple(g.shape[4:]))
-    return {"k": gather(pool.k_pages), "v": gather(pool.v_pages),
+    view = {"k": gather(pool.k_pages), "v": gather(pool.v_pages),
             "pos": pos}
+    if pool.k_scale_pages is not None:
+        view["k_scale"] = gather(pool.k_scale_pages)
+        view["v_scale"] = gather(pool.v_scale_pages)
+    return view
 
 
 def raw_pool_view(pool: PagedKVCache) -> tuple:
     """The raw ``(L, P, page_size, KV, hd)`` page arrays, for the
-    attention kernel that reads the page table itself."""
+    attention kernel that reads the page table itself.  Float pools
+    only: the kernel does not read scale pages."""
+    if pool.k_scale_pages is not None:
+        raise ValueError(
+            "raw pool view is float-KV only: int8 page pools carry "
+            "scale pages the fused attention read does not consume; "
+            "use the slot_view gather path")
     return pool.k_pages, pool.v_pages
 
 
@@ -112,15 +134,26 @@ def append_tokens(pool: PagedKVCache, kts: torch.Tensor, vts: torch.Tensor,
     live (slots,).  Dead slots (retired, or decoding scratch past their
     budget) write to the null page, so they never clobber a page freed
     and handed to another slot; the page index is clamped at the table
-    width for scratch decodes past capacity."""
+    width for scratch decodes past capacity.  An int8 pool stores the
+    codes and scales of the compute-dtype tokens."""
     ps = pool.page_size
     rows = torch.arange(kts.shape[0], device=kts.device)
     pidx = torch.clamp(pos // ps, max=page_table.shape[1] - 1).long()
     zero = torch.zeros((), dtype=page_table.dtype, device=kts.device)
     pid = torch.where(live, page_table[rows, pidx], zero).long()
     off = torch.where(live, pos % ps, torch.zeros_like(pos)).long()
-    pool.k_pages[:, pid, off] = kts.transpose(0, 1).to(pool.k_pages.dtype)
-    pool.v_pages[:, pid, off] = vts.transpose(0, 1).to(pool.v_pages.dtype)
+    k_t, v_t = kts.transpose(0, 1), vts.transpose(0, 1)
+    if pool.k_scale_pages is not None:
+        from .attention import quantize_kv
+        kq, ksc = quantize_kv(k_t)
+        vq, vsc = quantize_kv(v_t)
+        pool.k_pages[:, pid, off] = kq
+        pool.v_pages[:, pid, off] = vq
+        pool.k_scale_pages[:, pid, off] = ksc
+        pool.v_scale_pages[:, pid, off] = vsc
+        return pool
+    pool.k_pages[:, pid, off] = k_t.to(pool.k_pages.dtype)
+    pool.v_pages[:, pid, off] = v_t.to(pool.v_pages.dtype)
     return pool
 
 
@@ -129,9 +162,10 @@ def write_prompt_pages(pool: PagedKVCache, state: dict,
                        src_pages: torch.Tensor) -> PagedKVCache:
     """Admission: copy a batch-1 prefill state's KV into the pool, in
     place.  ``state["k"]`` is (L, 1, cap, KV, hd) with ``cap`` a page
-    multiple; ``src_pages[i]`` names the page-sized chunk of it that
-    lands in pool page ``pool_ids[i]``.  Prefix-shared pages are absent
-    from both: their contents already reside in the pool."""
+    multiple (scales included for an int8 pool); ``src_pages[i]`` names
+    the page-sized chunk of it that lands in pool page ``pool_ids[i]``.
+    Prefix-shared pages are absent from both: their contents already
+    reside in the pool."""
     ps = pool.page_size
     ids = pool_ids.long()
     src = src_pages.long()
@@ -143,6 +177,9 @@ def write_prompt_pages(pool: PagedKVCache, state: dict,
 
     put(pool.k_pages, state["k"][:, 0])
     put(pool.v_pages, state["v"][:, 0])
+    if pool.k_scale_pages is not None:
+        put(pool.k_scale_pages, state["k_scale"][:, 0])
+        put(pool.v_scale_pages, state["v_scale"][:, 0])
     return pool
 
 

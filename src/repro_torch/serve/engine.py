@@ -334,10 +334,12 @@ class ServeEngine(_EngineBase):
 class Scheduler(_EngineBase):
     """Continuous-batching scheduler over a persistent slot pool.
 
-    ``slots`` decode lanes live on the device across rounds.  The KV pool
-    is ``(L, slots, capacity, KV, hd)`` with a ``(slots,)`` device
-    position, so slots at different positions decode in one batched
-    step (the reference vmaps a batch-1 decode over slots).  Each round
+    ``slots`` decode lanes live on the device across rounds.  The pool
+    holds the model's decode state with the slot at dim 1 (a KV cache
+    ``(L, slots, capacity, KV, hd)``, int8 scales, recurrent carries)
+    and a ``(slots,)`` device position, so slots at different positions
+    decode in one batched step (the reference vmaps a batch-1 decode
+    over slots).  Each round
     runs one chunk of ``chunk`` decode steps and ONE device-to-host
     transfer, retires finished slots from it, and the arrival pump
     prefills arrived requests into freed slots before the next round.
@@ -384,9 +386,12 @@ class Scheduler(_EngineBase):
         self._init_pool()
 
     def _init_pool(self) -> None:
+        """The model's decode state for every slot: each leaf of
+        ``init_cache`` but ``pos`` is a lane with the slot at dim 1 (KV
+        and, for int8, its scales; a recurrent model's carries)."""
         cache = self.model.init_cache(self.slots, self.capacity,
                                       self.device)
-        self.pool = {"k": cache["k"], "v": cache["v"]}
+        self.pool = {k: v for k, v in cache.items() if k != "pos"}
 
     # --------------------------------------------------- device fidelity
 
@@ -454,8 +459,8 @@ class Scheduler(_EngineBase):
             self.params = self._restore(self.scrubs_run)
 
     def kv_bytes(self) -> int:
-        """Device bytes of the KV pool.  The dense pool is always fully
-        resident: every slot holds its full capacity."""
+        """Device bytes of the pool, every lane counted.  The dense pool
+        is always fully resident: every slot holds its full capacity."""
         return sum(t.numel() * t.element_size() for t in self.pool.values())
 
     def kv_bytes_resident(self) -> int:
@@ -483,8 +488,8 @@ class Scheduler(_EngineBase):
         remains."""
         tok0, st = self._prefill([req])
         self.steps_run += 1
-        self.pool["k"][:, slot] = st["k"][:, 0]
-        self.pool["v"][:, slot] = st["v"][:, 0]
+        for name, lane in self.pool.items():
+            lane[:, slot] = st[name][:, 0]
         self._arm_slot(slot, req, tok0, len(req.prompt))
         self._slot_req[slot] = req
         return True
@@ -502,9 +507,10 @@ class Scheduler(_EngineBase):
                      ) -> torch.Tensor:
         """One batched decode step of every slot at its own position;
         returns the sampled tokens (slots,)."""
-        state = {"k": self.pool["k"], "v": self.pool["v"], "pos": self.pos}
+        state = dict(self.pool, pos=self.pos)
         logits, state = self.model.decode(self.params, tok[:, None], state,
                                           cim=self.cim)
+        self.pool = {k: state[k] for k in self.pool}
         self.pos = state["pos"]
         return greedy_sample(logits)
 
@@ -646,9 +652,11 @@ class PagedScheduler(Scheduler):
     the fused read's f32 round-off into other experts at a router
     near-tie, and the gather graph is the one whose tokens equal the
     dense pool's; ``True`` still takes it (one routing group over every
-    slot, as the reference's unvmapped fused read).  The reference's
-    other reasons to decline (interpret mode, sharded pools) do not
-    arise here, and int8-KV pools are not ported.  ``False`` names the
+    slot, as the reference's unvmapped fused read).  An int8-KV pool
+    has scale pages the kernel does not read: ``'auto'`` logs that and
+    serves through the gather path, ``True`` raises, as in the
+    reference.  The reference's other reasons to decline (interpret
+    mode, sharded pools) do not arise here.  ``False`` names the
     ``slot_view`` gather path, and the scheduler logs that it was named.
     A windowed model is refused (its rolling cache does not page).
     """
@@ -692,6 +700,17 @@ class PagedScheduler(Scheduler):
             return None
         from ..kernels import plan_matmul
         cfg = self.model.cfg
+        if cfg.kv_cache_dtype == "int8":
+            why = ("int8 KV pool (scale pages the fused read does not "
+                   "consume)")
+            if self.fused_attn is True:
+                raise ValueError(f"fused_attn=True but the fused "
+                                 f"paged-attention read is unavailable: "
+                                 f"{why}")
+            _LOG.info("PagedScheduler: fused paged-attention read "
+                      "unavailable (%s); serving through the slot_view "
+                      "gather path", why)
+            return None
         if cfg.num_experts and self.fused_attn == "auto":
             _LOG.info("PagedScheduler: fused paged-attention read "
                       "declined under MoE routing (top-k amplifies f32 "

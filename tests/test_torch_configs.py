@@ -134,6 +134,32 @@ def test_configs_copy_the_reference(arch):
     assert arch in configs.ARCHS
 
 
+def test_recurrent_configs_carry_the_assigned_values():
+    """zamba2-7b and xlstm-125m hold the assigned hyperparameters of
+    ``tests/test_archs.py`` (layers, width, heads, KV heads, d_ff,
+    vocab; zamba2's SSM state), the reference's derived properties, and
+    their models the reference's parameter counts."""
+    table = {"zamba2-7b": (81, 3584, 32, 32, 14336, 32000),
+             "xlstm-125m": (12, 768, 4, 4, 0, 50304)}
+    for arch, want in table.items():
+        cfg, ref = configs.get(arch), jconfigs.get(arch)
+        assert (cfg.num_layers, cfg.d_model, cfg.num_heads,
+                cfg.num_kv_heads, cfg.d_ff, cfg.vocab_size) == want
+        assert cfg.sub_quadratic and ref.sub_quadratic
+        assert cfg.n_ssm_heads == ref.n_ssm_heads
+        model = registry.build(cfg)
+        assert model.param_bytes() == 2 * ref.param_count(), arch
+    assert configs.get("zamba2-7b").ssm_state == 64
+    assert configs.get("zamba2-7b").attn_every == 6
+    assert not configs.get("internlm2-1.8b").sub_quadratic
+    assert configs.get("mixtral-8x7b").sub_quadratic
+    zamba = registry.build(configs.get("zamba2-7b"))
+    assert (zamba.n_groups, zamba.n_tail) == (13, 3)
+    assert type(zamba).__name__ == "ZambaModel"
+    assert type(registry.build(configs.get("xlstm-125m"))).__name__ == \
+        "XLSTMModel"
+
+
 def test_qk_norm_params_follow_the_reference():
     """qwen3's per-layer q_norm / k_norm are (L, hd) ones, carried across
     as float, and both ternarize_params leave them float (min(L, hd) <

@@ -37,6 +37,14 @@ gives the plain version's output (f32 within 1e-4 of max|y|, bf16 within
 2e-2), 3 x E launches a call on the route its rows take; mixtral-smoke's
 rolling decode through the kernels gives the plain path's logits (1e-4
 of their scale), caches and Scheduler tokens.
+Int8 KV and the recurrent families: both ternary routes at zamba2's
+Mamba2 shapes (N = 14576, a partial last column tile) and at xlstm's
+wif (N = 8) as above; the Mamba2, mLSTM and sLSTM blocks on the card
+against the CPU in f32 (1e-4 of the scale); the recurrent smoke models
+through the kernels against the plain backend (1e-4) with equal engine
+tokens; the int8 KV decode on the card against the CPU (codes within
+one step, logits within 1e-4) with the dense and gather schedulers'
+tokens equal.
 """
 import dataclasses
 
@@ -1146,3 +1154,178 @@ def test_rolling_decode_on_the_card_matches_the_plain_path(dev):
     torch.testing.assert_close(caches["cuda"], caches["torch"], rtol=0,
                                atol=1e-4 * caches["torch"].abs().max().item())
     assert tokens["cuda"] == tokens["torch"]
+
+
+# ------------------------------------------- slice 8: int8 KV, recurrent
+
+# the recurrent families' new kernel shapes (K, N): zamba2-7b's Mamba2
+# in_proj (N = 14576, 113.875 column tiles of 128) and out_proj, and
+# xlstm-125m's wif (N = 8, packed on every call)
+RECURRENT_KN = [(3584, 14576), (7168, 3584), (1536, 8)]
+
+
+@pytest.mark.parametrize("mode", ["base3", "trit2"])
+@pytest.mark.parametrize("k,n", RECURRENT_KN)
+@pytest.mark.parametrize("m", [1, 8, 1024])
+def test_ternary_routes_at_the_recurrent_shapes(dev, m, k, n, mode):
+    """gemv (M <= 8) and mma (M = 1024) at a partial last column tile
+    and at N = 8: float within 1e-5 of max|y|, int8 bitwise, each call
+    through its route."""
+    x, data, scale = _device_operands(dev, m, k, n, mode, seed=m + k + n)
+    if m <= 8:
+        _gemv_matches(dev, x, data, scale, mode)
+        return
+    w = ops.PackedTernary(data, scale, mode)
+    before = dict(tm.ROUTES)
+    xb = x.to(torch.bfloat16)
+    want = ops.ternary_matmul_torch(xb, w)
+    torch.testing.assert_close(tm.matmul_float(xb, data, scale, mode), want,
+                               rtol=0, atol=1e-5 * want.abs().max().item())
+    xi, xs = ops.quantize_acts_int8(x)
+    assert torch.equal(tm.matmul_int8(xi, xs, data, scale, mode),
+                       ops.ternary_matmul_int8_torch(xi, xs, w))
+    assert tm.ROUTES["mma"] == before["mma"] + 2
+
+
+def _block_weights(defs, seed):
+    """One layer's f32 weights of a spec dict, on the CPU."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, spec in defs.items():
+        shape = spec.shape[1:]
+        fan = shape[-2] if len(shape) >= 2 else shape[-1]
+        out[name] = torch.from_numpy((rng.standard_normal(shape)
+                                      / np.sqrt(fan)).astype(np.float32))
+    return out
+
+
+@pytest.mark.parametrize("block", ["mamba2", "mlstm", "slstm"])
+@pytest.mark.parametrize("s", [12, 300, 512])
+def test_recurrent_blocks_on_the_card_match_the_cpu(dev, block, s):
+    """The SSD (chunked, padded past 256), mLSTM (parallel, chunked at
+    512) and sLSTM blocks in f32 at smoke widths, a prompt and one
+    recurrent step, on the card and on the CPU: outputs and states
+    within 1e-4 of their scale (summation order; TF32 off)."""
+    from repro_torch.models import ssm
+    assert not torch.backends.cuda.matmul.allow_tf32
+    arch = "zamba2-7b" if block == "mamba2" else "xlstm-125m"
+    cfg = dataclasses.replace(configs.smoke(arch), dtype=torch.float32)
+    fn, defs = {"mamba2": (ssm.mamba2_block, ssm.mamba2_defs),
+                "mlstm": (ssm.mlstm_block, ssm.mlstm_defs),
+                "slstm": (ssm.slstm_block, ssm.slstm_defs)}[block]
+    w = _block_weights(defs(cfg, 1), seed=s)
+    rng = np.random.default_rng(s + 1)
+    x = torch.from_numpy(rng.standard_normal((2, s, cfg.d_model)).astype(
+        np.float32))
+    x1 = torch.from_numpy(rng.standard_normal((2, 1, cfg.d_model)).astype(
+        np.float32))
+    outs = {}
+    for where in ("cpu", dev):
+        wd = {k: v.to(where) for k, v in w.items()}
+        y, st = fn(x.to(where), wd, cfg)
+        y1, st1 = fn(x1.to(where), wd, cfg, st)
+        outs[str(where)] = [y, y1] + [t for t in st1
+                                      if isinstance(t, torch.Tensor)]
+    for got, want in zip(outs[str(dev)], outs["cpu"]):
+        torch.testing.assert_close(got.cpu(), want, rtol=0,
+                                   atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "xlstm-125m"])
+def test_recurrent_smoke_models_cuda_backend_matches_plain_backend(dev, arch):
+    """zamba2-smoke (7 layers: a tail of 1) and xlstm-smoke, f32, base3:
+    prefill and 4 decode steps through the kernels and through the plain
+    backend, logits within 1e-4 of their scale; then the bucket engine
+    and the dense Scheduler, the same tokens, one transfer per bucket or
+    chunk."""
+    over = dict(num_layers=7) if arch == "zamba2-7b" else {}
+    cfg = dataclasses.replace(configs.smoke(arch), dtype=torch.float32,
+                              **over)
+    model = registry.build(cfg)
+    params = ternarize_params(
+        model.init(torch.Generator(device=dev).manual_seed(0), device=dev),
+        CIMConfig(mode="ternary", packing="base3"))
+    rng = np.random.default_rng(4)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 12)),
+                             device=dev)
+    prompts = [rng.integers(0, cfg.vocab_size, 10 + 3 * i) for i in range(3)]
+    logits, tokens = {}, {}
+    for backend in ("cuda", "torch"):
+        cim = CIMConfig(mode="ternary", packing="base3", backend=backend)
+        lg, state = model.prefill(params, prompt, 32, cim=cim)
+        steps = [lg]
+        for _ in range(4):
+            lg, state = model.decode(params, steps[0][:, -1].argmax(
+                -1, keepdim=True), state, cim=cim)
+            steps.append(lg)
+        logits[backend] = torch.stack(steps)
+        for eng in (ServeEngine(model, params, capacity=32, max_batch=3,
+                                cim=cim, device=dev),
+                    Scheduler(model, params, capacity=32, slots=2, chunk=3,
+                              cim=cim, device=dev)):
+            for i, p in enumerate(prompts):
+                eng.submit(Request(uid=i, prompt=p, max_new=6))
+            tm.reset_launches()
+            done = eng.run()
+            kind = type(eng).__name__
+            assert eng.host_transfers == (eng.chunks_run if kind ==
+                                          "Scheduler" else 3)
+            assert (tm.LAUNCHES["ternary_matmul"] > 0) == (backend == "cuda")
+            tokens[(backend, kind)] = {r.uid: r.out_tokens for r in done}
+    got, want = logits["cuda"], logits["torch"]
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * want.abs().max().item())
+    for kind in ("ServeEngine", "Scheduler"):
+        assert tokens[("cuda", kind)] == tokens[("torch", kind)]
+
+
+def test_int8_kv_decode_on_the_card_matches_the_cpu(dev):
+    """internlm2-smoke with an int8 KV cache, f32 float weights: the
+    prefill's codes and scales and 6 decode steps' logits and caches on
+    the card and on the CPU (codes within one step, logits within 1e-4
+    of their scale); the card's dense Scheduler and gather
+    PagedScheduler give the same tokens."""
+    cfg = dataclasses.replace(configs.smoke("internlm2-1.8b"),
+                              dtype=torch.float32, kv_cache_dtype="int8")
+    model = registry.build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(2, 12)))
+    runs = {}
+    for where in ("cpu", dev):
+        p = {k: (v.to(where) if isinstance(v, torch.Tensor)
+                 else {kk: vv.to(where) for kk, vv in v.items()})
+             for k, v in params.items()}
+        lg, st = model.prefill(p, prompt.to(where), 24)
+        steps = [lg]
+        for i in range(6):
+            tok = torch.full((2, 1), 7 * i + 1, device=where)
+            lg, st = model.decode(p, tok, st)
+            steps.append(lg)
+        runs[str(where)] = (torch.stack(steps).cpu(),
+                            {k: v.cpu() for k, v in st.items()
+                             if isinstance(v, torch.Tensor)})
+    (lc, sc), (lg, sg) = runs["cpu"], runs[str(dev)]
+    torch.testing.assert_close(lg, lc, rtol=0,
+                               atol=1e-4 * lc.abs().max().item())
+    for name in ("k", "v"):
+        assert (sg[name].int() - sc[name].int()).abs().max() <= 1
+        torch.testing.assert_close(sg[name + "_scale"], sc[name + "_scale"],
+                                   rtol=1e-5, atol=0)
+    p = {k: (v.to(dev) if isinstance(v, torch.Tensor)
+             else {kk: vv.to(dev) for kk, vv in v.items()})
+         for k, v in params.items()}
+    prompts = [np.random.default_rng(i).integers(0, cfg.vocab_size, 6 + 2 * i)
+               for i in range(4)]
+    tokens = []
+    for eng in (Scheduler(model, p, capacity=32, slots=2, chunk=3,
+                          device=dev),
+                PagedScheduler(model, p, capacity=32, slots=2, chunk=3,
+                               page_size=4, device=dev)):
+        for i, pr in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=pr, max_new=5))
+        done = eng.run()
+        assert eng.host_transfers == eng.chunks_run
+        tokens.append({r.uid: r.out_tokens for r in done})
+    assert tokens[0] == tokens[1]
+    assert eng.attn_plan is None

@@ -42,6 +42,8 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                 "repro_torch.core.device_models",
                 "repro_torch.serve.engine", "repro_torch.launch.serve",
                 "repro_torch.models.registry", "repro_torch.models.moe",
+                "repro_torch.models.ssm", "repro_torch.configs.zamba2_7b",
+                "repro_torch.configs.xlstm_125m",
                 "repro_torch.core.prng",
                 "repro_torch.kernels.threefry", "repro_torch.faults.backend",
                 "repro_torch.faults.scrub", "repro_torch.core.yield_model",

@@ -53,9 +53,17 @@ def test_init_page_pool_matches_reference():
     assert (tpool.page_size, tpool.num_pages) == (4, 5)
     with pytest.raises(ValueError, match="null page"):
         pkv.init_page_pool(tcfg, 1, 4, "cpu")
-    with pytest.raises(NotImplementedError, match="int8"):
-        pkv.init_page_pool(dataclasses.replace(tcfg, kv_cache_dtype="int8"),
-                           5, 4, "cpu")
+    # an int8 pool: int8 code pages and f32 scale pages, as the
+    # reference's
+    jpool = jpkv.init_page_pool(
+        dataclasses.replace(jcfg, kv_cache_dtype="int8"), 5, 4)
+    tpool = pkv.init_page_pool(
+        dataclasses.replace(tcfg, kv_cache_dtype="int8"), 5, 4, "cpu")
+    for mine, ref in zip(tpool, jpool):
+        assert tuple(mine.shape) == ref.shape
+        assert str(mine.dtype).split(".")[-1] == ref.dtype.name
+    assert tpool.page_bytes == jpool.page_bytes
+    assert tpool.nbytes == sum(x.nbytes for x in jpool)
 
 
 def test_slot_view_matches_reference():
