@@ -26,7 +26,11 @@ Phases, each of which raises on failure:
               And the recurrent models' new shapes at M = 8 and 1024:
               zamba2-7b's Mamba2 in_proj (3584 x 14576, a partial last
               column tile) and out_proj (7168 x 3584), and xlstm-125m's
-              wif (1536 x 8).
+              wif (1536 x 8).  And the cross-attending models' widest
+              weights: whisper-large-v3's w1 (1280 x 5120, base3) at M =
+              8 and M = 1500 (one request's frames), llama-3.2-vision-
+              90b's w1 (8192 x 28672) and w2 (28672 x 8192) in trit2 at
+              M = 8 and 1024 (K = 28672 splits the float mma chain).
               Each case names the route it took (``ROUTES``: bf16 and int8
               take ``gemv`` at M <= 8 and ``mma`` above, f32 takes
               ``cuda_core``) and prints the kernel's median device time
@@ -266,8 +270,9 @@ Phases, each of which raises on failure:
               invocations, a tail of 3) and xlstm-125m (6 mLSTM/sLSTM
               pairs) at full width and depth, base3/float, one at a time:
               the default packing predicate's faults named (stacked norms
-              of 81 layers; sLSTM's wr) and the launcher's refusal of
-              xlstm-125m --packed base3 checked; the weights drawn and
+              of 81 layers; sLSTM's wr) and the launcher's xlstm-125m
+              --packed base3 served (2 x 32 + 8: wr kept float, one
+              transfer, every token); the weights drawn and
               packed a layer at a time (init_packed) through the model's
               pack_predicate; the bucket engine on 8 x 128 + 16,
               counts zeroed just before and read just after: 254 (zamba2)
@@ -286,6 +291,34 @@ Phases, each of which raises on failure:
               the worst printed), zamba2 on its first 7 layers (one
               invocation, a tail of 1), xlstm at full depth.
               ``--recurrent-only`` runs these alone.
+16. cross   - whisper-large-v3 (32 encoder and 32 decoder layers, 1500
+              frames; base3/float) and llama-3.2-vision-90b (100 layers,
+              20 gated cross blocks over 1601 patches; trit2/float, 22.4
+              GB of packed weights) at full width and depth, one at a
+              time, drawn and packed a layer at a time through
+              pack_predicate (the VLM's default-predicate faults exactly
+              blocks.ln1 and blocks.ln2); seeded N(0, 1) bf16 frames or
+              patches, one tensor extra_inputs expands to the batch; the
+              VLM's gates seeded nonzero (init's zeros hide the cross
+              path).  The bucket engine (whisper 8 x 64 + 32 at capacity
+              128, the VLM 8 x 128 + 16 at 144), counts zeroed just
+              before and read just after: 513 / 781 ternary_matmul
+              launches a prefill (mma but the unembedding) and 257 / 741
+              a decode step (gemv), one transfer, every token; encoder,
+              prefill and decode ms, tok/s, a profiled decode step
+              beside the decode floor (the weights decode reads, the
+              cross keys and values, 245,760,000 / 131,153,920 bytes a
+              slot, and the self KV, at 3.35 TB/s); the VLM's prefill
+              logits moving with other patches (> 1% of the scale); the
+              dense Scheduler (4 slots, chunk 8, capacity 128 / 256, 6
+              prompts): its launches, one transfer per chunk, every
+              token; the PagedScheduler refused with the reference's
+              message; the cuda-vs-torch parity (prefill and 4 decode
+              steps within 10% of the logit scale) on the first 4
+              encoder and decoder layers / the first 10 layers (2 cross
+              blocks); then the launcher at full size, --packed base3 /
+              trit2 on 2 x 32 + 8, one transfer.  ``--cross-only`` runs
+              these alone.
 
 Each phase prints its seconds, torch.cuda.max_memory_allocated() and the
 bytes still allocated when it began (after a gc.collect()).
@@ -296,6 +329,7 @@ The last two lines are a JSON object of per-kernel numbers and
     python3 chip_smoke.py --paged-only [--src OTHER_CHECKOUT/src]
     python3 chip_smoke.py --moe-only
     python3 chip_smoke.py --int8-kv-only --recurrent-only
+    python3 chip_smoke.py --cross-only
 """
 from __future__ import annotations
 
@@ -395,6 +429,30 @@ ZAMBA_PARITY_LAYERS = 7      # one shared-block invocation, a tail of 1
 RECURRENT_SHAPES = [("zamba2-7b", "mamba in_proj", 3584, 14576),
                     ("zamba2-7b", "mamba out_proj", 7168, 3584),
                     ("xlstm-125m", "mlstm wif", 1536, 8)]
+# the cross phase: whisper-large-v3 (base3) and llama-3.2-vision-90b
+# (trit2, all 100 layers) at full width and depth; the bucket engine on
+# 8 x prompt + new, the dense Scheduler on 6 prompts; the cut parity's
+# layers; the matmuls of one prefill and one decode step (asserted
+# against cross_forward_matmuls) and the cross keys and values a slot
+CROSS_ARCHS = ("whisper-large-v3", "llama-3.2-vision-90b")
+CROSS_SLOTS, CROSS_CHUNK = 4, 8
+CROSS = {
+    "whisper-large-v3": dict(
+        packing="base3", prompt=64, new=32, capacity=128,
+        sched_capacity=128, sched_prompts=[64, 40, 64, 24, 80, 48],
+        parity_layers=4, faults=[], per_prefill=513, per_step=257,
+        cross_slot=245_760_000),
+    "llama-3.2-vision-90b": dict(
+        packing="trit2", prompt=128, new=16, capacity=144,
+        sched_capacity=256, sched_prompts=[128, 96, 200, 128, 64, 160],
+        parity_layers=10, faults=["blocks.ln1", "blocks.ln2"],
+        per_prefill=781, per_step=741, cross_slot=131_153_920)}
+# kernel cases at their widest weights: (arch, weight, K, N, packing, Ms)
+CROSS_SHAPES = [("whisper-large-v3", "w1", 1280, 5120, "base3", (8, 1500)),
+                ("llama-3.2-vision-90b", "w1,w3", 8192, 28672, "trit2",
+                 (8, 1024)),
+                ("llama-3.2-vision-90b", "w2", 28672, 8192, "trit2",
+                 (8, 1024))]
 INT32_OPS_PER_S = 132 * 64 * 1.98e9   # H100 SXM: 64 INT32 lanes an SM
 THREEFRY_REPLACES = "src/repro/faults/scrub.py:85"
 KERNEL_NAMES = {"float": "ternary_matmul", "int8": "ternary_matmul_int8"}
@@ -589,6 +647,11 @@ def phase_kernels(torch, cfg):
     for arch, name, k, n in RECURRENT_SHAPES:
         cases += matmul_cases(torch, gen, flush, arch, "base3", name, k, n,
                               0, (8, BATCH * PROMPT))
+    # whisper's w1 (decode, and one request's 1500 frames) and
+    # llama-vision's w1 and w2 in trit2 (K = 28672: the chain splits)
+    for arch, name, k, n, mode, ms in CROSS_SHAPES:
+        cases += matmul_cases(torch, gen, flush, arch, mode, name, k, n, 0,
+                              ms)
     return cases, floor_ms
 
 
@@ -649,8 +712,14 @@ def matmul_cases(torch, gen, flush, arch, mode, name, k, n, per_forward,
             if domain == "float" and m > 8 and arch != ARCH:
                 plans.update(chain_errors(torch, tm, ops, x, w, want, got))
             if m <= 8:
-                flush.zero_()
-                busy, launched, names = device_busy(torch, run)
+                # a capture now and then keeps its marker but drops the
+                # call's own record (§7 of PERF.md): take it again
+                for tries in range(1, 6):
+                    flush.zero_()
+                    busy, launched, names = device_busy(torch, run)
+                    if launched:
+                        break
+                plans["profile_tries"] = tries
                 check(launched == 1 and "tm_gemv_kernel" in names[0],
                       f"{KERNEL_NAMES[domain]} at M={m} launched "
                       f"{launched} kernels in one call: {names}")
@@ -891,7 +960,8 @@ def matmul_sums(cases, kernel, mode, m):
     return out
 
 
-def kernel_summary(cases, runs, cfg, models, moe, int8kv, recurrent):
+def kernel_summary(cases, runs, cfg, models, moe, int8kv, recurrent,
+                   cross):
     """One record per kernel: the numbers of one decode step's packed
     matmuls (M = 8, base3, every weight at its multiplicity), prefill_*
     over one prefill's (M = 8 x 128, base3), and the launches of the
@@ -900,7 +970,8 @@ def kernel_summary(cases, runs, cfg, models, moe, int8kv, recurrent):
     ``launches_models``, mixtral's (bucket and window runs) under
     ``launches_mixtral``, the int8-KV runs' under ``launches_int8_kv``
     and the recurrent models' (bucket and Scheduler runs) under
-    ``launches_recurrent``."""
+    ``launches_recurrent``, the cross-attending models' (bucket and
+    Scheduler runs) under ``launches_cross``."""
     out = []
     prefill_m = BATCH * PROMPT
     for domain, name in KERNEL_NAMES.items():
@@ -940,9 +1011,14 @@ def kernel_summary(cases, runs, cfg, models, moe, int8kv, recurrent):
                 arch: dict(bucket=r["launches"][name],
                            sched=r["sched"]["launches"][name])
                 for arch, r in recurrent.items()},
+            launches_cross={
+                arch: dict(bucket=r["launches"][name],
+                           sched=r["sched"]["launches"][name])
+                for arch, r in cross.items()},
             other_model_cases=[
                 {key: c[key] for key in (
-                    "arch", "weight", "m", "k", "n", "route", "max_abs_err",
+                    "arch", "weight", "mode", "m", "k", "n", "route",
+                    "max_abs_err",
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
                 for c in mine if c["arch"] != ARCH]))
     return out
@@ -2251,14 +2327,16 @@ def phase_recurrent(torch, np, arch):
     faults = model.packing_faults()
     check(faults, f"{arch}: the default predicate packs no leaf read "
                   f"outside the matmuls")
+    launcher = None
     if arch == "xlstm-125m":
-        try:
-            launch_serve.main(["--arch", arch, "--packed", "base3"])
-        except ValueError as err:
-            check("slstm.wr" in str(err), f"launcher refusal: {err}")
-        else:
-            raise SmokeError("the launcher served xlstm-125m --packed "
-                             "base3")
+        launcher = launch_serve.main(["--arch", arch, "--packed", "base3",
+                                      "--requests", "2", "--prompt-len",
+                                      "32", "--max-new", "8"])
+        check(launcher["kept_float"] == ["slstm.wr"]
+              and launcher["host_transfers"] == 1
+              and launcher["generated_tokens"] == 16,
+              f"the launcher's xlstm-125m --packed base3 run: {launcher}")
+        print(f"[{tag} launcher] " + json.dumps(launcher))
     gen = torch.Generator(device="cuda").manual_seed(0)
     t = time.monotonic()
     params = model.init_packed(gen, cim, device="cuda",
@@ -2405,7 +2483,350 @@ def phase_recurrent(torch, np, arch):
     del cut_params, params
     torch.cuda.empty_cache()
     return dict(info, bucket=bucket, sched=srec, parity=parity,
-                launches=launches)
+                launches=launches, launcher=launcher)
+
+
+def cross_forward_matmuls(model):
+    """Packed matmuls of one prefill and of one decode step: whisper's
+    encoder six a layer (wq, wk, wv, wo, w1, w2), its cross keys and
+    values two a decoder layer (x_wk, x_wv, prefill only) and its
+    decoder eight (wq, wk, wv, wo, x_wq, x_wo, w1, w2); the VLM's seven
+    a self layer, its cross blocks' keys and values two (prefill only)
+    and q and o two; then the unembedding."""
+    cfg = model.cfg
+    if cfg.family == "audio":
+        dec = 8 * cfg.num_layers + 1
+        return 6 * cfg.encoder_layers + 2 * cfg.num_layers + dec, dec
+    step = 7 * cfg.num_layers + 2 * model.n_cross + 1
+    return step + 2 * model.n_cross, step
+
+
+def cut_cross(cfg, params, layers):
+    """The first `layers` layers (views, every width kept): whisper's
+    first `layers` encoder and decoder layers; the VLM's first `layers`
+    self layers and the cross blocks among them."""
+    import dataclasses
+    if cfg.family == "audio":
+        cut = {**params,
+               "enc_blocks": {k: v[:layers]
+                              for k, v in params["enc_blocks"].items()},
+               "dec_blocks": {k: v[:layers]
+                              for k, v in params["dec_blocks"].items()}}
+        return dataclasses.replace(cfg, num_layers=layers,
+                                   encoder_layers=layers), cut
+    n = layers // cfg.cross_attn_every
+    cut = {**params,
+           "blocks": {k: v[:layers] for k, v in params["blocks"].items()},
+           "cross_blocks": {k: v[:n]
+                            for k, v in params["cross_blocks"].items()}}
+    return dataclasses.replace(cfg, num_layers=layers), cut
+
+
+def cross_parity(torch, np, cfg, model, params, extra, key, packing, tag):
+    """The cuda backend against the plain torch backend named
+    explicitly on the cut model: a prefill of 2 x 32 tokens (with the
+    phase's `extra` input) and 4 decode steps fed the cuda run's
+    tokens, every step's logits within MODEL_FLOAT_TOL of the logit
+    scale; the worst step printed."""
+    import dataclasses
+    from repro_torch.core.cim_linear import CIMConfig
+    rng = np.random.default_rng(47)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 32)),
+                             device="cuda")
+    base = CIMConfig(mode="ternary", packing=packing, domain="float")
+    logits, feed = {}, None
+    for backend in ("cuda", "torch"):
+        cim = dataclasses.replace(base, backend=backend)
+        lg, state = model.prefill(params, tokens, 40, cim=cim,
+                                  **{key: extra.expand(2, -1, -1)})
+        steps = [lg.float()]
+        if feed is None:
+            feed = [lg[:, -1].argmax(-1, keepdim=True)]
+        for i in range(4):
+            lg, state = model.decode(params, feed[i], state, cim=cim)
+            steps.append(lg.float())
+            if len(feed) < 5:
+                feed.append(lg[:, -1].argmax(-1, keepdim=True))
+        logits[backend] = steps
+        del state
+    rel = [((a - b).abs().max() / b.abs().max()).item()
+           for a, b in zip(logits["cuda"], logits["torch"])]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    agree = sum((a.argmax(-1) == b.argmax(-1)).float().mean().item()
+                for a, b in zip(logits["cuda"], logits["torch"])) / len(rel)
+    rec = dict(layers=cfg.num_layers, encoder_layers=cfg.encoder_layers,
+               steps=len(rel), rel_err=rel, worst_step=worst,
+               worst_rel_err=rel[worst], argmax_agreement=agree,
+               bar=MODEL_FLOAT_TOL)
+    print(f"[{tag}] parity " + json.dumps(rec))
+    check(rel[worst] <= MODEL_FLOAT_TOL,
+          f"{cfg.name}: cuda vs torch logits {rel[worst]} of the scale at "
+          f"step {worst}")
+    return rec
+
+
+def cross_launcher(arch, packing):
+    """The launcher at full size: ``--arch <arch> --packed <packing>`` on
+    2 requests of 32 tokens, 8 new each: one bucket, one transfer,
+    every token; the leaves it keeps float."""
+    from repro_torch.launch import serve as launch_serve
+    out = launch_serve.main(["--arch", arch, "--packed", packing,
+                             "--requests", "2", "--prompt-len", "32",
+                             "--max-new", "8"])
+    check(out["host_transfers"] == 1 and out["generated_tokens"] == 16
+          and out["backend"] == "cuda",
+          f"the launcher's {arch} --packed {packing} run: {out}")
+    return {k: out[k] for k in ("packed", "backend", "kept_float",
+                                "weight_bytes", "weight_bytes_served",
+                                "generated_tokens", "host_transfers",
+                                "wall_s", "tok_per_s")}
+
+
+def phase_cross(torch, np, arch):
+    """One cross-attending model at full width and depth (whisper-large-
+    v3 base3/float, llama-3.2-vision-90b trit2/float), drawn and packed
+    a layer at a time through its pack_predicate; seeded N(0, 1) bf16
+    frames or patches, one tensor that extra_inputs expands to the
+    batch; the VLM's gates seeded nonzero (init's zeros would hide the
+    cross path).  The bucket engine (counts zeroed just before and read
+    just after: the prefill's and each decode step's launches, prefill
+    on mma but its unembedding, decode on gemv; one transfer; every
+    token), encoder, prefill and decode times, a profiled decode step
+    and the decode floor (the weights decode reads, the cross keys and
+    values and the self KV, at 3.35 TB/s); the VLM's logits moving with
+    the patches; the dense Scheduler (one transfer per chunk, every
+    token, its launches) and the PagedScheduler's refusal; the
+    cuda-vs-torch parity on the first layers; the launcher at full
+    size."""
+    from repro_torch import configs
+    from repro_torch.core.cim_linear import CIMConfig, hbm_bytes
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.models import registry
+    from repro_torch.serve import PagedScheduler, Request, Scheduler, \
+        ServeEngine
+    spec = CROSS[arch]
+    tag = f"cross {arch}"
+    cfg = configs.get(arch)
+    model = registry.build(cfg)
+    key = "frames" if cfg.family == "audio" else "patches"
+    cim = CIMConfig(mode="ternary", packing=spec["packing"], domain="float")
+    faults = model.packing_faults()
+    check(faults == spec["faults"],
+          f"{arch}: the default predicate's faults {faults}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.monotonic()
+    params = model.init_packed(gen, cim, device="cuda",
+                               predicate=model.pack_predicate)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t
+    init_peak = torch.cuda.max_memory_allocated()
+    if cfg.cross_attn_every:
+        params["cross_blocks"]["gate"] = 0.5 + torch.rand(
+            model.n_cross, generator=gen, device="cuda")
+    stack = "blocks" if key == "patches" else "dec_blocks"
+    check(all(isinstance(params[stack][n], torch.Tensor)
+              for n in ("ln1", "ln2")), f"{arch}: a stacked norm was packed")
+    extra = torch.randn((1, cfg.encoder_seq, cfg.d_model), generator=gen,
+                        device="cuda").to(cfg.dtype)
+    feed = {key: lambda b: extra.expand(b, -1, -1)}
+    packed_bytes = hbm_bytes(params)
+    dec_names = ("dec_blocks",) if key == "frames" else (
+        "blocks", "cross_blocks")
+    read = {n: params[n] for n in dec_names}
+    read["unembed"] = params["unembed"]
+    if key == "patches":          # decode reads no cross wk / wv
+        read["cross_blocks"] = {k: v for k, v in read["cross_blocks"].items()
+                                if k not in ("wk", "wv")}
+    else:
+        read["dec_blocks"] = {k: v for k, v in read["dec_blocks"].items()
+                              if k not in ("x_wk", "x_wv")}
+    wbytes = hbm_bytes(read)
+    import math
+    capacity, prompt, new = spec["capacity"], spec["prompt"], spec["new"]
+    slot = {name: math.prod(s.shape) * (s.dtype or cfg.dtype).itemsize
+            for name, s in model.cache_specs(1, capacity).items()}
+    cross_slot = slot["xk"] + slot["xv"]
+    pos = prompt + new // 2
+    step_bytes = BATCH * (cross_slot + (slot["k"] + slot["v"]) // capacity
+                          * (pos + 1))
+    info = dict(arch=arch, layers=cfg.num_layers,
+                encoder_layers=cfg.encoder_layers,
+                cross_blocks=getattr(model, "n_cross", 0),
+                d_model=cfg.d_model, packing=spec["packing"],
+                packing_faults=faults, init_pack_s=init_s,
+                init_peak_bytes=init_peak,
+                bf16_weight_bytes=model.param_bytes(),
+                packed_weight_bytes=packed_bytes,
+                embed_bytes=hbm_bytes({"embed": params["embed"]}),
+                weight_bytes_read_per_step=wbytes,
+                cross_kv_bytes_per_slot=cross_slot,
+                state_bytes_per_step=step_bytes,
+                decode_step_bound_ms=(wbytes + step_bytes)
+                / HBM_BYTES_PER_S * 1e3)
+    check(cross_slot == spec["cross_slot"],
+          f"{arch}: {cross_slot} cross K/V bytes a slot")
+    print(f"[{tag}] " + json.dumps(info))
+
+    rng = np.random.default_rng(53)
+
+    def requests(n, max_new):
+        return [Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                   size=prompt),
+                        max_new=max_new) for i in range(n)]
+    warm = ServeEngine(model, params, capacity=capacity, max_batch=BATCH,
+                       cim=cim, device="cuda", extra_inputs=feed)
+    for r in requests(BATCH, 2):
+        warm.submit(r)
+    warm.run()
+    del warm
+    eng = ServeEngine(model, params, capacity=capacity, max_batch=BATCH,
+                      cim=cim, device="cuda", extra_inputs=feed)
+    check(eng.cim.backend == "cuda",
+          f"{arch}: auto resolved to {eng.cim.backend!r} on the card")
+    reqs = requests(BATCH, new)
+    for r in reqs:
+        eng.submit(r)
+    tm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    done = eng.run()
+    wall = time.monotonic() - t0
+    launches, routes = dict(tm.LAUNCHES), dict(tm.ROUTES)
+    per_prefill, per_step = cross_forward_matmuls(model)
+    check(per_prefill == spec["per_prefill"] and per_step ==
+          spec["per_step"], f"{arch}: {per_prefill} / {per_step} matmuls "
+                            f"a prefill / decode step")
+    check(launches["ternary_matmul"] == per_prefill + per_step * (new - 1)
+          and launches["ternary_matmul_int8"] == 0,
+          f"{arch}: {launches} ternary launches, expected {per_prefill} + "
+          f"{per_step} x {new - 1}")
+    # the prefill's unembedding reads the last position: M = 8, gemv
+    check(routes["mma"] == per_prefill - 1 and routes["cuda_core"] == 0
+          and routes["gemv"] == per_step * (new - 1) + 1,
+          f"{arch}: prefill must take the mma route and decode the gemv "
+          f"route, got {routes}")
+    check(eng.host_transfers == 1,
+          f"{arch}: {eng.host_transfers} host transfers for 1 bucket")
+    check(len(done) == BATCH and all(
+        len(r.out_tokens) == new
+        and all(0 <= tok < cfg.padded_vocab for tok in r.out_tokens)
+        for r in done), f"{arch}: a request is missing tokens")
+
+    tokens = torch.as_tensor(np.stack([r.prompt for r in reqs]),
+                             device="cuda")
+    batch_extra = {key: extra.expand(BATCH, -1, -1)}
+    encoder_ms = None
+    if key == "frames":
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            model.encode(params, batch_extra[key], eng.cim_prefill)
+            torch.cuda.synchronize()
+            times.append((time.monotonic() - t) * 1e3)
+        encoder_ms = statistics.median(times)
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        logits, state = model.prefill(params, tokens, capacity,
+                                      cim=eng.cim_prefill, **batch_extra)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.monotonic() - t) * 1e3)
+    check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
+    live = None
+    if key == "patches":
+        other = torch.randn(extra.shape, generator=gen,
+                            device="cuda").to(cfg.dtype)
+        a, _ = model.prefill(params, tokens[:1], capacity,
+                             cim=eng.cim_prefill, patches=extra)
+        b, _ = model.prefill(params, tokens[:1], capacity,
+                             cim=eng.cim_prefill, patches=other)
+        live = ((a.float() - b.float()).abs().max()
+                / a.float().abs().max()).item()
+        check(live > 0.01, f"{arch}: logits moved {live} of the scale "
+                           f"with other patches")
+    step_ms, tok, state = decode_step_ms(
+        torch, model, params, logits[:, -1].argmax(-1, keepdim=True), state,
+        eng.cim, new - 2)
+    dec_prof = profile_kernels(torch, tag, "decode", lambda: model.decode(
+        params, tok, state, cim=eng.cim))
+    busy = dec_prof and dec_prof["device_busy_ms"]
+    del state, logits, eng
+    bucket = dict(
+        requests=len(done), prompt=prompt, new=new, capacity=capacity,
+        generated_tokens=sum(len(r.out_tokens) for r in done),
+        host_transfers=1, launches=launches, routes=routes,
+        matmuls_per_prefill=per_prefill, matmuls_per_step=per_step,
+        wall_s=wall, tok_per_s=sum(len(r.out_tokens) for r in done) / wall,
+        encoder_ms=encoder_ms, prefill_ms=statistics.median(prefill_ms),
+        logits_moved_with_patches=live, decode_step_ms=step_ms,
+        decode_device_busy_ms=busy,
+        decode_kernels=dec_prof and dec_prof["kernels"],
+        decode_device_idle_share=(1.0 - busy / step_ms if busy else None),
+        decode_profile=dec_prof,
+        decode_step_bound_ms=info["decode_step_bound_ms"])
+    print(f"[{tag} bucket] " + json.dumps(bucket))
+
+    sched = Scheduler(model, params, capacity=spec["sched_capacity"],
+                      slots=CROSS_SLOTS, chunk=CROSS_CHUNK, cim=cim,
+                      device="cuda", extra_inputs=feed)
+    check(set(sched.pool) == {"k", "v", "xk", "xv"},
+          f"{arch}: pool lanes {sorted(sched.pool)}")
+    prompts = spec["sched_prompts"]
+    for i, n in enumerate(prompts):
+        sched.submit(Request(uid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                        size=n),
+                             max_new=new))
+    tm.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    done = sched.run()
+    swall = time.monotonic() - t0
+    slaunch = dict(tm.LAUNCHES)
+    want = per_prefill * len(prompts) + per_step * (sched.chunk
+                                                    * sched.chunks_run)
+    check(sched.host_transfers == sched.chunks_run,
+          f"{arch} Scheduler: {sched.host_transfers} transfers for "
+          f"{sched.chunks_run} chunks")
+    check(slaunch["ternary_matmul"] == want,
+          f"{arch} Scheduler: {slaunch} launches, expected {want}")
+    check(len(done) == len(prompts) and all(
+        len(r.out_tokens) == new for r in done),
+        f"{arch} Scheduler: a request is missing tokens")
+    srec = dict(requests=len(done), prompts=prompts, slots=CROSS_SLOTS,
+                chunk=CROSS_CHUNK, capacity=spec["sched_capacity"],
+                chunks=sched.chunks_run,
+                host_transfers=sched.host_transfers, wall_s=swall,
+                tok_per_s=sched.generated_tokens / swall,
+                kv_bytes_pool=sched.kv_bytes(), launches=slaunch)
+    del sched
+    try:
+        PagedScheduler(model, params, capacity=spec["sched_capacity"],
+                       slots=CROSS_SLOTS, chunk=CROSS_CHUNK, cim=cim,
+                       device="cuda", extra_inputs=feed)
+    except ValueError as err:
+        check("does not support paged KV" in str(err),
+              f"{arch}: PagedScheduler refused with {err}")
+    else:
+        raise SmokeError(f"{arch}: the PagedScheduler was not refused")
+    srec["paged_refused"] = True
+    print(f"[{tag} sched] " + json.dumps(srec))
+
+    cut_cfg, cut_params = cut_cross(cfg, params, spec["parity_layers"])
+    parity = cross_parity(torch, np, cut_cfg, registry.build(cut_cfg),
+                          cut_params, extra, key, spec["packing"], tag)
+    del cut_params, params, read
+    gc.collect()
+    torch.cuda.empty_cache()
+    launcher = cross_launcher(arch, spec["packing"])
+    check(launcher["kept_float"] == faults,
+          f"{arch}: the launcher kept {launcher['kept_float']} float")
+    print(f"[{tag} launcher] " + json.dumps(launcher))
+    torch.cuda.empty_cache()
+    return dict(info, bucket=bucket, sched=srec, parity=parity,
+                launcher=launcher, launches=launches)
 
 
 def frontend_registry():
@@ -3491,6 +3912,8 @@ def parse_args(argv):
                          "own draw of internlm2-1.8b's weights)")
     ap.add_argument("--recurrent-only", action="store_true",
                     help="build, then run only the recurrent phases")
+    ap.add_argument("--cross-only", action="store_true",
+                    help="build, then run only the cross phases")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree holding the repro_torch package to run "
                          "(with --paged-only: another checkout's, to time "
@@ -3556,7 +3979,8 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    if args.moe_only or args.int8_kv_only or args.recurrent_only:
+    if (args.moe_only or args.int8_kv_only or args.recurrent_only
+            or args.cross_only):
         if args.moe_only:
             run("moe", phase_moe, torch, np)
         if args.int8_kv_only:
@@ -3570,6 +3994,9 @@ def main(argv=None) -> int:
         if args.recurrent_only:
             for arch in REC_ARCHS:
                 run(f"recurrent {arch}", phase_recurrent, torch, np, arch)
+        if args.cross_only:
+            for arch in CROSS_ARCHS:
+                run(f"cross {arch}", phase_cross, torch, np, arch)
         print(f"[done] {time.monotonic() - t_start:.1f} s")
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -3619,6 +4046,8 @@ def main(argv=None) -> int:
     moe = run("moe", phase_moe, torch, np)
     recurrent = {arch: run(f"recurrent {arch}", phase_recurrent, torch, np,
                            arch) for arch in REC_ARCHS}
+    cross = {arch: run(f"cross {arch}", phase_cross, torch, np, arch)
+             for arch in CROSS_ARCHS}
 
     details = dict(card=card, device=torch.cuda.get_device_name(0),
                    harness_floor_ms=floor_ms, cases=cases, serve=runs,
@@ -3626,7 +4055,7 @@ def main(argv=None) -> int:
                    sched_parity=sched_parity, long=long, cim_cases=cim_cases,
                    exact=exact, models=models, fidelity=fid,
                    frontend=frontend, moe=moe, int8_kv=int8kv,
-                   recurrent=recurrent, phases=phases,
+                   recurrent=recurrent, cross=cross, phases=phases,
                    seconds=time.monotonic() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -3662,8 +4091,21 @@ def main(argv=None) -> int:
                        "tok_per_s", "decode_step_bound_ms",
                        "decode_device_idle_share")})
         for arch, r in recurrent.items()}))
+    print("[cross] summary " + json.dumps({
+        arch: dict(packed_weight_bytes=r["packed_weight_bytes"],
+                   init_pack_s=r["init_pack_s"],
+                   cross_kv_bytes_per_slot=r["cross_kv_bytes_per_slot"],
+                   parity_worst_rel_err=r["parity"]["worst_rel_err"],
+                   launcher_tok_per_s=r["launcher"]["tok_per_s"],
+                   **{key: r["bucket"][key] for key in (
+                       "matmuls_per_prefill", "matmuls_per_step",
+                       "encoder_ms", "prefill_ms", "decode_step_ms",
+                       "tok_per_s", "decode_step_bound_ms",
+                       "decode_device_idle_share")})
+        for arch, r in cross.items()}))
     print(json.dumps({"kernels": kernel_summary(cases, runs, cfg, models,
-                                                moe, int8kv, recurrent)
+                                                moe, int8kv, recurrent,
+                                                cross)
                       + [kernel_summary_paged(paged, sched, models, long,
                                               frontend),
                          kernel_summary_cim(cim_cases, exact, cfg),

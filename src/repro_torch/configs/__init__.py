@@ -6,7 +6,8 @@ from __future__ import annotations
 import importlib
 
 ARCHS = ("internlm2-1.8b", "glm4-9b", "phi3-mini-3.8b", "qwen3-14b",
-         "mixtral-8x7b", "kimi-k2-1t-a32b", "zamba2-7b", "xlstm-125m")
+         "mixtral-8x7b", "kimi-k2-1t-a32b", "zamba2-7b", "xlstm-125m",
+         "whisper-large-v3", "llama-3.2-vision-90b")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCHS}
 

@@ -10,10 +10,17 @@ once, as a Poisson stream (``--arrival-rate``), or from a JSON trace
 
 The weights are random, drawn from a seeded ``torch.Generator`` on the
 device.  With ``--packed`` they are drawn and packed one layer at a time
-(``TransformerLM.init_packed``), so the float tree never exists
-(mixtral-8x7b's weights are 93.4 GB in bf16, 46.6 GB in base3): base3
+(``BaseModel.init_packed``), so the float tree never exists
+(mixtral-8x7b's weights are 93.4 GB in bf16, 46.6 GB in base3;
+llama-3.2-vision-90b's 179 GB in bf16 are 22.4 GB in trit2): base3
 stores one byte per 5-trit weight, trit2 two bits per trit, and the
-packed bytes are decoded only inside the matmul kernels.
+packed bytes are decoded only inside the matmul kernels.  Every family
+packs through its ``pack_predicate``: the weights it reads through its
+matmuls.  Where ``ternarize_params``'s default predicate would also
+pack a leaf the model reads elsewhere (zamba2-7b's and
+llama-3.2-vision-90b's stacked norms, of 64 layers or more; xlstm-125m's
+sLSTM ``wr``), the launcher keeps that leaf float and says so on
+stderr: the reference packs it and then fails (ROADMAP queue 3).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \\
       --packed base3 --domain int8
@@ -25,13 +32,19 @@ packed bytes are decoded only inside the matmul kernels.
 ``--arch`` takes every name of ``repro_torch.configs.ARCHS``
 (internlm2-1.8b, glm4-9b, phi3-mini-3.8b, qwen3-14b, the MoE models
 mixtral-8x7b and kimi-k2-1t-a32b, kimi fitting one card only at
-``--smoke`` size, and the recurrent zamba2-7b and xlstm-125m, which
-serve from the dense pool only: ``--kv paged`` refuses them).  A
-``--packed`` run is refused where ``ternarize_params``'s default
-predicate packs a leaf the model reads outside its matmuls, as the
-reference would pack it and then fail: zamba2-7b's stacked norms and
-biases (81 layers) and xlstm-125m's sLSTM ``wr`` (ROADMAP queue 3); both
-serve packed at ``--smoke`` size.  mixtral's attention is windowed (4096): its cache
+``--smoke`` size, the recurrent zamba2-7b and xlstm-125m, the
+encoder-decoder whisper-large-v3 and the cross-attending
+llama-3.2-vision-90b, whose full size fits one card only packed).  The
+last four serve from the dense pool only: ``--kv paged`` refuses them,
+as the reference's does.  whisper prefills from zero ``frames`` and the
+VLM from zero ``patches``, (batch, ``encoder_seq``, d_model), as in the
+reference's launcher; there is no flag for real audio or images:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama-3.2-vision-90b --packed trit2 --requests 2 \
+      --prompt-len 32 --max-new 8
+
+mixtral's attention is windowed (4096): its cache
 holds at most the window and rolls, and ``--kv paged`` refuses it.  A
 prompt past 2048 tokens is prefilled through the flash recurrence
 (``models.attention.flash_attention``); size ``--capacity`` to hold the
@@ -74,25 +87,39 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 
 import numpy as np
 import torch
 
 
-def refuse_packing_faults(model, packing: str) -> None:
-    """Refuse a ``--packed`` run whose default packing predicate packs a
-    leaf the model reads outside its matmuls (sLSTM's recurrent ``wr``
-    at a head dim of 64 or more; zamba2-7b's 81-layer stacked norms and
-    biases): the reference packs them and then fails in the forward
-    pass (ROADMAP queue 3)."""
+def report_packing_faults(model, packing: str) -> list:
+    """The leaves (``model.packing_faults()``) that the default packing
+    predicate would pack but that the model reads outside its matmuls
+    (sLSTM's recurrent ``wr`` at a head dim of 64 or more; stacked
+    norms and biases of 64 layers or more), named in one line on
+    stderr: the launcher packs through ``model.pack_predicate`` and
+    keeps them float, where the reference packs them and then fails in
+    the forward pass (ROADMAP queue 3)."""
     faults = model.packing_faults()
     if faults:
-        raise ValueError(
-            f"--packed {packing}: the default packing predicate packs "
-            f"{', '.join(faults)} of {model.cfg.name}, which the model "
-            f"reads outside its matmuls; the reference packs them and "
-            f"fails (a known reference fault, ROADMAP queue 3)")
+        print(f"--packed {packing}: keeping {', '.join(faults)} of "
+              f"{model.cfg.name} float: the model reads them outside its "
+              f"matmuls; the reference's default predicate packs them and "
+              f"fails (a known reference fault, ROADMAP queue 3)",
+              file=sys.stderr)
+    return faults
+
+
+def extra_inputs(cfg) -> dict:
+    """The reference launcher's stub inputs: zero ``frames`` (audio) or
+    ``patches`` (vlm) of (batch, ``encoder_seq``, d_model) per prefill."""
+    name = {"audio": "frames", "vlm": "patches"}.get(cfg.family)
+    if name is None:
+        return {}
+    return {name: lambda b: torch.zeros((b, cfg.encoder_seq, cfg.d_model),
+                                        dtype=cfg.dtype)}
 
 
 def main(argv=None) -> dict:
@@ -216,8 +243,8 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     model = registry.build(cfg)
-    if args.packed:
-        refuse_packing_faults(model, args.packed)
+    kept_float = report_packing_faults(model, args.packed) if args.packed \
+        else []
     gen = torch.Generator(device=device).manual_seed(args.seed)
     raw_bytes = model.param_bytes()
     cim = None
@@ -234,8 +261,10 @@ def main(argv=None) -> dict:
         # fail fast for both phases the engines resolve
         cim.resolve(device.type)
         cim.resolve(device.type, phase="prefill")
-    params = (model.init_packed(gen, cim, device=device) if args.packed
-              else model.init(gen, device=device))
+    params = (model.init_packed(gen, cim, device=device,
+                                predicate=model.pack_predicate)
+              if args.packed else model.init(gen, device=device))
+    extra = extra_inputs(cfg)
     if args.trace_file:
         trace = load_trace(args.trace_file)
     else:
@@ -250,15 +279,16 @@ def main(argv=None) -> dict:
             num_pages=args.num_pages or None, cim=cim,
             fused_attn={"auto": "auto", "true": True,
                         "false": False}[args.fused_attn], device=device,
-            scrub_every=args.scrub_every)
+            scrub_every=args.scrub_every, extra_inputs=extra)
     elif args.continuous:
         eng = Scheduler(model, params, capacity=args.capacity, slots=slots,
                         chunk=args.chunk, cim=cim, device=device,
-                        scrub_every=args.scrub_every)
+                        scrub_every=args.scrub_every, extra_inputs=extra)
     else:
         eng = ServeEngine(model, params, capacity=args.capacity,
                           max_batch=args.max_batch, cim=cim,
-                          on_device_loop=not args.legacy_loop, device=device)
+                          on_device_loop=not args.legacy_loop, device=device,
+                          extra_inputs=extra)
     rng = np.random.default_rng(args.seed + 1)
     for i, rec in enumerate(trace):
         prompt = rng.integers(0, cfg.vocab_size, size=rec["prompt_len"])
@@ -281,6 +311,7 @@ def main(argv=None) -> dict:
         "fidelity": eng.cim.fidelity if eng.cim else None,
         "weight_bytes": raw_bytes,
         "weight_bytes_served": hbm_bytes(params),
+        "kept_float": kept_float,
         "requests": len(done),
         "generated_tokens": eng.generated_tokens,
         "steps": eng.steps_run,

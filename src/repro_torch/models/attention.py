@@ -1,4 +1,5 @@
-"""Grouped-query attention, dense KV cache: prefill and the decode read.
+"""Grouped-query attention, dense KV cache: prefill and the decode read;
+the encoder's uncached self-attention and cross-attention.
 
 Layout: q (B, S, H, hd), k/v (B, T, KV, hd).  GQA is computed with
 grouped einsums, no repeated heads.  ``attend`` runs the direct (masked)
@@ -70,17 +71,26 @@ def init_cache(batch: int, capacity: int, kv_heads: int, hd: int,
                    torch.zeros(shape, dtype=dtype, device=device), 0)
 
 
-def _project_qkv(x, w, cfg: ModelConfig, positions, cim_cfg=None):
+def _project_qkv(x, w, cfg: ModelConfig, positions=None, cim_cfg=None,
+                 x_kv=None, rope: bool = True):
+    """q from x; k and v from ``x_kv`` where given (cross-attention),
+    else from x.  Rope at ``positions`` unless ``rope`` is False or no
+    positions are given; k from ``x_kv`` takes positions 0..T-1."""
     b, s, _ = x.shape
     h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    src = x if x_kv is None else x_kv
+    t = src.shape[1]
     q = dense(x, w["wq"], cim_cfg).reshape(b, s, h, hd)
-    k = dense(x, w["wk"], cim_cfg).reshape(b, s, kv, hd)
-    v = dense(x, w["wv"], cim_cfg).reshape(b, s, kv, hd)
+    k = dense(src, w["wk"], cim_cfg).reshape(b, t, kv, hd)
+    v = dense(src, w["wv"], cim_cfg).reshape(b, t, kv, hd)
     if cfg.qk_norm and "q_norm" in w:
         q = rms_norm(q, w["q_norm"], cfg.norm_eps)
         k = rms_norm(k, w["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if rope and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        kpos = (positions if x_kv is None
+                else torch.arange(t, device=x.device))
+        k = apply_rope(k, kpos, cfg.rope_theta)
     return q, k, v
 
 
@@ -186,6 +196,26 @@ def attend(q, k, v, cfg: ModelConfig, causal: bool = True, q_offset=0):
                 if causal else None)
         return _gqa_attend(q, k, v, mask)
     return flash_attention(q, k, v, cfg, causal=causal, q_offset=q_offset)
+
+
+def self_attention(x, w, cfg: ModelConfig, positions=None, causal=True,
+                   cim_cfg=None) -> torch.Tensor:
+    """Attention of a whole sequence over itself, no cache: the
+    encoder's (``causal=False``), roped at ``positions`` (0..S-1 by
+    default, as in the reference, whose encoder ropes them too)."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = _project_qkv(x, w, cfg, positions, cim_cfg)
+    return dense(attend(q, k, v, cfg, causal=causal), w["wo"], cim_cfg)
+
+
+def cross_attention(x, x_kv, w, cfg: ModelConfig, cim_cfg=None
+                    ) -> torch.Tensor:
+    """Queries from x over keys and values projected from ``x_kv`` (the
+    encoder's output, or patch embeddings): no rope, no mask."""
+    q, k, v = _project_qkv(x, w, cfg, x_kv=x_kv, rope=False,
+                           cim_cfg=cim_cfg)
+    return dense(attend(q, k, v, cfg, causal=False), w["wo"], cim_cfg)
 
 
 def rolling(cfg: ModelConfig, cap: int) -> bool:

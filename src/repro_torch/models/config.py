@@ -11,7 +11,8 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | moe | ssm | hybrid
+    family: str                    # dense | moe | ssm | hybrid | audio
+                                   # | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -34,6 +35,12 @@ class ModelConfig:
     attn_every: int = 0            # hybrid: the shared block after every k
                                    # Mamba2 layers
     slstm_every: int = 0           # xlstm: sLSTM block interval
+    # encoder-decoder (family "audio") and cross-attending (family "vlm")
+    encoder_layers: int = 0        # whisper: the encoder's blocks
+    encoder_seq: int = 0           # positions of the stub frontend's
+                                   # frames (audio) or patches (vlm)
+    cross_attn_every: int = 0      # vlm: a gated cross-attention block
+                                   # after every k self-attention layers
     norm_eps: float = 1e-6
     dtype: Any = torch.bfloat16
     kv_cache_dtype: str = ""       # "" (= dtype) | "int8" (codes + f32

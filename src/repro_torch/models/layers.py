@@ -1,9 +1,11 @@
 """Shared building blocks, as functions on tensors."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..core import cim_linear
 from ..kernels.ops import PackedTernary
@@ -39,6 +41,13 @@ def swiglu(x: torch.Tensor, w1, w3, w2, cim_cfg=None) -> torch.Tensor:
                  cim_cfg)
 
 
+def gelu_mlp(x: torch.Tensor, w1, w2, cim_cfg=None) -> torch.Tensor:
+    """gelu(x @ w1) @ w2, gelu in its tanh form (``jax.nn.gelu``'s
+    default)."""
+    return dense(F.gelu(dense(x, w1, cim_cfg), approximate="tanh"), w2,
+                 cim_cfg)
+
+
 def rope_frequencies(head_dim: int, theta: float, device=None
                      ) -> torch.Tensor:
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
@@ -60,3 +69,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
+    """(seq, dim) f32 table: sin at the even columns, cos at the odd,
+    position p at frequency exp(-2i ln(10000) / dim)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device)
+                    * (-math.log(10000.0) / dim))
+    pe = torch.zeros((seq, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe

@@ -1,7 +1,8 @@
 """The model families over a params dict: the decoder-only transformer
-(dense and MoE, ``TransformerLM``), the hybrid Mamba2 backbone with one
-shared attention block (``ZambaModel``) and the xLSTM stack
-(``XLSTMModel``).  ``BaseModel`` holds what they share: ``init``,
+(dense, MoE and the cross-attending VLM, ``TransformerLM``), the
+encoder-decoder over audio frames (``EncDecModel``), the hybrid Mamba2
+backbone with one shared attention block (``ZambaModel``) and the xLSTM
+stack (``XLSTMModel``).  ``BaseModel`` holds what they share: ``init``,
 ``init_packed``, ``param_bytes`` and ``init_cache`` from each family's
 parameter and decode-state specs.
 
@@ -35,6 +36,25 @@ it, and the decode write quantizes each fresh k/v (the reference writes
 them; the port quantizes them as computed, ROADMAP queue 3).  The fused
 paged read is float-KV only.
 
+A VLM (``cross_attn_every = k``) has ``L / k`` gated cross-attention
+blocks, ``cross_blocks``: ``ln``, an f32 ``gate`` (zeros at ``init``, so
+a fresh model's cross blocks add nothing) and ``wq``/``wk``/``wv``/``wo``.
+After every k self-attention layers, ``x + tanh(gate) * wo(attend(
+wq(ln(x)), xk, xv))``, where ``xk``/``xv`` are the patches' keys and
+values, projected once at prefill and held in the decode state (``L /
+k``, B, patches, KV, hd).  Its decode writes each layer's fresh k/v
+before it attends (``attention.decode_attention``), as the reference's
+grouped scan does, and it does not page.  ``prefill`` takes the patch
+embeddings as ``patches=`` (B, P, d).
+
+EncDecModel (whisper; the conv frontend is a stub: frames are
+embeddings): ``encode`` adds sinusoidal positions to the frames and runs
+``encoder_layers`` non-causal blocks with a gelu MLP; each decoder layer
+attends causally over its own cache, then over its cross keys and values
+(``x_wk``/``x_wv`` of the encoder's output, projected once at prefill),
+then runs a gelu MLP.  ``prefill`` takes the frames as ``frames=`` (B,
+T, d).  A family refuses the extra input it does not read.
+
 ZambaModel: ``cfg.num_layers`` Mamba2 layers (``models/ssm.py``); after
 every ``cfg.attn_every`` of them the one shared, weight-tied attention +
 SwiGLU block, with a KV cache of its own per invocation.  XLSTMModel:
@@ -48,7 +68,7 @@ which is what the serving pools copy and pass.
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -56,10 +76,10 @@ from .. import resolve_device
 from . import attention as attn
 from . import moe, ssm
 from .config import ModelConfig, ParamSpec
-from .layers import dense, rms_norm, swiglu
+from .layers import dense, gelu_mlp, rms_norm, sinusoidal_positions, swiglu
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -220,34 +240,69 @@ class BaseModel:
             f"it through the slot_view gather path")
 
 
+def _cross_state(state: dict, shape: tuple) -> None:
+    """Fit the state's ``xk``/``xv`` to ``shape`` (layers, B, T, KV, hd):
+    kept where ``init_cache`` made them so (T the config's
+    ``encoder_seq``), replaced by an empty pair for another T."""
+    for name in ("xk", "xv"):
+        if tuple(state[name].shape) != shape:
+            state[name] = state[name].new_empty(shape)
+
+
+def _refuse_input(cfg: ModelConfig, name: str, value) -> None:
+    if value is not None:
+        raise TypeError(f"{cfg.name} (family {cfg.family!r}) takes no "
+                        f"{name!r} input")
+
+
+def _needs_input(cfg: ModelConfig, name: str, value) -> torch.Tensor:
+    if value is None:
+        raise TypeError(f"{cfg.name} (family {cfg.family!r}) prefills from "
+                        f"tokens and {name!r} (B, positions, d_model)")
+    return value
+
+
 class TransformerLM(BaseModel):
-    """Decoder-only transformer, dense or MoE: init, prefill, decode."""
+    """Decoder-only transformer, dense, MoE or cross-attending (vlm):
+    init, prefill, decode."""
 
     MATMULS = ("wq", "wk", "wv", "wo", "w1", "w2", "w3", "unembed")
 
+    def __init__(self, cfg: ModelConfig):
+        k = cfg.cross_attn_every
+        if k and cfg.num_layers % k:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not "
+                             f"group by cross_attn_every={k}")
+        if k and cfg.kv_cache_dtype == "int8":
+            raise ValueError(f"{cfg.name}: the cross-attending decode "
+                             f"writes its cache before it reads it, with "
+                             f"no int8 path (as in the reference)")
+        super().__init__(cfg)
+
+    @property
+    def n_cross(self) -> int:
+        k = self.cfg.cross_attn_every
+        return self.cfg.num_layers // k if k else 0
+
     def _param_specs(self) -> dict:
         cfg = self.cfg
-        d, h, kv, hd, f = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                           cfg.hd, cfg.d_ff)
-        v, L = cfg.padded_vocab, (cfg.num_layers,)
+        d, f, L = cfg.d_model, cfg.d_ff, (cfg.num_layers,)
         blocks = {"ln1": ParamSpec(L + (d,), "ones"),
                   "ln2": ParamSpec(L + (d,), "ones"),
-                  "wq": ParamSpec(L + (d, h * hd)),
-                  "wk": ParamSpec(L + (d, kv * hd)),
-                  "wv": ParamSpec(L + (d, kv * hd)),
-                  "wo": ParamSpec(L + (h * hd, d))}
+                  **_attn_specs(cfg, cfg.num_layers)}
         if cfg.num_experts:
             blocks.update(moe.moe_defs(cfg, cfg.num_layers))
         else:
             blocks.update(w1=ParamSpec(L + (d, f)), w2=ParamSpec(L + (f, d)),
                           w3=ParamSpec(L + (d, f)))
-        if cfg.qk_norm:
-            blocks["q_norm"] = ParamSpec(L + (hd,), "ones")
-            blocks["k_norm"] = ParamSpec(L + (hd,), "ones")
-        return {"embed": ParamSpec((v, d), "embed"),
-                "unembed": ParamSpec((d, v)),
-                "final_norm": ParamSpec((d,), "ones"),
-                "blocks": blocks}
+        specs = {**_embed_specs(cfg), "blocks": blocks}
+        if cfg.cross_attn_every:
+            n = self.n_cross
+            specs["cross_blocks"] = {
+                "ln": ParamSpec((n, d), "ones"),
+                "gate": ParamSpec((n,), "zeros", torch.float32),
+                **_attn_specs(cfg, n, cross=True)}
+        return specs
 
     def matmul_leaf(self, path: tuple) -> bool:
         return path[-1] in self.MATMULS
@@ -261,8 +316,14 @@ class TransformerLM(BaseModel):
             capacity = min(capacity, cfg.sliding_window)
         shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads, cfg.hd)
         if cfg.kv_cache_dtype != "int8":
-            return {"k": ParamSpec(shape, "zeros"),
-                    "v": ParamSpec(shape, "zeros")}
+            specs = {"k": ParamSpec(shape, "zeros"),
+                     "v": ParamSpec(shape, "zeros")}
+            if cfg.cross_attn_every:
+                xshape = (self.n_cross, batch, cfg.encoder_seq or 1024,
+                          cfg.num_kv_heads, cfg.hd)
+                specs["xk"] = ParamSpec(xshape, "zeros")
+                specs["xv"] = ParamSpec(xshape, "zeros")
+            return specs
         return {"k": ParamSpec(shape, "zeros", torch.int8),
                 "v": ParamSpec(shape, "zeros", torch.int8),
                 "k_scale": ParamSpec(shape[:-1], "zeros", torch.float32),
@@ -273,13 +334,49 @@ class TransformerLM(BaseModel):
             return moe.moe_block(x, wl, self.cfg, cim)[0]
         return swiglu(x, wl["w1"], wl["w3"], wl["w2"], cim)
 
+    def _cross(self, x, params, g: int, state: dict, cim):
+        """Cross block g: ``x + tanh(gate) * wo(attend(wq(ln(x)), xk,
+        xv))`` over the patches' cached keys and values, unmasked."""
+        cfg = self.cfg
+        wc = _layer(params["cross_blocks"], g)
+        b, s, _ = x.shape
+        q = dense(rms_norm(x, wc["ln"], cfg.norm_eps), wc["wq"], cim)
+        h = attn._gqa_attend(q.reshape(b, s, cfg.num_heads, cfg.hd),
+                             state["xk"][g], state["xv"][g], None)
+        h = dense(h, wc["wo"], cim)
+        return x + torch.tanh(wc["gate"]).to(x.dtype) * h
+
+    def _precompute_cross(self, params, patches, state: dict, cim) -> None:
+        """Each cross block's keys and values of the patches, once, into
+        ``state['xk']``/``['xv']``."""
+        cfg = self.cfg
+        b, p, _ = patches.shape
+        kv, hd = cfg.num_kv_heads, cfg.hd
+        _cross_state(state, (self.n_cross, b, p, kv, hd))
+        x = patches.to(cfg.dtype)
+        for g in range(self.n_cross):
+            wc = _layer(params["cross_blocks"], g)
+            state["xk"][g] = dense(x, wc["wk"], cim).reshape(b, p, kv, hd)
+            state["xv"][g] = dense(x, wc["wv"], cim).reshape(b, p, kv, hd)
+
+    def _crosses_after(self, i: int) -> bool:
+        k = self.cfg.cross_attn_every
+        return bool(k) and (i + 1) % k == 0
+
     def prefill(self, params: dict, tokens: torch.Tensor, capacity: int,
-                cim=None) -> tuple[torch.Tensor, dict]:
-        """Consume a (B, S) prompt; returns (last-position logits
-        (B, 1, V), state)."""
+                cim=None, patches: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, dict]:
+        """Consume a (B, S) prompt (and a VLM's (B, P, d) ``patches``);
+        returns (last-position logits (B, 1, V), state)."""
         cfg = self.cfg
         b, s = tokens.shape
         state = self.init_cache(b, capacity, tokens.device)
+        if cfg.cross_attn_every:
+            self._precompute_cross(params, _needs_input(cfg, "patches",
+                                                        patches),
+                                   state, cim)
+        else:
+            _refuse_input(cfg, "patches", patches)
         int8_kv = cfg.kv_cache_dtype == "int8"
         # an int8 cache is built in the compute dtype, then quantized
         kc = (torch.zeros(state["k"].shape, dtype=cfg.dtype,
@@ -294,6 +391,9 @@ class TransformerLM(BaseModel):
                 rms_norm(x, wl["ln1"], cfg.norm_eps), wl, cfg, cache, cim)
             x = x + out
             x = x + self._mlp(rms_norm(x, wl["ln2"], cfg.norm_eps), wl, cim)
+            if self._crosses_after(i):
+                x = self._cross(x, params, i // cfg.cross_attn_every,
+                                state, cim)
         if int8_kv:
             state["k"], state["k_scale"] = attn.quantize_kv(kc)
             state["v"], state["v_scale"] = attn.quantize_kv(vc)
@@ -335,9 +435,12 @@ class TransformerLM(BaseModel):
         any other, past capacity, writes the last slot, as the
         reference's clamped dynamic_update_slice does.  An int8 cache
         stores the codes and scales of the fresh k/v.  A host position
-        stays on the host, a device one on the device."""
+        stays on the host, a device one on the device.  A VLM writes
+        each layer's k/v before it attends (:meth:`_decode_cross`)."""
         cfg = self.cfg
         x = params["embed"][token.long()].to(cfg.dtype)
+        if cfg.cross_attn_every:
+            return self._decode_cross(params, x, state, cim)
         x, kts, vts = self._decode_read_layers(params, x, state, cim)
         pos = state["pos"]
         cap = state["k"].shape[2]
@@ -360,15 +463,38 @@ class TransformerLM(BaseModel):
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return dense(x, params["unembed"], cim), state
 
+    def _decode_cross(self, params: dict, x, state: dict, cim):
+        """The VLM's decode, the reference's grouped scan: each self
+        layer writes its fresh k/v at ``state['pos']`` (a host int or a
+        (B,) tensor) and attends over the written slots; after every k
+        of them a cross block reads the cached patch keys and values."""
+        cfg = self.cfg
+        blocks = params["blocks"]
+        for i in range(cfg.num_layers):
+            wl = _layer(blocks, i)
+            cache = attn.KVCache(state["k"][i], state["v"][i], state["pos"])
+            out, _ = attn.decode_attention(
+                rms_norm(x, wl["ln1"], cfg.norm_eps), wl, cfg, cache, cim)
+            x = x + out
+            x = x + self._mlp(rms_norm(x, wl["ln2"], cfg.norm_eps), wl, cim)
+            if self._crosses_after(i):
+                x = self._cross(x, params, i // cfg.cross_attn_every,
+                                state, cim)
+        state["pos"] = state["pos"] + 1
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return dense(x, params["unembed"], cim), state
+
     @property
     def supports_paged_kv(self) -> bool:
         """The full-cache read-then-write decode pages cleanly (an int8
         pool with its scale pages); a
         windowed model decodes against a rolling cache (slot = pos %
         window, engaged only when the capacity is the window) that a
-        page-gathered view's capacity would silently disarm, so it
-        serves from the dense pool, as in the reference."""
-        return not self.cfg.sliding_window
+        page-gathered view's capacity would silently disarm, and a VLM
+        writes its cache inside the layer loop and holds the patches'
+        keys and values besides, so both serve from the dense pool, as in
+        the reference."""
+        return not self.cfg.sliding_window and not self.cfg.cross_attn_every
 
     def decode_paged(self, params: dict, tokens: torch.Tensor, pool,
                      page_table: torch.Tensor, pos: torch.Tensor, cim=None
@@ -379,6 +505,9 @@ class TransformerLM(BaseModel):
         tokens (S, 1), page_table (S, W), pos (S,).  Returns (logits
         (S, 1, V), kts (L, S, KV, hd), vts) in the compute dtype, for
         ``paged_kv.append_tokens``."""
+        if not self.supports_paged_kv:
+            return super().decode_paged(params, tokens, pool, page_table,
+                                        pos, cim)
         from . import paged_kv
         cfg = self.cfg
         view = paged_kv.slot_view(pool, page_table, pos)
@@ -396,6 +525,10 @@ class TransformerLM(BaseModel):
         page table.  tokens (S,), page_table (S, W) int32, pos (S,)
         int32.  Returns (logits (S, 1, V), kts (L, S, KV, hd), vts) in
         the compute dtype, for ``paged_kv.append_tokens``."""
+        if not self.supports_paged_kv:
+            return super().decode_paged_fused(params, tokens, pool,
+                                              page_table, pos, cim,
+                                              attn_plan)
         if attn_plan is None:
             raise ValueError("decode_paged_fused needs a resolved "
                              "attention plan (PagedScheduler resolves "
@@ -420,14 +553,19 @@ class TransformerLM(BaseModel):
                 torch.stack(vts))
 
 
-def _attn_specs(cfg: ModelConfig) -> dict:
-    """One attention block's weights (unstacked)."""
+def _attn_specs(cfg: ModelConfig, layers: Optional[int] = None,
+                cross: bool = False) -> dict:
+    """An attention block's weights, stacked over `layers` where given;
+    a cross block has no qk-norm."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
-    specs = {"wq": ParamSpec((d, h * hd)), "wk": ParamSpec((d, kv * hd)),
-             "wv": ParamSpec((d, kv * hd)), "wo": ParamSpec((h * hd, d))}
-    if cfg.qk_norm:
-        specs["q_norm"] = ParamSpec((hd,), "ones")
-        specs["k_norm"] = ParamSpec((hd,), "ones")
+    L = () if layers is None else (layers,)
+    specs = {"wq": ParamSpec(L + (d, h * hd)),
+             "wk": ParamSpec(L + (d, kv * hd)),
+             "wv": ParamSpec(L + (d, kv * hd)),
+             "wo": ParamSpec(L + (h * hd, d))}
+    if cfg.qk_norm and not cross:
+        specs["q_norm"] = ParamSpec(L + (hd,), "ones")
+        specs["k_norm"] = ParamSpec(L + (hd,), "ones")
     return specs
 
 
@@ -435,6 +573,136 @@ def _embed_specs(cfg: ModelConfig) -> dict:
     return {"embed": ParamSpec((cfg.padded_vocab, cfg.d_model), "embed"),
             "unembed": ParamSpec((cfg.d_model, cfg.padded_vocab)),
             "final_norm": ParamSpec((cfg.d_model,), "ones")}
+
+
+class EncDecModel(BaseModel):
+    """Whisper's backbone: ``encoder_layers`` non-causal blocks over the
+    frames, ``num_layers`` decoder blocks (self, cross, gelu MLP)."""
+
+    MATMULS = ("wq", "wk", "wv", "wo", "w1", "w2", "x_wq", "x_wk", "x_wv",
+               "x_wo", "unembed")
+
+    def _param_specs(self) -> dict:
+        cfg = self.cfg
+        Le, Ld, d, f = (cfg.encoder_layers, cfg.num_layers, cfg.d_model,
+                        cfg.d_ff)
+
+        def mlp(L):
+            return {"w1": ParamSpec((L, d, f)), "w2": ParamSpec((L, f, d))}
+        return {**_embed_specs(cfg),
+                "enc_blocks": {"ln1": ParamSpec((Le, d), "ones"),
+                               "ln2": ParamSpec((Le, d), "ones"),
+                               **_attn_specs(cfg, Le), **mlp(Le)},
+                "enc_norm": ParamSpec((d,), "ones"),
+                "dec_blocks": {"ln1": ParamSpec((Ld, d), "ones"),
+                               "ln2": ParamSpec((Ld, d), "ones"),
+                               "ln3": ParamSpec((Ld, d), "ones"),
+                               **_attn_specs(cfg, Ld),
+                               **{f"x_{k}": v for k, v in _attn_specs(
+                                   cfg, Ld, cross=True).items()},
+                               **mlp(Ld)}}
+
+    def matmul_leaf(self, path: tuple) -> bool:
+        return path[-1] in self.MATMULS
+
+    def cache_specs(self, batch: int, capacity: int) -> dict:
+        cfg = self.cfg
+        L, kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.hd
+        shape = (L, batch, capacity, kv, hd)
+        xshape = (L, batch, cfg.encoder_seq, kv, hd)
+        return {"k": ParamSpec(shape, "zeros"),
+                "v": ParamSpec(shape, "zeros"),
+                "xk": ParamSpec(xshape, "zeros"),
+                "xv": ParamSpec(xshape, "zeros")}
+
+    def encode(self, params: dict, frames: torch.Tensor, cim=None
+               ) -> torch.Tensor:
+        """(B, T, d) frames -> (B, T, d) encoder output: sinusoidal
+        positions (f32, cast to the model dtype), then each block's
+        non-causal attention and gelu MLP, then ``enc_norm``."""
+        cfg = self.cfg
+        x = frames.to(cfg.dtype)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     x.device).to(cfg.dtype)
+        enc = params["enc_blocks"]
+        for i in range(cfg.encoder_layers):
+            wl = _layer(enc, i)
+            x = x + attn.self_attention(rms_norm(x, wl["ln1"], cfg.norm_eps),
+                                        wl, cfg, causal=False, cim_cfg=cim)
+            x = x + gelu_mlp(rms_norm(x, wl["ln2"], cfg.norm_eps), wl["w1"],
+                             wl["w2"], cim)
+        return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+    def _cross_kv(self, params: dict, enc: torch.Tensor, state: dict,
+                  cim) -> None:
+        """Every decoder layer's cross keys and values of the encoder's
+        output, once, into ``state['xk']``/``['xv']``."""
+        cfg = self.cfg
+        b, t, _ = enc.shape
+        kv, hd = cfg.num_kv_heads, cfg.hd
+        _cross_state(state, (cfg.num_layers, b, t, kv, hd))
+        dec = params["dec_blocks"]
+        for i in range(cfg.num_layers):
+            state["xk"][i] = dense(enc, dec["x_wk"][i], cim).reshape(
+                b, t, kv, hd)
+            state["xv"][i] = dense(enc, dec["x_wv"][i], cim).reshape(
+                b, t, kv, hd)
+
+    def _run_dec(self, params, x, state, prefill: bool, cim):
+        """The decoder layers: causal self-attention (prefill writes the
+        prompt's k/v; decode writes the fresh k/v, then attends), cross-
+        attention over the cached ``xk``/``xv``, the gelu MLP."""
+        cfg = self.cfg
+        dec = params["dec_blocks"]
+        b, s, _ = x.shape
+        for i in range(cfg.num_layers):
+            wl = _layer(dec, i)
+            cache = attn.KVCache(state["k"][i], state["v"][i],
+                                 0 if prefill else state["pos"])
+            xa = rms_norm(x, wl["ln1"], cfg.norm_eps)
+            if prefill:
+                h, _ = attn.prefill_attention(xa, wl, cfg, cache, cim)
+            else:
+                h, _ = attn.decode_attention(xa, wl, cfg, cache, cim)
+            x = x + h
+            q = dense(rms_norm(x, wl["ln2"], cfg.norm_eps), wl["x_wq"], cim)
+            h = attn._gqa_attend(q.reshape(b, s, cfg.num_heads, cfg.hd),
+                                 state["xk"][i], state["xv"][i], None)
+            x = x + dense(h, wl["x_wo"], cim)
+            x = x + gelu_mlp(rms_norm(x, wl["ln3"], cfg.norm_eps), wl["w1"],
+                             wl["w2"], cim)
+        return x
+
+    def prefill(self, params: dict, tokens: torch.Tensor, capacity: int,
+                cim=None, frames: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, dict]:
+        """Encode the (B, T, d) ``frames``, project the cross keys and
+        values, then consume the (B, S) prompt; returns (last-position
+        logits (B, 1, V), state)."""
+        cfg = self.cfg
+        frames = _needs_input(cfg, "frames", frames)
+        b, s = tokens.shape
+        state = self.init_cache(b, capacity, tokens.device)
+        enc = self.encode(params, frames, cim)
+        self._cross_kv(params, enc, state, cim)
+        del enc
+        x = params["embed"][tokens.long()].to(cfg.dtype)
+        x = self._run_dec(params, x, state, True, cim)
+        state["pos"] = s
+        x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+        return dense(x, params["unembed"], cim), state
+
+    def decode(self, params: dict, token: torch.Tensor, state: dict,
+               cim=None) -> tuple[torch.Tensor, dict]:
+        """One-token step: token (B, 1) -> logits (B, 1, V); the cache is
+        written in place and ``pos`` (a host int or (B,) tensor)
+        advances."""
+        cfg = self.cfg
+        x = params["embed"][token.long()].to(cfg.dtype)
+        x = self._run_dec(params, x, state, False, cim)
+        state["pos"] = state["pos"] + 1
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return dense(x, params["unembed"], cim), state
 
 
 class ZambaModel(BaseModel):
@@ -641,17 +909,13 @@ class XLSTMModel(BaseModel):
 def build(cfg: ModelConfig) -> BaseModel:
     """The model of ``cfg.family``, as the reference's ``build``
     dispatches."""
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return TransformerLM(cfg)
+    if cfg.family == "audio":
+        return EncDecModel(cfg)
     if cfg.family == "ssm" and cfg.ssm_kind == "xlstm":
         return XLSTMModel(cfg)
     if cfg.family == "hybrid":
         return ZambaModel(cfg)
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: whisper's "
-            f"EncDecModel (with its frames input) and the VLM "
-            f"cross-attention (with its patches input) are the next port "
-            f"slice (ported: {FAMILIES})")
     raise ValueError(f"unknown family {cfg.family!r} / ssm_kind "
                      f"{cfg.ssm_kind!r}")

@@ -19,6 +19,16 @@ Two decode loops give identical tokens:
 ``host_transfers`` counts device-to-host syncs, so the one-transfer-per-
 bucket contract is testable.
 
+``extra_inputs`` (every engine) maps a ``prefill`` keyword to a function
+of the batch size that gives that input for the batch: whisper's
+``frames`` and the VLM's ``patches``, (B, positions, d_model).  Each
+prefill calls them, moves the result to the engine's device in the
+model's dtype, and passes it on, as the reference's ``_batch_inputs``
+does; a request carries no input of its own.  The encoder's or the
+patches' keys and values are then part of the decode state, so the slot
+pools hold them as lanes (``xk``/``xv``) and copy them once per
+admission.
+
 Continuous batching (:class:`Scheduler`): a persistent pool of ``slots``
 decode lanes whose device state (KV, position, live mask, per-slot
 budgets) survives across scheduling rounds.  Each round runs one chunk
@@ -135,8 +145,10 @@ def latency_stats(reqs: list) -> dict:
 class _EngineBase:
     """Queue, completion list and the counted device-to-host chokepoint."""
 
-    def __init__(self, model, params, capacity: int, cim, device):
+    def __init__(self, model, params, capacity: int, cim, device,
+                 extra_inputs=None):
         self.model = model
+        self.extra_inputs = dict(extra_inputs or {})
         self.params = params
         self.capacity = capacity
         self.device = resolve_device(device)
@@ -166,13 +178,21 @@ class _EngineBase:
     def generated_tokens(self) -> int:
         return sum(len(r.out_tokens) for r in self.completed)
 
+    def _batch_inputs(self, b: int) -> dict:
+        """Each of ``extra_inputs`` for a batch of `b`, on the engine's
+        device in the model's dtype."""
+        return {name: fn(b).to(device=self.device,
+                               dtype=self.model.cfg.dtype)
+                for name, fn in self.extra_inputs.items()}
+
     def _prefill(self, reqs: list[Request]):
         tokens = torch.stack([torch.as_tensor(np.asarray(r.prompt),
                                               dtype=torch.int32)
                               for r in reqs]).to(self.device)
         logits, state = self.model.prefill(self.params, tokens,
                                            self.capacity,
-                                           cim=self.cim_prefill)
+                                           cim=self.cim_prefill,
+                                           **self._batch_inputs(len(reqs)))
         return greedy_sample(logits), state
 
     def _arrival_pump(self, clock, sleep, try_admit, busy, serve_round):
@@ -204,8 +224,8 @@ class _EngineBase:
 class ServeEngine(_EngineBase):
     def __init__(self, model, params, capacity: int = 512,
                  max_batch: int = 8, cim=None, on_device_loop: bool = True,
-                 device="cuda"):
-        super().__init__(model, params, capacity, cim, device)
+                 device="cuda", extra_inputs=None):
+        super().__init__(model, params, capacity, cim, device, extra_inputs)
         self.max_batch = max_batch
         self.on_device_loop = on_device_loop
 
@@ -357,12 +377,12 @@ class Scheduler(_EngineBase):
     def __init__(self, model, params, capacity: int = 512, slots: int = 8,
                  chunk: int = 8, cim=None, clock=time.monotonic,
                  sleep=time.sleep, device="cuda",
-                 scrub_every: Optional[int] = 8):
+                 scrub_every: Optional[int] = 8, extra_inputs=None):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
-        super().__init__(model, params, capacity, cim, device)
+        super().__init__(model, params, capacity, cim, device, extra_inputs)
         self.slots = slots
         self.chunk = chunk
         self._clock = clock
@@ -388,7 +408,8 @@ class Scheduler(_EngineBase):
     def _init_pool(self) -> None:
         """The model's decode state for every slot: each leaf of
         ``init_cache`` but ``pos`` is a lane with the slot at dim 1 (KV
-        and, for int8, its scales; a recurrent model's carries)."""
+        and, for int8, its scales; a recurrent model's carries; the
+        cross keys and values of the frames or patches)."""
         cache = self.model.init_cache(self.slots, self.capacity,
                                       self.device)
         self.pool = {k: v for k, v in cache.items() if k != "pos"}
@@ -459,8 +480,10 @@ class Scheduler(_EngineBase):
             self.params = self._restore(self.scrubs_run)
 
     def kv_bytes(self) -> int:
-        """Device bytes of the pool, every lane counted.  The dense pool
-        is always fully resident: every slot holds its full capacity."""
+        """Device bytes of the pool, every lane counted: a recurrent
+        model's carries and the cross keys and values too (the
+        reference counts k/v and their scales only).  The dense pool is
+        always fully resident: every slot holds its full capacity."""
         return sum(t.numel() * t.element_size() for t in self.pool.values())
 
     def kv_bytes_resident(self) -> int:
@@ -658,7 +681,10 @@ class PagedScheduler(Scheduler):
     reference.  The reference's other reasons to decline (interpret
     mode, sharded pools) do not arise here.  ``False`` names the
     ``slot_view`` gather path, and the scheduler logs that it was named.
-    A windowed model is refused (its rolling cache does not page).
+    A windowed model is refused (its rolling cache does not page), and
+    so are the VLM and the encoder-decoder (their cross keys and values
+    are per-slot state the page pool does not hold), as in the
+    reference.
     """
 
     def __init__(self, model, params, capacity: int = 512, slots: int = 8,
@@ -666,7 +692,7 @@ class PagedScheduler(Scheduler):
                  num_pages: Optional[int] = None, cim=None,
                  clock=time.monotonic, sleep=time.sleep,
                  fused_attn="auto", device="cuda",
-                 scrub_every: Optional[int] = 8):
+                 scrub_every: Optional[int] = 8, extra_inputs=None):
         if not model.supports_paged_kv:
             raise ValueError(f"{type(model).__name__} (family "
                              f"{model.cfg.family!r}) does not support "
@@ -686,7 +712,8 @@ class PagedScheduler(Scheduler):
             cim = dataclasses.replace(cim, kv_layout="paged")
         super().__init__(model, params, capacity=capacity, slots=slots,
                          chunk=chunk, cim=cim, clock=clock, sleep=sleep,
-                         device=device, scrub_every=scrub_every)
+                         device=device, scrub_every=scrub_every,
+                         extra_inputs=extra_inputs)
 
     def _resolve_attn_plan(self):
         """The attention plan for this pool's geometry and device, or

@@ -160,6 +160,33 @@ def test_recurrent_configs_carry_the_assigned_values():
         "XLSTMModel"
 
 
+def test_cross_configs_carry_the_assigned_values():
+    """whisper-large-v3 and llama-3.2-vision-90b hold the assigned
+    hyperparameters of ``tests/test_archs.py`` (layers, width, heads, KV
+    heads, d_ff, vocab) and their encoder and cross fields; their models
+    are the reference's families with its parameter counts (the VLM's
+    f32 gates take 4 bytes each), and at full size the default
+    predicate would pack exactly the VLM's two stacked norms."""
+    table = {"whisper-large-v3": (32, 1280, 20, 20, 5120, 51866),
+             "llama-3.2-vision-90b": (100, 8192, 64, 8, 28672, 128256)}
+    for arch, want in table.items():
+        cfg, ref = configs.get(arch), jconfigs.get(arch)
+        assert (cfg.num_layers, cfg.d_model, cfg.num_heads,
+                cfg.num_kv_heads, cfg.d_ff, cfg.vocab_size) == want
+        assert (cfg.encoder_layers, cfg.encoder_seq, cfg.cross_attn_every) \
+            == (ref.encoder_layers, ref.encoder_seq, ref.cross_attn_every)
+        model = registry.build(cfg)
+        assert type(model).__name__ == type(jregistry.build(ref)).__name__
+        gates = model.n_cross if cfg.cross_attn_every else 0
+        assert model.param_bytes() == 2 * ref.param_count() + 2 * gates
+    whisper = registry.build(configs.get("whisper-large-v3"))
+    assert (whisper.cfg.encoder_layers, whisper.cfg.encoder_seq) == (32, 1500)
+    assert whisper.packing_faults() == []
+    vlm = registry.build(configs.get("llama-3.2-vision-90b"))
+    assert (vlm.n_cross, vlm.cfg.encoder_seq) == (20, 1601)
+    assert vlm.packing_faults() == ["blocks.ln1", "blocks.ln2"]
+
+
 def test_qk_norm_params_follow_the_reference():
     """qwen3's per-layer q_norm / k_norm are (L, hd) ones, carried across
     as float, and both ternarize_params leave them float (min(L, hd) <

@@ -1329,3 +1329,152 @@ def test_int8_kv_decode_on_the_card_matches_the_cpu(dev):
         tokens.append({r.uid: r.out_tokens for r in done})
     assert tokens[0] == tokens[1]
     assert eng.attn_plan is None
+
+
+# the cross-attending families' kernel shapes (K, N, packing):
+# whisper-large-v3's w1 and w2 (d 1280, d_ff 5120) and its unembedding
+# (vocab padded to 51968), base3 and trit2; llama-3.2-vision-90b's w1/w3
+# and w2 in trit2 (K = 28672 splits the float mma chain)
+CROSS_KN = [(1280, 5120, "base3"), (5120, 1280, "base3"),
+            (1280, 51968, "base3"), (1280, 5120, "trit2"),
+            (5120, 1280, "trit2"), (1280, 51968, "trit2"),
+            (8192, 28672, "trit2"), (28672, 8192, "trit2")]
+
+
+@pytest.mark.parametrize("k,n,mode", CROSS_KN)
+@pytest.mark.parametrize("m", [8, 1024])
+def test_ternary_routes_at_the_cross_models_shapes(dev, m, k, n, mode):
+    """gemv (M = 8, decode) and mma (M = 1024, prefill) at whisper's and
+    llama-vision's shapes: float within 1e-5 of max|y|, int8 bitwise,
+    each call through its route."""
+    x, data, scale = _device_operands(dev, m, k, n, mode, seed=m + k + n)
+    if m <= 8:
+        _gemv_matches(dev, x, data, scale, mode)
+        return
+    w = ops.PackedTernary(data, scale, mode)
+    before = dict(tm.ROUTES)
+    xb = x.to(torch.bfloat16)
+    want = ops.ternary_matmul_torch(xb, w)
+    torch.testing.assert_close(tm.matmul_float(xb, data, scale, mode), want,
+                               rtol=0, atol=1e-5 * want.abs().max().item())
+    xi, xs = ops.quantize_acts_int8(x)
+    assert torch.equal(tm.matmul_int8(xi, xs, data, scale, mode),
+                       ops.ternary_matmul_int8_torch(xi, xs, w))
+    assert tm.ROUTES["mma"] == before["mma"] + 2
+
+
+def _gated_smoke(arch, where):
+    """An f32 smoke model of `arch` and its float params on `where`, a
+    VLM's gates set to seeded nonzero values (at init's zeros the cross
+    blocks add nothing)."""
+    cfg = dataclasses.replace(configs.smoke(arch), dtype=torch.float32)
+    model = registry.build(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    if cfg.cross_attn_every:
+        gen = torch.Generator().manual_seed(1)
+        params["cross_blocks"]["gate"] = 0.5 + torch.rand(
+            model.n_cross, generator=gen)
+    return model, _on(params, where)
+
+
+def _on(tree, where):
+    if isinstance(tree, dict):
+        return {k: _on(v, where) for k, v in tree.items()}
+    if isinstance(tree, ops.PackedTernary):
+        return ops.PackedTernary(tree.data.to(where), tree.scale.to(where),
+                                 tree.mode)
+    return tree.to(where)
+
+
+def test_cross_attention_on_the_card_matches_the_cpu(dev):
+    """``attention.cross_attention`` (no rope, no mask) and
+    ``self_attention(causal=False)`` in f32 at llama-vision-smoke's
+    grouping (4 heads over 2 KV heads), 9 queries over 300 keys, on the
+    card and on the CPU: within 1e-5 of their scale (TF32 off)."""
+    from repro_torch.models import attention as attn
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = dataclasses.replace(configs.smoke("llama-3.2-vision-90b"),
+                              dtype=torch.float32)
+    model, params = _gated_smoke("llama-3.2-vision-90b", "cpu")
+    w = {k: v[0] for k, v in params["cross_blocks"].items()}
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((2, 9, 64)).astype(np.float32))
+    kv = torch.from_numpy(rng.standard_normal((2, 300, 64)).astype(
+        np.float32))
+    for fn in (lambda x, kv, w: attn.cross_attention(x, kv, w, cfg),
+               lambda x, kv, w: attn.self_attention(kv, w, cfg,
+                                                    causal=False)):
+        want = fn(x, kv, w)
+        got = fn(x.to(dev), kv.to(dev), _on(w, dev)).cpu()
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3",
+                                  "llama-3.2-vision-90b"])
+def test_cross_smoke_models_on_the_card(dev, arch):
+    """whisper-smoke and llama-vision-smoke (nonzero gates), f32: float
+    prefill and 4 decode steps on the card equal the CPU's within 1e-4
+    of the logit scale, the cross caches too; then base3 through the
+    kernels and through the plain backend on the card, logits within
+    1e-4, and the bucket engine's and the dense Scheduler's tokens equal
+    with the extra input expanded to the batch, one transfer per bucket
+    or chunk."""
+    model, cpu_params = _gated_smoke(arch, "cpu")
+    cfg = model.cfg
+    key = "frames" if cfg.family == "audio" else "patches"
+    rng = np.random.default_rng(5)
+    extra = torch.from_numpy(rng.standard_normal(
+        (1, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(2, 10)))
+    runs = {}
+    for where in ("cpu", dev):
+        p = _on(cpu_params, where)
+        lg, st = model.prefill(p, prompt.to(where), 24,
+                               **{key: extra.expand(2, -1, -1).to(where)})
+        steps = [lg]
+        for i in range(4):
+            lg, st = model.decode(p, torch.full((2, 1), 5 * i + 1,
+                                                device=where), st)
+            steps.append(lg)
+        runs[str(where)] = (torch.stack(steps).cpu(),
+                            {k: st[k].cpu() for k in ("k", "xk", "xv")})
+    (lc, sc), (lg, sg) = runs["cpu"], runs[str(dev)]
+    torch.testing.assert_close(lg, lc, rtol=0,
+                               atol=1e-4 * lc.abs().max().item())
+    for name, want in sc.items():
+        torch.testing.assert_close(sg[name], want, rtol=0,
+                                   atol=1e-4 * want.abs().max().item())
+    params = ternarize_params(_on(cpu_params, dev),
+                              CIMConfig(mode="ternary", packing="base3"),
+                              predicate=model.pack_predicate)
+    prompts = [rng.integers(0, cfg.vocab_size, 8) for _ in range(3)]
+    feed = {key: lambda b: extra[0].expand(b, -1, -1)}
+    logits, tokens = {}, {}
+    for backend in ("cuda", "torch"):
+        cim = CIMConfig(mode="ternary", packing="base3", backend=backend)
+        lg, st = model.prefill(params, prompt.to(dev), 24, cim=cim,
+                               **{key: extra.expand(2, -1, -1).to(dev)})
+        steps = [lg]
+        for _ in range(4):
+            lg, st = model.decode(params, steps[0][:, -1].argmax(
+                -1, keepdim=True), st, cim=cim)
+            steps.append(lg)
+        logits[backend] = torch.stack(steps)
+        for eng in (ServeEngine(model, params, capacity=24, max_batch=3,
+                                cim=cim, device=dev, extra_inputs=feed),
+                    Scheduler(model, params, capacity=24, slots=2, chunk=3,
+                              cim=cim, device=dev, extra_inputs=feed)):
+            for i, pr in enumerate(prompts):
+                eng.submit(Request(uid=i, prompt=pr, max_new=5))
+            tm.reset_launches()
+            done = eng.run()
+            kind = type(eng).__name__
+            assert eng.host_transfers == (eng.chunks_run if kind ==
+                                          "Scheduler" else 1)
+            assert (tm.LAUNCHES["ternary_matmul"] > 0) == (backend == "cuda")
+            tokens[(backend, kind)] = {r.uid: r.out_tokens for r in done}
+    torch.testing.assert_close(logits["cuda"], logits["torch"], rtol=0,
+                               atol=1e-4 * logits["torch"].abs().max().item())
+    for kind in ("ServeEngine", "Scheduler"):
+        assert tokens[("cuda", kind)] == tokens[("torch", kind)]

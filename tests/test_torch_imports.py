@@ -50,7 +50,10 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                 "repro_torch.frontend", "repro_torch.frontend.admission",
                 "repro_torch.frontend.registry",
                 "repro_torch.frontend.server",
-                "repro_torch.frontend.loadgen"):
+                "repro_torch.frontend.loadgen", "repro_torch.core.mapping",
+                "repro_torch.core.energy",
+                "repro_torch.configs.whisper_large_v3",
+                "repro_torch.configs.llama_3_2_vision_90b"):
         assert mod in report["modules"]
 
 

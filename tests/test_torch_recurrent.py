@@ -14,12 +14,14 @@ write); the
 ``PagedScheduler``'s and ``--kv paged``'s refusal, with the reference's
 message; the launcher's counts at ``--smoke``.  Then the reference fault
 of packing sLSTM's recurrent weight (ROADMAP queue 3): the reference
-fails on it, and the port refuses it by name before serving.
+fails on it; the port names it and keeps it float (``pack_predicate``),
+and serves the tree the launcher draws, with the reference's tokens.
 The reference runs its plain ``xla`` matmul backend.
 """
 import dataclasses
 import functools
 import json
+import re
 
 import jax
 import jax.numpy as jnp
@@ -317,23 +319,23 @@ def test_reference_fails_on_a_packed_slstm_recurrent_weight():
                          cfg)
 
 
-def test_port_refuses_the_packed_slstm_recurrent_weight_by_name():
-    """The port's predicate is the reference's (``ternarize_params``
-    packs the same wr), so serving such a tree would fail as the
-    reference does; the launcher refuses it first, naming the leaf,
-    for the widened smoke and for xlstm-125m itself.  Narrowed to the
-    model's matmul weights (``pack_predicate``), the tree serves."""
+def test_port_refuses_the_packed_slstm_recurrent_weight_by_name(capsys):
+    """The port's default predicate is the reference's
+    (``ternarize_params`` packs the same wr), so serving such a tree
+    would fail as the reference does.  The port refuses to pack it:
+    ``packing_faults`` names it, the launcher's report names it on
+    stderr and keeps it float, and the tree narrowed to the model's
+    matmul weights (``pack_predicate``) serves, for the widened smoke
+    and for xlstm-125m itself."""
     from repro_torch.launch import serve as launch_serve
     tm = registry.build(_wide_xlstm(False))
     assert tm.packing_faults() == ["slstm.wr"]
     params = tm.init(torch.Generator().manual_seed(0), device="cpu")
     packed = ternarize_params(params, CIMConfig(mode="ternary"))
     assert isinstance(packed["slstm"]["wr"], ops.PackedTernary)
-    with pytest.raises(ValueError, match=r"slstm\.wr.*ROADMAP queue 3"):
-        launch_serve.refuse_packing_faults(tm, "base3")
-    with pytest.raises(ValueError, match=r"slstm\.wr.*ROADMAP queue 3"):
-        launch_serve.main(["--arch", "xlstm-125m", "--packed", "base3",
-                           "--device", "cpu"])
+    assert launch_serve.report_packing_faults(tm, "base3") == ["slstm.wr"]
+    assert re.search(r"keeping slstm\.wr .*float.*ROADMAP queue 3",
+                     capsys.readouterr().err)
     served = ternarize_params(params, CIMConfig(mode="ternary"),
                               predicate=tm.pack_predicate)
     assert not isinstance(served["slstm"]["wr"], ops.PackedTernary)
@@ -341,6 +343,104 @@ def test_port_refuses_the_packed_slstm_recurrent_weight_by_name():
     logits, _ = tm.prefill(served, torch.zeros((1, 4), dtype=torch.int32),
                            8, cim=CIMConfig(mode="ternary"))
     assert bool(torch.isfinite(logits).all())
+    full = registry.build(configs.get("xlstm-125m"))
+    assert full.packing_faults() == ["slstm.wr"]
     # zamba2-7b at full depth: 81 stacked norms and biases reach 64 too
     assert "mamba_ln" in registry.build(
         configs.get("zamba2-7b")).packing_faults()
+
+
+def _to_reference(tree):
+    """The port's params (CPU tensors, packed leaves included) as the
+    reference's tree: jax arrays and its ``PackedTernary``."""
+    from repro.kernels.ops import PackedTernary as JPacked
+    if isinstance(tree, dict):
+        return {k: _to_reference(v) for k, v in tree.items()}
+    if isinstance(tree, ops.PackedTernary):
+        return JPacked(jnp.asarray(tree.data.numpy()),
+                       jnp.asarray(tree.scale.numpy()), tree.mode)
+    return jnp.asarray(tree.numpy())
+
+
+def _narrowed(names):
+    """The reference's default ``ternarize_params`` predicate narrowed to
+    the leaves named `names`: what ``pack_predicate`` packs."""
+    def pred(path, x):
+        name = str(getattr(path[-1], "key", path[-1]))
+        return (isinstance(x, jax.Array) and x.ndim in (2, 3, 4)
+                and x.dtype in (jnp.float32, jnp.bfloat16)
+                and min(x.shape[-2:]) >= 64
+                and name not in ("embed", "router") and name in names)
+    return pred
+
+
+def test_launcher_tree_of_the_widened_xlstm_serves_as_the_reference():
+    """The widened smoke drawn as the launcher draws it,
+    ``init_packed(predicate=pack_predicate)``: wr stays float, every
+    matmul weight is packed, and the dense Scheduler's tokens on it
+    equal the reference Scheduler's on the same tree.  The same
+    narrowing of the reference's predicate packs, from one float draw,
+    the bytes and scales ``pack_predicate`` packs."""
+    jcfg, tcfg = _wide_xlstm(True), _wide_xlstm(False)
+    jm, tm = jregistry.build(jcfg), registry.build(tcfg)
+    cim = CIMConfig(mode="ternary", packing="base3")
+    tparams = tm.init_packed(torch.Generator().manual_seed(1), cim,
+                             device="cpu", predicate=tm.pack_predicate)
+    assert not isinstance(tparams["slstm"]["wr"], ops.PackedTernary)
+    for group, names in registry.XLSTMModel.MATMULS.items():
+        for name in names:
+            if name != "wif":            # (d, 2 heads): under 64 wide
+                assert isinstance(tparams[group][name], ops.PackedTernary)
+    jcim = JCIMConfig(mode="ternary", packing="base3", backend="xla")
+    want = _serve(JScheduler(jm, _to_reference(tparams), capacity=CAP,
+                             slots=2, chunk=3, cim=jcim), JRequest)
+    sched = Scheduler(tm, tparams, capacity=CAP, slots=2, chunk=3, cim=cim,
+                      device="cpu")
+    assert _serve(sched, Request) == want
+    assert sched.host_transfers == sched.chunks_run
+    matmuls = {n for names in registry.XLSTMModel.MATMULS.values()
+               for n in names} | {"unembed"}
+    jfloat = jax.jit(jm.init)(jax.random.key(2))
+    jpacked = jternarize(jfloat, JCIMConfig(mode="ternary"),
+                         predicate=_narrowed(matmuls))
+    mine = ternarize_params(params_from_reference(
+        jax.tree.map(np.asarray, jfloat), device="cpu"),
+        CIMConfig(mode="ternary"), predicate=tm.pack_predicate)
+    for path, leaf in _flat(mine):
+        ref = functools.reduce(lambda t, k: t[k], path, jpacked)
+        assert isinstance(leaf, ops.PackedTernary) == hasattr(ref, "mode"), \
+            path
+        if isinstance(leaf, ops.PackedTernary):
+            np.testing.assert_array_equal(leaf.data.numpy(),
+                                          np.asarray(ref.data))
+            np.testing.assert_allclose(leaf.scale.numpy(),
+                                       np.asarray(ref.scale), rtol=1e-6)
+
+
+def test_launcher_packs_xlstm_125m_through_pack_predicate(monkeypatch,
+                                                          capsys):
+    """``--arch xlstm-125m --packed base3`` at full size: the launcher no
+    longer refuses; it names ``slstm.wr`` and draws its tree through
+    ``init_packed(predicate=model.pack_predicate)`` (stopped there: the
+    draw and pack of 125M weights takes ~25 s on one CPU thread; the
+    card serves it in chip_smoke.py)."""
+    from repro_torch.launch import serve as launch_serve
+
+    class Drawn(Exception):
+        pass
+    seen = {}
+
+    def spy(self, generator, cim, device="cuda", dtype=None,
+            predicate=None):
+        seen.update(model=self, cim=cim, predicate=predicate)
+        raise Drawn
+    monkeypatch.setattr(registry.BaseModel, "init_packed", spy)
+    with pytest.raises(Drawn):
+        launch_serve.main(["--arch", "xlstm-125m", "--packed", "base3",
+                           "--device", "cpu", "--requests", "1",
+                           "--prompt-len", "4", "--max-new", "2"])
+    model = seen["model"]
+    assert model.cfg.name == "xlstm-125m"
+    assert seen["predicate"] == model.pack_predicate
+    assert seen["cim"].packing == "base3"
+    assert "keeping slstm.wr of xlstm-125m float" in capsys.readouterr().err
