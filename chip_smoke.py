@@ -319,6 +319,47 @@ Phases, each of which raises on failure:
               blocks); then the launcher at full size, --packed base3 /
               trit2 on 2 x 32 + 8, one transfer.  ``--cross-only`` runs
               these alone.
+17. train   - the training path (``repro_torch.train``): (a)
+              internlm2-1.8b at full width and depth (24 layers, bf16,
+              remat 'full'), AdamW with the launcher's warmup_cosine
+              (peak 1e-3, warmup 5), 8 x 256 tokens a step from the
+              port's data pipeline (its draws launch threefry, 6 a row),
+              20 steps through make_train_step, after one batch's loss
+              and grads computed twice and held bitwise equal; the
+              counts zeroed just before the 20 steps and read just
+              after.  Checks: every loss and grad norm finite, the mean
+              of the last 5 losses below the first.  Prints the step ms
+              (median, min, max of steps 2-20), tokens/s, the mfu share
+              (6 x the matmul parameters x tokens over the step time at
+              989 TFLOP/s), the bound (the step's matmul FLOPs, the
+              remat re-forward and attention included, at 989 TFLOP/s
+              plus AdamW's and the clip's 24 bytes a parameter at 3.35
+              TB/s), peak bytes, the idle share of one profiled step and
+              the threefry launches a step.  After the counted runs of
+              (a), (b) and (d), each holds its data on the card to the
+              CPU: the four 257-word draws of a row through threefry
+              bitwise its plain version on the card and on the CPU, and
+              a whole step's batch bitwise the CPU's.  (b) The launcher at full
+              width with Adafactor, 8 steps, into a temporary checkpoint
+              directory removed after: its JSON line, the forced final
+              save's bytes.  (c) Parity: the full width cut to 2 layers,
+              f32, one AdamW step on the card and on the CPU from the
+              same params and 2 x 128 tokens: loss, grad norm and both
+              moments within 1e-4, the param updates within 1e-3 of lr
+              but for at most 1e-4 of the weights, all within 2 lr.  (d)
+              Replay: the Trainer at smoke width (8 x 256 tokens of a
+              512-token chain) through crashes at steps 5 and 11 and in
+              the save of step 12: params and optimizer state bitwise
+              equal to an uninterrupted run's.  (e) Exact mode, 2 layers
+              at full width in f32 on 2 x 128 tokens: loss and grads
+              through the cuda code route (cim_mac launched 29 times: 15
+              matmuls forward, 14 in the re-forward) and through the
+              torch route within 1e-6 of each tensor's max (bitwise
+              printed), then one make_train_step step whose 'auto'
+              backend launches cim_mac 29 times.  Its launches join
+              cim_mac's row of the kernels line, and the threefry
+              launches of (a), (b) and (d) join threefry's.
+              ``--train-only`` runs this phase alone.
 
 Each phase prints its seconds, torch.cuda.max_memory_allocated() and the
 bytes still allocated when it began (after a gc.collect()).
@@ -330,6 +371,7 @@ The last two lines are a JSON object of per-kernel numbers and
     python3 chip_smoke.py --moe-only
     python3 chip_smoke.py --int8-kv-only --recurrent-only
     python3 chip_smoke.py --cross-only
+    python3 chip_smoke.py --train-only
 """
 from __future__ import annotations
 
@@ -454,6 +496,17 @@ CROSS_SHAPES = [("whisper-large-v3", "w1", 1280, 5120, "base3", (8, 1500)),
                 ("llama-3.2-vision-90b", "w2", 28672, 8192, "trit2",
                  (8, 1024))]
 INT32_OPS_PER_S = 132 * 64 * 1.98e9   # H100 SXM: 64 INT32 lanes an SM
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_BATCH, TRAIN_SEQ = 8, 256    # the reference launcher's defaults
+TRAIN_STEPS = 20
+TRAIN_LR = 1e-3
+TRAIN_WARMUP = 5                   # the launcher's max(steps // 20, 5)
+TRAIN_LAUNCHER_STEPS = 8
+TRAIN_PARITY_LAYERS = 2
+TRAIN_PARITY_BATCH = (2, 128)      # rows x positions of the parity steps
+TRAIN_PARITY_TOL = 1e-4            # loss, grad norm, moments (relative)
+TRAIN_REPLAY = dict(total=16, interval=4, crash_at=(5, 11),
+                    crash_in_save=(12,))
 THREEFRY_REPLACES = "src/repro/faults/scrub.py:85"
 KERNEL_NAMES = {"float": "ternary_matmul", "int8": "ternary_matmul_int8"}
 REPLACES = {"float": "src/repro/kernels/ternary_matmul.py:144",
@@ -3468,9 +3521,10 @@ def fid_times(torch, np, eng, model, prompt):
             eng.params, tokens, eng.capacity, cim=eng.cim_prefill)))
 
 
-def kernel_summary_threefry(fid):
+def kernel_summary_threefry(fid, train):
     """The threefry kernel over one layer's planes of the stacked w1 (a
-    disturb or scrub piece), with the launches of the device runs."""
+    disturb or scrub piece), with the launches of the device runs and of
+    the train phase's data pipeline."""
     rec = fid["threefry"]
     return dict(
         name="threefry", route="cuda",
@@ -3478,9 +3532,13 @@ def kernel_summary_threefry(fid):
         replaces=THREEFRY_REPLACES,
         replaces_note="not a Pallas kernel: XLA's threefry2x32 lowering of "
                       "the jax.random draws of the fault channels",
-        launches=sum(r["launches"]["threefry"] for r in fid["serve"].values()),
+        launches=sum(r["launches"]["threefry"] for r in fid["serve"].values())
+        + train["threefry_launches"],
         launches_per_run={k: r["launches"]["threefry"]
                           for k, r in fid["serve"].items()},
+        launches_train=dict(full=train["full"]["threefry_launches"],
+                            launcher=train["launcher"]["threefry_launches"],
+                            replay=train["replay"]["threefry_launches"]),
         max_abs_err=0, ms=rec["ms"], plain_ms=rec["plain_ms"],
         bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
         library_ms=None,
@@ -3852,7 +3910,7 @@ def phase_exact(torch, np, cfg, model, params, cim_cases):
     return rec
 
 
-def kernel_summary_cim(cases, exact, cfg):
+def kernel_summary_cim(cases, exact, cfg, train):
     """cim_mac over one exact-mode decode step (M = 8, every weight at its
     multiplicity) and one prefill, with the launches of the exact serve
     run, the bound of the code route beside the 25-pair bound of the
@@ -3867,7 +3925,9 @@ def kernel_summary_cim(cases, exact, cfg):
         sources=["src/repro_torch/csrc/cim_mac.cu",
                  "src/repro_torch/csrc/ternary_matmul.cu"],
         replaces="src/repro/kernels/cim_mac.py:29",
-        launches=exact["launches"]["cim_mac"], routes=exact["routes"],
+        launches=exact["launches"]["cim_mac"] + train["cim_mac_launches"],
+        launches_serve=exact["launches"]["cim_mac"],
+        launches_train=train["cim_mac_launches"], routes=exact["routes"],
         max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=total(step, "ms"), plain_ms=total(step, "plain_ms"),
         **bound(total(step, "bytes"), total(step, "ops"), "int8"),
@@ -3900,6 +3960,416 @@ def kernel_summary_cim(cases, exact, cfg):
                  f"unembedding at M=8)")
 
 
+def train_step_flops(cfg, model, batch, seq):
+    """(model FLOPs: 6 x the matmul parameters, every one but the
+    embedding lookup, x tokens; the step's matmul FLOPs: those, the remat
+    re-forward of the blocks, and attention's two products forward,
+    backward and again in the re-forward)."""
+    tokens = batch * seq
+    matmul = model.param_count() - cfg.padded_vocab * cfg.d_model
+    blocks = matmul - cfg.d_model * cfg.padded_vocab
+    attn = 4 * batch * seq * seq * cfg.num_heads * cfg.hd * cfg.num_layers
+    model_flops = 6 * matmul * tokens
+    return model_flops, model_flops + 2 * blocks * tokens + 4 * attn
+
+
+def adamw_step_bytes(model):
+    """Bytes AdamW and the clip must move a step at bf16 params and grads
+    and f32 moments, in the fewest passes: the grads read for the norm
+    and read again by an update that applies the clip (4), the params
+    read and written (4), each moment read and written (16)."""
+    return 24 * model.param_count()
+
+
+def check_train_draws(torch, data, step, where):
+    """The data pipeline's card draws at the training shapes, outside the
+    counted runs: one 257-word block of a row's four draws through the
+    threefry kernel bitwise against its plain version on the card and on
+    the CPU, then the whole batch of ``step`` bitwise the CPU's."""
+    from repro_torch.core import prng
+    from repro_torch.data import lm_batch
+    n = data.seq_len + 1
+    row = prng.fold_in(prng.fold_in(prng.key(data.seed), step), 0)
+    for k in prng.split(row, 4):
+        got = prng.bits(k, (n,), "cuda")
+        check(torch.equal(got, prng.bits_torch(
+            k, prng.flat_range(0, n), "cuda").reshape(n)) and torch.equal(
+            got.cpu(), prng.bits(k, (n,), "cpu")),
+            f"{where}: threefry differs from its plain version on a "
+            f"{n}-word block of the pipeline")
+    got = lm_batch(data, step, device="cuda")
+    want = lm_batch(data, step, device="cpu")
+    check(all(torch.equal(got[k].cpu(), want[k]) for k in want),
+          f"{where}: the card's batch of step {step} differs from the CPU's")
+
+
+def train_full(torch, np, card):
+    """(a) internlm2-1.8b at full width and depth, bf16, remat='full',
+    AdamW with the launcher's warmup_cosine, TRAIN_BATCH x TRAIN_SEQ
+    tokens from the port's data pipeline, TRAIN_STEPS steps through
+    make_train_step; first one batch's loss and grads twice, bitwise."""
+    from repro_torch import configs, optim, tree
+    from repro_torch.data import DataConfig, lm_batch
+    from repro_torch.kernels import threefry
+    from repro_torch.models import registry
+    from repro_torch.train import init_state, make_train_step, value_and_grad
+    cfg = configs.get(TRAIN_ARCH)
+    check(cfg.remat == "full" and cfg.dtype == torch.bfloat16,
+          f"{cfg.name}: remat {cfg.remat!r}, dtype {cfg.dtype}")
+    model = registry.build(cfg)
+    opt = optim.adamw(optim.warmup_cosine(TRAIN_LR, TRAIN_WARMUP,
+                                          TRAIN_STEPS))
+    t = time.monotonic()
+    state = init_state(model, opt, torch.Generator(
+        device="cuda").manual_seed(0), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+    batch = lm_batch(data, 0, device="cuda")
+    runs = [value_and_grad(model, state.params, batch) for _ in range(2)]
+    same = bool(torch.equal(runs[0][0], runs[1][0])) and all(
+        torch.equal(a, b) for a, b in zip(tree.leaves(runs[0][1]),
+                                          tree.leaves(runs[1][1])))
+    check(same, "full-width loss and grads of one batch differ between "
+                "two runs")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_fn = make_train_step(model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    threefry.reset_launches()
+    hist, times = [], []
+    for step in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        batch = lm_batch(data, step, device="cuda")
+        state, m = step_fn(state, batch)
+        hist.append(torch.stack([m[k].to(torch.float32) for k in (
+            "loss", "grad_norm", "lr")]).tolist())    # the one transfer
+        torch.cuda.synchronize()
+        times.append((time.monotonic() - t) * 1e3)
+    launches = threefry.LAUNCHES["threefry"]
+    peak = torch.cuda.max_memory_allocated()
+    check_train_draws(torch, data, TRAIN_STEPS - 1, "train full")
+    losses = [h[0] for h in hist]
+    check(all(np.isfinite(h).all() for h in hist),
+          f"non-finite training metrics: {hist}")
+    check(statistics.mean(losses[-5:]) < losses[0],
+          f"the loss did not fall: {losses}")
+    steady = times[1:]
+    step_ms = statistics.median(steady)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    model_flops, step_flops = train_step_flops(cfg, model, TRAIN_BATCH,
+                                               TRAIN_SEQ)
+    opt_bytes = adamw_step_bytes(model)
+    compute_ms = step_flops / PEAK_OPS_PER_S["float"] * 1e3
+    bytes_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    batch = lm_batch(data, TRAIN_STEPS, device="cuda")
+    prof = profile_kernels(torch, "train", "training step",
+                           lambda: step_fn(state, batch))
+    busy = prof["device_busy_ms"] if prof else None
+    rec = dict(
+        arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
+        dtype=str(cfg.dtype), remat=cfg.remat, optimizer="adamw",
+        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
+        params=model.param_count(), init_s=init_s,
+        deterministic_grads=same, losses=losses,
+        grad_norms=[h[1] for h in hist], lrs=[h[2] for h in hist],
+        step_ms=times, step_ms_median=step_ms,
+        step_ms_min=min(steady), step_ms_max=max(steady),
+        first_step_ms=times[0], tokens_per_s=tokens / step_ms * 1e3,
+        model_flops=model_flops, step_flops=step_flops,
+        mfu=model_flops / (step_ms * 1e-3 * PEAK_OPS_PER_S["float"]),
+        bound_ms=compute_ms + bytes_ms, bound_compute_ms=compute_ms,
+        bound_optimizer_bytes_ms=bytes_ms, optimizer_bytes=opt_bytes,
+        peak_bytes=peak, threefry_launches=launches,
+        threefry_launches_per_step=launches / TRAIN_STEPS,
+        device_busy_ms=busy,
+        device_idle_share=(1.0 - busy / step_ms if busy else None),
+        profile=prof, card=card)
+    print("[train] full " + json.dumps({k: v for k, v in rec.items() if k
+                                         not in ("profile", "step_ms")}))
+    if prof:
+        print("[train] profiled step: kernels " + json.dumps(
+            prof["kernels"]) + ", top " + json.dumps(prof["top_kernels"]))
+    del state, step_fn, batch
+    return rec
+
+
+def train_launcher(torch, np):
+    """(b) The launcher at full width with Adafactor into a temporary
+    checkpoint directory, removed after: its JSON line, and the final
+    forced save at step TRAIN_LAUNCHER_STEPS."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.data import DataConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.kernels import threefry
+    tmp = tempfile.mkdtemp(prefix="repro_torch_train_")
+    try:
+        threefry.reset_launches()
+        t = time.monotonic()
+        out = launch_train.main(["--arch", TRAIN_ARCH, "--optimizer",
+                                 "adafactor", "--steps",
+                                 str(TRAIN_LAUNCHER_STEPS), "--ckpt-dir",
+                                 tmp])
+        wall = time.monotonic() - t
+        final = Path(tmp) / f"step_{TRAIN_LAUNCHER_STEPS:08d}"
+        ckpt_bytes = sum(f.stat().st_size for f in final.iterdir())
+        check(out["steps"] == TRAIN_LAUNCHER_STEPS and out["restarts"] == 0
+              and all(np.isfinite(out[k]) for k in ("first_loss",
+                                                    "last_loss")),
+              f"the launcher's adafactor run: {out}")
+        check((final / "manifest.json").exists() and not os.path.exists(
+            str(final) + ".tmp"), f"no complete checkpoint in {final}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = dict(**out, call_s=wall, checkpoint_bytes=ckpt_bytes,
+               threefry_launches=threefry.LAUNCHES["threefry"])
+    # the launcher's data: its default batch, sequence and seed
+    check_train_draws(torch, DataConfig(
+        vocab_size=configs.get(TRAIN_ARCH).vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=0), TRAIN_LAUNCHER_STEPS - 1,
+        "train launcher")
+    print("[train] launcher " + json.dumps(rec))
+    return rec
+
+
+def train_parity(torch, np):
+    """(c) The full width cut to TRAIN_PARITY_LAYERS layers, params in
+    f32: one AdamW step on the card and on the CPU's plain path from the
+    same params and batch.  Loss, grad norm and both moments within
+    TRAIN_PARITY_TOL (relative; each moment of its leaf's max); the
+    first AdamW step moves each weight by lr * g / (|g| + eps), about
+    +/- lr, so the param updates are held within 1e-3 of lr, but for a
+    share of at most 1e-4 of the weights (those whose gradient is of
+    eps's size, where g / (|g| + eps) turns on any difference), and all
+    within 2 lr."""
+    import dataclasses
+    from repro_torch import configs, optim, tree
+    from repro_torch.data import DataConfig, lm_batch
+    from repro_torch.models import registry
+    from repro_torch.train import TrainState, make_train_step
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH),
+                              num_layers=TRAIN_PARITY_LAYERS,
+                              dtype=torch.float32)
+    model = registry.build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(1),
+                        "cuda")
+    rows, seq = TRAIN_PARITY_BATCH
+    batch = lm_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                global_batch=rows, seed=2), 0,
+                     device="cuda")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = tree.map_leaves(lambda x: x.to(dev, copy=True), params)
+        before = tree.map_leaves(lambda x: x.to("cpu", copy=True), params)
+        opt = optim.adamw(TRAIN_LR)
+        state = TrainState(p, opt.init(p), torch.zeros(
+            (), dtype=torch.int32, device=dev))
+        t = time.monotonic()
+        new, m = make_train_step(model, opt)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        m = {k: float(v) for k, v in m.items()}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = dict(
+            s=time.monotonic() - t, metrics=m,
+            delta=[(a.cpu() - b) for a, b in zip(tree.leaves(new.params),
+                                                  tree.leaves(before))],
+            moments=[x.cpu() for x in tree.leaves(new.opt_state)])
+        del p, state, new
+    g, c = out["cuda"], out["cpu"]
+    rel = {k: abs(g["metrics"][k] - c["metrics"][k]) / abs(c["metrics"][k])
+           for k in ("loss", "grad_norm")}
+    mom = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(g["moments"], c["moments"]))
+    diffs = torch.cat([(a - b).abs().reshape(-1)
+                       for a, b in zip(g["delta"], c["delta"])])
+    lr = TRAIN_LR
+    share = float((diffs > 1e-3 * lr).double().mean())
+    worst = float(diffs.max())
+    rec = dict(layers=cfg.num_layers, rows=rows, seq=seq,
+               loss_cuda=g["metrics"]["loss"], loss_cpu=c["metrics"]["loss"],
+               loss_rel_err=rel["loss"], grad_norm_rel_err=rel["grad_norm"],
+               moments_rel_err=mom, update_share_past_1e3_lr=share,
+               update_max_abs_err=worst, update_max_abs_err_over_lr=worst
+               / lr, cuda_s=g["s"], cpu_s=c["s"])
+    print("[train] parity " + json.dumps(rec))
+    check(rel["loss"] <= TRAIN_PARITY_TOL and rel["grad_norm"]
+          <= TRAIN_PARITY_TOL and mom <= TRAIN_PARITY_TOL,
+          f"card vs CPU training step: {rec}")
+    check(share <= 1e-4 and worst <= 2 * lr,
+          f"card vs CPU param updates: {rec}")
+    return rec
+
+
+def train_replay(torch):
+    """(d) The Trainer at smoke width (bf16; TRAIN_BATCH x TRAIN_SEQ
+    tokens, so each step's embedding gradient sums many repeated
+    tokens) with crashes before two updates and one in the middle of a
+    save: final params and optimizer state bitwise equal to an
+    uninterrupted run's."""
+    import shutil
+    import tempfile
+    from repro_torch import configs, optim, tree
+    from repro_torch.data import DataConfig
+    from repro_torch.kernels import threefry
+    from repro_torch.models import registry
+    from repro_torch.train import FailurePlan, Trainer, TrainerConfig
+    cfg = configs.smoke(TRAIN_ARCH)
+    model = registry.build(cfg)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+    tmp = Path(tempfile.mkdtemp(prefix="repro_torch_replay_"))
+    threefry.reset_launches()
+    try:
+        runs = {}
+        for name, plan in (("straight", None), ("crashed", FailurePlan(
+                crash_at=TRAIN_REPLAY["crash_at"],
+                crash_in_save=TRAIN_REPLAY["crash_in_save"]))):
+            tc = TrainerConfig(total_steps=TRAIN_REPLAY["total"],
+                               ckpt_dir=str(tmp / name),
+                               ckpt_interval=TRAIN_REPLAY["interval"],
+                               seed=0)
+            tr = Trainer(model, optim.adamw(TRAIN_LR), data, tc,
+                         failure_plan=plan, device="cuda")
+            runs[name] = (tr, tr.run())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (a, sa), (b, sb) = runs["straight"], runs["crashed"]
+    equal = all(torch.equal(x, y) for x, y in zip(
+        tree.leaves((sa.params, sa.opt_state)),
+        tree.leaves((sb.params, sb.opt_state))))
+    last = {h["step"]: h["loss"] for h in b.history}
+    rec = dict(arch=cfg.name, steps=TRAIN_REPLAY["total"],
+               restarts=b.restarts, bitwise=equal,
+               losses_equal=all(last[h["step"]] == h["loss"]
+                                for h in a.history),
+               threefry_launches=threefry.LAUNCHES["threefry"])
+    check_train_draws(torch, data, TRAIN_REPLAY["total"] - 1, "train replay")
+    print("[train] replay " + json.dumps(rec))
+    check(b.restarts == 3 and int(sb.step) == TRAIN_REPLAY["total"],
+          f"the crashed run: {rec}")
+    check(equal and rec["losses_equal"],
+          f"replay after crashes is not bitwise: {rec}")
+    return rec
+
+
+def train_exact(torch, np):
+    """(e) Exact-mode training, TRAIN_PARITY_LAYERS layers at full width
+    in f32: loss and every gradient through the cuda code route (the
+    cim_mac kernel, launches counted) and through the plain torch route
+    on the card, which must agree; then one make_train_step step with
+    the 'auto' backend, which must resolve cuda and launch cim_mac once
+    per matmul of the forward and of the remat re-forward."""
+    import dataclasses
+    from repro_torch import configs, optim, tree
+    from repro_torch.core.cim_linear import CIMConfig
+    from repro_torch.data import DataConfig, lm_batch
+    from repro_torch.kernels import backends
+    from repro_torch.kernels import cim_mac as cm
+    from repro_torch.models import registry
+    from repro_torch.train import TrainState, make_train_step, value_and_grad
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH),
+                              num_layers=TRAIN_PARITY_LAYERS,
+                              dtype=torch.float32)
+    model = registry.build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(3),
+                        "cuda")
+    rows, seq = TRAIN_PARITY_BATCH
+    batch = lm_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                global_batch=rows, seed=3), 0,
+                     device="cuda")
+    got = {}
+    for backend in ("cuda", "torch"):
+        cim = CIMConfig(mode="exact", backend=backend).resolve("cuda")
+        cm.reset_launches()
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        loss, grads = value_and_grad(model, params, batch, cim)
+        grads = tree.leaves(grads)
+        torch.cuda.synchronize()
+        got[backend] = dict(loss=loss, grads=grads,
+                            s=time.monotonic() - t,
+                            launches=cm.LAUNCHES["cim_mac"],
+                            routes=dict(cm.ROUTES))
+    c, p = got["cuda"], got["torch"]
+    per_forward = 7 * cfg.num_layers + 1
+    remat = per_forward + 7 * cfg.num_layers
+    check(c["launches"] == remat and c["routes"]["codes"] == remat
+          and p["launches"] == 0,
+          f"exact routes' launches: cuda {c['launches']} {c['routes']}, "
+          f"torch {p['launches']} (want {remat} on codes)")
+    gaps = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            for a, b in zip(c["grads"], p["grads"])]
+    bitwise = bool(torch.equal(c["loss"], p["loss"])) and all(
+        torch.equal(a, b) for a, b in zip(c["grads"], p["grads"]))
+    zero = [float(g.abs().max()) == 0 for g in c["grads"]]
+    del got, c, p
+    opt = optim.adamw(TRAIN_LR)
+    state = TrainState(params, opt.init(params),
+                       torch.zeros((), dtype=torch.int32, device="cuda"))
+    cm.reset_launches()
+    fills = backends.CODE_WEIGHTS.fills
+    state, m = make_train_step(model, opt, cim=CIMConfig(mode="exact"))(
+        state, batch)
+    m = {k: float(v) for k, v in m.items()}
+    rec = dict(layers=cfg.num_layers, rows=rows, seq=seq, bitwise=bitwise,
+               grad_max_rel_gap=max(gaps), zero_grad_leaves=sum(zero),
+               step_launches=cm.LAUNCHES["cim_mac"],
+               step_routes=dict(cm.ROUTES),
+               step_code_fills=backends.CODE_WEIGHTS.fills - fills,
+               step_metrics=m)
+    print("[train] exact " + json.dumps(rec))
+    check(max(gaps) <= 1e-6, f"exact mode, cuda vs torch route: {rec}")
+    check(rec["step_launches"] == remat and np.isfinite(m["loss"])
+          and np.isfinite(m["grad_norm"]), f"the exact train step: {rec}")
+    return rec
+
+
+def phase_train(torch, np, card):
+    """The training path (see the module docstring, phase 17)."""
+    full = train_full(torch, np, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launcher = train_launcher(torch, np)
+    gc.collect()
+    torch.cuda.empty_cache()
+    parity = train_parity(torch, np)
+    replay = train_replay(torch)
+    exact = train_exact(torch, np)
+    return dict(full=full, launcher=launcher, parity=parity, replay=replay,
+                exact=exact,
+                threefry_launches=full["threefry_launches"]
+                + launcher["threefry_launches"]
+                + replay["threefry_launches"],
+                cim_mac_launches=exact["step_launches"])
+
+
+def train_summary(train):
+    """The training numbers of the last lines."""
+    f = train["full"]
+    return dict(
+        card=f["card"], step_ms_median=f["step_ms_median"],
+        step_ms_min=f["step_ms_min"], step_ms_max=f["step_ms_max"],
+        tokens_per_s=f["tokens_per_s"], mfu=f["mfu"],
+        bound_ms=f["bound_ms"], peak_bytes=f["peak_bytes"],
+        device_idle_share=f["device_idle_share"],
+        first_loss=f["losses"][0], last5_mean_loss=statistics.mean(
+            f["losses"][-5:]),
+        threefry_launches_per_step=f["threefry_launches_per_step"],
+        launcher_tokens_per_s=train["launcher"]["tokens_per_s"],
+        launcher_checkpoint_bytes=train["launcher"]["checkpoint_bytes"],
+        parity_loss_rel_err=train["parity"]["loss_rel_err"],
+        replay_bitwise=train["replay"]["bitwise"],
+        exact_bitwise=train["exact"]["bitwise"])
+
+
 def parse_args(argv):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3914,6 +4384,8 @@ def parse_args(argv):
                     help="build, then run only the recurrent phases")
     ap.add_argument("--cross-only", action="store_true",
                     help="build, then run only the cross phases")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build, then run only the train phase")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree holding the repro_torch package to run "
                          "(with --paged-only: another checkout's, to time "
@@ -3975,6 +4447,15 @@ def main(argv=None) -> int:
         print(f"[done] {time.monotonic() - t_start:.1f} s, {src}")
         print(card)
         print(json.dumps({"paged_kernel": paged}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if args.train_only:
+        train = run("train", phase_train, torch, np, card)
+        print(f"[done] {time.monotonic() - t_start:.1f} s")
+        print("[train] summary " + json.dumps(train_summary(train)))
+        print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -4048,6 +4529,7 @@ def main(argv=None) -> int:
                            arch) for arch in REC_ARCHS}
     cross = {arch: run(f"cross {arch}", phase_cross, torch, np, arch)
              for arch in CROSS_ARCHS}
+    train = run("train", phase_train, torch, np, card)
 
     details = dict(card=card, device=torch.cuda.get_device_name(0),
                    harness_floor_ms=floor_ms, cases=cases, serve=runs,
@@ -4055,7 +4537,8 @@ def main(argv=None) -> int:
                    sched_parity=sched_parity, long=long, cim_cases=cim_cases,
                    exact=exact, models=models, fidelity=fid,
                    frontend=frontend, moe=moe, int8_kv=int8kv,
-                   recurrent=recurrent, cross=cross, phases=phases,
+                   recurrent=recurrent, cross=cross, train=train,
+                   phases=phases,
                    seconds=time.monotonic() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -4103,13 +4586,14 @@ def main(argv=None) -> int:
                        "tok_per_s", "decode_step_bound_ms",
                        "decode_device_idle_share")})
         for arch, r in cross.items()}))
+    print("[train] summary " + json.dumps(train_summary(train)))
     print(json.dumps({"kernels": kernel_summary(cases, runs, cfg, models,
                                                 moe, int8kv, recurrent,
                                                 cross)
                       + [kernel_summary_paged(paged, sched, models, long,
                                               frontend),
-                         kernel_summary_cim(cim_cases, exact, cfg),
-                         kernel_summary_threefry(fid)]}))
+                         kernel_summary_cim(cim_cases, exact, cfg, train),
+                         kernel_summary_threefry(fid, train)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

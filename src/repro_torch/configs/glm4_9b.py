@@ -15,6 +15,7 @@ CONFIG = ModelConfig(
     d_ff=13696,
     vocab_size=151552,
     rope_theta=1e6,
+    remat="full",
 )
 
 SMOKE = ModelConfig(

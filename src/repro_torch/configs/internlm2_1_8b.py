@@ -15,6 +15,7 @@ CONFIG = ModelConfig(
     d_ff=8192,
     vocab_size=92544,
     rope_theta=1e6,
+    remat="full",
 )
 
 SMOKE = ModelConfig(

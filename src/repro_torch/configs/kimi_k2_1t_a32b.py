@@ -19,6 +19,7 @@ CONFIG = ModelConfig(
     vocab_size=163840,
     num_experts=384,
     experts_per_token=8,
+    remat="full",
 )
 
 SMOKE = ModelConfig(

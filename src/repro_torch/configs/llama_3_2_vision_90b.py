@@ -21,6 +21,7 @@ CONFIG = ModelConfig(
     cross_attn_every=5,
     encoder_seq=1601,
     rope_theta=500000.0,
+    remat="full",
 )
 
 SMOKE = ModelConfig(

@@ -21,6 +21,7 @@ CONFIG = ModelConfig(
     experts_per_token=2,
     sliding_window=4096,
     rope_theta=1e6,
+    remat="full",
 )
 
 SMOKE = ModelConfig(

@@ -15,6 +15,7 @@ CONFIG = ModelConfig(
     num_kv_heads=32,
     d_ff=8192,
     vocab_size=32064,
+    remat="full",
 )
 
 SMOKE = ModelConfig(

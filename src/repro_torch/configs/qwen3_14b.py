@@ -17,6 +17,7 @@ CONFIG = ModelConfig(
     vocab_size=151936,
     qk_norm=True,
     rope_theta=1e6,
+    remat="full",
 )
 
 SMOKE = ModelConfig(

@@ -18,6 +18,7 @@ CONFIG = ModelConfig(
     vocab_size=51866,
     encoder_layers=32,
     encoder_seq=1500,
+    remat="full",
 )
 
 SMOKE = ModelConfig(

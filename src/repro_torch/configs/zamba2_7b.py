@@ -21,6 +21,7 @@ CONFIG = ModelConfig(
     ssm_state=64,
     ssm_kind="mamba2",
     attn_every=6,
+    remat="full",
 )
 
 SMOKE = ModelConfig(

@@ -7,7 +7,8 @@ params)`` keeps the packed objects and converts their arrays), this
 module returns the port's params dict: float arrays become tensors of
 the same dtype, and packed bytes and scales are copied as they are.
 Nothing here imports the reference: a packed leaf is recognised by its
-attributes.
+attributes.  ``state_from_reference`` carries a whole training state
+(``repro.train.TrainState`` as numpy) across the same way.
 """
 from __future__ import annotations
 
@@ -48,3 +49,17 @@ def params_from_reference(tree: Any, device="cuda") -> Any:
         return PackedTernary(to_tensor(tree.data, device),
                              to_tensor(tree.scale, device), tree.mode)
     return to_tensor(tree, device)
+
+
+def state_from_reference(state: Any, device="cuda"):
+    """The reference's ``TrainState`` (``jax.tree.map(np.asarray,
+    state)``: params, optimizer state, the int32 step, the error-feedback
+    residual or None) -> the port's ``TrainState`` on `device`."""
+    from .train.step import TrainState
+    device = resolve_device(device)
+    return TrainState(
+        params_from_reference(state.params, device),
+        params_from_reference(state.opt_state, device),
+        to_tensor(np.asarray(state.step, dtype=np.int32), device),
+        None if state.ef_residual is None
+        else params_from_reference(state.ef_residual, device))

@@ -52,15 +52,21 @@ class QuantResult(NamedTuple):
     scale: torch.Tensor    # x ~= values * scale
 
 
-def quantize_symmetric(x: torch.Tensor, bound: int,
-                       axis=None) -> QuantResult:
-    """Symmetric linear quantization of float x to [-bound, bound], in
-    x's dtype."""
+def symmetric_scale(x: torch.Tensor, bound: int, axis=None) -> torch.Tensor:
+    """The scale of :func:`quantize_symmetric`: max(amax |x|, 1e-12) /
+    bound, in x's dtype."""
     if axis is None:
         amax = x.abs().amax()
     else:
         amax = x.abs().amax(dim=axis, keepdim=True)
-    scale = torch.clamp_min(amax, 1e-12) / bound
+    return torch.clamp_min(amax, 1e-12) / bound
+
+
+def quantize_symmetric(x: torch.Tensor, bound: int,
+                       axis=None) -> QuantResult:
+    """Symmetric linear quantization of float x to [-bound, bound], in
+    x's dtype."""
+    scale = symmetric_scale(x, bound, axis)
     q = torch.clamp(torch.round(x / scale), -bound, bound).to(torch.int32)
     return QuantResult(q, scale)
 

@@ -19,6 +19,10 @@ quantizes x to 5-trit codes only (no planes) and takes the weight's
 :class:`~.cim_mac.CodeWeight` and scale from :data:`CODE_WEIGHTS`, which
 makes them once per weight, bitwise as ``ternarize`` would on each call;
 at b <= 4 (the groups route) it ternarizes per call as the torch backend.
+Under autograd the weight's scale (its one gradient path; the codes
+carry none) is made again in the current graph, so a training step
+never reuses a scale from an earlier step's graph; the cached codes
+hold no graph and refill when the weight changes in place.
 
 The matmul backends are layout-agnostic (the paged pool's gather and
 scatter wrap around the matmuls), so they declare both KV layouts.  The
@@ -40,7 +44,8 @@ import weakref
 import torch
 
 from ..core.packing import unpack_base3_to_planes
-from ..core.ternary import encode_inputs, quantize_8b_truncate_5t, ternarize
+from ..core.ternary import (encode_inputs, quantize_8b_truncate_5t,
+                            symmetric_scale, ternarize)
 from . import cim_mac as cm
 from . import ops, ref
 from . import paged_attention as pa
@@ -120,8 +125,9 @@ class CodeWeightCache:
         hit = self._entries.get(key)
         if hit is not None and hit[0]() is root and hit[1] == src._version:
             return hit[2]
-        w_trits, scale = _weight_trits(w, num_trits)
-        value = (cm.code_weight(w_trits), scale)
+        with torch.no_grad():        # an entry holds no autograd graph
+            w_trits, scale = _weight_trits(w, num_trits)
+            value = (cm.code_weight(w_trits), scale)
         entries = self._entries
         self._entries[key] = (
             weakref.ref(root, lambda _, key=key: entries.pop(key, None)),
@@ -140,6 +146,11 @@ def _run_cim_codes(plan, x, w):
     q = quantize_8b_truncate_5t(x.reshape(-1, x.shape[-1]), plan.num_trits,
                                 axis=_input_axis())
     cw, w_scale = CODE_WEIGHTS.get(w, plan.num_trits)
+    if (torch.is_grad_enabled() and isinstance(w, torch.Tensor)
+            and w.requires_grad):
+        # the scale is the weight's only gradient path: made in this
+        # graph (bitwise the cached one), never taken from an earlier one
+        w_scale = symmetric_scale(w, 127)
     y = cm.cim_mac_codes(q.values.to(torch.int8), cw,
                          plan.adc_bits).to(torch.float32)
     return (y * q.scale * w_scale).reshape(*lead, cw.data.shape[-1])

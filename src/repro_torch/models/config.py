@@ -43,6 +43,8 @@ class ModelConfig:
                                    # after every k self-attention layers
     norm_eps: float = 1e-6
     dtype: Any = torch.bfloat16
+    remat: str = "none"            # none | full: each layer's activations
+                                   # recomputed in the backward pass
     kv_cache_dtype: str = ""       # "" (= dtype) | "int8" (codes + f32
                                    # per-(position, KV head) scales)
 

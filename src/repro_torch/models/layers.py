@@ -11,6 +11,55 @@ from ..core import cim_linear
 from ..kernels.ops import PackedTernary
 
 
+EMBED_GRAD_ROWS = 1024   # distinct tokens per one-hot product in backward
+
+
+class _Embed(torch.autograd.Function):
+    """``table[tokens]`` whose backward sums each token's rows without
+    atomics (:func:`embed_grad`), so a training step is bitwise
+    repeatable on the card."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table_shape = tuple(table.shape)
+        ctx.table_dtype = table.dtype
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (tokens,) = ctx.saved_tensors
+        return embed_grad(grad, tokens, ctx.table_shape,
+                          ctx.table_dtype), None
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens`` (any shape) -> tokens.shape + (d,).
+    Its gradient is deterministic (:func:`embed_grad`)."""
+    return _Embed.apply(table, tokens.long())
+
+
+def embed_grad(grad: torch.Tensor, tokens: torch.Tensor, table_shape: tuple,
+               dtype) -> torch.Tensor:
+    """The embedding table's gradient: for each distinct token (sorted by
+    ``torch.unique``), the f32 sum of its positions' output gradients, as
+    one-hot products of ``EMBED_GRAD_ROWS`` tokens at a time, cast once to
+    the table's dtype; rows of absent tokens are zero.  Neither
+    indexing's own backward nor ``index_add_`` promises a repeatable sum
+    on the card (``index_add_`` adds with atomics, in an order that
+    changes from run to run)."""
+    flat = tokens.reshape(-1)
+    g = grad.reshape(flat.numel(), -1).to(torch.float32)
+    uniq, inverse = torch.unique(flat, sorted=True, return_inverse=True)
+    out = torch.zeros(table_shape, dtype=dtype, device=grad.device)
+    for s in range(0, uniq.numel(), EMBED_GRAD_ROWS):
+        rows = torch.arange(s, min(s + EMBED_GRAD_ROWS, uniq.numel()),
+                            device=grad.device)
+        onehot = (inverse[None, :] == rows[:, None]).to(torch.float32)
+        out[uniq[s:s + EMBED_GRAD_ROWS]] = (onehot @ g).to(dtype)
+    return out
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     """rsqrt of the f32 mean square, cast to x's dtype, then multiply."""

@@ -4,9 +4,16 @@ encoder-decoder over audio frames (``EncDecModel``), the hybrid Mamba2
 backbone with one shared attention block (``ZambaModel``) and the xLSTM
 stack (``XLSTMModel``).  ``BaseModel`` holds what they share: ``init``,
 ``init_packed``, ``param_bytes`` and ``init_cache`` from each family's
-parameter and decode-state specs.
+parameter and decode-state specs, and the training ``loss`` over a
+family's ``forward``.
 
 TransformerLM.
+
+``forward`` (training: the whole sequence, no cache) is the dense and
+MoE stack's; the VLM's cross blocks, ``EncDecModel``, ``ZambaModel`` and
+``XLSTMModel`` raise (ROADMAP queue 1 item 9).  Its embedding gradient
+is deterministic (``layers.embed``) and each layer runs under
+``_maybe_remat`` (``remat="full"``: recomputed in the backward pass).
 
 Params mirror the reference's tree: ``embed`` (V, d), ``unembed``
 (d, V), ``final_norm`` (d,), and ``blocks`` whose leaves carry a leading
@@ -76,7 +83,8 @@ from .. import resolve_device
 from . import attention as attn
 from . import moe, ssm
 from .config import ModelConfig, ParamSpec
-from .layers import dense, gelu_mlp, rms_norm, sinusoidal_positions, swiglu
+from .layers import (dense, embed, gelu_mlp, rms_norm, sinusoidal_positions,
+                     swiglu)
 
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
@@ -95,6 +103,32 @@ def _default_packs(path: tuple, x) -> bool:
     """``ternarize_params``'s default predicate."""
     from ..core.cim_linear import _packable
     return _packable(path[-1] if path else "", x)
+
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """``remat="full"``: each call of ``fn`` keeps only its inputs, and
+    the backward pass runs it again (``torch.utils.checkpoint``, the
+    reference's ``jax.checkpoint``).  Without grad it is ``fn``."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat != "full":
+        raise NotImplementedError(
+            f"remat={cfg.remat!r}: only 'none' and 'full' are ported "
+            f"(a saving policy is ROADMAP queue 1 item 8)")
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return remat
+
+
+def _no_forward(model, what: str):
+    return NotImplementedError(
+        f"{type(model).__name__} ({model.cfg.name}, family "
+        f"{model.cfg.family!r}): {what} has no training forward yet "
+        f"(ROADMAP queue 1 item 9)")
 
 
 def _walk(tree: dict, path: tuple = ()):
@@ -128,6 +162,27 @@ class BaseModel:
         """Whether the leaf at ``path`` is a weight the model reads
         through ``layers.dense``."""
         raise NotImplementedError
+
+    def forward(self, params: dict, batch: dict, cim=None,
+                return_aux: bool = False):
+        """Full-sequence logits (B, S, V) of ``batch['tokens']`` (and
+        the auxiliary loss with ``return_aux``): the training forward."""
+        raise _no_forward(self, "the family")
+
+    def loss(self, params: dict, batch: dict, cim=None) -> torch.Tensor:
+        """Mean next-token cross-entropy over the labels >= 0, plus the
+        auxiliary (MoE load-balance) loss: the logits in f32, their
+        logsumexp minus the gold logit."""
+        logits, aux = self.forward(params, batch, cim=cim, return_aux=True)
+        labels = batch["labels"].long()
+        logits = logits.to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            labels.clamp_min(0)[..., None])[..., 0]
+        mask = (labels >= 0).to(torch.float32)
+        ce = torch.sum((logz - gold) * mask) / torch.clamp_min(mask.sum(),
+                                                               1.0)
+        return ce + aux
 
     def init(self, generator: torch.Generator, device="cuda",
              dtype=None) -> dict:
@@ -184,6 +239,11 @@ class BaseModel:
                         else leaf(path + (k,), v))
                     for k, v in tree.items()}
         return mk(self.param_specs, ())
+
+    def param_count(self) -> int:
+        """Parameters ``init`` would draw."""
+        return sum(math.prod(spec.shape)
+                   for _, spec in _walk(self.param_specs))
 
     def param_bytes(self, dtype=None) -> int:
         """Bytes of the float parameters ``init`` would draw."""
@@ -330,9 +390,46 @@ class TransformerLM(BaseModel):
                 "v_scale": ParamSpec(shape[:-1], "zeros", torch.float32)}
 
     def _mlp(self, x, wl, cim):
+        return self._mlp_aux(x, wl, cim)[0]
+
+    def _mlp_aux(self, x, wl, cim):
+        """(the MLP's output, its auxiliary loss: MoE's, else 0.0)."""
         if self.cfg.num_experts:
-            return moe.moe_block(x, wl, self.cfg, cim)[0]
-        return swiglu(x, wl["w1"], wl["w3"], wl["w2"], cim)
+            return moe.moe_block(x, wl, self.cfg, cim)
+        return swiglu(x, wl["w1"], wl["w3"], wl["w2"], cim), 0.0
+
+    def _train_block(self, x, wl: dict, cim):
+        """One layer of the training forward: causal self-attention over
+        the whole sequence, then the MLP; returns (x, aux)."""
+        cfg = self.cfg
+        x = x + attn.self_attention(rms_norm(x, wl["ln1"], cfg.norm_eps),
+                                    wl, cfg, cim_cfg=cim)
+        m, aux = self._mlp_aux(rms_norm(x, wl["ln2"], cfg.norm_eps), wl, cim)
+        return x + m, aux
+
+    def forward(self, params: dict, batch: dict, cim=None,
+                return_aux: bool = False):
+        """Logits (B, S, V) of ``batch['tokens']`` (B, S), dense or MoE,
+        each layer under ``_maybe_remat``; with ``return_aux`` also the
+        summed MoE auxiliary loss (an f32 0-d tensor).  The stacked
+        weights are unbound once, so the backward pass stacks each
+        leaf's gradient once instead of adding a full-size zero tensor
+        per layer."""
+        cfg = self.cfg
+        if cfg.cross_attn_every:
+            raise _no_forward(self, "the cross-attending (vlm) forward")
+        x = embed(params["embed"], batch["tokens"]).to(cfg.dtype)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        per_layer = {k: (v.unbind(0) if isinstance(v, torch.Tensor)
+                         else [v[i] for i in range(cfg.num_layers)])
+                     for k, v in params["blocks"].items()}
+        body = _maybe_remat(self._train_block, cfg)
+        for i in range(cfg.num_layers):
+            x, a = body(x, {k: v[i] for k, v in per_layer.items()}, cim)
+            aux = aux + a
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = dense(x, params["unembed"], cim)
+        return (logits, aux) if return_aux else logits
 
     def _cross(self, x, params, g: int, state: dict, cim):
         """Cross block g: ``x + tanh(gate) * wo(attend(wq(ln(x)), xk,

@@ -121,8 +121,8 @@ def test_smoke_logits_match_reference_bf16(arch, weights, packing, domain):
 @pytest.mark.parametrize("arch", configs.ARCHS)
 def test_configs_copy_the_reference(arch):
     """Every field the port has holds the reference's value, at full size
-    and at smoke size, for every ported architecture (the port leaves out
-    ``remat`` and the fields of the families it has not ported)."""
+    and at smoke size, for every ported architecture, ``remat`` included
+    (the port leaves out the fields of the families it has not ported)."""
     for get in ("get", "smoke"):
         mine = getattr(configs, get)(arch)
         ref = getattr(jconfigs, get)(arch)

@@ -45,6 +45,13 @@ through the kernels against the plain backend (1e-4) with equal engine
 tokens; the int8 KV decode on the card against the CPU (codes within
 one step, logits within 1e-4) with the dense and gather schedulers'
 tokens equal.
+Training (``-k train``): the data pipeline's card draws bitwise the CPU's
+(``normal`` within 4 ulp); the embedding gradient bitwise repeatable on
+the card and within 1e-6 of the CPU's; one AdamW step on the card
+against the CPU (loss, grad norm, moments within 1e-4; updates within
+1e-3 of lr but for 0.1% of the weights); the Trainer's replay after
+crashes bitwise on the card; exact mode's cuda code route against the
+torch route (1e-6; two steps 1e-5); ternary refused before any launch.
 """
 import dataclasses
 
@@ -1478,3 +1485,211 @@ def test_cross_smoke_models_on_the_card(dev, arch):
                                atol=1e-4 * logits["torch"].abs().max().item())
     for kind in ("ServeEngine", "Scheduler"):
         assert tokens[("cuda", kind)] == tokens[("torch", kind)]
+
+
+# ------------------------------------------------------------- training
+
+def _train_model(dtype=torch.float32, layers=None):
+    cfg = dataclasses.replace(configs.smoke("internlm2-1.8b"), dtype=dtype)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return registry.build(cfg)
+
+
+def test_train_data_draws_on_the_card_equal_the_cpu(dev):
+    """lm_batch through the threefry kernel: tokens and labels bitwise
+    the CPU's (6 launches a row); class_batch's labels bitwise and its x
+    within 4 ulp (normal's log1p)."""
+    from repro_torch.data import (ClassTaskConfig, DataConfig, class_batch,
+                                  lm_batch)
+    cfg = DataConfig(vocab_size=92544, seq_len=256, global_batch=8, seed=5)
+    threefry.reset_launches()
+    got = lm_batch(cfg, 17, device=dev)
+    assert threefry.LAUNCHES["threefry"] == 6 * 8
+    want = lm_batch(cfg, 17, device="cpu")
+    for k in ("tokens", "labels"):
+        assert torch.equal(got[k].cpu(), want[k])
+    ccfg = ClassTaskConfig(num_classes=10, dim=64, seed=2)
+    a, b = class_batch(ccfg, 3, device=dev), class_batch(ccfg, 3,
+                                                          device="cpu")
+    assert torch.equal(a["y"].cpu(), b["y"])
+    top = b["x"].abs().max().item()
+    assert (a["x"].cpu() - b["x"]).abs().max().item() <= 4 * float(
+        np.spacing(np.float32(top)))
+
+
+def test_train_bf16_clip_on_the_card_equals_the_cpu(dev):
+    """clip_by_global_norm of bf16 grads whose norm is past max_norm:
+    each grad times the f32 scale, rounded once to bf16, bitwise the
+    CPU's (a bf16 product on the card would round the scale first)."""
+    from repro_torch import optim
+    gen = torch.Generator().manual_seed(7)
+    grads = {k: torch.randn(shape, generator=gen).to(torch.bfloat16)
+             for k, shape in (("a", (256, 96)), ("b", (1000,)))}
+    out = {}
+    for where in (dev, "cpu"):
+        g = {k: v.to(where, copy=True) for k, v in grads.items()}
+        clipped, norm = optim.clip_by_global_norm(g, 1.0)
+        out[str(where)] = ({k: v.cpu() for k, v in clipped.items()},
+                           norm.cpu())
+    (cg, cn), (hg, hn) = out[str(dev)], out["cpu"]
+    assert float(hn) > 1.0
+    torch.testing.assert_close(cn, hn, rtol=1e-6, atol=0)
+    scale = torch.clamp(1.0 / hn, max=1.0)
+    for k in grads:
+        assert torch.equal(cg[k].view(torch.int16), hg[k].view(torch.int16))
+        assert torch.equal(hg[k], (grads[k].float() * scale).to(
+            torch.bfloat16))
+
+
+def test_train_embedding_grad_is_deterministic_on_the_card(dev):
+    """layers.embed's gradient over many repeats of a few tokens: two
+    backward passes bitwise equal, and equal to the CPU's f32 sum within
+    1e-6 of its max."""
+    from repro_torch.models.layers import embed
+    gen = torch.Generator().manual_seed(0)
+    table = torch.randn((300, 64), generator=gen)
+    tokens = torch.randint(0, 7, (8, 512), generator=gen)
+    tokens[0, :5] = 299
+    up = torch.randn((8, 512, 64), generator=gen)
+    grads = []
+    for where in (dev, dev, "cpu"):
+        t = table.to(where).requires_grad_()
+        (g,) = torch.autograd.grad((embed(t, tokens.to(where))
+                                    * up.to(where)).sum(), t)
+        grads.append(g.cpu())
+    assert torch.equal(grads[0], grads[1])
+    torch.testing.assert_close(grads[0], grads[2], rtol=0,
+                               atol=1e-6 * grads[2].abs().max().item())
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One AdamW step of f32 smoke internlm2-1.8b (remat 'full') on the
+    card and on the CPU from the same params and batch: loss, grad norm
+    and both moments within 1e-4 (relative; each moment of its leaf's
+    max); the param updates within 2 lr, and within 1e-3 of lr for all
+    but 0.1% of the weights (the first step moves each by lr * g / (|g| +
+    eps), which turns on any difference where g is of eps's size)."""
+    from repro_torch import optim, tree
+    from repro_torch.data import DataConfig, lm_batch
+    from repro_torch.train import TrainState, make_train_step
+    model = registry.build(dataclasses.replace(
+        configs.smoke("internlm2-1.8b"), dtype=torch.float32, remat="full"))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    batch = lm_batch(DataConfig(vocab_size=512, seq_len=64, global_batch=4,
+                                seed=0), 0, device="cpu")
+    lr = 1e-3
+    out = {}
+    for where in (dev, "cpu"):
+        p = tree.map_leaves(lambda x: x.to(where, copy=True), params)
+        opt = optim.adamw(lr)
+        state = TrainState(p, opt.init(p), torch.zeros(
+            (), dtype=torch.int32, device=where))
+        new, m = make_train_step(model, opt)(
+            state, {k: v.to(where) for k, v in batch.items()})
+        out[str(where)] = (
+            {k: float(v) for k, v in m.items()},
+            [a.cpu() - b for a, b in zip(tree.leaves(new.params),
+                                         tree.leaves(params))],
+            [x.cpu() for x in tree.leaves(new.opt_state)])
+    (mg, dg, sg), (mc, dc, sc) = out[str(dev)], out["cpu"]
+    for k in ("loss", "grad_norm"):
+        assert abs(mg[k] - mc[k]) <= 1e-4 * abs(mc[k])
+    for a, b in zip(sg, sc):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    diff = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(dg, dc)])
+    assert diff.max() <= 2 * lr
+    assert float((diff > 1e-3 * lr).double().mean()) <= 1e-3
+
+
+def test_train_replay_is_bitwise_on_the_card(dev, tmp_path):
+    """The Trainer on the card (bf16 smoke internlm2-1.8b, 8 x 64 tokens
+    of a 512-token chain, so the embedding gradient sums many repeats)
+    through two crashes before an update and one in the middle of a
+    save: final params and optimizer state bitwise equal to an
+    uninterrupted run's."""
+    from repro_torch import optim, tree
+    from repro_torch.data import DataConfig
+    from repro_torch.train import FailurePlan, Trainer, TrainerConfig
+    model = _train_model(torch.bfloat16)
+    data = DataConfig(vocab_size=512, seq_len=64, global_batch=8, seed=0)
+    states = []
+    for name, plan in (("a", None), ("b", FailurePlan(
+            crash_at=(5, 11), crash_in_save=(12,)))):
+        tc = TrainerConfig(total_steps=16, ckpt_dir=str(tmp_path / name),
+                           ckpt_interval=4, seed=0)
+        tr = Trainer(model, optim.adamw(1e-3), data, tc, failure_plan=plan,
+                     device=dev)
+        states.append(tr.run())
+    assert tr.restarts == 3
+    a, b = states
+    assert all(torch.equal(x, y) for x, y in zip(
+        tree.leaves((a.params, a.opt_state)),
+        tree.leaves((b.params, b.opt_state))))
+
+
+def test_train_exact_mode_cuda_route_matches_the_torch_route(dev):
+    """Exact mode, f32 smoke internlm2-1.8b (remat 'full'): loss and every
+    gradient through the cuda code route equal the plain torch route's
+    (within 1e-6 of each tensor's max), 2 x 7 + 1 cim_mac launches for
+    the forward and 2 x 7 for the re-forward; then two consecutive
+    training steps per route (the second refills the cached codes and
+    makes each weight's scale in its own graph): params within 1e-5 of
+    each tensor's max."""
+    from repro_torch import optim, tree
+    from repro_torch.data import DataConfig, lm_batch
+    from repro_torch.train import TrainState, make_train_step, value_and_grad
+    model = registry.build(dataclasses.replace(
+        configs.smoke("internlm2-1.8b"), dtype=torch.float32, remat="full"))
+    params = model.init(torch.Generator(device=dev).manual_seed(1), dev)
+    data = DataConfig(vocab_size=512, seq_len=32, global_batch=2, seed=1)
+    batch = lm_batch(data, 0, device=dev)
+    got = {}
+    for backend in ("cuda", "torch"):
+        cim = CIMConfig(mode="exact", backend=backend).resolve("cuda")
+        cm.reset_launches()
+        loss, grads = value_and_grad(model, params, batch, cim)
+        got[backend] = (loss, tree.leaves(grads), cm.LAUNCHES["cim_mac"])
+    (lc, gc_, nc), (lt, gt, nt) = got["cuda"], got["torch"]
+    assert nc == 2 * (7 * 2) + 1 and nt == 0
+    torch.testing.assert_close(lc, lt, rtol=1e-6, atol=0)
+    for a, b in zip(gc_, gt):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-6 * b.abs().max().item())
+    finals = {}
+    for backend in ("cuda", "torch"):
+        p = tree.map_leaves(lambda x: x.clone(), params)
+        opt = optim.adamw(1e-3)
+        state = TrainState(p, opt.init(p), torch.zeros(
+            (), dtype=torch.int32, device=dev))
+        step = make_train_step(model, opt,
+                               cim=CIMConfig(mode="exact", backend=backend))
+        for i in range(2):
+            state, m = step(state, lm_batch(data, i, device=dev))
+            assert torch.isfinite(m["loss"])
+        finals[backend] = tree.leaves(state.params)
+    for a, b in zip(finals["cuda"], finals["torch"]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-5 * b.abs().max().item())
+
+
+def test_train_ternary_is_refused_on_the_card(dev):
+    """A ternary config and packed params are refused before any step:
+    the ternary kernels have no backward."""
+    from repro_torch import optim
+    from repro_torch.data import DataConfig, lm_batch
+    from repro_torch.train import init_state, make_train_step
+    model = _train_model()
+    with pytest.raises(ValueError, match="no backward"):
+        make_train_step(model, optim.adamw(1e-3),
+                        cim=CIMConfig(mode="ternary"))
+    state = init_state(model, optim.adamw(1e-3),
+                       torch.Generator(device=dev).manual_seed(0), dev)
+    packed = state._replace(params=ternarize_params(
+        state.params, CIMConfig(mode="ternary")))
+    tm.reset_launches()
+    with pytest.raises(ValueError, match="packed leaves"):
+        make_train_step(model, optim.adamw(1e-3))(
+            packed, lm_batch(DataConfig(vocab_size=512, seq_len=8,
+                                        global_batch=1), 0, device=dev))
+    assert tm.LAUNCHES["ternary_matmul"] == 0

@@ -53,7 +53,14 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                 "repro_torch.frontend.loadgen", "repro_torch.core.mapping",
                 "repro_torch.core.energy",
                 "repro_torch.configs.whisper_large_v3",
-                "repro_torch.configs.llama_3_2_vision_90b"):
+                "repro_torch.configs.llama_3_2_vision_90b",
+                "repro_torch.tree", "repro_torch.optim",
+                "repro_torch.optim.optimizers",
+                "repro_torch.optim.compression", "repro_torch.data",
+                "repro_torch.data.pipeline", "repro_torch.checkpoint",
+                "repro_torch.checkpoint.checkpoint", "repro_torch.train",
+                "repro_torch.train.step", "repro_torch.train.runner",
+                "repro_torch.launch.train"):
         assert mod in report["modules"]
 
 
