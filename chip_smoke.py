@@ -327,39 +327,69 @@ Phases, each of which raises on failure:
               20 steps through make_train_step, after one batch's loss
               and grads computed twice and held bitwise equal; the
               counts zeroed just before the 20 steps and read just
-              after.  Checks: every loss and grad norm finite, the mean
-              of the last 5 losses below the first.  Prints the step ms
-              (median, min, max of steps 2-20), tokens/s, the mfu share
-              (6 x the matmul parameters x tokens over the step time at
-              989 TFLOP/s), the bound (the step's matmul FLOPs, the
-              remat re-forward and attention included, at 989 TFLOP/s
-              plus AdamW's and the clip's 24 bytes a parameter at 3.35
-              TB/s), peak bytes, the idle share of one profiled step and
-              the threefry launches a step.  After the counted runs of
-              (a), (b) and (d), each holds its data on the card to the
-              CPU: the four 257-word draws of a row through threefry
-              bitwise its plain version on the card and on the CPU, and
-              a whole step's batch bitwise the CPU's.  (b) The launcher at full
-              width with Adafactor, 8 steps, into a temporary checkpoint
-              directory removed after: its JSON line, the forced final
-              save's bytes.  (c) Parity: the full width cut to 2 layers,
-              f32, one AdamW step on the card and on the CPU from the
-              same params and 2 x 128 tokens: loss, grad norm and both
-              moments within 1e-4, the param updates within 1e-3 of lr
-              but for at most 1e-4 of the weights, all within 2 lr.  (d)
-              Replay: the Trainer at smoke width (8 x 256 tokens of a
-              512-token chain) through crashes at steps 5 and 11 and in
-              the save of step 12: params and optimizer state bitwise
-              equal to an uninterrupted run's.  (e) Exact mode, 2 layers
-              at full width in f32 on 2 x 128 tokens: loss and grads
-              through the cuda code route (cim_mac launched 29 times: 15
-              matmuls forward, 14 in the re-forward) and through the
-              torch route within 1e-6 of each tensor's max (bitwise
-              printed), then one make_train_step step whose 'auto'
-              backend launches cim_mac 29 times.  Its launches join
-              cim_mac's row of the kernels line, and the threefry
-              launches of (a), (b) and (d) join threefry's.
-              ``--train-only`` runs this phase alone.
+              after (train_run, one row of TRAIN_RUNS).  Checks: every
+              loss and grad norm finite, the mean of the last 5 losses
+              below the first.  Prints the step ms (median, min, max of
+              steps 2-20), tokens/s, the mfu share (6 x each matmul
+              weight x the rows it multiplies over the step time at 989
+              TFLOP/s), the bound (train_bound: the matmul operations of
+              one step as it dispatches them, the backward and the remat
+              re-forward included, at 989 TFLOP/s but for the products
+              whose inputs the reference holds in f32, at 67; plus the
+              optimizer's bytes at 3.35 TB/s), peak bytes, the idle
+              share and top kernels of one step profiled with device
+              activity only, and the threefry launches a step.  After
+              the counted runs of (a), (b) and (d), each holds its data
+              on the card to the CPU: the four 257-word draws of a row
+              through threefry bitwise its plain version on the card and
+              on the CPU, and a whole step's batch bitwise the CPU's.
+              (b) The launcher at full width with Adafactor, 8 steps,
+              into a temporary checkpoint directory removed after: its
+              JSON line, the forced final save's bytes.  (c) Parity
+              (train_parity): the full width cut to 2 layers, f32, one
+              AdamW step on the card and on the CPU from the same params
+              and 2 x 128 tokens, the optimizer's stacked leaves sliced
+              (PARITY_PIECE): loss, grad norm and both moments within
+              1e-4, the param updates within 1e-3 of lr but for at most
+              1e-4 of the weights, all within 2 lr.  (d) Replay: the
+              Trainer at smoke width (8 x 256 tokens of a 512-token
+              chain) through crashes at steps 5 and 11 and in the save of
+              step 12: params and optimizer state bitwise equal to an
+              uninterrupted run's.  (e) Exact mode, 2 layers at full
+              width in f32 on 2 x 128 tokens: loss and grads through the
+              cuda code route (cim_mac launched 29 times: 15 matmuls
+              forward, 14 in the re-forward) and through the torch route
+              within 1e-6 of each tensor's max (bitwise printed), then
+              one make_train_step step whose 'auto' backend launches
+              cim_mac 29 times.  Its launches join cim_mac's row of the
+              kernels line, and the threefry launches of (a), (b) and
+              (d) join threefry's.  ``--train-only`` runs this phase
+              alone.
+18. train-families - the other four families trained, each a
+              row of TRAIN_RUNS through the same train_run and
+              train_parity as phase 17: xlstm-125m (AdamW, remat 'none',
+              4 steps) and whisper-large-v3 (AdamW, 32 + 32 layers, 6
+              steps) at full width and depth, zamba2-7b (Adafactor, 81
+              layers, 6 steps, peak lr 3e-4) and llama-3.2-vision-90b at
+              full width and 10 of its 100 layers (two groups;
+              Adafactor, 6 steps), with 8 x 1500 frames or 8 x 1601
+              patches of bf16 normals drawn through threefry (49
+              launches a step).  Checks: (a) every loss and grad norm
+              finite (zamba2's gradients at 256 positions, where the
+              reference's overflow), the mean of the last two losses
+              below the first; (b) after the steps, the data of a step,
+              frames or patches included, on the card bitwise the CPU's;
+              (c) a cut of each (2 layers, whisper 2 + 2, the VLM one
+              group of 2 self layers and its cross block, zamba2 one
+              group of 6 and the shared block; every width kept), f32,
+              one step of its own optimizer on 2 x 64 tokens, card
+              against CPU as phase 17's (c); the VLM's peak under
+              FAM_PEAK_LIMIT.  Prints what phase 17's (a) prints; then
+              the VLM's 105 M-word patch draw: threefry against its
+              plain version (bitwise, timed, bound) and the whole
+              normal_bf16.  Its launches join threefry's row of the
+              kernels line.  ``--train-families-only`` runs this phase
+              alone.
 
 Each phase prints its seconds, torch.cuda.max_memory_allocated() and the
 bytes still allocated when it began (after a gc.collect()).
@@ -372,11 +402,13 @@ The last two lines are a JSON object of per-kernel numbers and
     python3 chip_smoke.py --int8-kv-only --recurrent-only
     python3 chip_smoke.py --cross-only
     python3 chip_smoke.py --train-only
+    python3 chip_smoke.py --train-families-only
 """
 from __future__ import annotations
 
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -498,15 +530,42 @@ CROSS_SHAPES = [("whisper-large-v3", "w1", 1280, 5120, "base3", (8, 1500)),
 INT32_OPS_PER_S = 132 * 64 * 1.98e9   # H100 SXM: 64 INT32 lanes an SM
 TRAIN_ARCH = "internlm2-1.8b"
 TRAIN_BATCH, TRAIN_SEQ = 8, 256    # the reference launcher's defaults
-TRAIN_STEPS = 20
-TRAIN_LR = 1e-3
-TRAIN_WARMUP = 5                   # the launcher's max(steps // 20, 5)
+TRAIN_LR = 1e-3                    # the launcher's default peak lr
 TRAIN_LAUNCHER_STEPS = 8
-TRAIN_PARITY_LAYERS = 2
-TRAIN_PARITY_BATCH = (2, 128)      # rows x positions of the parity steps
+TRAIN_PARITY_LAYERS = 2            # exact mode's cut
+TRAIN_PARITY_BATCH = (2, 128)      # rows x positions of exact mode's steps
 TRAIN_PARITY_TOL = 1e-4            # loss, grad norm, moments (relative)
+PARITY_PIECE = 1 << 20             # optimizers.PIECE in the parity steps
 TRAIN_REPLAY = dict(total=16, interval=4, crash_at=(5, 11),
                     crash_in_save=(12,))
+# the training runs, each at full width from model.init on the card,
+# bf16, remat from the config, the launcher's warmup_cosine(lr, max(steps
+# // 20, 5), steps) at peak ``lr`` (TRAIN_LR by default), TRAIN_BATCH x
+# TRAIN_SEQ tokens a step from batch_for: ``layers`` cuts the depth (the
+# VLM: two groups of 5 self layers and their cross block, of 100 layers),
+# the mean of the last ``fall`` losses must be below the first, ``twice``
+# holds one batch's loss and grads bitwise over two runs, ``parity`` is
+# the rows x positions of the cut's card-vs-CPU step (train_parity) and
+# ``share`` the most of its weights whose updates may differ by more than
+# 1e-3 lr (1e-3 by default, as tests/test_torch_cuda.py holds the
+# families' smoke steps; whisper's cut has 1.13e-4 of them at 2 x 64).
+# TRAIN_ARCH is the train phase's; the others the train-families phase's.
+# zamba2 trains at a peak lr of 3e-4: at the launcher's 1e-3 its loss rose
+# after the step-4 update at lr 8e-4 (10.89 ... 9.59, then 12.22), as the
+# reference's does at one group of its full width
+# (tests/adafactor_lr_witness.py; PERF.md)
+TRAIN_RUNS = {
+    TRAIN_ARCH: dict(optimizer="adamw", steps=20, fall=5, twice=True,
+                     parity=(2, 128), share=1e-4),
+    "xlstm-125m": dict(optimizer="adamw", steps=4, fall=2, parity=(2, 64)),
+    "whisper-large-v3": dict(optimizer="adamw", steps=6, fall=2,
+                             parity=(2, 64)),
+    "zamba2-7b": dict(optimizer="adafactor", steps=6, fall=2, lr=3e-4,
+                      parity=(2, 64)),
+    "llama-3.2-vision-90b": dict(layers=10, optimizer="adafactor", steps=6,
+                                 fall=2, parity=(2, 64))}
+FAM_PEAK_LIMIT = 70e9        # the VLM's peak bytes at two groups
+FAM_DRAW = (8, 1601, 8192)   # the VLM's patches, a step's largest draw
 THREEFRY_REPLACES = "src/repro/faults/scrub.py:85"
 KERNEL_NAMES = {"float": "ternary_matmul", "int8": "ternary_matmul_int8"}
 REPLACES = {"float": "src/repro/kernels/ternary_matmul.py:144",
@@ -579,16 +638,19 @@ def device_busy(torch, fn, tries=5):
             sum(n for _, n in per.values()), sorted(per))
 
 
-def device_kernels(torch, fn, tries=5):
+def device_kernels(torch, fn, tries=5, host=True):
     """{kernel name: (device ms, launches)} of one call of `fn` under
-    torch.profiler.  Each capture ends with a marker
+    torch.profiler (``host=False``: device activity only, for a call of
+    ~10^5 kernels, whose host ops would take minutes to record and
+    average).  Each capture ends with a marker
     (a short spin kernel, which `fn` never launches) after `fn`'s work
     has finished; the marker is left out of the result.  Now and then
     CUPTI hands over no device record of a whole session, the marker's
     included, so a capture without its marker is taken again, up to
     `tries` times, and one that never shows it is an error."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host:
+        acts.append(torch.profiler.ProfilerActivity.CPU)
     for _ in range(tries):
         torch.cuda.synchronize()
         with torch.profiler.profile(activities=acts) as prof:
@@ -596,17 +658,21 @@ def device_kernels(torch, fn, tries=5):
             torch.cuda.synchronize()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        kernels = [e for e in events if "spin_kernel" not in e.key]
-        if len(kernels) < len(events):
-            break
-    else:
-        raise SmokeError(f"the profiler recorded no marker in {tries} "
-                         f"captures")
-    return {e.key: (float(getattr(e, "self_device_time_total",
-                                  getattr(e, "self_cuda_time_total", 0.0)))
-                    / 1e3, e.count) for e in kernels}
+        # the raw device records (kernels, copies, fills) summed by name
+        # here: key_averages() takes seconds for each 10^4 of them
+        per, marker = {}, False
+        for e in prof.profiler.kineto_results.events():
+            if (e.device_type() != torch.autograd.DeviceType.CUDA
+                    or e.is_user_annotation()):
+                continue
+            if "spin_kernel" in e.name():
+                marker = True
+                continue
+            ms, n = per.get(e.name(), (0.0, 0))
+            per[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+        if marker:
+            return per
+    raise SmokeError(f"the profiler recorded no marker in {tries} captures")
 
 
 def phase_build():
@@ -2066,14 +2132,14 @@ def phase_moe(torch, np):
                 window_run=window, parity=parity, launches=launches)
 
 
-def profile_kernels(torch, tag, what, fn):
+def profile_kernels(torch, tag, what, fn, host=True):
     """One profiled call of `fn`: its device busy ms and kernels, the
     device ms and launches of ternary_matmul's kernels (``tm_*``) among
     them, by kernel, and the five kernels of most device time; None,
     with a line saying so, where the profiler recorded nothing (the
     profile is a reading only)."""
     try:
-        per = device_kernels(torch, fn)
+        per = device_kernels(torch, fn, host=host)
     except SmokeError as err:
         print(f"[{tag}] no {what} profile ({err})")
         return None
@@ -3521,7 +3587,7 @@ def fid_times(torch, np, eng, model, prompt):
             eng.params, tokens, eng.capacity, cim=eng.cim_prefill)))
 
 
-def kernel_summary_threefry(fid, train):
+def kernel_summary_threefry(fid, train, families):
     """The threefry kernel over one layer's planes of the stacked w1 (a
     disturb or scrub piece), with the launches of the device runs and of
     the train phase's data pipeline."""
@@ -3533,12 +3599,16 @@ def kernel_summary_threefry(fid, train):
         replaces_note="not a Pallas kernel: XLA's threefry2x32 lowering of "
                       "the jax.random draws of the fault channels",
         launches=sum(r["launches"]["threefry"] for r in fid["serve"].values())
-        + train["threefry_launches"],
+        + train["threefry_launches"] + families["threefry_launches"],
         launches_per_run={k: r["launches"]["threefry"]
                           for k, r in fid["serve"].items()},
         launches_train=dict(full=train["full"]["threefry_launches"],
                             launcher=train["launcher"]["threefry_launches"],
                             replay=train["replay"]["threefry_launches"]),
+        launches_train_families={
+            arch: r["threefry_launches"]
+            for arch, r in families["families"].items()},
+        train_families_draw=families["draw"],
         max_abs_err=0, ms=rec["ms"], plain_ms=rec["plain_ms"],
         bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
         library_ms=None,
@@ -3960,34 +4030,158 @@ def kernel_summary_cim(cases, exact, cfg, train):
                  f"unembedding at M=8)")
 
 
-def train_step_flops(cfg, model, batch, seq):
-    """(model FLOPs: 6 x the matmul parameters, every one but the
-    embedding lookup, x tokens; the step's matmul FLOPs: those, the remat
-    re-forward of the blocks, and attention's two products forward,
-    backward and again in the re-forward)."""
-    tokens = batch * seq
-    matmul = model.param_count() - cfg.padded_vocab * cfg.d_model
-    blocks = matmul - cfg.d_model * cfg.padded_vocab
-    attn = 4 * batch * seq * seq * cfg.num_heads * cfg.hd * cfg.num_layers
-    model_flops = 6 * matmul * tokens
-    return model_flops, model_flops + 2 * blocks * tokens + 4 * attn
+def train_rows(model, path, b, s):
+    """Rows a matmul weight multiplies in one forward of b x s tokens:
+    the encoder's weights and the cross keys and values take the frames
+    or patches, zamba2's shared block runs once a group."""
+    cfg = model.cfg
+    if path[0] == "enc_blocks" or path[-1] in ("x_wk", "x_wv") or (
+            path[0] == "cross_blocks" and path[-1] in ("wk", "wv")):
+        return b * cfg.encoder_seq
+    if path[0] in ("shared_attn", "shared_mlp"):
+        return b * s * model.n_groups
+    return b * s
 
 
-def adamw_step_bytes(model):
-    """Bytes AdamW and the clip must move a step at bf16 params and grads
-    and f32 moments, in the fewest passes: the grads read for the norm
-    and read again by an update that applies the clip (4), the params
-    read and written (4), each moment read and written (16)."""
-    return 24 * model.param_count()
+def train_model_flops(model, b, s):
+    """6 x each matmul weight's size x the rows it multiplies (PERF.md
+    section 2's count, with frames, patches and the shared block's reuse
+    counted)."""
+    def walk(tree, path=()):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from walk(v, path + (k,))
+            else:
+                yield path + (k,), v
+    return 6 * sum(math.prod(spec.shape) * train_rows(model, path, b, s)
+                   for path, spec in walk(model.param_specs)
+                   if model.matmul_leaf(path))
 
 
-def check_train_draws(torch, data, step, where):
+def optimizer_bytes(model, optimizer):
+    """Bytes the optimizer and the clip must move a step at bf16 params
+    and grads, in the fewest passes.  AdamW: the grads read for the norm
+    and again by an update that applies the clip (4), the params read
+    and written (4), each f32 moment read and written (16).  Adafactor:
+    the grads twice and the params twice (8), its factored moments too
+    small to count."""
+    return {"adamw": 24, "adafactor": 8}[optimizer] * model.param_count()
+
+
+def step_ops(torch, fn):
+    """The operations of the matmuls of one call of ``fn`` (aten mm,
+    addmm, bmm and baddbmm, 2 m n k each; its backward pass and the remat
+    re-forward included), by the rate the function needs: {"bf16": ..,
+    "f32": .., "unplaced": ..}.  A product counts at the f32 rate only
+    where the reference holds its inputs in f32: f32 inputs in
+    ``models/ssm.py`` (the SSD chunk, the mLSTM and sLSTM cells).  Every
+    other counts at the bf16 tensor-core rate: the weights' products,
+    and attention's, whose inputs the reference keeps in bf16 with f32
+    sums (the port upcasts them).  The embedding gradient's one-hot
+    products (``layers.embed_grad``) do not count: the function sums
+    rows there.  A product is placed by the innermost frame of
+    ``repro_torch/models`` on the Python stack; in the backward pass, by
+    a mark that the forward left on the autograd nodes made by calls
+    from ``models/ssm.py``.  One placed by neither counts by its dtype,
+    and under "unplaced" as well."""
+    import os
+    import sys
+    from torch.overrides import TorchFunctionMode
+    from torch.utils._python_dispatch import TorchDispatchMode
+    aten = torch.ops.aten
+    models = "repro_torch/models/"
+    ssm = models + "ssm.py"
+    inside_torch = os.path.dirname(torch.__file__) + os.sep
+    marked = set()
+
+    def mm(a, b):
+        return 2 * a.shape[0] * a.shape[1] * b.shape[1]
+
+    def bmm(a, b):
+        return 2 * a.shape[0] * a.shape[1] * a.shape[2] * b.shape[2]
+    rules = {aten.mm: (0, lambda a: mm(a[0], a[1])),
+             aten.addmm: (1, lambda a: mm(a[1], a[2])),
+             aten.bmm: (0, lambda a: bmm(a[0], a[1])),
+             aten.baddbmm: (1, lambda a: bmm(a[1], a[2]))}
+    counts = {"bf16": 0, "f32": 0, "unplaced": 0}
+
+    def tensors(xs):
+        for x in xs:
+            if isinstance(x, torch.Tensor):
+                yield x
+            elif isinstance(x, (list, tuple)):
+                yield from tensors(x)
+
+    class Mark(TorchFunctionMode):
+        """Marks the nodes a torch call from models/ssm.py adds to the
+        graph: those between its outputs and its inputs."""
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            f = sys._getframe(1)
+            while f is not None and f.f_code.co_filename.startswith(
+                    inside_torch):
+                f = f.f_back
+            if f is not None and f.f_code.co_filename.endswith(ssm):
+                stop = {x.grad_fn for x in tensors(args)}
+                todo = [x.grad_fn for x in tensors(
+                    out if isinstance(out, (list, tuple)) else [out])]
+                while todo:
+                    node = todo.pop()
+                    if node is None or node in stop or node in marked:
+                        continue
+                    marked.add(node)
+                    todo.extend(n for n, _ in node.next_functions)
+            return out
+
+    def site():
+        f = sys._getframe(2)
+        while f is not None:
+            if models in f.f_code.co_filename:
+                return (f.f_code.co_filename.rsplit(models, 1)[1],
+                        f.f_code.co_name)
+            f = f.f_back
+        node = torch._C._current_autograd_node()
+        if node is None:
+            return None
+        return ("ssm.py", "") if node in marked else ("", "")
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            rule = rules.get(func.overloadpacket)
+            if rule is not None:
+                ops = rule[1](args)
+                f32 = args[rule[0]].dtype == torch.float32
+                where = site()
+                if where is None:
+                    counts["unplaced"] += ops
+                    counts["f32" if f32 else "bf16"] += ops
+                elif where != ("layers.py", "embed_grad"):
+                    counts["f32" if f32 and where[0] == "ssm.py"
+                           else "bf16"] += ops
+            return func(*args, **(kwargs or {}))
+    with Mark(), Count():
+        fn()
+    marked.clear()
+    return counts
+
+
+def train_bound(torch, model, ops, optimizer):
+    """(bound ms, its compute ms, its optimizer ms): step_ops' products at
+    989 TFLOP/s (bf16) and 67 (f32), plus optimizer_bytes at 3.35 TB/s."""
+    compute_ms = (ops["bf16"] / PEAK_OPS_PER_S["float"]
+                  + ops["f32"] / PEAK_F32_OPS_PER_S) * 1e3
+    bytes_ms = optimizer_bytes(model, optimizer) / HBM_BYTES_PER_S * 1e3
+    return compute_ms + bytes_ms, compute_ms, bytes_ms
+
+
+def check_train_draws(torch, cfg, data, step, where):
     """The data pipeline's card draws at the training shapes, outside the
     counted runs: one 257-word block of a row's four draws through the
     threefry kernel bitwise against its plain version on the card and on
-    the CPU, then the whole batch of ``step`` bitwise the CPU's."""
+    the CPU, then the whole batch of ``step`` (frames or patches
+    included) bitwise the CPU's."""
     from repro_torch.core import prng
-    from repro_torch.data import lm_batch
+    from repro_torch.data import batch_for
     n = data.seq_len + 1
     row = prng.fold_in(prng.fold_in(prng.key(data.seed), step), 0)
     for k in prng.split(row, 4):
@@ -3997,28 +4191,49 @@ def check_train_draws(torch, data, step, where):
             got.cpu(), prng.bits(k, (n,), "cpu")),
             f"{where}: threefry differs from its plain version on a "
             f"{n}-word block of the pipeline")
-    got = lm_batch(data, step, device="cuda")
-    want = lm_batch(data, step, device="cpu")
+    got = batch_for(cfg, data, step, device="cuda")
+    want = batch_for(cfg, data, step, device="cpu")
     check(all(torch.equal(got[k].cpu(), want[k]) for k in want),
           f"{where}: the card's batch of step {step} differs from the CPU's")
 
 
-def train_full(torch, np, card):
-    """(a) internlm2-1.8b at full width and depth, bf16, remat='full',
-    AdamW with the launcher's warmup_cosine, TRAIN_BATCH x TRAIN_SEQ
-    tokens from the port's data pipeline, TRAIN_STEPS steps through
-    make_train_step; first one batch's loss and grads twice, bitwise."""
-    from repro_torch import configs, optim, tree
-    from repro_torch.data import DataConfig, lm_batch
+def train_optimizer(spec, schedule=True):
+    """The run's optimizer: its peak lr under the launcher's
+    warmup_cosine(lr, max(steps // 20, 5), steps), or held constant."""
+    from repro_torch import optim
+    lr = spec.get("lr", TRAIN_LR)
+    if schedule:
+        lr = optim.warmup_cosine(lr, max(spec["steps"] // 20, 5),
+                                 spec["steps"])
+    return {"adamw": optim.adamw, "adafactor": optim.adafactor}[
+        spec["optimizer"]](lr)
+
+
+def train_run(torch, np, arch, card):
+    """One run of TRAIN_RUNS (see there) at full width from model.init on
+    the card, TRAIN_BATCH x TRAIN_SEQ tokens a step from batch_for
+    through make_train_step, the counts zeroed just before the steps and
+    read just after.  With ``twice``, one batch's loss and grads are
+    first computed twice and held bitwise equal.  Checks: every loss and
+    grad norm finite, the mean of the last ``fall`` losses below the
+    first; the step's data on the card against the CPU
+    (check_train_draws); threefry launched 6 times a row and once a step
+    for the frames or patches.  Prints the step ms (median, min, max of
+    steps 2 on), tokens/s, mfu, the bound (train_bound), peak bytes, the
+    idle share and top kernels of one step profiled with device activity
+    only, and the threefry launches a step."""
+    from repro_torch import tree
+    from repro_torch.data import DataConfig, batch_for
     from repro_torch.kernels import threefry
     from repro_torch.models import registry
-    from repro_torch.train import init_state, make_train_step, value_and_grad
-    cfg = configs.get(TRAIN_ARCH)
-    check(cfg.remat == "full" and cfg.dtype == torch.bfloat16,
-          f"{cfg.name}: remat {cfg.remat!r}, dtype {cfg.dtype}")
+    from repro_torch.train import (init_state, make_train_step,
+                                   value_and_grad)
+    spec = TRAIN_RUNS[arch]
+    steps = spec["steps"]
+    cfg = train_cfg(arch, spec.get("layers"))
+    check(cfg.dtype == torch.bfloat16, f"{arch}: dtype {cfg.dtype}")
     model = registry.build(cfg)
-    opt = optim.adamw(optim.warmup_cosine(TRAIN_LR, TRAIN_WARMUP,
-                                          TRAIN_STEPS))
+    opt = train_optimizer(spec)
     t = time.monotonic()
     state = init_state(model, opt, torch.Generator(
         device="cuda").manual_seed(0), "cuda")
@@ -4026,25 +4241,27 @@ def train_full(torch, np, card):
     init_s = time.monotonic() - t
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
                       global_batch=TRAIN_BATCH, seed=0)
-    batch = lm_batch(data, 0, device="cuda")
-    runs = [value_and_grad(model, state.params, batch) for _ in range(2)]
-    same = bool(torch.equal(runs[0][0], runs[1][0])) and all(
-        torch.equal(a, b) for a, b in zip(tree.leaves(runs[0][1]),
-                                          tree.leaves(runs[1][1])))
-    check(same, "full-width loss and grads of one batch differ between "
-                "two runs")
-    del runs
-    gc.collect()
-    torch.cuda.empty_cache()
+    same = None
+    if spec.get("twice"):
+        batch = batch_for(cfg, data, 0, device="cuda")
+        runs = [value_and_grad(model, state.params, batch) for _ in range(2)]
+        same = bool(torch.equal(runs[0][0], runs[1][0])) and all(
+            torch.equal(a, b) for a, b in zip(tree.leaves(runs[0][1]),
+                                              tree.leaves(runs[1][1])))
+        check(same, f"{arch}: full-width loss and grads of one batch differ "
+                    f"between two runs")
+        del runs, batch
+        gc.collect()
+        torch.cuda.empty_cache()
     step_fn = make_train_step(model, opt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     threefry.reset_launches()
     hist, times = [], []
-    for step in range(TRAIN_STEPS):
+    for step in range(steps):
         torch.cuda.synchronize()
         t = time.monotonic()
-        batch = lm_batch(data, step, device="cuda")
+        batch = batch_for(cfg, data, step, device="cuda")
         state, m = step_fn(state, batch)
         hist.append(torch.stack([m[k].to(torch.float32) for k in (
             "loss", "grad_norm", "lr")]).tolist())    # the one transfer
@@ -4052,49 +4269,177 @@ def train_full(torch, np, card):
         times.append((time.monotonic() - t) * 1e3)
     launches = threefry.LAUNCHES["threefry"]
     peak = torch.cuda.max_memory_allocated()
-    check_train_draws(torch, data, TRAIN_STEPS - 1, "train full")
     losses = [h[0] for h in hist]
+    split = {"steps_s": sum(times) / 1e3}
+    print(f"[train] {arch} losses {losses} grad norms "
+          f"{[h[1] for h in hist]}")
     check(all(np.isfinite(h).all() for h in hist),
-          f"non-finite training metrics: {hist}")
-    check(statistics.mean(losses[-5:]) < losses[0],
-          f"the loss did not fall: {losses}")
+          f"{arch}: non-finite training metrics: {hist}")
+    check(statistics.mean(losses[-spec["fall"]:]) < losses[0],
+          f"{arch}: the loss did not fall: {losses}")
+    t = time.monotonic()
+    check_train_draws(torch, cfg, data, steps - 1, f"train {arch}")
+    split["draw_check_s"] = time.monotonic() - t
+    extra = {"audio": "frames", "vlm": "patches"}.get(cfg.family)
     steady = times[1:]
     step_ms = statistics.median(steady)
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    model_flops, step_flops = train_step_flops(cfg, model, TRAIN_BATCH,
-                                               TRAIN_SEQ)
-    opt_bytes = adamw_step_bytes(model)
-    compute_ms = step_flops / PEAK_OPS_PER_S["float"] * 1e3
-    bytes_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
-    batch = lm_batch(data, TRAIN_STEPS, device="cuda")
-    prof = profile_kernels(torch, "train", "training step",
-                           lambda: step_fn(state, batch))
+    batch = batch_for(cfg, data, steps, device="cuda")
+    t = time.monotonic()
+    ops = step_ops(torch, lambda: value_and_grad(model, state.params,
+                                                  batch))
+    split["step_ops_s"] = time.monotonic() - t
+    model_flops = train_model_flops(model, TRAIN_BATCH, TRAIN_SEQ)
+    bound_ms, compute_ms, bytes_ms = train_bound(torch, model, ops,
+                                                 spec["optimizer"])
+    t = time.monotonic()
+    prof = profile_kernels(torch, "train", f"{arch} step",
+                           lambda: step_fn(state, batch), host=False)
+    split["profile_s"] = time.monotonic() - t
     busy = prof["device_busy_ms"] if prof else None
     rec = dict(
-        arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model,
-        dtype=str(cfg.dtype), remat=cfg.remat, optimizer="adamw",
-        batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=TRAIN_STEPS,
-        params=model.param_count(), init_s=init_s,
+        arch=arch, family=cfg.family, layers=cfg.num_layers,
+        encoder_layers=cfg.encoder_layers, d_model=cfg.d_model,
+        dtype=str(cfg.dtype), remat=cfg.remat, optimizer=spec["optimizer"],
+        peak_lr=spec.get("lr", TRAIN_LR), batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        extra_input=extra, extra_shape=[TRAIN_BATCH, cfg.encoder_seq,
+                                        cfg.d_model] if extra else None,
+        steps=steps, params=model.param_count(), init_s=init_s,
         deterministic_grads=same, losses=losses,
         grad_norms=[h[1] for h in hist], lrs=[h[2] for h in hist],
-        step_ms=times, step_ms_median=step_ms,
-        step_ms_min=min(steady), step_ms_max=max(steady),
-        first_step_ms=times[0], tokens_per_s=tokens / step_ms * 1e3,
-        model_flops=model_flops, step_flops=step_flops,
+        step_ms=times, step_ms_median=step_ms, step_ms_min=min(steady),
+        step_ms_max=max(steady), first_step_ms=times[0],
+        tokens_per_s=tokens / step_ms * 1e3, model_flops=model_flops,
+        step_ops=ops,
         mfu=model_flops / (step_ms * 1e-3 * PEAK_OPS_PER_S["float"]),
-        bound_ms=compute_ms + bytes_ms, bound_compute_ms=compute_ms,
-        bound_optimizer_bytes_ms=bytes_ms, optimizer_bytes=opt_bytes,
+        bound_ms=bound_ms, bound_compute_ms=compute_ms,
+        bound_optimizer_bytes_ms=bytes_ms,
+        optimizer_bytes=optimizer_bytes(model, spec["optimizer"]),
         peak_bytes=peak, threefry_launches=launches,
-        threefry_launches_per_step=launches / TRAIN_STEPS,
+        threefry_launches_per_step=launches / steps,
         device_busy_ms=busy,
         device_idle_share=(1.0 - busy / step_ms if busy else None),
-        profile=prof, card=card)
-    print("[train] full " + json.dumps({k: v for k, v in rec.items() if k
-                                         not in ("profile", "step_ms")}))
-    if prof:
-        print("[train] profiled step: kernels " + json.dumps(
-            prof["kernels"]) + ", top " + json.dumps(prof["top_kernels"]))
+        top_kernels=prof["top_kernels"] if prof else None,
+        profiled_kernels=prof["kernels"] if prof else None, seconds=split,
+        card=card)
+    print("[train] run " + json.dumps({k: v for k, v in rec.items()
+                                       if k != "step_ms"}))
+    check(launches == steps * (6 * TRAIN_BATCH + (1 if extra else 0)),
+          f"{arch}: {launches} threefry launches in {steps} steps")
     del state, step_fn, batch
+    return rec
+
+
+def train_cfg(arch, layers=None):
+    """The arch's full-width config, cut to ``layers`` where given."""
+    import dataclasses
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def train_parity(torch, np, arch):
+    """(c) The arch cut to 2 layers (whisper: 2 encoder and 2 decoder
+    blocks; the VLM one group of 2 self layers and its cross block;
+    zamba2 one group of 6 Mamba2 layers and the shared block), every
+    width kept, f32: one step of its run's optimizer at its peak lr on
+    the card and on the CPU's plain path from the same params and batch,
+    with ``optimizers.PIECE`` cut to PARITY_PIECE in both, so that the
+    stacked leaves take the sliced norm, clip and update the full-size
+    runs take.  Loss, grad norm and every moment (AdamW's two, or
+    Adafactor's factored rows, columns and unfactored) within
+    TRAIN_PARITY_TOL (relative; each moment of its leaf's max).  A first
+    step moves each weight by about +/- lr (AdamW: lr g / (|g| + eps);
+    Adafactor: lr g over its factored RMS, RMS-clipped), so the two
+    updates are held within 1e-3 of lr but for the run's ``share`` of
+    the weights (those whose AdamW gradient is of eps's size, where
+    g / (|g| + eps) turns on any difference), and all within 2 lr."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.data import DataConfig, batch_for
+    from repro_torch.models import registry
+    from repro_torch.optim import optimizers
+    from repro_torch.train import TrainState, make_train_step
+    spec = TRAIN_RUNS[arch]
+    cfg = train_cfg(arch)
+    cut = dict(num_layers=2)
+    if cfg.family == "audio":
+        cut["encoder_layers"] = 2
+    if cfg.family == "vlm":
+        cut["cross_attn_every"] = 2
+    if cfg.family == "hybrid":
+        cut["num_layers"] = cfg.attn_every
+    cfg = dataclasses.replace(cfg, dtype=torch.float32, **cut)
+    model = registry.build(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(1),
+                        "cuda")
+    if "cross_blocks" in params:
+        params["cross_blocks"]["gate"].fill_(0.5)
+    sliced = sum(x.dim() >= 3 and x.numel() > PARITY_PIECE
+                 for x in tree.leaves(params))
+    rows, seq = spec["parity"]
+    batch = batch_for(cfg, DataConfig(vocab_size=cfg.vocab_size,
+                                      seq_len=seq, global_batch=rows,
+                                      seed=2), 0, device="cuda")
+    lr = spec.get("lr", TRAIN_LR)
+    # the card's step on a copy; the CPU's on `start`, in place
+    start = tree.map_leaves(lambda x: x.to("cpu", copy=True), params)
+    piece = optimizers.PIECE
+    optimizers.PIECE = PARITY_PIECE
+    try:
+        out = {}
+        for dev, p in (("cuda", params), ("cpu", start)):
+            opt = train_optimizer(spec, schedule=False)
+            state = TrainState(p, opt.init(p), torch.zeros(
+                (), dtype=torch.int32, device=dev))
+            t = time.monotonic()
+            new, m = make_train_step(model, opt)(
+                state, {k: v.to(dev) for k, v in batch.items()})
+            m = {k: float(v) for k, v in m.items()}
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            out[dev] = dict(s=time.monotonic() - t, metrics=m,
+                            params=[x.cpu() for x in tree.leaves(new.params)],
+                            moments=[x.cpu() for x in
+                                     tree.leaves(new.opt_state)])
+            del state, new
+    finally:
+        optimizers.PIECE = piece
+    g, c = out["cuda"], out["cpu"]
+    rel = {k: abs(g["metrics"][k] - c["metrics"][k]) / abs(c["metrics"][k])
+           for k in ("loss", "grad_norm")}
+    mom = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+              for a, b in zip(g["moments"], c["moments"]))
+    # both steps began at the same params: the updates differ by the
+    # difference of the params after them
+    past = total = 0
+    worst = 0.0
+    for a, b in zip(g["params"], c["params"]):
+        d = (a - b).abs()
+        past += int((d > 1e-3 * lr).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+    share = past / total
+    rec = dict(arch=arch, cut=cut, optimizer=spec["optimizer"], lr=lr,
+               params=model.param_count(), sliced_leaves=sliced,
+               piece=PARITY_PIECE, rows=rows, seq=seq,
+               loss_cuda=g["metrics"]["loss"], loss_cpu=c["metrics"]["loss"],
+               grad_norm_cuda=g["metrics"]["grad_norm"],
+               grad_norm_cpu=c["metrics"]["grad_norm"],
+               loss_rel_err=rel["loss"], grad_norm_rel_err=rel["grad_norm"],
+               moments_rel_err=mom, update_share_past_1e3_lr=share,
+               update_max_abs_err=worst, update_max_abs_err_over_lr=worst
+               / lr, cuda_s=g["s"], cpu_s=c["s"])
+    print("[train] parity " + json.dumps(rec))
+    check(sliced > 0, f"{arch}: no leaf took the sliced optimizer path")
+    check(np.isfinite(g["metrics"]["grad_norm"])
+          and rel["loss"] <= TRAIN_PARITY_TOL
+          and rel["grad_norm"] <= TRAIN_PARITY_TOL
+          and mom <= TRAIN_PARITY_TOL,
+          f"{arch}: card vs CPU training step: {rec}")
+    check(share <= spec.get("share", 1e-3) and worst <= 2 * lr,
+          f"{arch}: card vs CPU param updates: {rec}")
     return rec
 
 
@@ -4131,80 +4476,12 @@ def train_launcher(torch, np):
     rec = dict(**out, call_s=wall, checkpoint_bytes=ckpt_bytes,
                threefry_launches=threefry.LAUNCHES["threefry"])
     # the launcher's data: its default batch, sequence and seed
-    check_train_draws(torch, DataConfig(
-        vocab_size=configs.get(TRAIN_ARCH).vocab_size, seq_len=TRAIN_SEQ,
+    cfg = configs.get(TRAIN_ARCH)
+    check_train_draws(torch, cfg, DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
         global_batch=TRAIN_BATCH, seed=0), TRAIN_LAUNCHER_STEPS - 1,
         "train launcher")
     print("[train] launcher " + json.dumps(rec))
-    return rec
-
-
-def train_parity(torch, np):
-    """(c) The full width cut to TRAIN_PARITY_LAYERS layers, params in
-    f32: one AdamW step on the card and on the CPU's plain path from the
-    same params and batch.  Loss, grad norm and both moments within
-    TRAIN_PARITY_TOL (relative; each moment of its leaf's max); the
-    first AdamW step moves each weight by lr * g / (|g| + eps), about
-    +/- lr, so the param updates are held within 1e-3 of lr, but for a
-    share of at most 1e-4 of the weights (those whose gradient is of
-    eps's size, where g / (|g| + eps) turns on any difference), and all
-    within 2 lr."""
-    import dataclasses
-    from repro_torch import configs, optim, tree
-    from repro_torch.data import DataConfig, lm_batch
-    from repro_torch.models import registry
-    from repro_torch.train import TrainState, make_train_step
-    cfg = dataclasses.replace(configs.get(TRAIN_ARCH),
-                              num_layers=TRAIN_PARITY_LAYERS,
-                              dtype=torch.float32)
-    model = registry.build(cfg)
-    params = model.init(torch.Generator(device="cuda").manual_seed(1),
-                        "cuda")
-    rows, seq = TRAIN_PARITY_BATCH
-    batch = lm_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
-                                global_batch=rows, seed=2), 0,
-                     device="cuda")
-    out = {}
-    for dev in ("cuda", "cpu"):
-        p = tree.map_leaves(lambda x: x.to(dev, copy=True), params)
-        before = tree.map_leaves(lambda x: x.to("cpu", copy=True), params)
-        opt = optim.adamw(TRAIN_LR)
-        state = TrainState(p, opt.init(p), torch.zeros(
-            (), dtype=torch.int32, device=dev))
-        t = time.monotonic()
-        new, m = make_train_step(model, opt)(
-            state, {k: v.to(dev) for k, v in batch.items()})
-        m = {k: float(v) for k, v in m.items()}
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        out[dev] = dict(
-            s=time.monotonic() - t, metrics=m,
-            delta=[(a.cpu() - b) for a, b in zip(tree.leaves(new.params),
-                                                  tree.leaves(before))],
-            moments=[x.cpu() for x in tree.leaves(new.opt_state)])
-        del p, state, new
-    g, c = out["cuda"], out["cpu"]
-    rel = {k: abs(g["metrics"][k] - c["metrics"][k]) / abs(c["metrics"][k])
-           for k in ("loss", "grad_norm")}
-    mom = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-              for a, b in zip(g["moments"], c["moments"]))
-    diffs = torch.cat([(a - b).abs().reshape(-1)
-                       for a, b in zip(g["delta"], c["delta"])])
-    lr = TRAIN_LR
-    share = float((diffs > 1e-3 * lr).double().mean())
-    worst = float(diffs.max())
-    rec = dict(layers=cfg.num_layers, rows=rows, seq=seq,
-               loss_cuda=g["metrics"]["loss"], loss_cpu=c["metrics"]["loss"],
-               loss_rel_err=rel["loss"], grad_norm_rel_err=rel["grad_norm"],
-               moments_rel_err=mom, update_share_past_1e3_lr=share,
-               update_max_abs_err=worst, update_max_abs_err_over_lr=worst
-               / lr, cuda_s=g["s"], cpu_s=c["s"])
-    print("[train] parity " + json.dumps(rec))
-    check(rel["loss"] <= TRAIN_PARITY_TOL and rel["grad_norm"]
-          <= TRAIN_PARITY_TOL and mom <= TRAIN_PARITY_TOL,
-          f"card vs CPU training step: {rec}")
-    check(share <= 1e-4 and worst <= 2 * lr,
-          f"card vs CPU param updates: {rec}")
     return rec
 
 
@@ -4251,7 +4528,8 @@ def train_replay(torch):
                losses_equal=all(last[h["step"]] == h["loss"]
                                 for h in a.history),
                threefry_launches=threefry.LAUNCHES["threefry"])
-    check_train_draws(torch, data, TRAIN_REPLAY["total"] - 1, "train replay")
+    check_train_draws(torch, cfg, data, TRAIN_REPLAY["total"] - 1,
+                      "train replay")
     print("[train] replay " + json.dumps(rec))
     check(b.restarts == 3 and int(sb.step) == TRAIN_REPLAY["total"],
           f"the crashed run: {rec}")
@@ -4332,15 +4610,95 @@ def train_exact(torch, np):
     return rec
 
 
+def fam_draw(torch):
+    """The VLM's patches of one step, FAM_DRAW bf16 words: the threefry
+    kernel's bits against its plain version on the card (bitwise, timed,
+    bound as the fidelity phase's draws), and the whole normal_bf16."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import threefry
+    k = prng.fold_in(prng.key(7), 0)
+    n = math.prod(FAM_DRAW)
+    blk = prng.flat_range(0, n)
+    got = threefry.random_bits(k, blk, "cuda")
+    check(torch.equal(got, prng.bits_torch(k, blk, "cuda")),
+          f"threefry differs from its plain version on {n} words")
+    del got
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    ms = time_ms(torch, lambda: threefry.random_bits(k, blk, "cuda"), 5,
+                 flush)
+    plain_ms = time_ms(torch, lambda: prng.bits_torch(k, blk, "cuda"), 3,
+                       flush)
+    normal_ms = time_ms(torch, lambda: prng.normal_bf16(k, FAM_DRAW,
+                                                        "cuda"), 5, flush)
+    rec = dict(threefry_record(ms, plain_ms, n), shape=list(FAM_DRAW),
+               normal_bf16_ms=normal_ms,
+               normal_bf16_bound_ms=max(
+                   2 * n / HBM_BYTES_PER_S * 1e3,
+                   threefry.OPS_PER_WORD * n / INT32_OPS_PER_S * 1e3))
+    print("[train-families] draw " + json.dumps(rec))
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_families(torch, np, card):
+    """The training forward of the other four families (see the module
+    docstring, phase 18)."""
+    fams = {}
+    for arch in TRAIN_RUNS:
+        if arch == TRAIN_ARCH:
+            continue
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.monotonic()
+        rec = train_run(torch, np, arch, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        rec["train_s"] = time.monotonic() - t
+        rec["parity"] = train_parity(torch, np, arch)
+        rec["wall_s"] = time.monotonic() - t
+        print(f"[train-families] {arch}: {rec['train_s']:.1f} s trained, "
+              f"{rec['wall_s']:.1f} s with the parity")
+        fams[arch] = rec
+    check(fams["llama-3.2-vision-90b"]["peak_bytes"] <= FAM_PEAK_LIMIT,
+          "llama-3.2-vision-90b: peak past the limit at two groups")
+    gc.collect()
+    torch.cuda.empty_cache()
+    draw = fam_draw(torch)
+    return dict(families=fams, draw=draw,
+                threefry_launches=sum(r["threefry_launches"]
+                                      for r in fams.values()))
+
+
+def run_summary(r, parity):
+    """One training run's numbers of the last lines."""
+    return {key: r[key] for key in (
+        "card", "step_ms_median", "step_ms_min", "step_ms_max",
+        "tokens_per_s", "mfu", "bound_ms", "peak_bytes", "device_idle_share",
+        "threefry_launches_per_step")} | dict(
+            first_loss=r["losses"][0], last_mean_loss=statistics.mean(
+                r["losses"][-TRAIN_RUNS[r["arch"]]["fall"]:]),
+            parity_loss_rel_err=parity["loss_rel_err"],
+            parity_grad_norm_rel_err=parity["grad_norm_rel_err"],
+            parity_moments_rel_err=parity["moments_rel_err"],
+            parity_update_max_abs_err_over_lr=parity[
+                "update_max_abs_err_over_lr"])
+
+
+def train_families_summary(fam):
+    """The families' numbers of the last lines."""
+    return {arch: run_summary(r, r["parity"])
+            for arch, r in fam["families"].items()}
+
+
 def phase_train(torch, np, card):
     """The training path (see the module docstring, phase 17)."""
-    full = train_full(torch, np, card)
+    full = train_run(torch, np, TRAIN_ARCH, card)
     gc.collect()
     torch.cuda.empty_cache()
     launcher = train_launcher(torch, np)
     gc.collect()
     torch.cuda.empty_cache()
-    parity = train_parity(torch, np)
+    parity = train_parity(torch, np, TRAIN_ARCH)
     replay = train_replay(torch)
     exact = train_exact(torch, np)
     return dict(full=full, launcher=launcher, parity=parity, replay=replay,
@@ -4353,19 +4711,9 @@ def phase_train(torch, np, card):
 
 def train_summary(train):
     """The training numbers of the last lines."""
-    f = train["full"]
-    return dict(
-        card=f["card"], step_ms_median=f["step_ms_median"],
-        step_ms_min=f["step_ms_min"], step_ms_max=f["step_ms_max"],
-        tokens_per_s=f["tokens_per_s"], mfu=f["mfu"],
-        bound_ms=f["bound_ms"], peak_bytes=f["peak_bytes"],
-        device_idle_share=f["device_idle_share"],
-        first_loss=f["losses"][0], last5_mean_loss=statistics.mean(
-            f["losses"][-5:]),
-        threefry_launches_per_step=f["threefry_launches_per_step"],
+    return run_summary(train["full"], train["parity"]) | dict(
         launcher_tokens_per_s=train["launcher"]["tokens_per_s"],
         launcher_checkpoint_bytes=train["launcher"]["checkpoint_bytes"],
-        parity_loss_rel_err=train["parity"]["loss_rel_err"],
         replay_bitwise=train["replay"]["bitwise"],
         exact_bitwise=train["exact"]["bitwise"])
 
@@ -4386,6 +4734,8 @@ def parse_args(argv):
                     help="build, then run only the cross phases")
     ap.add_argument("--train-only", action="store_true",
                     help="build, then run only the train phase")
+    ap.add_argument("--train-families-only", action="store_true",
+                    help="build, then run only the train-families phase")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree holding the repro_torch package to run "
                          "(with --paged-only: another checkout's, to time "
@@ -4447,6 +4797,21 @@ def main(argv=None) -> int:
         print(f"[done] {time.monotonic() - t_start:.1f} s, {src}")
         print(card)
         print(json.dumps({"paged_kernel": paged}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if args.train_families_only:
+        fam = run("train-families", phase_train_families, torch, np, card)
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_train_families.json").write_text(
+            json.dumps(dict(card=card, train_families=fam, phases=phases),
+                       indent=1))
+        print(f"[done] {time.monotonic() - t_start:.1f} s")
+        print("[train-families] summary " + json.dumps(
+            train_families_summary(fam)))
+        print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
@@ -4530,6 +4895,7 @@ def main(argv=None) -> int:
     cross = {arch: run(f"cross {arch}", phase_cross, torch, np, arch)
              for arch in CROSS_ARCHS}
     train = run("train", phase_train, torch, np, card)
+    families = run("train-families", phase_train_families, torch, np, card)
 
     details = dict(card=card, device=torch.cuda.get_device_name(0),
                    harness_floor_ms=floor_ms, cases=cases, serve=runs,
@@ -4538,7 +4904,7 @@ def main(argv=None) -> int:
                    exact=exact, models=models, fidelity=fid,
                    frontend=frontend, moe=moe, int8_kv=int8kv,
                    recurrent=recurrent, cross=cross, train=train,
-                   phases=phases,
+                   train_families=families, phases=phases,
                    seconds=time.monotonic() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -4587,13 +4953,15 @@ def main(argv=None) -> int:
                        "decode_device_idle_share")})
         for arch, r in cross.items()}))
     print("[train] summary " + json.dumps(train_summary(train)))
+    print("[train-families] summary " + json.dumps(
+        train_families_summary(families)))
     print(json.dumps({"kernels": kernel_summary(cases, runs, cfg, models,
                                                 moe, int8kv, recurrent,
                                                 cross)
                       + [kernel_summary_paged(paged, sched, models, long,
                                               frontend),
                          kernel_summary_cim(cim_cases, exact, cfg, train),
-                         kernel_summary_threefry(fid, train)]}))
+                         kernel_summary_threefry(fid, train, families)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,7 +19,9 @@ mantissa bits of a float in [1, 2) and subtracts 1; bernoulli is
 ``uniform < p`` in f32; ``randint`` takes two draws (one per half of
 ``split(k)``) and combines their remainders, not the modulus of one;
 ``normal`` is ``sqrt(2) * erfinv(u)`` with ``u`` uniform in
-``[nextafter(-1, 0), 1)``.  Only the spans the port draws are
+``[nextafter(-1, 0), 1)``; ``normal_bf16`` is the same in bfloat16, which
+draws from the 7 bits above each word's lowest (see its docstring).
+Only the spans the port draws are
 implemented (``uniform`` over 1 or 2, ``randint`` below 2^15); others
 raise.
 
@@ -35,7 +37,8 @@ are its oracle.
 ``sqrt(w) - 3``).  XLA's own ``log1p`` is not torch's, so ``normal``
 agrees with ``jax.random.normal`` to a few ulp, not bitwise
 (``tests/test_torch_prng.py`` states the bar); every other draw is
-bitwise.
+bitwise, ``normal_bf16`` too: each of its 128 values, ``erfinv_xla``
+rounded to bf16, is jax's (the tests draw all 128).
 
 Every draw runs on ``cuda`` unless the caller asks for ``device="cpu"``.
 """
@@ -314,3 +317,40 @@ def normal(k: Key, shape, device="cuda", block: Optional[Block] = None
     """``jax.random.normal(k, shape, float32)`` to a few ulp."""
     u = uniform(k, shape, _NORMAL_LO, 1.0, device, block)
     return _SQRT2 * erfinv_xla(u)
+
+
+_BF16_LO = -0.99609375          # bf16 nextafter(-1, 0)
+_BF16_TABLES: dict = {}
+
+
+def _normal_bf16_table(device) -> torch.Tensor:
+    """The 128 values of ``jax.random.normal(..., bfloat16)``, indexed by
+    the 7 bits the draw reads, on ``device``: made once on the host and
+    copied, so the card and the CPU read the same values."""
+    device = resolve_device(device)
+    if device not in _BF16_TABLES:
+        bf = torch.bfloat16
+        u = (torch.arange(128, dtype=torch.int16) | 0x3F80).view(bf) - 1.0
+        lo = torch.tensor(_BF16_LO, dtype=bf)
+        u = torch.maximum(lo, u * (torch.tensor(1.0, dtype=bf) - lo) + lo)
+        e = erfinv_xla(u.float()).to(bf)
+        table = e * torch.tensor(math.sqrt(2), dtype=torch.float64).to(bf)
+        _BF16_TABLES[device] = table.to(device)
+    return _BF16_TABLES[device]
+
+
+def normal_bf16(k: Key, shape, device="cuda", block: Optional[Block] = None
+                ) -> torch.Tensor:
+    """``jax.random.normal(k, shape, bfloat16)``, bitwise.  jax's bf16
+    uniform draws 8 random bits (bf16 has 7 mantissa bits): the low byte
+    of each element's ``bits`` word; ``(byte >> 1) | 0x3F80`` as a bf16
+    in [1, 2), minus 1, mapped to ``[lo, 1)`` in bf16 with ``lo = bf16
+    nextafter(-1, 0)`` and held at ``lo`` or above; then ``erf_inv`` in
+    f32, rounded to bf16, times bf16 ``sqrt(2)``, rounded again.  The
+    result is a function of those 7 bits alone, so it is read from a
+    table of its 128 values made by that recipe.  On a CUDA device the
+    bits come from the ``threefry`` kernel."""
+    b = bits(k, shape, device, block)
+    idx = (b & 0xFF) >> 1
+    table = _normal_bf16_table(b.device)
+    return torch.index_select(table, 0, idx.reshape(-1)).reshape(b.shape)

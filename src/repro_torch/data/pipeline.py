@@ -16,11 +16,12 @@ is ``(P[j] r + Q[j]) mod v`` with ``P[j] = 31^j`` and ``Q[j] = 17 (31^j
 - 1) / 30`` mod v, tabulated on the host.  Integer arithmetic, so exact.
 
 ``v = chain_vocab or min(vocab, 4096)``; ``prng.randint`` draws spans
-below 2^15, so a larger ``chain_vocab`` raises.  ``batch_for`` adds no
-modality inputs: the reference draws the audio and vlm families'
-frames or patches with ``jax.random.normal`` in bf16, which
-``prng.normal`` (f32) does not reproduce; those families wait with
-their training forward (ROADMAP queue 1 item 9) and raise here.
+below 2^15, so a larger ``chain_vocab`` raises.  ``batch_for`` adds the
+audio and vlm families' inputs, the frames or patches (B_local,
+encoder_seq, d_model): ``prng.normal_bf16`` of ``fold_in(key(seed + 7),
+step)``, bitwise the reference's bf16 ``jax.random.normal``.  That key
+does not depend on the host: as in the reference, every host draws the
+same features.
 
 The classification task (the paper's CIFAR-10 stand-in): class means
 ``snr * mu / |mu|`` from ``normal(key(seed + 101))``, and per step
@@ -122,14 +123,16 @@ def lm_batch(cfg: DataConfig, step: int, host_index: int = 0,
 
 def batch_for(model_cfg, cfg: DataConfig, step: int, host_index: int = 0,
               num_hosts: int = 1, device="cuda") -> dict:
-    """The model family's batch: the LM batch for dense and MoE; the
-    audio and vlm families raise (see the module docstring)."""
+    """The model family's batch: the LM batch, plus the frames (audio)
+    or patches (vlm), (B_local, encoder_seq, d_model) bf16."""
+    batch = lm_batch(cfg, step, host_index, num_hosts, device)
     if model_cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"batch_for {model_cfg.name} (family {model_cfg.family!r}): "
-            f"the reference draws its frames/patches with a bf16 "
-            f"jax.random.normal, not ported (ROADMAP queue 1 item 9)")
-    return lm_batch(cfg, step, host_index, num_hosts, device)
+        b = batch["tokens"].shape[0]
+        key = prng.fold_in(prng.key(cfg.seed + 7), int(step))
+        name = "frames" if model_cfg.family == "audio" else "patches"
+        batch[name] = prng.normal_bf16(
+            key, (b, model_cfg.encoder_seq, model_cfg.d_model), device)
+    return batch
 
 
 # ----------------------------------------------------------------------

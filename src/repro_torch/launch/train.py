@@ -8,6 +8,15 @@ chain task, printing one JSON line (the reference's
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
       --steps 20 --batch 4 --seq 32
 
+Every family of ``configs`` trains (``--arch whisper-large-v3`` draws
+its frames, ``llama-3.2-vision-90b`` its patches, through
+``data.batch_for``); zamba2-7b needs ``--optimizer adafactor`` on one
+80 GB card, and the VLM's 100 layers do not fit one at all.  At these
+widths Adafactor's step of about ``lr`` a weight is large near the
+default ``--lr 1e-3``: zamba2-7b's loss rises after the update at 8e-4
+in the port as in the reference (``tests/adafactor_lr_witness.py``), so
+train it with ``--optimizer adafactor --lr 3e-4``.
+
 Runs on ``cuda`` unless ``--device cpu``.  ``--cim ternary`` is refused
 before anything is built: the ternary matmul kernels have no backward
 (``train/step.py``).  ``--cim exact`` trains through the macro-exact

@@ -9,11 +9,16 @@ family's ``forward``.
 
 TransformerLM.
 
-``forward`` (training: the whole sequence, no cache) is the dense and
-MoE stack's; the VLM's cross blocks, ``EncDecModel``, ``ZambaModel`` and
-``XLSTMModel`` raise (ROADMAP queue 1 item 9).  Its embedding gradient
-is deterministic (``layers.embed``) and each layer runs under
-``_maybe_remat`` (``remat="full"``: recomputed in the backward pass).
+``forward`` (training: the whole sequence, no cache, every family) has
+a deterministic embedding gradient (``layers.embed``) and runs each layer
+(each encoder and decoder block, each Mamba2 layer, each xLSTM pair)
+under ``_maybe_remat`` (``remat="full"``: recomputed in the backward
+pass), where the reference's scans do; the VLM's cross blocks and
+zamba2's shared block run outside it, as in the reference.  The
+stacked weights are unbound once (``_per_layer``), so the backward pass
+stacks each leaf's gradient once instead of adding a full-size zero
+tensor per layer.  The training forward writes no state: the cross
+keys and values, the Mamba2 and xLSTM carries of serving are not made.
 
 Params mirror the reference's tree: ``embed`` (V, d), ``unembed``
 (d, V), ``final_norm`` (d,), and ``blocks`` whose leaves carry a leading
@@ -124,11 +129,12 @@ def _maybe_remat(fn, cfg: ModelConfig):
     return remat
 
 
-def _no_forward(model, what: str):
-    return NotImplementedError(
-        f"{type(model).__name__} ({model.cfg.name}, family "
-        f"{model.cfg.family!r}): {what} has no training forward yet "
-        f"(ROADMAP queue 1 item 9)")
+def _per_layer(tree: dict, n: int) -> list:
+    """The n layers' dicts of a stacked tree, each tensor leaf unbound
+    once (views), a packed leaf indexed."""
+    per = {k: (v.unbind(0) if isinstance(v, torch.Tensor)
+               else [v[i] for i in range(n)]) for k, v in tree.items()}
+    return [{k: v[i] for k, v in per.items()} for i in range(n)]
 
 
 def _walk(tree: dict, path: tuple = ()):
@@ -167,7 +173,7 @@ class BaseModel:
                 return_aux: bool = False):
         """Full-sequence logits (B, S, V) of ``batch['tokens']`` (and
         the auxiliary loss with ``return_aux``): the training forward."""
-        raise _no_forward(self, "the family")
+        raise NotImplementedError
 
     def loss(self, params: dict, batch: dict, cim=None) -> torch.Tensor:
         """Mean next-token cross-entropy over the labels >= 0, plus the
@@ -407,26 +413,37 @@ class TransformerLM(BaseModel):
         m, aux = self._mlp_aux(rms_norm(x, wl["ln2"], cfg.norm_eps), wl, cim)
         return x + m, aux
 
+    def _cross_block(self, x, patches, wc: dict, cim):
+        """A cross block of the training forward: the patches' keys and
+        values projected here, ``x + tanh(gate) * cross_attention``."""
+        cfg = self.cfg
+        h = attn.cross_attention(rms_norm(x, wc["ln"], cfg.norm_eps),
+                                 patches, wc, cfg, cim_cfg=cim)
+        return x + torch.tanh(wc["gate"]).to(x.dtype) * h
+
     def forward(self, params: dict, batch: dict, cim=None,
                 return_aux: bool = False):
-        """Logits (B, S, V) of ``batch['tokens']`` (B, S), dense or MoE,
-        each layer under ``_maybe_remat``; with ``return_aux`` also the
-        summed MoE auxiliary loss (an f32 0-d tensor).  The stacked
-        weights are unbound once, so the backward pass stacks each
-        leaf's gradient once instead of adding a full-size zero tensor
-        per layer."""
+        """Logits (B, S, V) of ``batch['tokens']`` (B, S), each layer
+        under ``_maybe_remat``; with ``return_aux`` also the summed MoE
+        auxiliary loss (an f32 0-d tensor).  A VLM runs the cross block
+        of each group after its ``cross_attn_every`` self layers, over
+        ``batch['patches']`` (B, P, d) in the model dtype (the
+        reference's ``_forward_vlm``)."""
         cfg = self.cfg
-        if cfg.cross_attn_every:
-            raise _no_forward(self, "the cross-attending (vlm) forward")
         x = embed(params["embed"], batch["tokens"]).to(cfg.dtype)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        per_layer = {k: (v.unbind(0) if isinstance(v, torch.Tensor)
-                         else [v[i] for i in range(cfg.num_layers)])
-                     for k, v in params["blocks"].items()}
+        if cfg.cross_attn_every:
+            patches = batch["patches"].to(cfg.dtype)
+            crosses = _per_layer(params["cross_blocks"], self.n_cross)
         body = _maybe_remat(self._train_block, cfg)
-        for i in range(cfg.num_layers):
-            x, a = body(x, {k: v[i] for k, v in per_layer.items()}, cim)
+        for i, wl in enumerate(_per_layer(params["blocks"],
+                                          cfg.num_layers)):
+            x, a = body(x, wl, cim)
             aux = aux + a
+            if self._crosses_after(i):
+                x = self._cross_block(x, patches,
+                                      crosses[i // cfg.cross_attn_every],
+                                      cim)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = dense(x, params["unembed"], cim)
         return (logits, aux) if return_aux else logits
@@ -712,23 +729,57 @@ class EncDecModel(BaseModel):
                 "xk": ParamSpec(xshape, "zeros"),
                 "xv": ParamSpec(xshape, "zeros")}
 
+    def _enc_block(self, x, wl: dict, cim):
+        cfg = self.cfg
+        x = x + attn.self_attention(rms_norm(x, wl["ln1"], cfg.norm_eps),
+                                    wl, cfg, causal=False, cim_cfg=cim)
+        return x + gelu_mlp(rms_norm(x, wl["ln2"], cfg.norm_eps), wl["w1"],
+                            wl["w2"], cim)
+
     def encode(self, params: dict, frames: torch.Tensor, cim=None
                ) -> torch.Tensor:
         """(B, T, d) frames -> (B, T, d) encoder output: sinusoidal
         positions (f32, cast to the model dtype), then each block's
-        non-causal attention and gelu MLP, then ``enc_norm``."""
+        non-causal attention and gelu MLP (under ``_maybe_remat``), then
+        ``enc_norm``.  Serving and training share it."""
         cfg = self.cfg
         x = frames.to(cfg.dtype)
         x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                      x.device).to(cfg.dtype)
-        enc = params["enc_blocks"]
-        for i in range(cfg.encoder_layers):
-            wl = _layer(enc, i)
-            x = x + attn.self_attention(rms_norm(x, wl["ln1"], cfg.norm_eps),
-                                        wl, cfg, causal=False, cim_cfg=cim)
-            x = x + gelu_mlp(rms_norm(x, wl["ln2"], cfg.norm_eps), wl["w1"],
-                             wl["w2"], cim)
+        body = _maybe_remat(self._enc_block, cfg)
+        for wl in _per_layer(params["enc_blocks"], cfg.encoder_layers):
+            x = body(x, wl, cim)
         return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+    def _dec_train_block(self, x, enc, wl: dict, cim):
+        """A decoder block of the training forward: causal
+        self-attention, cross-attention over ``enc`` (its keys and
+        values projected here), the gelu MLP."""
+        cfg = self.cfg
+        x = x + attn.self_attention(rms_norm(x, wl["ln1"], cfg.norm_eps),
+                                    wl, cfg, cim_cfg=cim)
+        wx = {k[2:]: v for k, v in wl.items() if k.startswith("x_")}
+        x = x + attn.cross_attention(rms_norm(x, wl["ln2"], cfg.norm_eps),
+                                     enc, wx, cfg, cim_cfg=cim)
+        return x + gelu_mlp(rms_norm(x, wl["ln3"], cfg.norm_eps), wl["w1"],
+                            wl["w2"], cim)
+
+    def forward(self, params: dict, batch: dict, cim=None,
+                return_aux: bool = False):
+        """Logits (B, S, V) of ``batch['tokens']`` over the encoding of
+        ``batch['frames']`` (B, T, d), each block under
+        ``_maybe_remat``; the aux loss is an f32 zero."""
+        cfg = self.cfg
+        enc = self.encode(params, batch["frames"], cim)
+        x = embed(params["embed"], batch["tokens"]).to(cfg.dtype)
+        body = _maybe_remat(self._dec_train_block, cfg)
+        for wl in _per_layer(params["dec_blocks"], cfg.num_layers):
+            x = body(x, enc, wl, cim)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = dense(x, params["unembed"], cim)
+        return ((logits, torch.zeros((), dtype=torch.float32,
+                                     device=x.device))
+                if return_aux else logits)
 
     def _cross_kv(self, params: dict, enc: torch.Tensor, state: dict,
                   cim) -> None:
@@ -863,6 +914,45 @@ class ZambaModel(BaseModel):
         state["conv"][i] = new.conv
         return x + h
 
+    def _mamba_train(self, x, wl: dict, ln, cim):
+        """A Mamba2 layer of the training forward: the full-sequence
+        path from the empty state (its pad past ``ssm.CHUNK``)."""
+        h, _ = ssm.mamba2_block(rms_norm(x, ln, self.cfg.norm_eps), wl,
+                                self.cfg, None, cim)
+        return x + h
+
+    def _shared_train(self, x, params, cim):
+        """The shared attention + SwiGLU block over the whole sequence."""
+        cfg = self.cfg
+        x = x + attn.self_attention(
+            rms_norm(x, params["shared_ln"], cfg.norm_eps),
+            params["shared_attn"], cfg, cim_cfg=cim)
+        wm = params["shared_mlp"]
+        return x + swiglu(rms_norm(x, params["shared_mlp_ln"], cfg.norm_eps),
+                          wm["w1"], wm["w3"], wm["w2"], cim)
+
+    def forward(self, params: dict, batch: dict, cim=None,
+                return_aux: bool = False):
+        """Logits (B, S, V): the groups of ``attn_every`` Mamba2 layers,
+        each under ``_maybe_remat``, each group followed by the one
+        shared block (its gradient summed over the groups), then the
+        ``n_tail`` Mamba2 layers; the aux loss is an f32 zero."""
+        cfg = self.cfg
+        x = embed(params["embed"], batch["tokens"]).to(cfg.dtype)
+        mamba = _per_layer(params["mamba"], cfg.num_layers)
+        lns = params["mamba_ln"].unbind(0)
+        body = _maybe_remat(self._mamba_train, cfg)
+        for i in range(cfg.num_layers):
+            x = body(x, mamba[i], lns[i], cim)
+            if i < self.n_groups * cfg.attn_every and (
+                    (i + 1) % cfg.attn_every == 0):
+                x = self._shared_train(x, params, cim)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = dense(x, params["unembed"], cim)
+        return ((logits, torch.zeros((), dtype=torch.float32,
+                                     device=x.device))
+                if return_aux else logits)
+
     def _run(self, params, x, state, prefill: bool, cim):
         cfg = self.cfg
         shared = params["shared_attn"]
@@ -953,6 +1043,37 @@ class XLSTMModel(BaseModel):
                 "s_n": ParamSpec((n, batch, sh, shd), "ones", f32),
                 "s_m": ParamSpec((n, batch, sh), "zeros", f32),
                 "s_h": ParamSpec((n, batch, sh, shd), "zeros", f32)}
+
+    def _pair_train(self, x, wl: dict, cim):
+        """An (mLSTM, sLSTM) pair of the training forward, from the zero
+        state; the new states are not kept."""
+        cfg = self.cfg
+        h, _ = ssm.mlstm_block(rms_norm(x, wl["m_ln"], cfg.norm_eps),
+                               wl["mlstm"], cfg, None, cim)
+        x = x + h
+        h, _ = ssm.slstm_block(rms_norm(x, wl["s_ln"], cfg.norm_eps),
+                               wl["slstm"], cfg, None, cim)
+        return x + h
+
+    def forward(self, params: dict, batch: dict, cim=None,
+                return_aux: bool = False):
+        """Logits (B, S, V): every pair in turn, each under
+        ``_maybe_remat``; the aux loss is an f32 zero."""
+        cfg = self.cfg
+        x = embed(params["embed"], batch["tokens"]).to(cfg.dtype)
+        n = self.n_pairs
+        pairs = zip(_per_layer(params["mlstm"], n),
+                    _per_layer(params["slstm"], n),
+                    params["m_ln"].unbind(0), params["s_ln"].unbind(0))
+        body = _maybe_remat(self._pair_train, cfg)
+        for wm, ws, lm, ls in pairs:
+            x = body(x, {"mlstm": wm, "slstm": ws, "m_ln": lm, "s_ln": ls},
+                     cim)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = dense(x, params["unembed"], cim)
+        return ((logits, torch.zeros((), dtype=torch.float32,
+                                     device=x.device))
+                if return_aux else logits)
 
     def _pairs(self, params, x, state, use_state: bool, cim):
         """Every pair in turn, each pair's new states written into

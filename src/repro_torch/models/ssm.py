@@ -123,8 +123,10 @@ def _ssd_chunked(xh, dt, a_log, B, C):
     gap = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (b,n,c,c,h)
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool,
                                 device=xh.device))
-    decay = torch.where(tri[None, None, :, :, None], torch.exp(gap),
-                        torch.zeros((), device=xh.device))
+    # masked before the exp: off the triangle gap > 0 may pass 88, where
+    # exp overflows and where(tri, exp(gap), 0)'s gradient is 0 * inf
+    decay = torch.exp(torch.where(tri[None, None, :, :, None], gap,
+                                  -math.inf))
     cb = torch.einsum("bncs,bnts->bnct", Cc, Bc)
     w_intra = decay * cb[..., None] * dtc[:, :, None, :, :]
     y_intra = torch.einsum("bntuh,bnuhd->bnthd", w_intra, xc)
@@ -383,6 +385,7 @@ def slstm_block(x, w, cfg: ModelConfig, state: Optional[XLSTMState] = None,
         h = torch.zeros((b, heads, hd), dtype=torch.float32, device=dev)
     else:
         c, n, m, h = state.C[..., 0], state.n, state.m, state.h
+    n_floor = torch.full((), 1e-6, dtype=torch.float32, device=dev)
     ys = []
     for t in range(s):
         gx = gates_x[:, t]                              # (B,4,H,hd)
@@ -399,7 +402,8 @@ def slstm_block(x, w, cfg: ModelConfig, state: Optional[XLSTMState] = None,
         c = fdec * c + iamp * torch.tanh(zi)
         n = fdec * n + iamp
         m = m_new
-        h = torch.sigmoid(oi) * (c / torch.clamp_min(n, 1e-6))
+        # torch.maximum, as jnp.maximum, splits the gradient at a tie
+        h = torch.sigmoid(oi) * (c / torch.maximum(n, n_floor))
         ys.append(h)
     y = torch.stack(ys, dim=1).reshape(b, s, d).to(x.dtype)
     y = rms_norm(y, w["norm"], cfg.norm_eps)

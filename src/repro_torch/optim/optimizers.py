@@ -74,12 +74,28 @@ def constant_lr(v: float) -> Callable:
                                    device=_f32(step).device)
 
 
+# elements of a leaf the f32 temporaries of the norm, the clip and the
+# updates cover at a time: a stacked leaf (3-D or more) past it is taken
+# one slice of its leading axis at a time (zamba2-7b's Mamba2 in_proj,
+# 81 x 3584 x 14576, would need 15.8 GiB for each full f32 copy)
+PIECE = 1 << 28
+
+
+def _parts(x: torch.Tensor) -> list:
+    """Indices covering ``x``: the whole of it, or, for a stacked leaf
+    past ``PIECE`` elements, each slice of its leading axis."""
+    if x.dim() < 3 or x.numel() <= PIECE:
+        return [slice(None)]
+    return list(range(x.shape[0]))
+
+
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the f32 sums of squares, added leaf by leaf in the
-    reference's order."""
+    reference's order (a sliced leaf's slices in turn)."""
     total = 0
     for g in tree.leaves(grads):
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
+        for i in _parts(g):
+            total = total + torch.sum(torch.square(g[i].to(torch.float32)))
     return torch.sqrt(total)
 
 
@@ -91,7 +107,8 @@ def clip_by_global_norm(grads, max_norm: float):
     for x in tree.leaves(grads):
         # in f32, then rounded to x's dtype: on the card x.mul_(scale)
         # would round the 0-d f32 scale to a bf16 x's dtype first
-        x.copy_(x.to(torch.float32) * scale)
+        for i in _parts(x):
+            x[i].copy_(x[i].to(torch.float32) * scale)
     return grads, g
 
 
@@ -136,13 +153,14 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.999,
         lr_t = lr_fn(step)
 
         def leaf(p, g, mu, nu):
-            g = g.to(state_dtype)
-            mu.mul_(b1).add_((1 - b1) * g)
-            nu.mul_(b2).add_((1 - b2) * torch.square(g))
-            upd = (mu / c1) / (torch.sqrt(nu / c2) + eps)
-            if weight_decay:
-                upd = upd + weight_decay * p.to(state_dtype)
-            _apply(p, lr_t, upd)
+            for i in _parts(p):
+                gi = g[i].to(state_dtype)
+                mu[i].mul_(b1).add_((1 - b1) * gi)
+                nu[i].mul_(b2).add_((1 - b2) * torch.square(gi))
+                upd = (mu[i] / c1) / (torch.sqrt(nu[i] / c2) + eps)
+                if weight_decay:
+                    upd = upd + weight_decay * p[i].to(state_dtype)
+                _apply(p[i], lr_t, upd)
 
         tree.map_leaves(leaf, params, grads, state["mu"], state["nu"])
         return params, state, {"grad_norm": gnorm, "lr": lr_t}
@@ -191,25 +209,45 @@ def adafactor(lr: Callable | float, decay: float = 0.8, eps: float = 1e-30,
         beta = 1.0 - t ** (-decay)
         lr_t = lr_fn(step)
 
-        def leaf(p, g, s):
-            g32 = g.to(torch.float32)
-            g2 = torch.square(g32) + eps
+        def unclipped(g, s, i, first: bool):
+            """The update of part i of a leaf before the RMS clip; the
+            first pass over a part updates its moments."""
+            g32 = g[i].to(torch.float32)
             if "r" in s:
-                s["r"].copy_(beta * s["r"] + (1 - beta) * g2.mean(dim=-1))
-                s["c"].copy_(beta * s["c"] + (1 - beta) * g2.mean(dim=-2))
-                r, c = s["r"], s["c"]
+                r, c = s["r"][i], s["c"][i]
+                if first:
+                    g2 = torch.square(g32) + eps
+                    r.copy_(beta * r + (1 - beta) * g2.mean(dim=-1))
+                    c.copy_(beta * c + (1 - beta) * g2.mean(dim=-2))
+                    del g2
                 # rank-1 reconstruction of the second moment
                 denom = (r[..., None] / torch.clamp_min(
                     r.mean(dim=-1, keepdim=True), eps)[..., None]) * \
                     c[..., None, :]
-                upd = g32 * torch.rsqrt(torch.clamp_min(denom, eps))
-            else:
-                s["v"].copy_(beta * s["v"] + (1 - beta) * g2)
-                upd = g32 * torch.rsqrt(torch.clamp_min(s["v"], eps))
+                return g32 * torch.rsqrt(torch.clamp_min(denom, eps))
+            v = s["v"][i]
+            if first:
+                v.copy_(beta * v + (1 - beta) * (torch.square(g32) + eps))
+            return g32 * torch.rsqrt(torch.clamp_min(v, eps))
+
+        def leaf(p, g, s):
+            parts = _parts(p)
             # update clipping (RMS)
-            rms = torch.sqrt(torch.mean(torch.square(upd)) + 1e-12)
-            upd = upd / torch.clamp_min(rms / clip_threshold, 1.0)
-            _apply(p, lr_t, upd)
+            if len(parts) == 1:
+                upd = unclipped(g, s, parts[0], True)
+                rms = torch.sqrt(torch.mean(torch.square(upd)) + 1e-12)
+                _apply(p, lr_t, upd / torch.clamp_min(rms / clip_threshold,
+                                                       1.0))
+                return
+            # a sliced leaf: the sum of squares over its slices, then each
+            # slice's update again, clipped
+            sq = 0
+            for i in parts:
+                sq = sq + torch.sum(torch.square(unclipped(g, s, i, True)))
+            rms = torch.sqrt(sq / p.numel() + 1e-12)
+            scale = torch.clamp_min(rms / clip_threshold, 1.0)
+            for i in parts:
+                _apply(p[i], lr_t, unclipped(g, s, i, False) / scale)
 
         # the state holds a dict where the params hold a leaf
         tree.map_leaves(leaf, params, grads, state)

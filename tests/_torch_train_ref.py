@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro import configs as jconfigs
 from repro.kernels import cim_mac as jcim_mac
 from repro.kernels import ref as jref
@@ -22,16 +23,6 @@ jax.config.update("jax_platform_name", "cpu")
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread while the module runs: the suite runs files
-    in parallel workers on shared cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def np_tree(tree):

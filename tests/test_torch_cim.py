@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro.core import cim as jcim
 from repro.core import device_models as jdm
 from repro.core import packing as jpacking

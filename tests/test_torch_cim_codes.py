@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro.core.packing import pack_trit_planes_base3 as jpack_planes
 from repro.kernels import execute as jexecute
 from repro.kernels import ops as jops

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro.kernels import execute as jexecute
 from repro.kernels import ops as jops
 from repro.kernels import plan_matmul as jplan_matmul

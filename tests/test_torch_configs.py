@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro import configs as jconfigs
 from repro.core.cim_linear import CIMConfig as JCIMConfig
 from repro.core.cim_linear import hbm_bytes as jhbm_bytes

@@ -1693,3 +1693,103 @@ def test_train_ternary_is_refused_on_the_card(dev):
             packed, lm_batch(DataConfig(vocab_size=512, seq_len=8,
                                         global_batch=1), 0, device=dev))
     assert tm.LAUNCHES["ternary_matmul"] == 0
+
+
+# ------------------------------------------ training the other families
+
+FAMILY_ARCHS = ("whisper-large-v3", "llama-3.2-vision-90b", "zamba2-7b",
+                "xlstm-125m")
+
+
+def test_train_normal_bf16_on_the_card_equals_the_cpu(dev):
+    """prng.normal_bf16 through the threefry kernel (one launch) bitwise
+    the CPU's, and batch_for's frames and patches at the smoke widths
+    (one launch more than the tokens' 6 a row)."""
+    from repro_torch.data import DataConfig, batch_for
+    k = prng.fold_in(prng.key(7), 3)
+    threefry.reset_launches()
+    got = prng.normal_bf16(k, (3, 1601, 97), dev)
+    assert threefry.LAUNCHES["threefry"] == 1
+    want = prng.normal_bf16(k, (3, 1601, 97), "cpu")
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+    data = DataConfig(vocab_size=512, seq_len=32, global_batch=4, seed=2)
+    for arch, name in (("whisper-large-v3", "frames"),
+                       ("llama-3.2-vision-90b", "patches")):
+        threefry.reset_launches()
+        a = batch_for(configs.smoke(arch), data, 5, device=dev)
+        assert threefry.LAUNCHES["threefry"] == 6 * 4 + 1
+        b = batch_for(configs.smoke(arch), data, 5, device="cpu")
+        assert set(a) == set(b) == {"tokens", "labels", name}
+        for key in b:
+            assert torch.equal(a[key].cpu(), b[key])
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_train_family_step_on_the_card_matches_the_cpu(dev, arch,
+                                                       monkeypatch):
+    """One make_train_step step of each new family's f32 smoke config
+    (remat 'full', two microbatches, which split the frames or patches)
+    with the family's own optimizer (Adafactor for zamba2 and the VLM,
+    AdamW else) on the card and on the CPU from the same params and
+    batch, ``optimizers.PIECE`` cut to 256 so that the stacked leaves
+    take the sliced norm, clip and update, with internlm2's bars: loss,
+    grad norm and every moment within 1e-4; the param updates within 2
+    lr, within 1e-3 of lr for all but 0.1%."""
+    from repro_torch import optim, tree
+    from repro_torch.data import DataConfig, batch_for
+    from repro_torch.optim import optimizers
+    from repro_torch.train import TrainState, make_train_step
+    monkeypatch.setattr(optimizers, "PIECE", 256)
+    model = registry.build(dataclasses.replace(
+        configs.smoke(arch), dtype=torch.float32, remat="full"))
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    if "cross_blocks" in params:
+        params["cross_blocks"]["gate"].fill_(0.5)
+    assert any(x.dim() >= 3 and x.numel() > optimizers.PIECE
+               for x in tree.leaves(params))
+    batch = batch_for(model.cfg, DataConfig(
+        vocab_size=model.cfg.vocab_size, seq_len=64, global_batch=4,
+        seed=0), 0, device="cpu")
+    lr = 1e-3
+    make_opt = optim.adafactor if arch in ("zamba2-7b",
+                                           "llama-3.2-vision-90b") \
+        else optim.adamw
+    out = {}
+    for where in (dev, "cpu"):
+        p = tree.map_leaves(lambda x: x.to(where, copy=True), params)
+        opt = make_opt(lr)
+        state = TrainState(p, opt.init(p), torch.zeros(
+            (), dtype=torch.int32, device=where))
+        new, m = make_train_step(model, opt, microbatches=2)(
+            state, {k: v.to(where) for k, v in batch.items()})
+        out[str(where)] = (
+            {k: float(v) for k, v in m.items()},
+            [a.cpu() - b for a, b in zip(tree.leaves(new.params),
+                                         tree.leaves(params))],
+            [x.cpu() for x in tree.leaves(new.opt_state)])
+    (mg, dg, sg), (mc, dc, sc) = out[str(dev)], out["cpu"]
+    for k in ("loss", "grad_norm"):
+        assert np.isfinite(mg[k])
+        assert abs(mg[k] - mc[k]) <= 1e-4 * abs(mc[k])
+    for a, b in zip(sg, sc):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    diff = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(dg, dc)])
+    assert diff.max() <= 2 * lr
+    assert float((diff > 1e-3 * lr).double().mean()) <= 1e-3
+
+
+def test_train_zamba2_grads_finite_at_256_positions_on_the_card(dev):
+    """zamba2's smoke gradients at 256 positions (one full SSD chunk,
+    where the reference's overflow) are finite on the card."""
+    from repro_torch import tree
+    from repro_torch.data import DataConfig, batch_for
+    from repro_torch.train import value_and_grad
+    model = registry.build(dataclasses.replace(
+        configs.smoke("zamba2-7b"), dtype=torch.float32))
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    batch = batch_for(model.cfg, DataConfig(
+        vocab_size=model.cfg.vocab_size, seq_len=256, global_batch=2,
+        seed=0), 0, device=dev)
+    loss, grads = value_and_grad(model, params, batch)
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(g).all()) for g in tree.leaves(grads))

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro import configs as jconfigs
 from repro.core.cim_linear import CIMConfig as JCIMConfig
 from repro.core.cim_linear import ternarize_params as jternarize
@@ -43,16 +44,6 @@ LOGIT_TOL = 1e-4             # logits, relative to max|logit|
 STATE_TOL = 1e-5             # caches and the encoder, relative to max
 CAP = 32
 STATES = ("k", "v", "xk", "xv")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module's smoke-size torch ops: the
-    suite runs files in parallel workers on shared cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

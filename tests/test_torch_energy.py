@@ -16,6 +16,7 @@ import functools
 
 import pytest
 
+from _torch_threads import one_thread  # noqa: F401
 from repro.core import energy as jenergy
 from repro.core import mapping as jmapping
 from repro.core.cim import MacroConfig as JMacroConfig

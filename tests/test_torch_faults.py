@@ -20,24 +20,21 @@ Bars, mirroring ``tests/test_faults.py``:
   * ``disturb_packed_params``, ``scrub_packed_params``, ``adc_probe`` and
     ``packed_trit_error_rate``: equal packed bytes and counters on the
     smoke params tree (stacked leaves, the reference's leaf order);
-  * device-fidelity ``Scheduler`` serving under ``FaultModel(seed=0,
-    restore_yield=YIELDS, drift_rate=0.002)``: the reference's tokens,
-    ``scrubs_run``, clip counters and served bytes, ``host_transfers ==
-    chunks_run``, prefill exact; the ``PagedScheduler`` the same tokens;
-  * exact-fidelity hooks inert; capability routing and loud failures;
-    launcher validation and output fields; ``num_trits < 5`` packing and
+  * capability routing and loud failures; ``num_trits < 5`` packing and
     ``ternarize_params(predicate=)``.
-"""
-import dataclasses
-import functools
 
+Device-fidelity serving, the exact-fidelity hooks and the launcher are
+in ``tests/test_torch_faults_serving.py``.
+"""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro import configs as jconfigs
+from _torch_faults_ref import (YIELDS, packed_bytes_equal,  # noqa: F401
+                               restore_campaigns, smoke_setup)
+from _torch_threads import one_thread  # noqa: F401
 from repro import faults as jfaults
 from repro.core import error_injection as jei
 from repro.core import yield_model as jyield
@@ -47,12 +44,7 @@ from repro.kernels import execute as jexecute
 from repro.kernels import ops as jops
 from repro.kernels import plan_matmul as jplan_matmul
 from repro.kernels import shape_of as jshape_of
-from repro.models import registry as jregistry
-from repro.serve import PagedScheduler as JPagedScheduler
-from repro.serve import Request as JRequest
-from repro.serve import Scheduler as JScheduler
-from repro_torch import configs, faults
-from repro_torch.convert import params_from_reference
+from repro_torch import faults
 from repro_torch.core import error_injection as ei
 from repro_torch.core import prng
 from repro_torch.core import yield_model
@@ -61,13 +53,9 @@ from repro_torch.core.ternary import TernaryTensor
 from repro_torch.kernels import (execute, get_backend, ops, plan_matmul,
                                  resolve_backend, shape_of)
 from repro_torch.kernels.plan import route_fidelity
-from repro_torch.launch import serve as launch_serve
-from repro_torch.models import registry
-from repro_torch.serve import PagedScheduler, Request, Scheduler
 
 jax.config.update("jax_platform_name", "cpu")
 
-YIELDS = (0.97, 0.995, 0.96)
 GMUL_REL = 1e-6
 
 
@@ -82,15 +70,6 @@ def _t(x):
 def _trits(shape, seed):
     rng = np.random.default_rng(seed)
     return rng.integers(-1, 2, size=shape).astype(np.int8)
-
-
-@pytest.fixture(autouse=True)
-def _restore_campaigns():
-    jprev = jfaults.set_fault_model(jfaults.FaultModel())
-    prev = faults.set_fault_model(faults.FaultModel())
-    yield
-    jfaults.set_fault_model(jprev)
-    faults.set_fault_model(prev)
 
 
 # ------------------------------------------------- confusion channel
@@ -307,40 +286,8 @@ def test_device_execute_deterministic_and_correlated(packing):
 
 # ------------------------------------------------- scrub/drift repair
 
-@functools.lru_cache(maxsize=None)
-def _setup():
-    jcfg = dataclasses.replace(jconfigs.smoke("internlm2-1.8b"),
-                               dtype=jnp.float32)
-    tcfg = dataclasses.replace(configs.smoke("internlm2-1.8b"),
-                               dtype=torch.float32)
-    jm, tm = jregistry.build(jcfg), registry.build(tcfg)
-    jparams = jternarize(jax.jit(jm.init)(jax.random.key(0)),
-                         JCIMConfig(mode="ternary", packing="base3"))
-    tparams = params_from_reference(jax.tree.map(np.asarray, jparams),
-                                    device="cpu")
-    return jcfg, jm, tm, jparams, _model_order(tparams, tm.param_specs)
-
-
-def _model_order(tree, specs):
-    """The converted tree (sorted keys, as jax.tree.map leaves it) in the
-    port's own key order (``model.init``'s): leaf numbering must not
-    depend on it."""
-    if isinstance(tree, dict):
-        return {k: _model_order(tree[k], specs[k]) for k in specs}
-    return tree
-
-
-def _packed_bytes_equal(jtree, ttree):
-    jl = [x for x in jax.tree_util.tree_leaves(
-        jtree, is_leaf=lambda x: isinstance(x, jops.PackedTernary))
-        if isinstance(x, jops.PackedTernary)]
-    tl = [leaf for _, leaf in faults.scrub.packed_leaves(ttree)]
-    return len(jl) == len(tl) > 0 and all(
-        np.array_equal(_np(a.data), b.data.numpy()) for a, b in zip(jl, tl))
-
-
 def test_disturb_scrub_probe_equal_on_the_smoke_tree():
-    _, _, _, jparams, tparams = _setup()
+    _, _, _, jparams, tparams = smoke_setup()
     assert list(tparams) != sorted(tparams)    # leaf order must be sorted
     jserved = jparams
     served = tparams
@@ -349,12 +296,12 @@ def test_disturb_scrub_probe_equal_on_the_smoke_tree():
             jserved, 0.01, jax.random.fold_in(jax.random.key(9), chunk))
         served = faults.disturb_packed_params(
             served, 0.01, prng.fold_in(prng.key(9), chunk))
-        assert _packed_bytes_equal(jserved, served)
+        assert packed_bytes_equal(jserved, served)
     assert faults.packed_trit_error_rate(served, tparams) == \
         jfaults.packed_trit_error_rate(jserved, jparams) > 0
     jscrub = jfaults.scrub_packed_params(jparams, YIELDS, jax.random.key(10))
     scrub = faults.scrub_packed_params(tparams, YIELDS, prng.key(10))
-    assert _packed_bytes_equal(jscrub, scrub)
+    assert packed_bytes_equal(jscrub, scrub)
     post = faults.packed_trit_error_rate(scrub, tparams)
     assert post == jfaults.packed_trit_error_rate(jscrub, jparams) > 0
     assert post <= 2.0 * ei.expected_trit_error_rate(YIELDS,
@@ -378,101 +325,6 @@ def test_packed_trit_roundtrip(packing):
         mode="ternary", packing=packing))["w1"]
     assert np.array_equal(_np(jfaults.packed_to_trits(jleaf)),
                           faults.packed_to_trits(leaf).numpy())
-
-
-# ------------------------------------------------- serving integration
-
-def _prompts(count=2, length=8, seed=11):
-    rng = np.random.default_rng(seed)
-    return [rng.integers(0, 512, size=length).astype(np.int32)
-            for _ in range(count)]
-
-
-FAULTS = dict(seed=0, restore_yield=YIELDS, drift_rate=0.002)
-
-
-def _serve_port(cls, tm, tparams, faults_kw=FAULTS, **kw):
-    faults.set_fault_model(faults.FaultModel(**faults_kw))
-    cim = CIMConfig(mode="ternary", packing="base3", fidelity="device")
-    s = cls(tm, tparams, capacity=64, slots=2, chunk=2, cim=cim,
-            scrub_every=2, device="cpu", **kw)
-    for i, p in enumerate(_prompts()):
-        s.submit(Request(uid=i, prompt=p, max_new=4))
-    return s, {r.uid: r.out_tokens for r in s.run()}
-
-
-def test_device_serving_matches_the_reference():
-    _, jm, tm, jparams, tparams = _setup()
-    jfaults.set_fault_model(jfaults.FaultModel(**FAULTS))
-    js = JScheduler(jm, jparams, capacity=64, slots=2, chunk=2,
-                    cim=JCIMConfig(mode="ternary", packing="base3",
-                                   fidelity="device"), scrub_every=2)
-    for i, p in enumerate(_prompts()):
-        js.submit(JRequest(uid=i, prompt=jnp.asarray(p), max_new=4))
-    want = {r.uid: r.out_tokens for r in js.run()}
-    s, got = _serve_port(Scheduler, tm, tparams)
-    assert got == want
-    assert all(len(t) == 4 for t in got.values())
-    assert s.cim.backend == "device" and s.cim.fidelity == "device"
-    assert s.cim_prefill.fidelity == "exact"
-    assert s.cim_prefill.backend == "torch"
-    assert s.host_transfers == s.chunks_run == js.chunks_run
-    assert s.scrubs_run == js.scrubs_run >= 1
-    assert (s.adc_clip_lo, s.adc_clip_hi) == (js.adc_clip_lo,
-                                              js.adc_clip_hi)
-    assert _packed_bytes_equal(js.params, s.params)
-    err = faults.packed_trit_error_rate(s.params, s._params_pristine)
-    bound = ei.expected_trit_error_rate(YIELDS, (1 / 3, 1 / 3, 1 / 3))
-    assert 0.0 < err <= 3.0 * bound
-    assert s.decode_per_slot
-
-
-@pytest.mark.parametrize("fused", [True, False])
-def test_device_paged_serving_matches_the_reference(fused):
-    """The reference's fused read is one device-MAC call over every slot
-    (one input scale, one ADC-noise draw); its gather read vmaps a
-    one-slot decode.  The port's PagedScheduler must follow each."""
-    _, jm, tm, jparams, tparams = _setup()
-    fm = dict(FAULTS, adc_noise_sigma=0.5)
-    jfaults.set_fault_model(jfaults.FaultModel(**fm))
-    js = JPagedScheduler(jm, jparams, capacity=64, slots=2, chunk=2,
-                         page_size=4, cim=JCIMConfig(
-                             mode="ternary", packing="base3",
-                             fidelity="device"),
-                         scrub_every=2, fused_attn=fused)
-    assert (js.attn_plan is not None) == fused
-    for i, p in enumerate(_prompts()):
-        js.submit(JRequest(uid=i, prompt=jnp.asarray(p), max_new=4))
-    want = {r.uid: r.out_tokens for r in js.run()}
-    ps, got = _serve_port(PagedScheduler, tm, tparams, faults_kw=fm,
-                          page_size=4, fused_attn=fused)
-    assert (ps.attn_plan is not None) == fused
-    assert ps.decode_per_slot == (not fused)
-    assert got == want
-    assert ps.host_transfers == ps.chunks_run == js.chunks_run
-    assert ps.scrubs_run == js.scrubs_run >= 1
-    assert (ps.adc_clip_lo, ps.adc_clip_hi) == (js.adc_clip_lo,
-                                                js.adc_clip_hi)
-    assert _packed_bytes_equal(js.params, ps.params)
-
-
-def test_exact_serving_hooks_inert():
-    _, _, tm, _, tparams = _setup()
-    cim = CIMConfig(mode="ternary", packing="base3")
-    assert cim.resolve("cpu") == cim.resolve("cpu", phase="prefill")
-    runs = []
-    for _ in range(2):
-        s = Scheduler(tm, tparams, capacity=64, slots=2, chunk=4, cim=cim,
-                      device="cpu")
-        for i, p in enumerate(_prompts(3)):
-            s.submit(Request(uid=i, prompt=p, max_new=6))
-        runs.append({r.uid: r.out_tokens for r in s.run()})
-        assert s._fault_serving is False
-        assert s._round_extras() == ()
-        assert s.adc_clip_lo == s.adc_clip_hi == s.scrubs_run == 0
-        assert s.host_transfers == s.chunks_run
-        assert s.params is tparams
-    assert runs[0] == runs[1]
 
 
 # ------------------------------------------- fidelity capability axis
@@ -520,31 +372,6 @@ def test_route_fidelity_prefill_exact():
                        fidelity="device")
     assert plan.fidelity == "device" and plan.backend == "device"
     assert plan.adc_bits == 5 and plan.num_trits == 5
-
-
-# --------------------------------------------------------- launcher
-
-def test_launcher_validation_and_fields(capsys):
-    for argv, msg in ((["--fidelity", "device", "--continuous"], "--packed"),
-                      (["--fidelity", "device", "--packed", "base3"],
-                       "--continuous")):
-        with pytest.raises(SystemExit):
-            launch_serve.main(["--smoke", "--device", "cpu"] + argv)
-        assert msg in capsys.readouterr().err
-    out = launch_serve.main([
-        "--smoke", "--device", "cpu", "--packed", "base3", "--continuous",
-        "--slots", "2", "--chunk", "2", "--capacity", "32", "--requests",
-        "3", "--prompt-len", "8", "--max-new", "5", "--fidelity", "device",
-        "--scrub-every", "2"])
-    assert out["fidelity"] == "device" and out["backend"] == "device"
-    assert out["scrubs"] >= 1 and out["host_transfers"] == out["chunks"]
-    assert {"adc_clip_lo", "adc_clip_hi"} <= set(out)
-    assert faults.get_fault_model() == faults.measured_fault_model(
-        seed=0, drift_rate=0.001)
-    exact = launch_serve.main(["--smoke", "--device", "cpu", "--packed",
-                               "base3", "--continuous", "--requests", "2",
-                               "--prompt-len", "8", "--max-new", "3"])
-    assert exact["fidelity"] == "exact" and "scrubs" not in exact
 
 
 # ------------------------------------------------ small parity gaps

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro import configs as jconfigs
 from repro.models import attention as jattn
 from repro.models import paged_kv as jpaged

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro import frontend as jfrontend
 from repro_torch.convert import params_from_reference
 from repro_torch.frontend import (FIFOAdmission, FrontendServer,

@@ -8,6 +8,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+from _torch_threads import one_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
 
@@ -30,7 +32,8 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\s|\.|,|$)",
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", SCRIPT,
                           str(ROOT / "chip_smoke.py")], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120,

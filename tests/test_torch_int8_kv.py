@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro import configs as jconfigs
 from repro.models import attention as jattn
 from repro.models import registry as jregistry
@@ -42,17 +43,6 @@ jax.config.update("jax_platform_name", "cpu")
 LOGIT_TOL = 1e-4             # logits, relative to max|logit|
 CAP = 24
 ARCHS = ("internlm2-1.8b", "glm4-9b", "mixtral-8x7b")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module's smoke-size torch ops: the
-    suite runs files in parallel workers on shared cores, where a full
-    pool of spinning threads per worker slows every other file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_quantize_kv_matches_reference_bitwise():

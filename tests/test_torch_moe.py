@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro import configs as jconfigs
 from repro.core.cim_linear import CIMConfig as JCIMConfig
 from repro.core.cim_linear import hbm_bytes as jhbm_bytes
@@ -49,17 +50,6 @@ jax.config.update("jax_platform_name", "cpu")
 Y_TOL = 1e-5                 # moe_block y, relative to max|y|
 LOGIT_TOL = 1e-4             # logits, absolute (f32)
 CAP = 32
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module's smoke-size torch ops: the
-    suite runs files in parallel workers on shared cores, where a full
-    pool of spinning threads per worker slows every other file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):

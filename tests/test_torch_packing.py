@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro.core import packing as jpacking
 from repro.core import ternary as jternary
 from repro.kernels import ops as jops

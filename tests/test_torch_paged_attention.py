@@ -35,6 +35,7 @@ except ImportError:                         # offline image
     from _hypothesis_compat import given, settings
     from _hypothesis_compat import strategies as st
 
+from _torch_threads import one_thread  # noqa: F401
 from repro.kernels import paged_attention as jpa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import plan_matmul, resolve_backend

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro import configs as jconfigs
 from repro.models import paged_kv as jpkv
 from repro_torch import configs

@@ -6,7 +6,8 @@ Bars: keys (``key``, ``split``, ``fold_in``) and the draws ``bits``,
 ``randint`` (spans below 2^15; others raise) bitwise, on several seeds
 and shapes; any piece of a draw (a flat range, or runs strided like one
 layer of a stacked leaf's planes) bitwise equal to the same elements of
-the whole draw; ``normal`` within 4 ulp of ``jax.random.normal`` with at
+the whole draw; ``normal_bf16`` bitwise ``jax.random.normal(...,
+bfloat16)``; ``normal`` within 4 ulp of ``jax.random.normal`` with at
 most 2% of the elements off at all (XLA's ``log1p`` is not torch's; 3 ulp
 and 0.9% were measured over 2^20 draws).  Flat indices past 2^31 and
 2^32 are held to the scalar threefry of the key functions.
@@ -17,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro_torch.core import prng, yield_model
 from repro_torch.kernels import threefry
 
@@ -93,6 +95,27 @@ def test_normal_within_ulp_bar(seed):
     assert np.isfinite(got).all()
 
 
+@pytest.mark.parametrize("seed,data,shape", [(7, 3, (4, 64, 128)),
+                                             (0, 0, (3, 5, 7)),
+                                             (2**31 - 1, 9, (2, 33, 96)),
+                                             (12345, 1, (1,))])
+def test_normal_bf16_bitwise(seed, data, shape):
+    """``normal_bf16`` is ``jax.random.normal(..., bfloat16)`` bit for
+    bit, an odd element count among the shapes; a block of the draw
+    equals the same elements of the whole."""
+    k = jax.random.fold_in(jax.random.key(seed), data)
+    want = np.asarray(jax.random.normal(k, shape, jnp.bfloat16))
+    tk = prng.fold_in(prng.key(seed), data)
+    got = prng.normal_bf16(tk, shape, "cpu")
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == shape
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  want.view(np.int16))
+    n = got.numel()
+    part = prng.normal_bf16(tk, shape, "cpu",
+                            block=prng.flat_range(n // 3, n - n // 3))
+    assert torch.equal(part, got.reshape(-1)[n // 3:])
+
+
 def test_pieces_equal_the_whole_draw():
     k = prng.key(9)
     shape = (5, 3, 16, 24)                   # (planes, layers, K, N)
@@ -143,6 +166,7 @@ ENTRY_POINTS = {
     "bernoulli": lambda k: prng.bernoulli(k, 0.5, (4,)),
     "randint": lambda k: prng.randint(k, (4,), 0, 8),
     "normal": lambda k: prng.normal(k, (4,)),
+    "normal_bf16": lambda k: prng.normal_bf16(k, (4,)),
     "tl_restore_yield": lambda k: yield_model.tl_restore_yield(k, 60),
     "sl_restore_yield": lambda k: yield_model.sl_restore_yield(k, 60),
 }

@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro import configs as jconfigs
 from repro.core.cim_linear import CIMConfig as JCIMConfig
 from repro.core.cim_linear import ternarize_params as jternarize
@@ -51,17 +52,6 @@ ARCHS = {"zamba": ("zamba2-7b", dict(num_layers=7)),
          "xlstm": ("xlstm-125m", {})}
 STATES = {"zamba": ("h", "conv", "k", "v"),
           "xlstm": ("m_C", "m_n", "m_m", "s_c", "s_n", "s_m", "s_h")}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module's smoke-size torch ops: the
-    suite runs files in parallel workers on shared cores, where a full
-    pool of spinning threads per worker slows every other file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

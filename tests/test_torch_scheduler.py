@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro import configs as jconfigs
 from repro.core.cim_linear import CIMConfig as JCIMConfig
 from repro.core.cim_linear import ternarize_params as jternarize

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro import configs as jconfigs
 from repro.models import ssm as jssm
 from repro_torch import configs
@@ -34,17 +35,6 @@ jax.config.update("jax_platform_name", "cpu")
 
 TOL = 1e-5                   # relative to the largest magnitude
 LONG_TOL = 5e-5              # the same, for prompts past one chunk
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module's smoke-size torch ops: the
-    suite runs files in parallel workers on shared cores, where a full
-    pool of spinning threads per worker slows every other file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfgs(arch):

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro.kernels import ref as jref
 from repro.kernels.ternary_matmul import ternary_matmul, ternary_matmul_int8
 from repro_torch.core.cim_linear import CIMConfig

@@ -322,6 +322,43 @@ def test_optimizer_updates_match_the_reference(name):
     """Three updates (steps 0-2, growing grads, the schedule in its warmup
     and past it) from the reference's params: SGD bitwise, AdamW and
     Adafactor within 4 ulp of each tensor's max."""
+    _three_updates_match_the_reference(name)
+
+
+@pytest.mark.parametrize("name", ["sgd_momentum", "adamw", "adafactor"])
+def test_sliced_leaves_update_as_whole_leaves(name, monkeypatch):
+    """With ``optim.optimizers.PIECE`` at 8 elements the stacked leaves
+    ("stack" 4 x 8 x 8, "odd" 3 x 1 x 5) are normed, clipped and updated
+    one slice of their leading axis at a time, as zamba2-7b's Mamba2
+    in_proj is at full width: three updates' params, state and grad norm
+    within 8 ulp of each tensor's max of the whole-leaf path's (4
+    measured: the norm sums the slices in another order, and the clip
+    and Adafactor's RMS take it up)."""
+    from repro_torch.optim import optimizers
+
+    def three_updates():
+        rng = np.random.default_rng(0)
+        params = {k: torch.from_numpy(rng.standard_normal(d.shape).astype(
+            np.float32)) for k, d in PDEFS.items()}
+        opt = OPTIMIZERS[name](optim)
+        state = opt.init(params)
+        for step in range(3):
+            g = {k: torch.from_numpy((0.3 * (1 + step) * rng.standard_normal(
+                d.shape)).astype(np.float32)) for k, d in PDEFS.items()}
+            params, state, m = opt.update(
+                g, state, params, torch.tensor(step, dtype=torch.int32))
+        return tree.leaves(params) + tree.leaves(state) + [m["grad_norm"]]
+    whole = three_updates()
+    monkeypatch.setattr(optimizers, "PIECE", 8)
+    assert len(optimizers._parts(torch.zeros(3, 1, 5))) == 3
+    assert len(optimizers._parts(torch.zeros(16, 16))) == 1
+    sliced = three_updates()
+    assert len(whole) == len(sliced)
+    for want, got in zip(whole, sliced):
+        assert within_ulps(got.numpy(), want.numpy(), 8), name
+
+
+def _three_updates_match_the_reference(name):
     jparams = init_params(jax.random.key(0), PDEFS, jnp.float32)
     rng = np.random.default_rng(1)
     grads = [{k: (0.3 * (1 + i) * rng.standard_normal(d.shape)).astype(
@@ -488,19 +525,52 @@ def test_class_batch_matches_the_reference(seed, step):
 
 
 def test_data_pipeline_refusals():
-    """A chain vocab past prng.randint's span, and the families whose
-    reference batch draws bf16 normals (audio, vlm)."""
+    """A chain vocab past prng.randint's span is refused; the audio and
+    vlm families, refused before their bf16 draws were ported, now get
+    their frames or patches beside the LM batch."""
     from repro_torch import configs
     with pytest.raises(ValueError, match="2\\^15"):
         lm_batch(DataConfig(vocab_size=50000, seq_len=8, global_batch=1,
                             chain_vocab=40000), 0, device="cpu")
     small = DataConfig(vocab_size=512, seq_len=8, global_batch=2)
-    for arch in ("whisper-large-v3", "llama-3.2-vision-90b"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            batch_for(configs.smoke(arch), small, 0, device="cpu")
+    for arch, name in (("whisper-large-v3", "frames"),
+                       ("llama-3.2-vision-90b", "patches")):
+        cfg = configs.smoke(arch)
+        got = batch_for(cfg, small, 0, device="cpu")
+        assert set(got) == {"tokens", "labels", name}
+        assert got[name].dtype == torch.bfloat16
+        assert tuple(got[name].shape) == (2, cfg.encoder_seq, cfg.d_model)
     got = batch_for(configs.smoke("mixtral-8x7b"), small, 0, device="cpu")
     assert torch.equal(got["tokens"], lm_batch(small, 0,
                                                device="cpu")["tokens"])
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3",
+                                  "llama-3.2-vision-90b"])
+def test_batch_for_features_match_the_reference(arch):
+    """``batch_for``'s bf16 frames (audio) and patches (vlm) bitwise the
+    reference's at two steps, on both hosts of two (each draws the same
+    features), with the tokens and labels."""
+    from repro import configs as jconfigs
+    from repro_torch import configs
+    jcfg = jdata.DataConfig(vocab_size=512, seq_len=8, global_batch=4,
+                            seed=3)
+    tcfg = DataConfig(vocab_size=512, seq_len=8, global_batch=4, seed=3)
+    for step in (0, 17):
+        for host in (0, 1):
+            want = jdata.batch_for(jconfigs.smoke(arch), jcfg, step, host, 2)
+            got = batch_for(configs.smoke(arch), tcfg, step, host, 2,
+                            device="cpu")
+            assert set(got) == set(want)
+            for k, v in want.items():
+                w = np.asarray(v)
+                if w.dtype == np.int32:
+                    np.testing.assert_array_equal(got[k].numpy(), w)
+                else:
+                    assert got[k].dtype == torch.bfloat16
+                    np.testing.assert_array_equal(
+                        got[k].view(torch.int16).numpy(),
+                        w.view(np.int16))
 
 
 def _ref_state(dtype=jnp.float32, error_feedback=False):

@@ -195,15 +195,6 @@ def test_remat_full_gives_the_same_loss_and_grads():
         _port_value_and_grad(dots, params, batch)
 
 
-@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-large-v3",
-                                  "zamba2-7b", "xlstm-125m"])
-def test_forward_of_the_other_families_raises(arch):
-    model = registry.build(configs.smoke(arch))
-    batch = tbatch(lm_tokens(model.cfg.vocab_size, 1, 4, seed=0))
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        model.loss({}, batch)
-
-
 def _step_pair(microbatches, error_feedback):
     """One step of each package's make_train_step from the reference's
     state on the same batch, with SGD and momentum, unclipped (linear in
@@ -341,7 +332,8 @@ def test_ternary_training_is_refused_as_the_reference_fails():
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
          "--device", "cpu", "--cim", "ternary"], cwd=ROOT,
-        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+             "OMP_NUM_THREADS": "1"},
         capture_output=True, text=True, timeout=120)
     assert out.returncode == 2 and "no backward" in out.stderr
 

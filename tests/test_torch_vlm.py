@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro import configs as jconfigs
 from repro.core.cim_linear import CIMConfig as JCIMConfig
 from repro.core.cim_linear import ternarize_params as jternarize
@@ -55,16 +56,6 @@ STATE_TOL = 1e-5             # caches, relative to their max
 CAP = 32
 STATES = ("k", "v", "xk", "xv")
 MATMULS = set(registry.TransformerLM.MATMULS)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module's smoke-size torch ops: the
-    suite runs files in parallel workers on shared cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _gated(jparams, seed=3):

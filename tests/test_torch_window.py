@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import one_thread  # noqa: F401
 from repro import configs as jconfigs
 from repro import faults as jfaults
 from repro.core.cim_linear import CIMConfig as JCIMConfig
@@ -47,17 +48,6 @@ WINDOW = 16
 LOGIT_TOL = 1e-4             # logits, absolute (f32)
 CACHE_TOL = 1e-5             # k/v caches, absolute (f32)
 YIELDS = (0.97, 0.995, 0.96)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for this module's smoke-size torch ops: the
-    suite runs files in parallel workers on shared cores, where a full
-    pool of spinning threads per worker slows every other file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)
