@@ -42,8 +42,8 @@ Phases, each of which raises on failure:
               one call under torch.profiler after a flush, the kernel's own
               device time, checking that the call launched exactly one
               kernel, tm_gemv_kernel (no split-K reduce); at M =
-              1024 it also runs the mma route with the other tile height
-              than mma_plan's, held to the same bar, and times it.  Then
+              1024 it records mma_plan's (block_m, splits, k_per_split)
+              (the autotune phase races the other plans).  Then
               per packing and domain the sums over one decode step and
               one prefill, beside the harness's floor: the same timing of
               a one-element add, times the number of matmuls.
@@ -74,6 +74,23 @@ Phases, each of which raises on failure:
               ``--paged-only [--src DIR]`` builds and runs this phase
               alone, with the repro_torch package under DIR (another
               checkout's, to time its kernel on the same cases).
+3b. autotune - the measured tile table (``kernels/autotune.py``) at full
+              width: a --fast sweep of the main path's cells (internlm2-
+              1.8b's five weights at M = 8 and 1024, both packings, both
+              domains) into chiprun_out/autotune_fast.json, never the
+              tracked table; every plan of that sweep and of the tracked
+              table (which must cover the sweep on this card) run through
+              its wrapper with ``tiles`` and held to the plain version:
+              int8 bitwise, float within 1e-4 of max|y|, a float mma plan
+              within 1e-5 of an f64 sum; the tracked main-path plans
+              timed beside the rule's.  Then the base3 bucket runs of the
+              serve phase in both domains, resolved from the tracked
+              table (every plan ``block_source='autotune'``) and then
+              with the table disabled (every plan ``'heuristic'``):
+              prefill ms, ms per decode step, tokens; int8 tokens equal,
+              float tokens equal or each first divergence a near tie.
+              ``--autotune-only`` runs this phase alone.  Every later
+              phase resolves its plans from the tracked table.
 4. serve    - the bucket ServeEngine at full width (bf16, seeded random
               weights packed by ternarize_params; 8 requests of 128
               prompt tokens, 32 new tokens each) in the float and int8
@@ -102,9 +119,17 @@ Phases, each of which raises on failure:
               tokens equal the gather ones, or every first divergence is a
               near tie (top-2 logit margin <= 2% of the logit scale);
               host_transfers == chunks; resident paged KV peak <= half of
-              the dense pool; prefix hit rate > 0.  Then one chunk of a
-              fused scheduler runs under
-              torch.cuda.set_sync_debug_mode("error").
+              the dense pool; prefix hit rate > 0.
+6b. sanitize - the four engines at full width (bucket, dense, gather,
+              fused; base3 / float) under ``repro_torch.analysis.
+              sanitize``: each warmed on 8 requests, then serving 8 more
+              of the same lengths with set_sync_debug_mode("error") on
+              everywhere but the transfer chokepoint; one transfer per
+              chunk (per bucket), no other sync, no new plan, no build.
+6c. analysis - ``python -m repro_torch.analysis --device cuda`` in a
+              process of its own: every pass clean, the capability pass
+              executing the cuda cells, sanitize and frontend serving on
+              the card.  ``--sanitize-only`` runs 6b and 6c alone.
 7. long     - prompts past 2048 tokens on internlm2-1.8b at full width
               (base3, float domain), through the flash recurrence: one
               layer's flash_attention against the direct masked
@@ -403,6 +428,7 @@ The last two lines are a JSON object of per-kernel numbers and
     python3 chip_smoke.py --cross-only
     python3 chip_smoke.py --train-only
     python3 chip_smoke.py --train-families-only
+    python3 chip_smoke.py --autotune-only --sanitize-only
 """
 from __future__ import annotations
 
@@ -432,6 +458,7 @@ BATCH, PROMPT, MAX_NEW, CAPACITY = 8, 128, 32, 256
 # paged serving: slots, chunk, per-request capacity, page size
 SLOTS, CHUNK, SCHED_CAPACITY, PAGE = 8, 8, 512, 16
 NEAR_TIE = 0.02               # fused vs gather: top-2 margin / logit scale
+AUTOTUNE_STEPS = 8            # decode steps timed per autotune bucket run
 FLOAT_TOL = 1e-4              # kernel vs plain, relative to max|y|
 CHAIN_TOL = 1e-5              # float mma route vs an f64 sum, the same
                               # (the card tests' bar for one matmul)
@@ -823,11 +850,11 @@ def matmul_cases(torch, gen, flush, arch, mode, name, k, n, per_forward,
                 if m <= 8:          # the splits' order is fixed
                     ok = ok and torch.equal(run(), got)
             moved = in_bytes + wbytes + 4 * m * n
-            plans = (mma_plans(torch, tm, x if domain == "float" else xi,
-                               xs if domain == "int8" else None,
-                               data, scale, mode, want, flush)
-                     if m > 8 else dict(plan=list(tm.gemv_plan(
-                         m, k, n, mode, tm._sm_count(dev)))))
+            sms = tm._sm_count(dev)
+            plans = dict(plan=list(
+                tm.gemv_plan(m, k, n, mode, sms) if m <= 8 else
+                tm.mma_plan(m, k, n, sms, tm.MMA_FLOAT_CHAIN
+                            if domain == "float" else None)))
             if domain == "float" and m > 8 and arch != ARCH:
                 plans.update(chain_errors(torch, tm, ops, x, w, want, got))
             if m <= 8:
@@ -891,36 +918,6 @@ def chain_errors(torch, tm, ops, x, w, want, got):
           f"the mma route's f32 error at K={k} passes {CHAIN_TOL} of "
           f"max|y|: {out}")
     return out
-
-
-def mma_plans(torch, tm, x, x_scale, data, scale, mode, want, flush):
-    """The mma route's plan for these operands (mma_plan) and the plan
-    with the other tile height, run through the route's launcher (which
-    counts nothing), held to the plain version as the wrapper is, and
-    timed: {plan, alt_plan, alt_plan_ms}."""
-    m, n = x.shape[0], data.shape[1]
-    k = x.shape[1]
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    chain = tm.MMA_FLOAT_CHAIN if x_scale is None else None
-    plan = tm.mma_plan(m, k, n, sms, chain)
-    alt = tm.mma_tile_plan(m, k, n, sms, 128 if plan[0] == 256 else 256,
-                           chain)
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-
-    def run():
-        check(tm.launch_mma(x, x_scale, data, scale, mode, out, alt) == 0,
-              f"mma launch failed at plan {alt}")
-    run()
-    torch.cuda.synchronize()
-    if x_scale is not None:
-        ok = torch.equal(out, want)
-    else:
-        ok = ((out - want).abs().max().item()
-              <= FLOAT_TOL * want.abs().max().item())
-    check(ok, f"mma plan {alt} disagrees with the plain version at "
-              f"{(m, k, n)} {mode}")
-    return dict(plan=list(plan), alt_plan=list(alt),
-                alt_plan_ms=time_ms(torch, run, 20, flush))
 
 
 def _requests(rng, vocab, n):
@@ -1073,8 +1070,7 @@ def matmul_sums(cases, kernel, mode, m):
             return None
         return sum(v * c["per_forward"] for v, c in zip(vals, recs))
     out = {key: total(key) for key in ("ms", "plain_ms", "library_ms",
-                                       "alt_plan_ms", "device_ms", "bytes",
-                                       "ops")}
+                                       "device_ms", "bytes", "ops")}
     out["matmuls"] = sum(c["per_forward"] for c in recs)
     return out
 
@@ -1146,9 +1142,8 @@ def kernel_summary(cases, runs, cfg, models, moe, int8kv, recurrent,
 def print_matmul_sums(cases, floor_ms):
     """Per packing, domain and phase: the summed kernel, plain, library
     and bound ms of one forward's packed matmuls, their GB/s and bound
-    share, the harness floor times their count, at decode the kernels'
-    profiled device time, and at prefill the sum under the mma route's
-    other tile height."""
+    share, the harness floor times their count, and at decode the
+    kernels' profiled device time."""
     for domain, name in KERNEL_NAMES.items():
         for mode in ("base3", "trit2"):
             for phase, m in (("decode", 8), ("prefill", BATCH * PROMPT)):
@@ -1159,8 +1154,7 @@ def print_matmul_sums(cases, floor_ms):
                            library_ms=t["library_ms"],
                            bound_ms=bound(t["bytes"], t["ops"],
                                           domain)["bound_ms"],
-                           bytes=t["bytes"], alt_plan_ms=t["alt_plan_ms"],
-                           device_ms=t["device_ms"],
+                           bytes=t["bytes"], device_ms=t["device_ms"],
                            floor_ms=floor_ms * t["matmuls"])
                 rec.update(rate(rec))
                 print("[kernels] sum " + json.dumps(rec))
@@ -1566,31 +1560,305 @@ def phase_sched(torch, np, cfg, model, params, specs=None,
     return runs, parity
 
 
-def phase_sync_free_chunk(torch, np, cfg, model, params):
-    """One chunk of a fused PagedScheduler under
-    set_sync_debug_mode('error'): the chunk loop holds no host sync (its
-    single transfer comes after the guarded call)."""
-    from repro_torch.core.cim_linear import CIMConfig
-    from repro_torch.serve import Request
-    cim = CIMConfig(mode="ternary", packing="base3", domain="float")
-    eng = make_scheduler("fused", model, params, cim)
-    for uid, prompt, max_new, _ in sched_requests(np, cfg, seed=22)[:SLOTS]:
-        check(eng.try_admit(Request(uid=uid, prompt=prompt,
-                                    max_new=max_new)), "admission refused")
-    eng._upload_page_table()
-    run_chunk = eng._run_chunk
+def hold_tuned_plan(torch, gen, e, flush=None):
+    """One table entry's plan through its wrapper (``tiles``) on operands
+    of its cell, held to the plain version: int8 bitwise, float within
+    FLOAT_TOL of max|y|, and a float mma plan's error against an f64 sum
+    within CHAIN_TOL; timed beside the rule's plan when ``flush`` is
+    given.  Returns a record."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_matmul as tm
+    m, k, n, mode, domain = e["m"], e["k"], e["n"], e["packing"], e["domain"]
+    dev = torch.device("cuda")
+    kw = k // 4 if mode == "trit2" else k
+    data = torch.randint(0, 256 if mode == "trit2" else 243, (kw, n),
+                         generator=gen, device=dev, dtype=torch.uint8)
+    scale = torch.rand(n, generator=gen, device=dev) * 1e-2
+    w = ops.PackedTernary(data, scale, mode)
+    x = torch.randn(m, k, generator=gen, device=dev, dtype=torch.bfloat16)
+    tiles = tuple(e["blocks"])
+    if domain == "int8":
+        xi, xs = ops.quantize_acts_int8(x)
+        run = lambda t=tiles: tm.matmul_int8(xi, xs, data, scale, mode,  # noqa: E731
+                                             tiles=t)
+        want = ops.ternary_matmul_int8_torch(xi, xs, w)
+    else:
+        run = lambda t=tiles: tm.matmul_float(x, data, scale, mode,  # noqa: E731
+                                              tiles=t)
+        want = ops.ternary_matmul_torch(x, w)
+    got, path = routed(tm, run)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    rec = dict(m=m, k=k, n=n, mode=mode, domain=domain, route=path,
+               blocks=list(tiles), heuristic_blocks=e["heuristic_blocks"],
+               max_abs_err=err)
+    if domain == "int8":
+        ok = torch.equal(got, want)
+    else:
+        ok = err <= FLOAT_TOL * want.abs().max().item()
+        if path == "mma":
+            rec.update(chain_errors(torch, tm, ops, x, w, want, got))
+    check(path == expected_route(torch, m, x.dtype),
+          f"tuned plan {tiles} at {(m, k, n)} took route {path}")
+    check(ok, f"tuned plan {tiles} at {(m, k, n)} {mode}/{domain} "
+              f"disagrees with the plain version: {rec}")
+    if flush is not None:
+        rec["ms"] = time_ms(torch, run, 20, flush)
+        rec["heuristic_ms"] = time_ms(
+            torch, lambda: run(tuple(e["heuristic_blocks"])), 20, flush)
+    del data, w, x, want, got
+    return rec
 
-    def guarded():
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return run_chunk()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    eng._run_chunk = guarded
-    eng.step_round(lambda: 0.0)
-    check(eng.host_transfers == 1 == eng.chunks_run,
-          "the guarded round did not make exactly one transfer")
-    print("[sched] one fused chunk ran under sync_debug_mode('error')")
+
+def autotune_bucket(torch, np, cfg, model, params, domain, source):
+    """The bucket ServeEngine of the serve phase (8 x 128 prompt tokens,
+    MAX_NEW new) at full width, base3, its plans resolved from the
+    tracked table (``source='autotune'``) or from the rules alone
+    (``'heuristic'``: the table disabled); every plan a run executes is
+    recorded.  Returns the run's record and its tokens."""
+    import os
+    import repro_torch.kernels as kernels
+    from repro_torch.core.cim_linear import CIMConfig
+    from repro_torch.kernels import autotune
+    from repro_torch.serve import ServeEngine
+    if source == "heuristic":
+        os.environ[autotune.ENV_VAR] = ""
+    else:
+        os.environ.pop(autotune.ENV_VAR, None)
+    autotune.reload_table()
+    cim = CIMConfig(mode="ternary", packing="base3", domain=domain)
+    rng = np.random.default_rng(7)
+    warm = ServeEngine(model, params, capacity=CAPACITY, max_batch=BATCH,
+                       cim=cim, device="cuda")
+    for r in _requests(rng, cfg.vocab_size, BATCH):
+        r.max_new = 2
+        warm.submit(r)
+    warm.run()
+    seen = {}
+    execute = kernels.execute
+
+    def recorded(plan, x, w):
+        if plan.op == "ternary":
+            seen[plan.shape] = plan
+        return execute(plan, x, w)
+    eng = ServeEngine(model, params, capacity=CAPACITY, max_batch=BATCH,
+                      cim=cim, device="cuda")
+    reqs = _requests(rng, cfg.vocab_size, BATCH)
+    for r in reqs:
+        eng.submit(r)
+    kernels.execute = recorded
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        done = eng.run()
+        wall = time.monotonic() - t0
+    finally:
+        kernels.execute = execute
+    sources = {}
+    for plan in seen.values():
+        sources[plan.block_source] = sources.get(plan.block_source, 0) + 1
+    tokens = {r.uid: [int(t) for t in r.out_tokens] for r in done}
+    prompts = torch.as_tensor(np.stack([r.prompt for r in reqs]),
+                              device="cuda")
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        logits, state = model.prefill(params, prompts, CAPACITY, cim=eng.cim)
+        torch.cuda.synchronize()
+        prefill_ms.append((time.monotonic() - t) * 1e3)
+    step_ms, _, _ = decode_step_ms(
+        torch, model, params, logits[:, -1].argmax(-1, keepdim=True), state,
+        eng.cim, AUTOTUNE_STEPS)
+    rec = dict(domain=domain, source=source, plans=len(seen),
+               block_sources=sources, wall_s=wall,
+               tok_per_s=eng.generated_tokens / wall,
+               prefill_ms=statistics.median(prefill_ms),
+               decode_step_ms=step_ms, host_transfers=eng.host_transfers,
+               plan_table=sorted([list(p.shape), p.block_source,
+                                  list(p.blocks) if p.blocks else None]
+                                 for p in seen.values()))
+    check(eng.host_transfers == 1, f"{eng.host_transfers} transfers for one "
+                                   f"bucket")
+    return rec, tokens, {r.uid: r.prompt for r in reqs}, eng.cim
+
+
+def phase_autotune(torch, np, cfg, model, params, card):
+    """The measured tile table at full width: a --fast sweep of the main
+    path's cells into chiprun_out/ (never the tracked table); every plan
+    of that sweep and of the tracked table held to its plain version (and
+    the float chain); then the base3 bucket runs in both domains, resolved
+    from the tracked table and from the rules, side by side."""
+    import os
+    from repro_torch.kernels import autotune
+    device = torch.cuda.get_device_name(0)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    scratch = out_dir / "autotune_fast.json"
+    scratch.unlink(missing_ok=True)
+    t = time.monotonic()
+    fresh = autotune.tune(fast=True)
+    autotune.save_table(fresh, str(scratch))
+    tune_s = time.monotonic() - t
+    tracked = [e for e in autotune.load_entries(autotune.DEFAULT_TABLE)
+               if e["device"] == device]
+    check(tracked, f"the tracked table holds no entry for {device!r}")
+    check(set(autotune.sweep_cells(device)) <= {autotune._entry_key(e)
+                                                 for e in tracked},
+          "the tracked table does not cover the sweep on this card")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    held, main = [], set(autotune.main_path_shapes())
+    plans = {(e["m"], e["k"], e["n"], e["packing"], e["domain"],
+              tuple(e["blocks"])) for e in tracked}
+    # the fast sweep's plans the tracked table holds too are held once
+    fresh_only = [e for e in fresh if (e["m"], e["k"], e["n"], e["packing"],
+                                       e["domain"], tuple(e["blocks"]))
+                  not in plans]
+    for tag, entries in (("fast", fresh_only), ("tracked", tracked)):
+        for e in entries:
+            timed = tag == "tracked" and (e["m"], e["k"], e["n"]) in main
+            rec = hold_tuned_plan(torch, gen, e, flush if timed else None)
+            rec["table"] = tag
+            held.append(rec)
+            if timed:
+                print("[autotune] " + json.dumps(rec))
+    changed = sum(e["blocks"] != e["heuristic_blocks"] for e in tracked)
+    sums = step_sums(cfg, [r for r in held if "ms" in r])
+    for key, rec in sums.items():
+        print(f"[autotune] step sums {key} " + json.dumps(rec))
+    print("[autotune] " + json.dumps(dict(
+        tune_s=tune_s, fast_cells=len(fresh), tracked_cells=len(tracked),
+        tracked_not_the_rule=changed, plans_held=len(held), card=card)))
+    runs, tokens = {}, {}
+    for domain in ("float", "int8"):
+        for source in ("autotune", "heuristic"):
+            rec, tokens[domain, source], prompts, cim = autotune_bucket(
+                torch, np, cfg, model, params, domain, source)
+            runs[f"{domain}/{source}"] = rec
+            print("[autotune] bucket " + json.dumps(
+                {k: v for k, v in rec.items() if k != "plan_table"}))
+        tuned = runs[f"{domain}/autotune"]
+        check(tuned["block_sources"] == {"autotune": tuned["plans"]},
+              f"{domain}: every plan of the bucket run must come from the "
+              f"table: {tuned['block_sources']}")
+        check(runs[f"{domain}/heuristic"]["block_sources"]
+              == {"heuristic": tuned["plans"]},
+              f"{domain}: the table-less run resolved "
+              f"{runs[f'{domain}/heuristic']['block_sources']}")
+        a, b = tokens[domain, "autotune"], tokens[domain, "heuristic"]
+        bad = [u for u in a if a[u] != b[u]]
+        ties = []
+        for u in bad:
+            d = dict(uid=u, **first_divergence(torch, model, params, cim,
+                                               prompts[u], b[u], a[u],
+                                               CAPACITY))
+            print("[autotune] tuned != rule " + json.dumps(d))
+            ties.append(d)
+        runs[f"{domain}/tokens"] = dict(identical=not bad, mismatched=bad,
+                                        divergences=ties)
+        if domain == "int8":
+            check(not bad, f"int8 tokens differ between the tuned and the "
+                           f"rule's plans for requests {bad}")
+        else:
+            check(all(d["margin"] <= NEAR_TIE * d["scale"] for d in ties),
+                  f"float tokens differ beyond a near tie: {ties}")
+    os.environ.pop(autotune.ENV_VAR, None)
+    autotune.reload_table()
+    return dict(tune_s=tune_s, fast=fresh, held=held, runs=runs,
+                tracked_not_the_rule=changed, step_sums=sums)
+
+
+def step_sums(cfg, timed):
+    """Per packing and domain, the matmuls of one decode step (every
+    weight at M = 8) and of one prefill of 8 x 128 tokens (the layers at
+    M = 1024, the unembedding at M = 8), summed from the timed plans:
+    the tuned table's and the rule's ms."""
+    ms = {(r["mode"], r["domain"], r["m"], r["k"], r["n"]): r
+          for r in timed}
+    out = {}
+    for mode in ("base3", "trit2"):
+        for domain in ("float", "int8"):
+            rec = dict(decode_ms=0.0, decode_rule_ms=0.0, prefill_ms=0.0,
+                       prefill_rule_ms=0.0, calls=0)
+            for name, k, n, per in layer_shapes(cfg):
+                d = ms[mode, domain, 8, k, n]
+                p = d if name == "unembed" else \
+                    ms[mode, domain, BATCH * PROMPT, k, n]
+                rec["decode_ms"] += per * d["ms"]
+                rec["decode_rule_ms"] += per * d["heuristic_ms"]
+                rec["prefill_ms"] += per * p["ms"]
+                rec["prefill_rule_ms"] += per * p["heuristic_ms"]
+                rec["calls"] += per
+            out[f"{mode}/{domain}"] = rec
+    return out
+
+
+def phase_sanitize(torch, np, cfg, model, params):
+    """The four engines at full width (base3 / float) under
+    ``repro_torch.analysis.sanitize``: the bucket ServeEngine, the dense
+    Scheduler and the PagedScheduler's gather and fused reads, each
+    warmed on 8 requests and then serving 8 more of the same lengths with
+    ``set_sync_debug_mode('error')`` on everywhere but the transfer
+    chokepoint: one transfer per chunk (per bucket), no other sync, no
+    new plan and no build."""
+    from repro_torch.analysis import sanitizer
+    from repro_torch.core.cim_linear import CIMConfig
+    from repro_torch.serve import Request, ServeEngine
+    cim = CIMConfig(mode="ternary", packing="base3", domain="float")
+    rng = np.random.default_rng(22)
+    ragged = [int(x) for x in rng.integers(96, 161, size=BATCH)]
+
+    def reqs(base, lens):
+        return [Request(uid=base + i, prompt=rng.integers(
+            0, cfg.vocab_size, size=n).astype(np.int32), max_new=16)
+            for i, n in enumerate(lens)]
+    out = {}
+    for kind in sanitizer.ENGINES:
+        if kind == "bucket":        # one bucket: one prompt length
+            eng = ServeEngine(model, params, capacity=SCHED_CAPACITY,
+                              max_batch=BATCH, cim=cim, device="cuda")
+            lens = [PROMPT] * BATCH
+        else:
+            eng = make_scheduler(kind, model, params, cim)
+            lens = ragged
+        warm, measured = reqs(0, lens), reqs(100, lens)
+        counts = {}
+        findings = sanitizer.check_engine(eng, kind, warm, measured,
+                                          counts=counts)
+        rec = dict(kind=kind, findings=[str(f) for f in findings], **counts)
+        print("[sanitize] " + json.dumps(rec))
+        check(not findings, f"{kind}: {findings}")
+        check(counts["sync_guard"] and counts["transfers"] == counts["chunks"]
+              and counts["new_plans"] == 0 and counts["builds"] == 0,
+              f"{kind}: {counts}")
+        out[kind] = rec
+        del eng
+    return out
+
+
+def phase_analysis(torch):
+    """``python -m repro_torch.analysis`` on the card, in a process of its
+    own: every pass, the capability pass executing the cuda cells too,
+    the sanitize and frontend passes serving on the card under the sync
+    guard."""
+    import os
+    report = ROOT / "chiprun_out" / "analysis.json"
+    report.parent.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                           "--device", "cuda", "--out", str(report)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    seconds = time.monotonic() - t
+    for line in proc.stdout.splitlines():
+        print(f"[analysis] {line}")
+    check(proc.returncode == 0,
+          f"python -m repro_torch.analysis exited {proc.returncode}: "
+          f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    doc = json.loads(report.read_text())
+    return dict(seconds=seconds, passes=doc["passes"], ok=doc["ok"])
 
 
 def forward_matmuls(cfg):
@@ -1748,11 +2016,11 @@ def matmul_shapes(torch, tm, fn):
     seen = {}
     wrapped = tm.matmul_float
 
-    def recording(x, data, scale, mode):
+    def recording(x, data, scale, mode, tiles=None):
         k = x.shape[1]
         key = (x.shape[0], k, data.shape[1])
         seen[key] = seen.get(key, 0) + 1
-        return wrapped(x, data, scale, mode)
+        return wrapped(x, data, scale, mode, tiles=tiles)
     tm.matmul_float = recording
     try:
         out = fn()
@@ -4718,6 +4986,19 @@ def train_summary(train):
         exact_bitwise=train["exact"]["bitwise"])
 
 
+def autotune_summary(tuned):
+    """Per domain: the tuned and the rule's bucket run, side by side."""
+    out = dict(tune_s=tuned["tune_s"],
+               tracked_not_the_rule=tuned["tracked_not_the_rule"])
+    for key, rec in tuned["runs"].items():
+        if key.endswith("/tokens"):
+            out[key] = rec["identical"]
+        else:
+            out[key] = {k: rec[k] for k in ("block_sources", "prefill_ms",
+                                            "decode_step_ms", "tok_per_s")}
+    return out
+
+
 def parse_args(argv):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4736,6 +5017,11 @@ def parse_args(argv):
                     help="build, then run only the train phase")
     ap.add_argument("--train-families-only", action="store_true",
                     help="build, then run only the train-families phase")
+    ap.add_argument("--autotune-only", action="store_true",
+                    help="build, then run only the autotune phase")
+    ap.add_argument("--sanitize-only", action="store_true",
+                    help="build, then run only the sanitize and analysis "
+                         "phases")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree holding the repro_torch package to run "
                          "(with --paged-only: another checkout's, to time "
@@ -4825,6 +5111,26 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if args.autotune_only or args.sanitize_only:
+        model = registry.build(cfg)
+        params = ternarize_params(
+            model.init(torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda"),
+            CIMConfig(mode="ternary", packing="base3"))
+        if args.autotune_only:
+            tuned = run("autotune", phase_autotune, torch, np, cfg, model,
+                        params, card)
+            print("[autotune] summary " + json.dumps(autotune_summary(tuned)))
+        if args.sanitize_only:
+            run("sanitize", phase_sanitize, torch, np, cfg, model, params)
+            del params
+            run("analysis", phase_analysis, torch)
+        print(f"[done] {time.monotonic() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if (args.moe_only or args.int8_kv_only or args.recurrent_only
             or args.cross_only):
         if args.moe_only:
@@ -4862,14 +5168,17 @@ def main(argv=None) -> int:
                                                       packing=p))
                 for p in ("base3", "trit2")}
     packed = run("init", init_packed)
+    tuned = run("autotune", phase_autotune, torch, np, cfg, model,
+                packed["base3"], card)
     runs = run("serve", phase_serve, torch, np, cfg, model, packed)
     parity = run("parity", phase_parity, torch, np, cfg, model,
                  packed["base3"])
     del packed["trit2"]
     sched, sched_parity = run("sched", phase_sched, torch, np, cfg, model,
                               packed["base3"])
-    run("sync-free chunk", phase_sync_free_chunk, torch, np, cfg, model,
-        packed["base3"])
+    sanitized = run("sanitize", phase_sanitize, torch, np, cfg, model,
+                    packed["base3"])
+    analysis = run("analysis", phase_analysis, torch)
     int8kv = run("int8-kv", phase_int8_kv, torch, np, cfg, model,
                  packed["base3"])
     long = run("long", phase_long, torch, np, cfg, model, packed["base3"])
@@ -4904,7 +5213,8 @@ def main(argv=None) -> int:
                    exact=exact, models=models, fidelity=fid,
                    frontend=frontend, moe=moe, int8_kv=int8kv,
                    recurrent=recurrent, cross=cross, train=train,
-                   train_families=families, phases=phases,
+                   train_families=families, autotune=tuned,
+                   sanitize=sanitized, analysis=analysis, phases=phases,
                    seconds=time.monotonic() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -4955,6 +5265,10 @@ def main(argv=None) -> int:
     print("[train] summary " + json.dumps(train_summary(train)))
     print("[train-families] summary " + json.dumps(
         train_families_summary(families)))
+    print("[autotune] summary " + json.dumps(autotune_summary(tuned)))
+    print("[sanitize] summary " + json.dumps(
+        {k: [r["transfers"], r["chunks"], r["new_plans"], r["builds"]]
+         for k, r in sanitized.items()}))
     print(json.dumps({"kernels": kernel_summary(cases, runs, cfg, models,
                                                 moe, int8kv, recurrent,
                                                 cross)

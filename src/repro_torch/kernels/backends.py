@@ -3,7 +3,8 @@
   cuda  - the hand-written kernels (kernels/ternary_matmul.py, and
           kernels/cim_mac.py for ``op='cim'``), platform cuda, priority
           100.  2-D weights only (models slice the layer stack before the
-          matmul).
+          matmul).  A ternary plan's ``blocks`` (the measured or pinned
+          route plan) go to the wrapper as its ``tiles``.
   torch - the plain versions (kernels/ops.py, ``cim_mac_torch``), cpu and
           cuda, priority 50.  ``auto`` picks it on the CPU; on the card it
           runs only when named.
@@ -169,10 +170,13 @@ def _run_cuda(plan, x, w):
         xi, x_scale = ops.quantize_acts_int8(x)
         xi2 = _pad_k(xi.reshape(-1, xi.shape[-1]), w).contiguous()
         y = tm.matmul_int8(xi2, x_scale.reshape(-1).contiguous(), w.data,
-                           w.scale, w.mode)
+                           w.scale, w.mode, tiles=plan.blocks)
     else:
         x2 = _pad_k(x.reshape(-1, x.shape[-1]), w).contiguous()
-        y = tm.matmul_float(x2, w.data, w.scale, w.mode)
+        # the plan's tiles are the bf16 routes' (gemv, mma); f32
+        # activations take the cuda_core route and its split rule
+        tiles = plan.blocks if x2.dtype != torch.float32 else None
+        y = tm.matmul_float(x2, w.data, w.scale, w.mode, tiles=tiles)
     return y.reshape(*lead, w.data.shape[-1])
 
 

@@ -27,6 +27,12 @@ exact even under a device request), then matched like any capability,
 so a device backend never serves an exact request and an exact backend
 never a device one.
 
+A ternary plan of the ``cuda`` backend also carries the route plan its
+kernel runs (``blocks``, with ``block_source``): pinned by the caller,
+measured (the autotune table, ``kernels/autotune.py``), or None, and the
+wrapper applies its rule (``heuristic``).  :func:`plan_cache_info` counts
+the plans resolved, which the analysis sanitizer reads.
+
 Whether the rows of a call are separate calls (:func:`rows_as_calls`) is
 not part of a plan: it follows from how the caller batches.  The
 schedulers batch slots that the reference decodes one slot per call;
@@ -99,10 +105,22 @@ class ExecutionPlan:
     num_trits: Optional[int] = None   # cim and device plans: trits
     phase: str = "auto"           # auto | decode | prefill
     fidelity: str = "exact"       # exact | device, after routing
+    blocks: Optional[tuple] = None    # the route plan the cuda backend
+                                      # hands the kernel; None: its rule
+    block_source: str = "heuristic"   # heuristic | autotune | pinned
 
     @property
     def shape(self) -> tuple:
         return (self.m, self.k, self.n)
+
+    def describe(self) -> dict:
+        """JSON-friendly record of the resolved plan."""
+        return {"backend": self.backend, "domain": self.domain,
+                "packing": self.packing, "phase": self.phase,
+                "platform": self.platform,
+                "blocks": list(self.blocks) if self.blocks else None,
+                "kv_layout": self.kv_layout, "fidelity": self.fidelity,
+                "block_source": self.block_source}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,9 +240,43 @@ def shape_of(x, w) -> tuple:
     return (m, int(x.shape[-1]), int(w.shape[-1]))
 
 
+# the backend whose kernels take a route plan (``ExecutionPlan.blocks``)
+TILED_BACKEND = "cuda"
+
+
+def _tiles(op, m, k, n, backend, domain, packing, platform, blocks):
+    """(blocks, block_source) of a plan: pinned ``blocks`` first (checked
+    against the kernel's contract), else the measured autotune table for
+    a ternary plan of the cuda backend, else None (the wrapper's rule).
+    The table is keyed by the phase the kernel route implies and the K
+    the kernel sees (trit2 x is zero-padded to a multiple of 4)."""
+    from . import autotune
+    from .ternary_matmul import TRIT2_PER_BYTE, plan_violations
+    tiled = op == "ternary" and backend == TILED_BACKEND
+    kdim = k + (-k % TRIT2_PER_BYTE) if packing == "trit2" else k
+    if blocks is not None:
+        if not tiled:
+            raise ValueError(f"backend {backend!r} ({op}) takes no tiles; "
+                             f"only {TILED_BACKEND!r} ternary plans do")
+        bad = plan_violations(autotune.route_of(m), m, kdim, n, packing,
+                              domain, tuple(blocks))
+        if bad:
+            raise ValueError(f"pinned tiles {tuple(blocks)} at "
+                             f"{(m, kdim, n)} {packing}/{domain}: "
+                             + "; ".join(msg for _, msg in bad))
+        return tuple(blocks), "pinned"
+    if tiled:
+        tuned = autotune.lookup_blocks(m, kdim, n, autotune.route_phase(m),
+                                       platform, packing, domain)
+        if tuned is not None:
+            return tuned, "autotune"
+    return None, "heuristic"
+
+
 @functools.lru_cache(maxsize=PLAN_CACHE_SIZE)
 def _resolve(op, m, k, n, phase, backend, domain, packing, platform,
-             kv_layout, fidelity, adc_bits, num_trits) -> ExecutionPlan:
+             kv_layout, fidelity, adc_bits, num_trits,
+             blocks=None) -> ExecutionPlan:
     check_choice("op", op, OPS)
     check_choice("domain", domain, DOMAINS)
     check_choice("packing mode", packing, PACKINGS)
@@ -233,11 +285,23 @@ def _resolve(op, m, k, n, phase, backend, domain, packing, platform,
     fidelity = route_fidelity(fidelity, phase)
     spec = resolve_backend(op, backend, domain, packing, platform,
                            kv_layout, fidelity)
+    tiles, source = _tiles(op, m, k, n, spec.name, domain, packing,
+                           platform, blocks)
     return ExecutionPlan(op=op, backend=spec.name, domain=domain,
                          packing=packing, m=m, k=k, n=n,
                          platform=platform, kv_layout=kv_layout,
                          adc_bits=adc_bits, num_trits=num_trits,
-                         phase=phase, fidelity=fidelity)
+                         phase=phase, fidelity=fidelity, blocks=tiles,
+                         block_source=source)
+
+
+def plan_cache_info():
+    """Hits, misses (new plans) and size of the resolution cache."""
+    return _resolve.cache_info()
+
+
+def plan_cache_clear() -> None:
+    _resolve.cache_clear()
 
 
 def plan_matmul(shape, cfg: Any = None, *, platform: str,
@@ -248,14 +312,21 @@ def plan_matmul(shape, cfg: Any = None, *, platform: str,
                 kv_layout: Optional[str] = None,
                 fidelity: Optional[str] = None,
                 adc_bits: Optional[int] = None,
-                num_trits: Optional[int] = None) -> ExecutionPlan:
+                num_trits: Optional[int] = None,
+                blocks: Optional[tuple] = None) -> ExecutionPlan:
     """Resolve a plan for an (M, K, N) problem on `platform`.  ``cfg`` is
     any object with ``backend``/``domain``/``packing``/``kv_layout``/
     ``fidelity`` attributes (a ``CIMConfig``); explicit keywords override
     it.  A cim plan, and a device-fidelity plan (whose ADC model needs
     them), carries ``adc_bits`` and ``num_trits`` (5 and 5 unless given).
     An attention plan's shape is ``(S*KV*rep, hd, W*page_size)``: every
-    slot's grouped queries against the per-slot page capacity."""
+    slot's grouped queries against the per-slot page capacity.
+
+    A ternary plan of the cuda backend carries the route plan its kernel
+    runs (``blocks``): ``blocks`` pins one (``block_source='pinned'``),
+    else the measured autotune table's for the cell (``'autotune'``),
+    else None, and the wrapper applies its rule (``'heuristic'``; the
+    miss is logged once per cell).  Other backends take no tiles."""
     m, k, n = (int(s) for s in shape)
     if cfg is not None:
         backend = backend if backend is not None else cfg.backend
@@ -273,7 +344,8 @@ def plan_matmul(shape, cfg: Any = None, *, platform: str,
                     "float" if domain is None else domain,
                     "base3" if packing is None else packing, platform,
                     "dense" if kv_layout is None else kv_layout, fidelity,
-                    adc_bits, num_trits)
+                    adc_bits, num_trits,
+                    None if blocks is None else tuple(int(b) for b in blocks))
 
 
 def execute(plan: ExecutionPlan, x, w):

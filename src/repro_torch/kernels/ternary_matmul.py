@@ -42,6 +42,12 @@ Three routes, chosen by :func:`route` from M and the dtype of x:
 The mma and cuda_core routes add their K splits in a second kernel, in
 split order.
 
+The gemv and mma plans come from :func:`gemv_plan` and :func:`mma_plan`
+unless the caller passes one (``tiles``): the cuda backend passes the
+plan resolved from the measured autotune table (``kernels/autotune.py``).
+:func:`plan_violations` states what a plan must keep of the kernel's
+contract; a wrapper refuses a given plan that breaks it.
+
 On a CPU tensor a wrapper computes its plain version (``kernels/ops.py``);
 on a CUDA tensor it launches its route's kernel or raises.  ``LAUNCHES``
 counts launches per wrapper and ``ROUTES`` per route, so a run can show
@@ -50,6 +56,7 @@ which kernels it went through.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -173,9 +180,130 @@ def mma_plan(m: int, k: int, n: int, sm_count: int,
     """(block_m, splits, k_per_split) of the mma route: 256-row tiles (16
     warps) for M > 128, else 128-row tiles (8 warps) with the rows past M
     masked; :func:`mma_tile_plan` splits K (the float domain passes
-    ``chain=MMA_FLOAT_CHAIN``).  ``chip_smoke.py`` times the other tile
-    height beside this plan at the prefill shapes."""
+    ``chain=MMA_FLOAT_CHAIN``).  Where the autotune table holds a cell
+    (``kernels/autotune.py``), plan resolution hands the wrapper the
+    measured plan instead."""
     return mma_tile_plan(m, k, n, sm_count, 256 if m > 128 else 128, chain)
+
+
+# mirrors of the shared-memory reckoning of csrc/ternary_matmul.cu
+MAX_SMEM = 227 * 1024    # kMaxSmem: opt-in dynamic shared memory a block
+GEMV_SMEM_LIMIT = 48 * 1024      # GemvShape's static limit (no opt-in)
+MMA_BLOCK_MS = (128, 256)        # tm_mma_kernel's tile heights
+_MMA_AHEAD, _MMA_PAD = 2, 16     # kAhead, kPad
+_GEMV_RING_BYTES = 32 * 1024     # kGvRingBytes
+
+
+def _elem(domain: str) -> int:
+    """Bytes of one x element on the tensor-core routes (bf16 or int8)."""
+    return 1 if domain == "int8" else 2
+
+
+def mma_smem_bytes(mode: str, domain: str, bm: int) -> int:
+    """``MmaShape<MODE, T, BM>::kSmem``: the x ring, the raw weight ring
+    and the double-buffered decoded tile."""
+    row = MMA_K_CHUNK * _elem(domain) + _MMA_PAD
+    raw_rows = MMA_K_CHUNK // (TRIT2_PER_BYTE if mode == "trit2" else 1)
+    return ((_MMA_AHEAD + 1) * bm * row + _MMA_AHEAD * raw_rows * MMA_BLOCK_N
+            + 2 * MMA_BLOCK_N * row)
+
+
+def gemv_smem_bytes(mode: str, domain: str, block_n: int) -> int:
+    """``GemvShape<MODE, T, BN>::kSmem``: the TMA ring, the cluster's
+    inbox of sums and the ring's barriers, plus 1 KB to align."""
+    ks = GEMV_STAGE_ROWS * (TRIT2_PER_BYTE if mode == "trit2" else 1)
+    stage = -(-(GEMV_STAGE_ROWS * block_n + GEMV_MAX_M * ks * _elem(domain))
+              // 1024) * 1024
+    ring = min(8, max(3, _GEMV_RING_BYTES // stage))
+    return (ring * stage + GEMV_MAX_M * (block_n + 4) * 4 + 8 * ring
+            + 1024)
+
+
+def _cover(k: int, splits: int, per: int, unit: int, what: str) -> list:
+    out = []
+    if splits < 1 or per < 1:
+        return [("coverage", f"{what}: splits={splits}, k_per_split={per} "
+                             f"must be positive")]
+    if per % unit:
+        out.append(("coverage", f"{what}: k_per_split={per} is not whole "
+                                f"stages of {unit} K rows"))
+    if splits * per < k:
+        out.append(("coverage", f"{what}: {splits} x {per} K rows leave K="
+                                f"{k} uncovered"))
+    elif (splits - 1) * per >= k:
+        out.append(("coverage", f"{what}: {splits} x {per} K rows leave a "
+                                f"split empty at K={k}"))
+    return out
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_violations(route_name: str, m: int, k: int, n: int, mode: str,
+                    domain: str, tiles: tuple) -> tuple:
+    """What a route plan breaks of the kernel's contract, as ``(kind,
+    message)`` pairs (empty: the kernel takes it).  ``kind`` is ``tile``
+    (a size the kernel has no instance of), ``coverage`` (the splits do
+    not cover K exactly, in whole stages, none empty), ``chain`` (a float
+    mma split longer than ``MMA_FLOAT_CHAIN``) or ``smem`` (the shared
+    memory the source reckons passes its limit).  K is the extent the
+    kernel sees (trit2: a multiple of 4).  The wrappers refuse a given
+    plan that breaks any of it, the autotune table's check (AT002) and
+    the ``blockmap`` analysis pass read the same list."""
+    if mode not in MODE_CODE:
+        return (("tile", f"unknown packing mode {mode!r}"),)
+    if mode == "trit2" and k % TRIT2_PER_BYTE:
+        return (("coverage", f"trit2 K={k} is not a multiple of "
+                             f"{TRIT2_PER_BYTE}"),)
+    if len(tiles) != (3 if route_name in ("gemv", "mma") else 2):
+        return (("tile", f"{route_name} plan {tiles} has the wrong arity"),)
+    out = []
+    if route_name == "gemv":
+        block_n, cluster, per = tiles
+        if not 1 <= m <= GEMV_MAX_M:
+            out.append(("tile", f"gemv takes 1 to {GEMV_MAX_M} rows, got "
+                                f"M={m}"))
+        if block_n not in GEMV_BLOCK_NS:
+            out.append(("tile", f"block_n={block_n} not in {GEMV_BLOCK_NS}"))
+        if cluster not in GEMV_CLUSTERS:
+            out.append(("tile", f"cluster={cluster} not in {GEMV_CLUSTERS}"))
+        unit = GEMV_STAGE_ROWS * (TRIT2_PER_BYTE if mode == "trit2" else 1)
+        out += _cover(k, cluster, per, unit, "gemv cluster")
+        if block_n in GEMV_BLOCK_NS:
+            smem = gemv_smem_bytes(mode, domain, block_n)
+            if smem > min(GEMV_SMEM_LIMIT, MAX_SMEM):
+                out.append(("smem", f"gemv block_n={block_n} needs {smem} "
+                                    f"B of shared memory"))
+    elif route_name == "mma":
+        bm, splits, per = tiles
+        if m <= GEMV_MAX_M:
+            out.append(("tile", f"mma takes M > {GEMV_MAX_M}, got M={m}"))
+        if bm not in MMA_BLOCK_MS:
+            out.append(("tile", f"block_m={bm} not in {MMA_BLOCK_MS}"))
+        out += _cover(k, splits, per, MMA_K_CHUNK, "mma split")
+        if domain == "float" and per > MMA_FLOAT_CHAIN:
+            out.append(("chain", f"a float split chains {per} K rows, past "
+                                 f"MMA_FLOAT_CHAIN={MMA_FLOAT_CHAIN}"))
+        if bm in MMA_BLOCK_MS and mma_smem_bytes(mode, domain, bm) > MAX_SMEM:
+            out.append(("smem", f"mma block_m={bm} needs "
+                                f"{mma_smem_bytes(mode, domain, bm)} B"))
+    elif route_name == "cuda_core":
+        splits, per = tiles
+        unit = K_CHUNK * (TRIT2_PER_BYTE if mode == "trit2" else 1)
+        out += _cover(k, splits, per, unit, "cuda_core split")
+    else:
+        out.append(("tile", f"unknown route {route_name!r}"))
+    return tuple(out)
+
+
+def _given(route_name: str, m: int, k: int, n: int, mode: str, domain: str,
+           tiles) -> tuple:
+    """A caller's route plan, refused loudly if the kernel cannot take
+    it (never replaced by the heuristic)."""
+    tiles = tuple(int(t) for t in tiles)
+    bad = plan_violations(route_name, m, k, n, mode, domain, tiles)
+    if bad:
+        raise ValueError(f"{route_name} plan {tiles} at {(m, k, n)} {mode}/"
+                         f"{domain}: " + "; ".join(msg for _, msg in bad))
+    return tiles
 
 
 def _check(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
@@ -327,9 +455,18 @@ def launch_int32(x: torch.Tensor, data: torch.Tensor, mode: str,
 
 
 def matmul_float(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
-                 mode: str) -> torch.Tensor:
-    """(M, K) f32/bf16 @ packed (K | K/4, N) -> (M, N) f32."""
+                 mode: str, tiles=None) -> torch.Tensor:
+    """(M, K) f32/bf16 @ packed (K | K/4, N) -> (M, N) f32.  ``tiles`` is
+    the plan of the route M and the dtype pick (gemv: (block_n, cluster,
+    k_per_split); mma: (block_m, splits, k_per_split)), None for the
+    route's rule; the cuda_core route (f32 x) takes none.  A plan the
+    kernel cannot take raises."""
     m, k, n = _check(x, data, scale, mode, (torch.float32, torch.bfloat16))
+    path = route(m, x.dtype)
+    if tiles is not None:
+        if path == "cuda_core":
+            raise ValueError("the cuda_core route (f32 x) takes no tiles")
+        tiles = _given(path, m, k, n, mode, "float", tiles)
     if x.device.type == "cpu":
         return ops.ternary_matmul_torch(x, ops.PackedTernary(data, scale,
                                                              mode))
@@ -337,14 +474,13 @@ def matmul_float(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"unsupported device {x.device}")
     _check_cuda(x, data, scale)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    path = route(m, x.dtype)
     sms = _sm_count(x.device)
     if path == "mma":
         err = launch_mma(x, None, data, scale, mode, out,
-                         mma_plan(m, k, n, sms, MMA_FLOAT_CHAIN))
+                         tiles or mma_plan(m, k, n, sms, MMA_FLOAT_CHAIN))
     elif path == "gemv":
         err = launch_gemv(x, None, data, scale, mode, out,
-                          gemv_plan(m, k, n, mode, sms))
+                          tiles or gemv_plan(m, k, n, mode, sms))
     else:
         splits, per = split_k(m, k, n, mode, sms)
         partial = (torch.empty((splits, m, n), dtype=torch.float32,
@@ -362,12 +498,16 @@ def matmul_float(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
 
 def matmul_int8(x_int: torch.Tensor, x_scale: torch.Tensor,
                 data: torch.Tensor, scale: torch.Tensor,
-                mode: str) -> torch.Tensor:
-    """(M, K) int8 with (M,) f32 row scales @ packed weight -> (M, N) f32."""
+                mode: str, tiles=None) -> torch.Tensor:
+    """(M, K) int8 with (M,) f32 row scales @ packed weight -> (M, N) f32;
+    ``tiles`` as :func:`matmul_float`'s."""
     m, k, n = _check(x_int, data, scale, mode, (torch.int8,))
     if x_scale.shape != (m,) or x_scale.dtype != torch.float32:
         raise ValueError(f"x_scale must be ({m},) f32, got "
                          f"{tuple(x_scale.shape)} {x_scale.dtype}")
+    path = route(m, x_int.dtype)
+    if tiles is not None:
+        tiles = _given(path, m, k, n, mode, "int8", tiles)
     if x_int.device.type == "cpu":
         return ops.ternary_matmul_int8_torch(
             x_int, x_scale, ops.PackedTernary(data, scale, mode))
@@ -375,14 +515,13 @@ def matmul_int8(x_int: torch.Tensor, x_scale: torch.Tensor,
         raise ValueError(f"unsupported device {x_int.device}")
     _check_cuda(x_int, x_scale, data, scale)
     out = torch.empty((m, n), dtype=torch.float32, device=x_int.device)
-    path = route(m, x_int.dtype)
     sms = _sm_count(x_int.device)
     if path == "mma":
         err = launch_mma(x_int, x_scale, data, scale, mode, out,
-                         mma_plan(m, k, n, sms))
+                         tiles or mma_plan(m, k, n, sms))
     else:
         err = launch_gemv(x_int, x_scale, data, scale, mode, out,
-                          gemv_plan(m, k, n, mode, sms))
+                          tiles or gemv_plan(m, k, n, mode, sms))
     _raise_on(err, f"ternary_matmul_int8 ({path})")
     LAUNCHES["ternary_matmul_int8"] += 1
     ROUTES[path] += 1

@@ -174,6 +174,15 @@ class _EngineBase:
         self.host_transfers += 1
         return x.cpu().numpy()
 
+    def _upload(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` on the engine's device without a host sync: a host tensor
+        bound for the card goes through pinned memory and is copied in
+        stream order (a pageable copy would wait for the stream's queued
+        work)."""
+        if x.device.type != "cpu" or self.device.type != "cuda":
+            return x.to(self.device)
+        return x.contiguous().pin_memory().to(self.device, non_blocking=True)
+
     @property
     def generated_tokens(self) -> int:
         return sum(len(r.out_tokens) for r in self.completed)
@@ -181,14 +190,13 @@ class _EngineBase:
     def _batch_inputs(self, b: int) -> dict:
         """Each of ``extra_inputs`` for a batch of `b`, on the engine's
         device in the model's dtype."""
-        return {name: fn(b).to(device=self.device,
-                               dtype=self.model.cfg.dtype)
+        return {name: self._upload(fn(b).to(dtype=self.model.cfg.dtype))
                 for name, fn in self.extra_inputs.items()}
 
     def _prefill(self, reqs: list[Request]):
-        tokens = torch.stack([torch.as_tensor(np.asarray(r.prompt),
-                                              dtype=torch.int32)
-                              for r in reqs]).to(self.device)
+        tokens = self._upload(torch.stack([
+            torch.as_tensor(np.asarray(r.prompt), dtype=torch.int32)
+            for r in reqs]))
         logits, state = self.model.prefill(self.params, tokens,
                                            self.capacity,
                                            cim=self.cim_prefill,
@@ -256,10 +264,10 @@ class ServeEngine(_EngineBase):
         width = self.buffer_width(max_new)
         # copied up before the prefill is queued, so the copies wait on
         # nothing
-        max_new_row = torch.tensor([r.max_new for r in reqs],
-                                   dtype=torch.int32, device=dev)
-        eos_row = torch.tensor([r.eos_id for r in reqs], dtype=torch.int32,
-                               device=dev)
+        max_new_row = self._upload(torch.tensor([r.max_new for r in reqs],
+                                                dtype=torch.int32))
+        eos_row = self._upload(torch.tensor([r.eos_id for r in reqs],
+                                            dtype=torch.int32))
         tok, state = self._prefill(reqs)
         self.steps_run += 1
         buf = torch.zeros((b, width), dtype=torch.int32, device=dev)
@@ -493,17 +501,18 @@ class Scheduler(_EngineBase):
                   pos: int) -> None:
         """Arm a slot's control lanes for a freshly prefilled request, on
         the device (tok0 is emitted by the next chunk's prologue).  The
-        initial-liveness rule is the bucket loop's: tok0 is token 1."""
+        initial-liveness rule is the bucket loop's: tok0 is token 1.  The
+        host's values go up in one non-blocking upload: a Python scalar
+        written into a device tensor is a blocking copy."""
+        made, max_new, eos, at = self._upload(torch.tensor(
+            [1, req.max_new, req.eos_id, pos], dtype=torch.int32))
         self.tok[slot] = tok0[0]
-        self.made[slot] = 1
-        if req.max_new > 1:
-            self.live[slot] = tok0[0] != req.eos_id
-        else:
-            self.live[slot] = False
-        self.fresh[slot] = True
-        self.max_new_row[slot] = req.max_new
-        self.eos_row[slot] = req.eos_id
-        self.pos[slot] = pos
+        self.made[slot] = made
+        self.live[slot] = (tok0[0] != eos) & (max_new > 1)
+        self.fresh[slot] = made > 0
+        self.max_new_row[slot] = max_new
+        self.eos_row[slot] = eos
+        self.pos[slot] = at
 
     def _admit(self, req: Request, slot: int) -> bool:
         """Prefill one request and overwrite slot `slot` of the pool with
@@ -844,10 +853,9 @@ class PagedScheduler(Scheduler):
         if write_src:
             paged_kv.write_prompt_pages(
                 self.pool, st,
-                torch.tensor([pages[j] for j in write_src],
-                             dtype=torch.int32, device=self.device),
-                torch.tensor(write_src, dtype=torch.int32,
-                             device=self.device))
+                self._upload(torch.tensor([pages[j] for j in write_src],
+                                          dtype=torch.int32)),
+                self._upload(torch.tensor(write_src, dtype=torch.int32)))
         self._arm_slot(slot, req, tok0, s_len)
         self._page_table[slot] = 0
         self._page_table[slot, :n_total] = pages
@@ -862,8 +870,8 @@ class PagedScheduler(Scheduler):
         """Copy the host page table to the device if an admission or a
         retire edited it since the last upload."""
         if self._page_table_dev is None:
-            self._page_table_dev = torch.from_numpy(
-                self._page_table.copy()).to(self.device)
+            self._page_table_dev = self._upload(torch.from_numpy(
+                self._page_table.copy()))
 
     @property
     def decode_per_slot(self) -> bool:

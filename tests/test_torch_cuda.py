@@ -52,6 +52,12 @@ against the CPU (loss, grad norm, moments within 1e-4; updates within
 1e-3 of lr but for 0.1% of the weights); the Trainer's replay after
 crashes bitwise on the card; exact mode's cuda code route against the
 torch route (1e-6; two steps 1e-5); ternary refused before any launch.
+The measured tiles (``-k "autotune or sanitize"``): every plan the tuner
+races at two main-path shapes through the wrappers' ``tiles`` (int8
+bitwise, float 1e-5), a refused plan raising before any launch, the
+tracked table steering the cuda backend; the smoke model's four engines
+under ``analysis.sanitize`` on the card (one transfer per chunk, no other
+sync, no new plan, no build), and a hidden sync caught.
 """
 import dataclasses
 
@@ -1793,3 +1799,109 @@ def test_train_zamba2_grads_finite_at_256_positions_on_the_card(dev):
     loss, grads = value_and_grad(model, params, batch)
     assert bool(torch.isfinite(loss))
     assert all(bool(torch.isfinite(g).all()) for g in tree.leaves(grads))
+
+
+# ------------------------------------------------ the measured tiles (PR 27)
+
+@pytest.mark.parametrize("domain", ["float", "int8"])
+@pytest.mark.parametrize("mode", ["base3", "trit2"])
+@pytest.mark.parametrize("m,k,n", [(8, 2048, 2048), (1024, 2048, 1024)])
+def test_autotune_candidate_plans_match_the_plain_version(dev, m, k, n,
+                                                          mode, domain):
+    """Every plan the tuner races at a main-path shape, through the
+    wrapper's ``tiles``: int8 bitwise, float within 1e-5 of max|y| (the
+    splits change the summation order only)."""
+    from repro_torch.kernels import autotune
+    x, data, scale = _operands(m, k, n, mode, seed=m + k + n)
+    xt = torch.from_numpy(x).to(dev).to(torch.bfloat16)
+    dt, st = (torch.from_numpy(a).to(dev) for a in (data, scale))
+    w = ops.PackedTernary(dt, st, mode)
+    cands = autotune.candidate_blocks(m, k, n, mode, domain,
+                                      tm._sm_count(dev))
+    assert len(cands) > 1
+    if domain == "int8":
+        xi, xs = ops.quantize_acts_int8(xt)
+        want = ops.ternary_matmul_int8_torch(xi, xs, w)
+    else:
+        want = ops.ternary_matmul_torch(xt, w)
+    tol = 1e-5 * want.abs().max().item()
+    for tiles in cands:
+        before = dict(tm.ROUTES)
+        if domain == "int8":
+            got = tm.matmul_int8(xi, xs, dt, st, mode, tiles=tiles)
+            assert torch.equal(got, want), tiles
+        else:
+            got = tm.matmul_float(xt, dt, st, mode, tiles=tiles)
+            torch.testing.assert_close(got, want, rtol=0, atol=tol)
+        route = "gemv" if m <= 8 else "mma"
+        assert tm.ROUTES[route] == before[route] + 1
+
+
+def test_autotune_a_refused_plan_raises_before_any_launch(dev):
+    x, data, scale = _operands(8, 2048, 2048, "base3", seed=5)
+    xt = torch.from_numpy(x).to(dev).to(torch.bfloat16)
+    dt, st = (torch.from_numpy(a).to(dev) for a in (data, scale))
+    before = dict(tm.LAUNCHES)
+    with pytest.raises(ValueError, match="cluster=3"):
+        tm.matmul_float(xt, dt, st, "base3", tiles=(64, 3, 768))
+    assert tm.LAUNCHES == before
+
+
+def test_autotune_tracked_table_steers_the_cuda_backend(dev, monkeypatch):
+    """A plan of the cuda backend at a main-path shape resolves from the
+    tracked table on the card it was measured on, and the backend hands
+    its blocks to the wrapper."""
+    from repro_torch.kernels import autotune, plan_matmul
+    monkeypatch.delenv(autotune.ENV_VAR, raising=False)
+    autotune.reload_table()
+    name = torch.cuda.get_device_name(dev)
+    entries = [e for e in autotune.load_entries(autotune.DEFAULT_TABLE)
+               if e["device"] == name and e["m"] == 8
+               and e["packing"] == "base3" and e["domain"] == "int8"]
+    if not entries:
+        pytest.skip(f"the tracked table holds no entry for {name!r}")
+    e = entries[0]
+    plan = plan_matmul((e["m"], e["k"], e["n"]), platform="cuda",
+                       packing="base3", domain="int8")
+    assert plan.block_source == "autotune"
+    assert list(plan.blocks) == e["blocks"]
+    seen = []
+    orig = tm.matmul_int8
+    monkeypatch.setattr(tm, "matmul_int8",
+                        lambda *a, tiles=None: seen.append(tiles) or
+                        orig(*a, tiles=tiles))
+    x = torch.randn(e["m"], e["k"], device=dev)
+    w = ops.pack_weights(torch.randn(e["k"], e["n"], device=dev) * 0.02,
+                         "base3")
+    from repro_torch.kernels import execute
+    y = execute(plan, x, w)
+    assert seen == [tuple(e["blocks"])]
+    xi, xs = ops.quantize_acts_int8(x)
+    assert torch.equal(y, ops.ternary_matmul_int8_torch(xi, xs, w))
+
+
+@pytest.mark.parametrize("kind", ["bucket", "dense", "gather", "fused"])
+def test_sanitize_on_the_card(dev, kind):
+    """The smoke model's engines on the card under ``sanitize``: the
+    sync guard on, one transfer per chunk (per bucket), no other sync,
+    no new plan and no build after warm-up."""
+    from repro_torch.analysis import sanitizer
+    cfg, model, params, cim = sanitizer.smoke_model("cuda")
+    eng = sanitizer.make_engine(kind, model, params, cim, "cuda")
+    counts = {}
+    findings = sanitizer.check_engine(
+        eng, kind, sanitizer.smoke_requests(cfg.vocab_size, range(3)),
+        sanitizer.smoke_requests(cfg.vocab_size, range(10, 13)),
+        counts=counts)
+    assert findings == []
+    assert counts["sync_guard"]
+    assert counts["transfers"] == counts["chunks"] > 0
+    assert counts["new_plans"] == counts["builds"] == 0
+
+
+def test_sanitize_catches_a_hidden_sync_on_the_card(dev):
+    from repro_torch.analysis import sanitize
+    t = torch.ones(3, device=dev)
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        with sanitize():
+            t.sum().item()

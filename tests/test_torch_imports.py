@@ -63,7 +63,14 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                 "repro_torch.data.pipeline", "repro_torch.checkpoint",
                 "repro_torch.checkpoint.checkpoint", "repro_torch.train",
                 "repro_torch.train.step", "repro_torch.train.runner",
-                "repro_torch.launch.train"):
+                "repro_torch.launch.train", "repro_torch.kernels.autotune",
+                "repro_torch.analysis", "repro_torch.analysis.__main__",
+                "repro_torch.analysis.base",
+                "repro_torch.analysis.capability",
+                "repro_torch.analysis.blockmap",
+                "repro_torch.analysis.autotune_table",
+                "repro_torch.analysis.sanitizer",
+                "repro_torch.analysis.frontend"):
         assert mod in report["modules"]
 
 
