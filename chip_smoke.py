@@ -416,6 +416,37 @@ Phases, each of which raises on failure:
               kernels line.  ``--train-families-only`` runs this phase
               alone.
 
+19. mesh    - the sharding layer (``repro_torch.dist``) on a one-card
+              ``DeviceMesh`` (1, 1) ("data", "model") over NCCL: the
+              phase starts the process group and destroys it at the end.
+              (a) the bucket engine, internlm2-1.8b base3/float at full
+              width and depth, 8 x 128 prompt tokens + 32 new at capacity
+              256, unmeshed and through ``ServeEngine(rules=serve rules,
+              mesh=)``: the tokens, ``ternary_matmul``'s launches and
+              routes equal, one host transfer per bucket; prefill ms and
+              decode ms a step of both.  (b) 3 AdamW steps of the train
+              phase's run (bf16, remat full, 8 x 256 tokens) unmeshed and
+              on the mesh (``make_train_step(rules=, mesh=)`` on placed
+              state): losses and every param and moment bitwise equal;
+              ms a step of both.  (c) a checkpoint of the meshed state
+              after step 2, restored unmeshed and onto a fresh mesh
+              (``restore(placements=)``): each goes on to step 3 bitwise
+              equal to (b).  (d) the tensor-parallel route, which a
+              one-card mesh does not split: base3 and trit2 weights at
+              w1's (2048, 8192) cut in two along N, at w2's (8192, 2048)
+              and at (2046, 2048) (trit2's last shard pads its input)
+              cut along K; each shard through ``cim_linear.linear``'s
+              planned kernel on its local shape (``ShardedPacked.
+              partial``), the parts joined as the collective joins them,
+              within MESH_TP_TOL of max|y| of the unsharded kernel, at
+              M = 8 (gemv) and M = 1024 (mma), bf16 x.  The counts are
+              zeroed just before the meshed runs of (a) and (b) and read
+              just after: ``ternary_matmul`` and ``threefry`` must have
+              launched; they join the kernels line as
+              ``launches_mesh``.  (The ``shard`` pass runs in
+              phase 7's analysis CLI.)  ``--mesh-only`` runs this phase
+              alone.
+
 Each phase prints its seconds, torch.cuda.max_memory_allocated() and the
 bytes still allocated when it began (after a gc.collect()).
 The last two lines are a JSON object of per-kernel numbers and
@@ -429,6 +460,7 @@ The last two lines are a JSON object of per-kernel numbers and
     python3 chip_smoke.py --train-only
     python3 chip_smoke.py --train-families-only
     python3 chip_smoke.py --autotune-only --sanitize-only
+    python3 chip_smoke.py --mesh-only
 """
 from __future__ import annotations
 
@@ -1858,6 +1890,8 @@ def phase_analysis(torch):
           f"python -m repro_torch.analysis exited {proc.returncode}: "
           f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
     doc = json.loads(report.read_text())
+    check("shard" in [p["name"] for p in doc["passes"]],
+          "the analysis CLI ran no shard pass")
     return dict(seconds=seconds, passes=doc["passes"], ok=doc["ok"])
 
 
@@ -4999,6 +5033,281 @@ def autotune_summary(tuned):
     return out
 
 
+MESH_SHAPE = ((1, 1), ("data", "model"))
+MESH_TRAIN = dict(optimizer="adamw", steps=3)   # train_optimizer's spec
+MESH_SAVE_AT = 2                   # the meshed checkpoint, after step 2
+MESH_TP_TOL = 1e-5       # (d): sharded vs whole kernel, of max|y| (f32)
+
+
+def mesh_serve(torch, np, cfg, model, params, mesh, card):
+    """(a) The bucket engine unmeshed and on the mesh, base3/float: one
+    warm-up bucket each, then the counted bucket, then the engine's own
+    prefill and decode steps timed outside it."""
+    from repro_torch.core.cim_linear import CIMConfig
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import greedy_sample
+    cim = CIMConfig(mode="ternary", packing="base3")
+    out = {}
+    for tag, kw in (("unmeshed", {}),
+                    ("meshed", dict(rules=shd.rules_for(cfg, "serve"),
+                                    mesh=mesh))):
+        def engine():
+            return ServeEngine(model, params, capacity=CAPACITY,
+                               max_batch=BATCH, cim=cim, device="cuda", **kw)
+        rng = np.random.default_rng(7)
+        eng = engine()
+        for r in _requests(rng, cfg.vocab_size, BATCH):   # warm-up bucket
+            r.max_new = 2
+            eng.submit(r)
+        eng.run()
+        eng = engine()
+        reqs = _requests(rng, cfg.vocab_size, BATCH)
+        for r in reqs:
+            eng.submit(r)
+        tm.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        done = eng.run()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts, routes = dict(tm.LAUNCHES), dict(tm.ROUTES)
+        check(counts["ternary_matmul"] > 0,
+              f"mesh {tag}: ternary_matmul never launched")
+        check(eng.host_transfers == 1,
+              f"mesh {tag}: {eng.host_transfers} host transfers for one "
+              f"bucket")
+        prefill_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            tok, state = eng._prefill(reqs)
+            torch.cuda.synchronize()
+            prefill_ms.append((time.monotonic() - t) * 1e3)
+        steps = MAX_NEW - 2
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        for _ in range(steps):
+            logits, state = eng._decode(tok, state)
+            tok = greedy_sample(logits)
+        torch.cuda.synchronize()
+        step_ms = (time.monotonic() - t) * 1e3 / steps
+        check(bool(torch.isfinite(logits).all()),
+              f"mesh {tag}: non-finite logits")
+        out[tag] = dict(tokens={r.uid: r.out_tokens for r in done},
+                        launches=counts, routes=routes,
+                        host_transfers=eng.host_transfers,
+                        steps=eng.steps_run, wall_s=wall,
+                        tok_per_s=eng.generated_tokens / wall,
+                        prefill_ms=statistics.median(prefill_ms),
+                        decode_step_ms=step_ms, card=card)
+        print(f"[mesh] serve {tag} " + json.dumps(
+            {k: v for k, v in out[tag].items() if k != "tokens"}))
+        del eng, state, logits
+    a, b = out["unmeshed"], out["meshed"]
+    check(a["tokens"] == b["tokens"],
+          "mesh: the meshed bucket's tokens differ from the unmeshed")
+    check(a["launches"] == b["launches"] and a["routes"] == b["routes"],
+          f"mesh: launches {b['launches']} / routes {b['routes']} on the "
+          f"mesh, {a['launches']} / {a['routes']} unmeshed")
+    check(a["steps"] == b["steps"], "mesh: steps_run differ")
+    for r in out.values():
+        del r["tokens"]
+    return out
+
+
+def _tree_bitwise(torch, a, b) -> list:
+    """Paths of the leaves of ``a`` (DTensors gathered) that are not
+    bitwise ``b``'s."""
+    from repro_torch import tree
+    from repro_torch.dist import runtime as rt
+    return ["/".join(p) for (p, x), y in zip(tree.flatten_with_path(a),
+                                             tree.leaves(b))
+            if not torch.equal(rt.full(x), y)]
+
+
+def mesh_train(torch, np, mesh_lib, mesh, card):
+    """(b) and (c): 3 AdamW steps unmeshed and on the mesh, a checkpoint
+    of the meshed state after step 2 restored unmeshed and onto a fresh
+    mesh, each going on to step 3."""
+    import tempfile
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import tree
+    from repro_torch.data import DataConfig, batch_for
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import threefry
+    from repro_torch.models import registry
+    from repro_torch.train import (TrainState, init_state,
+                                   make_abstract_state, make_train_step,
+                                   place_state)
+    cfg = train_cfg(TRAIN_ARCH)
+    model = registry.build(cfg)
+    opt = train_optimizer(MESH_TRAIN)
+    rules = shd.rules_for(cfg, "train")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=0)
+    fresh = lambda: init_state(model, opt, torch.Generator(  # noqa: E731
+        device="cuda").manual_seed(0), "cuda")
+
+    def run(state, step_fn, start, stop):
+        losses, ms = [], []
+        for step in range(start, stop):
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            state, m = step_fn(state, batch_for(cfg, data, step,
+                                                device="cuda"))
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.monotonic() - t) * 1e3)
+        return state, losses, ms
+
+    stop = MESH_TRAIN["steps"]
+    ref, ref_losses, ref_ms = run(fresh(), make_train_step(model, opt), 0,
+                                  stop)
+    state = place_state(fresh(), model, opt, rules, mesh)
+    step_fn = make_train_step(model, opt, rules=rules, mesh=mesh)
+    threefry.reset_launches()
+    state, losses, ms = run(state, step_fn, 0, MESH_SAVE_AT)
+    launches = threefry.LAUNCHES["threefry"]
+    check(launches > 0, "mesh: threefry never launched in the meshed steps")
+    out = dict(threefry_launches=launches, card=card)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.monotonic()
+        ckpt.save(tmp, MESH_SAVE_AT, state)
+        out["save_s"] = time.monotonic() - t
+        state, more, ms2 = run(state, step_fn, MESH_SAVE_AT, stop)
+        losses += more
+        ms += ms2
+        check(losses == ref_losses,
+              f"mesh: meshed losses {losses} != unmeshed {ref_losses}")
+        bad = (_tree_bitwise(torch, state.params, ref.params)
+               + _tree_bitwise(torch, state.opt_state, ref.opt_state))
+        check(not bad, f"mesh: {len(bad)} leaves differ from the unmeshed "
+                       f"run after {stop} steps: {bad[:4]}")
+        del state
+        skeleton = lambda specs: tree.map_specs(lambda _: 0,  # noqa
+                                                specs)
+        target = TrainState(skeleton(model.param_specs),
+                            skeleton(opt.state_defs(model.param_specs)), 0)
+        for tag in ("unmeshed", "fresh mesh"):
+            if tag == "unmeshed":
+                placements, fn = None, make_train_step(model, opt)
+            else:
+                fresh_mesh = mesh_lib.make_mesh(
+                    mesh_lib.MeshSpec(*MESH_SHAPE), "cuda")
+                placements = make_abstract_state(model, opt, rules,
+                                                 fresh_mesh)
+                fn = make_train_step(model, opt, rules=rules,
+                                     mesh=fresh_mesh)
+            t = time.monotonic()
+            got, _ = ckpt.restore(tmp, MESH_SAVE_AT, target=target,
+                                  device="cuda", placements=placements)
+            out[f"restore_s {tag}"] = time.monotonic() - t
+            got, last, _ = run(TrainState(*got), fn, MESH_SAVE_AT, stop)
+            check(last == ref_losses[MESH_SAVE_AT:],
+                  f"mesh: restored {tag}: losses {last} != "
+                  f"{ref_losses[MESH_SAVE_AT:]}")
+            bad = (_tree_bitwise(torch, got.params, ref.params)
+                   + _tree_bitwise(torch, got.opt_state, ref.opt_state))
+            check(not bad, f"mesh: restored {tag}: {len(bad)} leaves "
+                           f"differ at step {stop}: {bad[:4]}")
+            del got
+    out.update(losses=losses, ref_losses=ref_losses, step_ms=ms,
+               ref_step_ms=ref_ms,
+               step_ms_median=statistics.median(ms[1:]),
+               ref_step_ms_median=statistics.median(ref_ms[1:]),
+               bitwise=True)
+    print("[mesh] train " + json.dumps(out))
+    return out
+
+
+def mesh_tensor_parallel(torch, cfg):
+    """(d) Two model-axis shards of a packed weight, each through
+    ``linear``'s planned kernel on its local shape, joined as the mesh's
+    collective joins them (columns concatenated, partial products
+    summed), against the unsharded kernel.  Comparison launches: counted
+    by no main-path read."""
+    from repro_torch.core.cim_linear import CIMConfig, linear
+    from repro_torch.dist.runtime import ShardedPacked
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_matmul as tm
+    d, f = cfg.d_model, cfg.d_ff
+    cases = []
+    for packing in ("base3", "trit2"):
+        cim = CIMConfig(mode="ternary", packing=packing)
+        for k, n, split in ((d, f, "col"), (f, d, "row"),
+                            (d - 2, d, "row")):
+            g = torch.Generator("cuda").manual_seed(k + n)
+            w = ops.pack_weights(torch.randn(k, n, generator=g,
+                                             device="cuda"), packing)
+            dim = -1 if split == "col" else -2
+            scales = (w.scale.chunk(2, dim=-1) if split == "col"
+                      else [w.scale] * 2)
+            shards = [ShardedPacked(a.contiguous(), b.contiguous(), packing,
+                                    None, split)
+                      for a, b in zip(w.data.chunk(2, dim=dim), scales)]
+            for m in (BATCH, 1024):
+                x = torch.randn(m, k, generator=g, device="cuda").to(
+                    torch.bfloat16)
+                want = linear(x, w, cim)
+                tm.reset_launches()
+                parts = []
+                for i, shard in enumerate(shards):
+                    shard.apply = (lambda xi, run, s=shard, i=i:
+                                   s.partial(xi, run, i))
+                    parts.append(linear(x, shard, cim))
+                got = (torch.cat(parts, dim=-1) if split == "col"
+                       else parts[0] + parts[1])
+                routes = {r: c for r, c in tm.ROUTES.items() if c}
+                check(tm.LAUNCHES["ternary_matmul"] == 2,
+                      f"mesh tp {packing} {k}x{n} {split} M={m}: "
+                      f"{tm.LAUNCHES['ternary_matmul']} launches for 2 "
+                      f"shards")
+                check(got.shape == want.shape,
+                      f"mesh tp: shape {tuple(got.shape)} != "
+                      f"{tuple(want.shape)}")
+                err = float((got - want).abs().max())
+                scale = float(want.abs().max())
+                rec = dict(packing=packing, k=k, n=n, split=split, m=m,
+                           routes=routes, max_abs_err=err, max_abs_y=scale)
+                print("[mesh] tp " + json.dumps(rec))
+                check(err <= MESH_TP_TOL * scale,
+                      f"mesh tp {packing} {k}x{n} {split} M={m}: error "
+                      f"{err} > {MESH_TP_TOL} x {scale}")
+                cases.append(rec)
+    return cases
+
+
+def phase_mesh(torch, np, cfg, model, params, card):
+    """19. The sharding layer on a one-card mesh (see the docstring):
+    the process group is started here and destroyed before returning;
+    nothing is caught."""
+    from repro_torch.dist import mesh as mesh_lib
+    mesh_lib.init_process_group("cuda")
+    try:
+        mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(*MESH_SHAPE), "cuda")
+        serve = mesh_serve(torch, np, cfg, model, params, mesh, card)
+        train = mesh_train(torch, np, mesh_lib, mesh, card)
+    finally:
+        mesh_lib.destroy_process_group()
+    tp = mesh_tensor_parallel(torch, cfg)
+    return dict(mesh=list(MESH_SHAPE), backend="nccl", serve=serve,
+                train=train, tensor_parallel=tp)
+
+
+def mesh_summary(mesh):
+    s, t = mesh["serve"], mesh["train"]
+    return dict(
+        prefill_ms={k: s[k]["prefill_ms"] for k in s},
+        decode_step_ms={k: s[k]["decode_step_ms"] for k in s},
+        train_step_ms={"unmeshed": t["ref_step_ms_median"],
+                       "meshed": t["step_ms_median"]},
+        save_s=t["save_s"], bitwise=t["bitwise"],
+        tp_worst=max(c["max_abs_err"] / c["max_abs_y"]
+                     for c in mesh["tensor_parallel"]))
+
+
 def parse_args(argv):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5022,6 +5331,9 @@ def parse_args(argv):
     ap.add_argument("--sanitize-only", action="store_true",
                     help="build, then run only the sanitize and analysis "
                          "phases")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build, then run only the mesh phase (on its own "
+                         "draw of internlm2-1.8b's base3 weights)")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree holding the repro_torch package to run "
                          "(with --paged-only: another checkout's, to time "
@@ -5131,6 +5443,20 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if args.mesh_only:
+        model = registry.build(cfg)
+        params = ternarize_params(
+            model.init(torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda"),
+            CIMConfig(mode="ternary", packing="base3"))
+        mesh = run("mesh", phase_mesh, torch, np, cfg, model, params, card)
+        print(f"[done] {time.monotonic() - t_start:.1f} s")
+        print("[mesh] summary " + json.dumps(mesh_summary(mesh)))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if (args.moe_only or args.int8_kv_only or args.recurrent_only
             or args.cross_only):
         if args.moe_only:
@@ -5179,6 +5505,8 @@ def main(argv=None) -> int:
     sanitized = run("sanitize", phase_sanitize, torch, np, cfg, model,
                     packed["base3"])
     analysis = run("analysis", phase_analysis, torch)
+    mesh = run("mesh", phase_mesh, torch, np, cfg, model, packed["base3"],
+               card)
     int8kv = run("int8-kv", phase_int8_kv, torch, np, cfg, model,
                  packed["base3"])
     long = run("long", phase_long, torch, np, cfg, model, packed["base3"])
@@ -5214,7 +5542,8 @@ def main(argv=None) -> int:
                    frontend=frontend, moe=moe, int8_kv=int8kv,
                    recurrent=recurrent, cross=cross, train=train,
                    train_families=families, autotune=tuned,
-                   sanitize=sanitized, analysis=analysis, phases=phases,
+                   sanitize=sanitized, analysis=analysis, mesh=mesh,
+                   phases=phases,
                    seconds=time.monotonic() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -5269,13 +5598,21 @@ def main(argv=None) -> int:
     print("[sanitize] summary " + json.dumps(
         {k: [r["transfers"], r["chunks"], r["new_plans"], r["builds"]]
          for k, r in sanitized.items()}))
-    print(json.dumps({"kernels": kernel_summary(cases, runs, cfg, models,
-                                                moe, int8kv, recurrent,
-                                                cross)
-                      + [kernel_summary_paged(paged, sched, models, long,
-                                              frontend),
-                         kernel_summary_cim(cim_cases, exact, cfg, train),
-                         kernel_summary_threefry(fid, train, families)]}))
+    print("[mesh] summary " + json.dumps(mesh_summary(mesh)))
+    kernels = (kernel_summary(cases, runs, cfg, models, moe, int8kv,
+                              recurrent, cross)
+               + [kernel_summary_paged(paged, sched, models, long,
+                                       frontend),
+                  kernel_summary_cim(cim_cases, exact, cfg, train),
+                  kernel_summary_threefry(fid, train, families)])
+    for k in kernels:
+        # the meshed runs' own counts (zeroed just before, read after)
+        if k["name"] == "ternary_matmul":
+            k["launches_mesh"] = mesh["serve"]["meshed"]["launches"][
+                "ternary_matmul"]
+        if k["name"] == "threefry":
+            k["launches_mesh"] = mesh["train"]["threefry_launches"]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

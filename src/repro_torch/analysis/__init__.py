@@ -20,21 +20,30 @@ where the check is the same:
     ``chip_smoke.py``.
   * ``frontend``: the serving front-end's transfer, backpressure and
     determinism contracts (FE001-FE003).
+  * ``shard``: the placement contracts of ``repro_torch.dist`` over
+    every (rules variant x mesh x config) cell, the logical axes named
+    anywhere in ``src/repro_torch/``, and the axis table of
+    ``src/repro_torch/dist/README.md`` (SD001-SD006), on the configs,
+    models and leaves ``abscache`` memoises.
 
 The reference's ``lint`` pass already scans this package (its
-``rules.toml`` lints ``src``); ``shard``, ``jaxpr`` and ``abscache``
-check XLA artefacts the port does not have.
+``rules.toml`` lints ``src``); ``jaxpr`` checks XLA artefacts whose
+torch counterpart is not ported yet (ROADMAP queue 1 item 8).
+
+``sanitize`` and ``frontend`` serve on the card by default and raise
+without one; the tests pass ``device="cpu"``.
 """
 from .base import Finding, rel  # noqa: F401
 from .sanitizer import (SanitizeError, SanitizeReport,  # noqa: F401
                         sanitize)
-from . import (autotune_table, blockmap, capability,  # noqa: F401
-               frontend, sanitizer)
+from . import (abscache, autotune_table, blockmap,  # noqa: F401
+               capability, frontend, sanitizer, shardspec)
 
 # run order: the static passes first, the serving drivers last
 PASSES = (("capability", capability.run),
           ("blockmap", blockmap.run),
           ("autotune", autotune_table.run),
+          ("shard", shardspec.run),
           ("sanitize", sanitizer.run),
           ("frontend", frontend.run))
 

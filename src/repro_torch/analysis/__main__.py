@@ -15,8 +15,8 @@ import sys
 import tempfile
 import time
 
-from . import (LAST_TIMINGS, PASSES, autotune_table, blockmap, capability,
-               frontend, sanitizer)
+from . import (LAST_TIMINGS, PASSES, abscache, autotune_table, blockmap,
+               capability, frontend, sanitizer, shardspec)
 
 # --inject-blockmap: a plan pinned over the sweep that breaks one rule
 BLOCKMAP_PINS = {"tile": (96, 2, 512),           # BM001 (and coverage)
@@ -87,9 +87,12 @@ def main(argv=None) -> int:
     p.add_argument("--emit-matrix", action="store_true",
                    help="print the registry's capability matrix (for "
                         "src/repro_torch/kernels/README.md) and exit")
-    p.add_argument("--device", default=None, choices=("cpu", "cuda"),
+    p.add_argument("--emit-axes", action="store_true",
+                   help="print the rules engine's logical-axis table (for "
+                        "src/repro_torch/dist/README.md) and exit")
+    p.add_argument("--device", default="cuda", choices=("cpu", "cuda"),
                    help="sanitize / frontend: where to serve (default: the "
-                        "card where there is one)")
+                        "card; raises without one)")
     p.add_argument("--readme", default=None, metavar="PATH",
                    help="capability: check this README's matrix")
     p.add_argument("--autotune-table", default=None, metavar="PATH",
@@ -113,6 +116,13 @@ def main(argv=None) -> int:
                    choices=("transfer", "replan"),
                    help="sanitize: an extra transfer (SAN001) or a new "
                         "plan after warm-up (SAN002)")
+    p.add_argument("--inject-shard", default=None,
+                   choices=("resolve", "spec", "replicate", "mirror",
+                            "axis", "drift"),
+                   help="shard: an unresolvable axis (SD001), a bad spec "
+                        "(SD002), a big replicated leaf (SD003), a mirror "
+                        "disagreement (SD004), a typo'd axis (SD005), a "
+                        "drifted README table (SD006)")
     p.add_argument("--inject-frontend", default=None,
                    choices=("transfer", "drop", "order"),
                    help="frontend: an extra streaming transfer (FE001), a "
@@ -129,6 +139,12 @@ def main(argv=None) -> int:
         print(capability.render_capability_matrix(
             capability.parse_matrix_notes(open(capability.README_PATH).read())
             if os.path.exists(capability.README_PATH) else None))
+        return 0
+    if args.emit_axes:
+        readme = shardspec.DIST_README
+        print(shardspec.render_axis_table(
+            shardspec.parse_axis_notes(open(readme).read())
+            if os.path.exists(readme) else None))
         return 0
     selected = ([s.strip() for s in args.passes.split(",") if s.strip()]
                 if args.passes else names)
@@ -155,6 +171,7 @@ def main(argv=None) -> int:
             "capability": lambda: capability.run(readme_path=readme),
             "blockmap": lambda: blockmap.run(pin_blocks=pin),
             "autotune": lambda: autotune_table.run(table_path=table),
+            "shard": lambda: shardspec.run(inject=args.inject_shard),
             "sanitize": lambda: sanitizer.run(
                 inject=(args.inject_sanitize,) if args.inject_sanitize
                 else (), device=args.device),
@@ -176,6 +193,9 @@ def main(argv=None) -> int:
                 print(f"[{name}] {len(got)} finding(s) ({dt:.2f}s)",
                       flush=True)
             findings.extend(got)
+    if text and "shard" in selected:
+        hits = sum(v["hits"] for v in abscache.stats().values())
+        print(f"[abscache] {hits} hit(s)", flush=True)
     doc = _report_doc(per_pass, findings)
     if args.out:
         with open(args.out, "w", encoding="utf-8") as f:

@@ -19,8 +19,8 @@ REPO_ROOT = os.path.abspath(
 @dataclasses.dataclass(frozen=True)
 class Finding:
     """One contract violation found by a pass."""
-    passname: str          # capability | blockmap | autotune | sanitize |
-                           # frontend
+    passname: str          # capability | blockmap | autotune | shard |
+                           # sanitize | frontend
     rule: str              # stable rule id
     where: str             # file:line, lattice cell or plan
     message: str

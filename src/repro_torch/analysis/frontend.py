@@ -25,7 +25,6 @@ second FE003 epoch under a policy with a perturbed tie-break.
 """
 from __future__ import annotations
 
-from typing import Optional
 
 from .base import Finding
 
@@ -182,13 +181,13 @@ def _check_determinism(device: str, inject=()) -> list:
     return findings
 
 
-def run(inject=(), device: Optional[str] = None) -> list:
-    """The pass on ``device`` (default: the card where there is one).
-    ``inject`` seeds violations ('transfer', 'drop', 'order') for the
-    CLI's ``--inject-frontend``."""
-    import torch
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+def run(inject=(), device: str = "cuda") -> list:
+    """The pass on ``device`` (the card by default; without one it
+    raises, it never moves to the CPU by itself).  ``inject`` seeds
+    violations ('transfer', 'drop', 'order') for the CLI's
+    ``--inject-frontend``."""
+    from .. import resolve_device
+    device = str(resolve_device(device))
     return (_check_streaming(device, inject)
             + _check_backpressure(device, inject)
             + _check_determinism(device, inject))

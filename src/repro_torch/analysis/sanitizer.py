@@ -227,14 +227,13 @@ def check_engine(eng, label: str, warm: list, measured: list,
     return findings
 
 
-def run(inject=(), device: Optional[str] = None,
-        engines=ENGINES) -> list:
-    """The pass on ``device`` (default: the card where there is one).
-    ``inject`` seeds violations ('transfer', 'replan') for the CLI's
+def run(inject=(), device: str = "cuda", engines=ENGINES) -> list:
+    """The pass on ``device`` (the card by default; without one it
+    raises, it never moves to the CPU by itself).  ``inject`` seeds
+    violations ('transfer', 'replan') for the CLI's
     ``--inject-sanitize``."""
-    import torch
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
+    from .. import resolve_device
+    device = str(resolve_device(device))
     cfg, model, params, cim = smoke_model(device)
     findings = []
     for kind in engines:

@@ -18,8 +18,14 @@ sees a partial checkpoint, and a writer killed mid-save leaves only a
 ``.tmp`` that the next save removes.  The fault-tolerant ``Trainer``
 leans on this (``_fail_after_files`` simulates a crash mid-save).
 
-``restore(device=)`` puts every leaf on that device (the reference's
-``shardings=`` re-shards onto a mesh; the port runs on one card).
+``restore(device=)`` puts every leaf on that device; with
+``placements=`` (a tree of DTensors, e.g. the meta ones of
+``train.step.make_abstract_state``) each leaf is then placed on that
+DTensor's mesh as it is: the counterpart of the reference's
+``shardings=``.  A checkpoint written on one mesh restarts on another,
+or on none (the elastic restart).  ``save`` of a tree with DTensor
+leaves gathers each leaf whole (a collective: every rank calls it) and
+the first rank writes the reference's format.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device, tree as tree_lib
+from ..dist import runtime as dist_rt
 
 _MANIFEST = "manifest.json"
 
@@ -60,22 +67,33 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None,
 
     ``_fail_after_files`` is a test hook: raise mid-write after that many
     leaf files to simulate a crash during save."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    flat = tree_lib.flatten_with_path(tree)
+    meshed = any(dist_rt.is_dtensor(leaf) for _, leaf in flat)
+    if meshed:
+        flat = [(path, dist_rt.full(leaf)) for path, leaf in flat]
+    writer = not meshed or dist_rt.rank() == 0
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if writer:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
 
     entries = []
-    for i, (path, leaf) in enumerate(tree_lib.flatten_with_path(tree)):
+    for i, (path, leaf) in enumerate(flat):
         if _fail_after_files is not None and i >= _fail_after_files:
             raise RuntimeError("simulated crash during checkpoint save")
+        if not writer:
+            continue
         arr, dtype = _to_numpy(leaf)
         fname = f"arr_{i:05d}.npy"
         np.save(os.path.join(tmp, fname), arr, allow_pickle=False)
         entries.append({"path": "/".join(path), "file": fname,
                         "shape": list(arr.shape), "dtype": dtype})
+    if not writer:
+        dist_rt.barrier()
+        return final
     manifest = {"step": step, "num_leaves": len(entries), "leaves": entries,
                 "extra": extra or {}, "complete": True}
     with open(os.path.join(tmp, _MANIFEST), "w") as f:
@@ -85,6 +103,8 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[dict] = None,
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
+    if meshed:
+        dist_rt.barrier()
     return final
 
 
@@ -115,11 +135,16 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, step: Optional[int] = None, target: Any = None,
-            device="cuda") -> tuple[Any, dict]:
+            device="cuda", placements: Any = None) -> tuple[Any, dict]:
     """Load (tree, extra), every leaf a tensor on ``device``.  With
     ``target`` (any tree of the saved structure; its leaves are not read)
     the leaves go back into that structure in the reference's order;
-    without, a nested dict is rebuilt from the manifest's paths."""
+    without, a nested dict is rebuilt from the manifest's paths.  With
+    ``placements`` (a tree of the saved structure, standing in for
+    ``target`` when that is None) a leaf whose counterpart there is a
+    DTensor is placed as it; other leaves stay plain."""
+    if target is None:
+        target = placements
     device = resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -131,6 +156,14 @@ def restore(ckpt_dir: str, step: Optional[int] = None, target: Any = None,
     arrays = [_from_numpy(np.load(os.path.join(d, e["file"]),
                                   allow_pickle=False), e["dtype"]).to(device)
               for e in manifest["leaves"]]
+    if placements is not None:
+        likes = tree_lib.leaves(placements)
+        if len(likes) != len(arrays):
+            raise ValueError(f"placements have {len(likes)} leaves, the "
+                             f"checkpoint {len(arrays)}")
+        arrays = [dist_rt.distribute_like(a, like)
+                  if dist_rt.is_dtensor(like) else a
+                  for a, like in zip(arrays, likes)]
     if target is not None:
         return (tree_lib.unflatten_like(target, arrays),
                 manifest.get("extra", {}))
@@ -176,7 +209,9 @@ class CheckpointManager:
         gc_old_steps(self.dir, self.keep)
         return path
 
-    def restore_or_none(self, target: Any = None, device="cuda"):
+    def restore_or_none(self, target: Any = None, device="cuda",
+                        placements: Any = None):
         if latest_step(self.dir) is None:
             return None
-        return restore(self.dir, target=target, device=device)
+        return restore(self.dir, target=target, device=device,
+                       placements=placements)

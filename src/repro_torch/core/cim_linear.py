@@ -80,9 +80,20 @@ def linear(x: torch.Tensor, w: Any, cfg: CIMConfig = CIMConfig()
     if cfg.mode == "ternary" or isinstance(w, ops.PackedTernary):
         pw = w if isinstance(w, ops.PackedTernary) else ops.pack_weights(
             w, cfg.packing, cfg.num_trits)
-        plan = plan_matmul(shape_of(x, pw), cfg, packing=pw.mode,
-                           platform=platform_of(x))
-        return execute(plan, x, pw)
+
+        def run(xl, wl):
+            plan = plan_matmul(shape_of(xl, wl), cfg, packing=wl.mode,
+                               platform=platform_of(xl))
+            return execute(plan, xl, wl)
+        if getattr(pw, "split", None) is not None:
+            # a model-axis shard (dist.runtime.ShardedPacked): the planned
+            # kernel on the local shape, then the collective
+            if cfg.domain != "float":
+                raise NotImplementedError(
+                    f"the {cfg.domain} domain on a mesh is not ported "
+                    f"(ROADMAP queue 1 item 8)")
+            return pw.apply(x, run)
+        return run(x, pw)
     if cfg.mode == "float":
         return x @ w
     if cfg.mode == "exact":

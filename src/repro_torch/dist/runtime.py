@@ -1,0 +1,405 @@
+"""Running on a ``DeviceMesh``: placing trees as DTensors by their
+logical axes, and the rank-local views the model computes on.
+
+The split of work, which every meshed path shares:
+
+* **At rest** every parameter and optimizer-state leaf is a
+  ``DTensor`` placed by ``logical_to_spec`` of its ``ParamSpec.axes``
+  (:func:`place_tree`); a packed weight is a ``PackedTernary`` whose
+  ``data`` takes the leaf's axes (trit2's ``K/4`` rows divided by the
+  same rule) and whose ``scale`` takes ``axes[:-2] + (axes[-1],)``, as
+  the reference's ``launch/input_specs.py`` places them.
+* **Activations** are plain tensors: each rank holds its own rows of the
+  batch (the batch folded over the DP axes, :func:`shard_rows`) and
+  every feature, the same on every rank of the model axis.  So the model
+  code runs unchanged on rank-local tensors, and ``constrain_act`` has
+  nothing to redistribute.  A serving decode state is such a tensor
+  too: its rows at every position, not placed by its cache specs.
+* **At use** a float leaf is gathered whole on every rank
+  (:func:`param_view`, over the model axis too: the state is sharded at
+  rest only, like ZeRO-1, not per layer as in FSDP); a packed leaf is
+  gathered over the DP axes only and keeps its model-axis shard, which
+  ``cim_linear.linear`` consumes as tensor parallelism
+  (:class:`ShardedPacked`): column-parallel (N sharded) all-gathers the
+  output columns, row-parallel (K sharded) sums the partial products.
+* **Gradients** of the gathered leaves are rank-local; the train step
+  averages them over the DP axes and keeps each rank's shard
+  (:func:`reduce_grads`, a reduce-scatter).
+
+Mesh dims of size one are never redistributed: on a one-card mesh every
+view is the leaf's own storage, and the model runs the aten ops of the
+unmeshed path on the same tensors.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from .. import tree as tree_lib
+from ..kernels.ops import PackedTernary
+from . import mesh as mesh_lib
+from . import sharding as shd
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def is_mesh(mesh) -> bool:
+    """Whether ``mesh`` is a DeviceMesh (and not the axis-size mapping
+    the one-card paths take)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    return isinstance(mesh, DeviceMesh)
+
+
+# ------------------------------------------------------------ placing
+
+def _from_local(local: torch.Tensor, mesh, place: tuple, shape,
+                dtype=None):
+    """A DTensor of the contiguous global ``shape`` from this rank's
+    piece ``local`` under ``place``."""
+    from torch.distributed.tensor import DTensor
+    g = torch.empty(tuple(shape), dtype=dtype or local.dtype, device="meta")
+    return DTensor.from_local(local, mesh, tuple(place), run_check=False,
+                              shape=g.shape, stride=g.stride())
+
+
+def _local_chunk(x: torch.Tensor, place: tuple, mesh) -> torch.Tensor:
+    """This rank's piece of ``x`` (held whole on every rank) under
+    ``place``, cut locally: no communication.  The rules shard only
+    dims that divide, so every piece has the same size."""
+    coord = mesh.get_coordinate()
+    out = x
+    for i, p in enumerate(place):
+        if p.is_shard():
+            n = mesh.size(i)
+            d = p.dim
+            step = out.shape[d] // n
+            out = out.narrow(d, coord[i] * step, step)
+    return out.contiguous()
+
+
+def place(x: torch.Tensor, axes: tuple, rules: shd.Rules, mesh):
+    """A DTensor of ``x`` (the same tensor on every rank) placed by its
+    logical axes; each rank keeps its own piece."""
+    spec = shd.logical_to_spec(tuple(axes), tuple(x.shape), rules, mesh)
+    want = shd.placements(spec, mesh)
+    return _from_local(_local_chunk(x, want, mesh), mesh, want, x.shape)
+
+
+def packed_axes(axes: tuple) -> tuple[tuple, tuple]:
+    """(data axes, scale axes) of a packed leaf with logical ``axes``."""
+    axes = tuple(axes)
+    return axes, axes[:-2] + (axes[-1],)
+
+
+def place_leaf(x, spec, rules: shd.Rules, mesh):
+    """One leaf (tensor or ``PackedTernary``) placed by its ParamSpec."""
+    if isinstance(x, PackedTernary):
+        daxes, saxes = packed_axes(spec.axes)
+        return PackedTernary(place(x.data, daxes, rules, mesh),
+                             place(x.scale, saxes, rules, mesh), x.mode)
+    if isinstance(x, torch.Tensor):
+        return place(x, spec.axes, rules, mesh)
+    return x
+
+
+def place_tree(tree: Any, specs: Any, rules: shd.Rules, mesh) -> Any:
+    """A nested dict of tensors / packed weights placed leaf by leaf by
+    the ParamSpec tree ``specs`` of the same structure (a key missing
+    from ``specs``, like a cache's host ``pos``, is kept as it is)."""
+    if isinstance(tree, dict):
+        return {k: (place_tree(v, specs[k], rules, mesh) if k in specs
+                    else v) for k, v in tree.items()}
+    return place_leaf(tree, specs, rules, mesh)
+
+
+def placement_tree(specs: Any, rules: shd.Rules, mesh,
+                   dtype=torch.float32) -> Any:
+    """ParamSpec tree -> tree of storage-free (meta) DTensors with each
+    leaf's global shape, dtype (``dtype`` where the spec has none) and
+    placements: the abstract state."""
+    def leaf(d):
+        spec = shd.logical_to_spec(tuple(d.axes), tuple(d.shape), rules,
+                                   mesh)
+        want = shd.placements(spec, mesh)
+        local = list(d.shape)
+        for i, p in enumerate(want):
+            if p.is_shard():
+                local[p.dim] //= mesh.size(i)
+        piece = torch.empty(local, dtype=d.dtype or dtype, device="meta")
+        return _from_local(piece, mesh, want, d.shape)
+    return tree_lib.map_specs(leaf, specs)
+
+
+def distribute_like(x: torch.Tensor, like):
+    """``x`` (whole, on every rank) placed as the DTensor ``like``."""
+    mesh, place_ = like.device_mesh, tuple(like.placements)
+    return _from_local(_local_chunk(x, place_, mesh), mesh, place_, x.shape)
+
+
+# ------------------------------------------------------ gathering views
+
+def _target(x, keep) -> tuple:
+    """Placements of the view: a mesh dim of size one keeps its
+    placement (nothing to move), another keeps it where ``keep(i, p)``
+    and is replicated elsewhere."""
+    from torch.distributed.tensor import Replicate
+    mesh = x.device_mesh
+    return tuple(p if mesh.size(i) == 1 or keep(i, p) else Replicate()
+                 for i, p in enumerate(x.placements))
+
+
+def _view(x, keep) -> torch.Tensor:
+    want = _target(x, keep)
+    if want != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, want)
+    return x.to_local()
+
+
+def full(x):
+    """A DTensor gathered whole on every rank (the rank-local tensor of
+    a one-card mesh as it is); anything else as it is."""
+    if isinstance(x, PackedTernary) and is_dtensor(x.data):
+        return PackedTernary(full(x.data), full(x.scale), x.mode)
+    if not is_dtensor(x):
+        return x
+    return _view(x, lambda i, p: False)
+
+
+def gather_tree(tree: Any) -> Any:
+    """Every DTensor leaf of a tree gathered whole (a collective: every
+    rank must call it)."""
+    return tree_lib.map_leaves(full, tree)
+
+
+class ShardedPacked(PackedTernary):
+    """The rank-local shard of a packed weight split over the model axis:
+    ``split`` 'col' (N sharded, output columns all-gathered) or 'row' (K
+    sharded, partial products summed) over the process group ``group``."""
+
+    def __init__(self, data, scale, mode, group, split: str):
+        super().__init__(data, scale, mode)
+        self.group = group
+        self.split = split
+
+    def __getitem__(self, i) -> "ShardedPacked":
+        return ShardedPacked(self.data[i], self.scale[i], self.mode,
+                             self.group, self.split)
+
+    def __repr__(self):
+        return (f"ShardedPacked(mode={self.mode!r}, split={self.split!r}, "
+                f"data={tuple(self.data.shape)}, "
+                f"scale={tuple(self.scale.shape)})")
+
+    def partial(self, x: torch.Tensor, run, index: int) -> torch.Tensor:
+        """This shard's part of ``x (..., K) @ w`` through ``run(x_local,
+        w_local)`` (the planned kernel on the local shard), where the
+        shard is number ``index`` along the model axis: its output
+        columns ('col'), or the partial product of its K rows ('row')."""
+        if self.split == "col":
+            return run(x, self).contiguous()
+        kl = self.kdim
+        xl = x[..., index * kl:(index + 1) * kl]
+        if xl.shape[-1] < kl:            # trit2 rows past K: zero input
+            xl = torch.nn.functional.pad(xl, (0, kl - xl.shape[-1]))
+        return run(xl.contiguous(), self).contiguous()
+
+    def apply(self, x: torch.Tensor, run) -> torch.Tensor:
+        """``x (..., K) @ self``: this rank's :meth:`partial` and the
+        model-axis collective that completes it."""
+        import torch.distributed as dist
+        y = self.partial(x, run, dist.get_rank(self.group))
+        if self.split == "col":
+            parts = [torch.empty_like(y)
+                     for _ in range(dist.get_world_size(self.group))]
+            dist.all_gather(parts, y, group=self.group)
+            return torch.cat(parts, dim=-1)
+        dist.all_reduce(y, group=self.group)
+        return y
+
+
+def _packed_view(w: PackedTernary) -> PackedTernary:
+    """A packed leaf gathered over every mesh dim but the one that
+    shards its N or K dim over a non-DP axis, which stays split: a
+    ``ShardedPacked`` where that dim has more than one rank."""
+    data, scale = w.data, w.scale
+    mesh = data.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    nd = data.ndim
+    split, tp_dim = None, None
+    for i, p in enumerate(data.placements):
+        if (p.is_shard() and names[i] not in mesh_lib.DP_AXES
+                and mesh.size(i) > 1):
+            if p.dim not in (nd - 1, nd - 2):
+                raise NotImplementedError(
+                    f"packed weight {tuple(data.shape)} is split over "
+                    f"{names[i]!r} on dim {p.dim}: only the K and N dims "
+                    f"run tensor-parallel (expert parallelism on a mesh "
+                    f"is ROADMAP queue 1 item 8)")
+            split = "col" if p.dim == nd - 1 else "row"
+            tp_dim = i
+    local = _view(data, lambda i, p: i == tp_dim)
+    local_scale = _view(scale, lambda i, p: i == tp_dim and split == "col")
+    if split is None:
+        return PackedTernary(local, local_scale, w.mode)
+    return ShardedPacked(local, local_scale, w.mode,
+                         mesh.get_group(tp_dim), split)
+
+
+def param_view(params: Any) -> Any:
+    """The compute view of a placed params tree: float leaves whole on
+    every rank, packed leaves gathered over the DP axes with their
+    model-axis shard kept (:class:`ShardedPacked`).  Unplaced leaves
+    pass through."""
+    def leaf(x):
+        if isinstance(x, PackedTernary) and is_dtensor(x.data):
+            return _packed_view(x)
+        return full(x)
+    if isinstance(params, dict):
+        return {k: param_view(v) for k, v in params.items()}
+    return leaf(params)
+
+
+# -------------------------------------------------------- batch rows
+
+def row_placements(x_shape: tuple, rules: shd.Rules, mesh,
+                   axis: str = "batch", dim: int = 0) -> tuple:
+    """Placements of a tensor whose dim ``dim`` is the batch: that dim
+    folded over the DP axes, everything else replicated."""
+    axes = ["none"] * len(x_shape)
+    axes[dim] = axis
+    spec = shd.logical_to_spec(tuple(axes), tuple(x_shape), rules, mesh)
+    return shd.placements(spec, mesh)
+
+
+def shard_rows(x: torch.Tensor, rules: shd.Rules, mesh, dim: int = 0
+               ) -> torch.Tensor:
+    """This rank's rows of ``x`` (the whole batch, the same on every
+    rank), cut locally: every rank draws the same global batch and keeps
+    its shard."""
+    return _local_chunk(x, row_placements(tuple(x.shape), rules, mesh,
+                                          dim=dim), mesh)
+
+
+def gather_rows(x_local: torch.Tensor, full_shape: tuple,
+                rules: shd.Rules, mesh, dim: int = 0) -> torch.Tensor:
+    """The whole batch from each rank's rows (an all-gather over the DP
+    axes; a rank's own tensor on a one-card mesh)."""
+    want = row_placements(tuple(full_shape), rules, mesh, dim=dim)
+    if all(mesh.size(i) == 1 or not p.is_shard()
+           for i, p in enumerate(want)):
+        return x_local
+    return full(_from_local(x_local.contiguous(), mesh, want, full_shape))
+
+
+def dp_count(rules: shd.Rules, mesh, rows: int) -> int:
+    """How many distinct row shards a batch of ``rows`` has."""
+    n = 1
+    for i, p in enumerate(row_placements((rows,), rules, mesh)):
+        if p.is_shard():
+            n *= mesh.size(i)
+    return n
+
+
+def reduce_grads(grads: Any, like: Any, rules: shd.Rules, mesh,
+                 rows: int) -> Any:
+    """Each rank's gradient of its rows (whole tensors) -> the mean over
+    the DP shards, placed as the DTensor leaves of ``like``: a
+    reduce-scatter where a DP dim has more than one rank, a local cut
+    elsewhere (none on a one-card mesh)."""
+    from torch.distributed.tensor import Partial, Replicate
+    rp = row_placements((rows,), rules, mesh)
+    n = dp_count(rules, mesh, rows)
+
+    def leaf(g, p):
+        if n > 1:
+            g = g / n
+        src = tuple(Partial() if q.is_shard() and mesh.size(i) > 1
+                    else (p.placements[i] if mesh.size(i) == 1
+                          else Replicate())
+                    for i, q in enumerate(rp))
+        d = _from_local(g, mesh, src, p.shape)
+        if src != tuple(p.placements):
+            d = d.redistribute(mesh, tuple(p.placements))
+        return d
+    return tree_lib.map_leaves(leaf, grads, like)
+
+
+def mean_over_rows(x: torch.Tensor, rules: shd.Rules, mesh,
+                   rows: int) -> torch.Tensor:
+    """The mean of a per-rank scalar over the DP shards (as it is on a
+    one-card mesh)."""
+    import torch.distributed as dist
+    n = dp_count(rules, mesh, rows)
+    if n == 1:
+        return x
+    groups = [mesh.get_group(i) for i, p in
+              enumerate(row_placements((rows,), rules, mesh))
+              if p.is_shard() and mesh.size(i) > 1]
+    y = x.clone()
+    for g in groups:
+        dist.all_reduce(y, group=g)
+    return y / n
+
+
+def owns(x) -> bool:
+    """Whether this rank counts ``x``'s local piece in a sum over the
+    mesh: the first rank of every mesh dim that replicates it."""
+    if not is_dtensor(x):
+        return True
+    coord = x.device_mesh.get_coordinate()
+    return all(p.is_shard() or coord[i] == 0
+               for i, p in enumerate(x.placements))
+
+
+def local(x):
+    """A DTensor's rank-local tensor (its storage); anything else as it
+    is."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def local_tree(tree: Any) -> Any:
+    return tree_lib.map_leaves(local, tree)
+
+
+def world_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """All-reduce a rank-local sum over every rank of ``mesh`` (as it is
+    when the mesh has one rank)."""
+    import torch.distributed as dist
+    if mesh.size() == 1:
+        return x
+    y = x.clone()
+    for i in range(mesh.ndim):
+        if mesh.size(i) > 1:
+            dist.all_reduce(y, group=mesh.get_group(i))
+    return y
+
+
+def check_mesh_request(model, cim=None, what: str = "this path") -> None:
+    """Raise for what does not run on a mesh yet."""
+    if model.cfg.family != "dense":
+        raise NotImplementedError(
+            f"{what} on a mesh runs the dense family; {model.cfg.name} "
+            f"(family {model.cfg.family!r}) on a mesh is ROADMAP queue 1 "
+            f"item 8")
+    if cim is not None and cim.mode == "exact":
+        raise NotImplementedError(
+            "exact mode on a mesh is not ported (ROADMAP queue 1 item 8)")
+    if cim is not None and cim.domain == "int8":
+        raise NotImplementedError(
+            "the int8 domain on a mesh is not ported (ROADMAP queue 1 "
+            "item 8)")
+
+
+def rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.barrier()

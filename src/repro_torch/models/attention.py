@@ -24,6 +24,7 @@ import torch
 
 from .. import resolve_device
 from . import paged_kv
+from ..dist.sharding import constrain_act
 from .config import ModelConfig
 from .layers import apply_rope, dense, rms_norm
 
@@ -91,6 +92,11 @@ def _project_qkv(x, w, cfg: ModelConfig, positions=None, cim_cfg=None,
         kpos = (positions if x_kv is None
                 else torch.arange(t, device=x.device))
         k = apply_rope(k, kpos, cfg.rope_theta)
+    # anchor the operands: batch over DP, q-heads over TP where they
+    # divide, the kv positions per mode
+    q = constrain_act(q, ("batch", "seq", "head_count", "none"))
+    k = constrain_act(k, ("batch", "kv_seq", "none", "none"))
+    v = constrain_act(v, ("batch", "kv_seq", "none", "none"))
     return q, k, v
 
 

@@ -70,12 +70,15 @@ class ModelConfig:
 
 
 class ParamSpec(NamedTuple):
-    """A parameter's shape, init style (normal | zeros | ones | embed) and
+    """A parameter's shape, init style (normal | zeros | ones | embed),
     dtype (None: the model's; the MoE router and the recurrent states
-    are f32)."""
+    are f32) and logical axes (one name per dim, those of the
+    reference's ``ParamDef``), which ``dist.sharding`` resolves to a
+    placement on a mesh."""
     shape: tuple
     init: str = "normal"
     dtype: Any = None
+    axes: tuple = ()
 
     def initialize(self, generator: torch.Generator, device, dtype
                    ) -> torch.Tensor:

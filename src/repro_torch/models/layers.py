@@ -8,6 +8,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import cim_linear
+from ..dist.sharding import constrain_act
 from ..kernels.ops import PackedTernary
 
 
@@ -36,7 +37,7 @@ class _Embed(torch.autograd.Function):
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """The embedding rows of ``tokens`` (any shape) -> tokens.shape + (d,).
     Its gradient is deterministic (:func:`embed_grad`)."""
-    return _Embed.apply(table, tokens.long())
+    return constrain_act(_Embed.apply(table, tokens.long()))
 
 
 def embed_grad(grad: torch.Tensor, tokens: torch.Tensor, table_shape: tuple,
@@ -71,7 +72,10 @@ def dense(x: torch.Tensor, w, cim_cfg: Optional[cim_linear.CIMConfig] = None
           ) -> torch.Tensor:
     """Linear layer through the CIM modes when configured or when `w` is
     packed.  Under a ternary config a float weight is packed on every
-    call (the reference's behaviour)."""
+    call (the reference's behaviour).  A 3-D input is re-anchored to the
+    residual layout (``constrain_act``) first, as in the reference."""
+    if x.dim() == 3:
+        x = constrain_act(x)
     if isinstance(w, PackedTernary):
         cfg = cim_cfg or cim_linear.CIMConfig(mode="ternary")
         return cim_linear.linear(x, w, cfg).to(x.dtype)

@@ -42,10 +42,14 @@ def moe_defs(cfg: ModelConfig, layers: int) -> dict:
     (L, E, f, d)."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
     L = (layers,)
-    return {"router": ParamSpec(L + (d, e), dtype=torch.float32),
-            "w1": ParamSpec(L + (e, d, f)),
-            "w3": ParamSpec(L + (e, d, f)),
-            "w2": ParamSpec(L + (e, f, d))}
+    return {"router": ParamSpec(L + (d, e), dtype=torch.float32,
+                                axes=("layers", "embed", "none")),
+            "w1": ParamSpec(L + (e, d, f),
+                            axes=("layers", "expert", "embed", "mlp")),
+            "w3": ParamSpec(L + (e, d, f),
+                            axes=("layers", "expert", "embed", "mlp")),
+            "w2": ParamSpec(L + (e, f, d),
+                            axes=("layers", "expert", "mlp", "embed"))}
 
 
 @functools.lru_cache(maxsize=None)

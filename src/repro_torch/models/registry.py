@@ -94,6 +94,11 @@ from .layers import (dense, embed, gelu_mlp, rms_norm, sinusoidal_positions,
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
+# logical axes of a decode KV cache (L, B, C, KV, hd) and of the cross
+# keys and values of the encoder's or the patches' positions
+KV_AXES = ("layers", "batch", "cache_seq", "kv", "none")
+CROSS_AXES = ("layers", "batch", "seq", "kv", "none")
+
 
 def _layer(tree: dict, i: int) -> dict:
     return {k: v[i] for k, v in tree.items()}
@@ -352,21 +357,20 @@ class TransformerLM(BaseModel):
 
     def _param_specs(self) -> dict:
         cfg = self.cfg
-        d, f, L = cfg.d_model, cfg.d_ff, (cfg.num_layers,)
-        blocks = {"ln1": ParamSpec(L + (d,), "ones"),
-                  "ln2": ParamSpec(L + (d,), "ones"),
+        blocks = {"ln1": _norm_spec(cfg, cfg.num_layers),
+                  "ln2": _norm_spec(cfg, cfg.num_layers),
                   **_attn_specs(cfg, cfg.num_layers)}
         if cfg.num_experts:
             blocks.update(moe.moe_defs(cfg, cfg.num_layers))
         else:
-            blocks.update(w1=ParamSpec(L + (d, f)), w2=ParamSpec(L + (f, d)),
-                          w3=ParamSpec(L + (d, f)))
+            blocks.update(_mlp_specs(cfg, cfg.num_layers))
         specs = {**_embed_specs(cfg), "blocks": blocks}
         if cfg.cross_attn_every:
             n = self.n_cross
             specs["cross_blocks"] = {
-                "ln": ParamSpec((n, d), "ones"),
-                "gate": ParamSpec((n,), "zeros", torch.float32),
+                "ln": _norm_spec(cfg, n),
+                "gate": ParamSpec((n,), "zeros", torch.float32,
+                                  axes=("layers",)),
                 **_attn_specs(cfg, n, cross=True)}
         return specs
 
@@ -382,18 +386,20 @@ class TransformerLM(BaseModel):
             capacity = min(capacity, cfg.sliding_window)
         shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads, cfg.hd)
         if cfg.kv_cache_dtype != "int8":
-            specs = {"k": ParamSpec(shape, "zeros"),
-                     "v": ParamSpec(shape, "zeros")}
+            specs = {"k": ParamSpec(shape, "zeros", axes=KV_AXES),
+                     "v": ParamSpec(shape, "zeros", axes=KV_AXES)}
             if cfg.cross_attn_every:
                 xshape = (self.n_cross, batch, cfg.encoder_seq or 1024,
                           cfg.num_kv_heads, cfg.hd)
-                specs["xk"] = ParamSpec(xshape, "zeros")
-                specs["xv"] = ParamSpec(xshape, "zeros")
+                specs["xk"] = ParamSpec(xshape, "zeros", axes=CROSS_AXES)
+                specs["xv"] = ParamSpec(xshape, "zeros", axes=CROSS_AXES)
             return specs
-        return {"k": ParamSpec(shape, "zeros", torch.int8),
-                "v": ParamSpec(shape, "zeros", torch.int8),
-                "k_scale": ParamSpec(shape[:-1], "zeros", torch.float32),
-                "v_scale": ParamSpec(shape[:-1], "zeros", torch.float32)}
+        return {"k": ParamSpec(shape, "zeros", torch.int8, axes=KV_AXES),
+                "v": ParamSpec(shape, "zeros", torch.int8, axes=KV_AXES),
+                "k_scale": ParamSpec(shape[:-1], "zeros", torch.float32,
+                                     axes=KV_AXES[:-1]),
+                "v_scale": ParamSpec(shape[:-1], "zeros", torch.float32,
+                                     axes=KV_AXES[:-1])}
 
     def _mlp(self, x, wl, cim):
         return self._mlp_aux(x, wl, cim)[0]
@@ -673,20 +679,55 @@ def _attn_specs(cfg: ModelConfig, layers: Optional[int] = None,
     a cross block has no qk-norm."""
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd
     L = () if layers is None else (layers,)
-    specs = {"wq": ParamSpec(L + (d, h * hd)),
-             "wk": ParamSpec(L + (d, kv * hd)),
-             "wv": ParamSpec(L + (d, kv * hd)),
-             "wo": ParamSpec(L + (h * hd, d))}
+    la = () if layers is None else ("layers",)
+    # kv projections are row-parallel ('embed_rp' shards the contraction
+    # over 'model'), as in the reference
+    specs = {"wq": ParamSpec(L + (d, h * hd),
+                             axes=la + ("embed", "heads")),
+             "wk": ParamSpec(L + (d, kv * hd),
+                             axes=la + ("embed_rp", "kv")),
+             "wv": ParamSpec(L + (d, kv * hd),
+                             axes=la + ("embed_rp", "kv")),
+             "wo": ParamSpec(L + (h * hd, d),
+                             axes=la + ("heads", "embed"))}
     if cfg.qk_norm and not cross:
-        specs["q_norm"] = ParamSpec(L + (hd,), "ones")
-        specs["k_norm"] = ParamSpec(L + (hd,), "ones")
+        specs["q_norm"] = ParamSpec(L + (hd,), "ones",
+                                    axes=la + ("none",))
+        specs["k_norm"] = ParamSpec(L + (hd,), "ones",
+                                    axes=la + ("none",))
     return specs
 
 
+def _mlp_specs(cfg: ModelConfig, layers: Optional[int] = None,
+               gated: bool = True) -> dict:
+    """An MLP's weights, stacked over `layers` where given; a gated one
+    (SwiGLU) has ``w3``."""
+    d, f = cfg.d_model, cfg.d_ff
+    L = () if layers is None else (layers,)
+    la = () if layers is None else ("layers",)
+    specs = {"w1": ParamSpec(L + (d, f), axes=la + ("embed", "mlp")),
+             "w2": ParamSpec(L + (f, d), axes=la + ("mlp", "embed"))}
+    if gated:
+        specs["w3"] = ParamSpec(L + (d, f), axes=la + ("embed", "mlp"))
+    return specs
+
+
+def _norm_spec(cfg: ModelConfig, layers: Optional[int] = None
+               ) -> ParamSpec:
+    if layers is None:
+        return ParamSpec((cfg.d_model,), "ones", axes=("embed",))
+    return ParamSpec((layers, cfg.d_model), "ones",
+                     axes=("layers", "embed"))
+
+
 def _embed_specs(cfg: ModelConfig) -> dict:
-    return {"embed": ParamSpec((cfg.padded_vocab, cfg.d_model), "embed"),
-            "unembed": ParamSpec((cfg.d_model, cfg.padded_vocab)),
-            "final_norm": ParamSpec((cfg.d_model,), "ones")}
+    # the lookup table's vocab dim is 'vocab_in', never sharded; the
+    # unembedding is column-parallel over 'vocab'
+    return {"embed": ParamSpec((cfg.padded_vocab, cfg.d_model), "embed",
+                               axes=("vocab_in", "embed")),
+            "unembed": ParamSpec((cfg.d_model, cfg.padded_vocab),
+                                 axes=("embed", "vocab")),
+            "final_norm": _norm_spec(cfg)}
 
 
 class EncDecModel(BaseModel):
@@ -702,15 +743,15 @@ class EncDecModel(BaseModel):
                         cfg.d_ff)
 
         def mlp(L):
-            return {"w1": ParamSpec((L, d, f)), "w2": ParamSpec((L, f, d))}
+            return _mlp_specs(cfg, L, gated=False)
         return {**_embed_specs(cfg),
-                "enc_blocks": {"ln1": ParamSpec((Le, d), "ones"),
-                               "ln2": ParamSpec((Le, d), "ones"),
+                "enc_blocks": {"ln1": _norm_spec(cfg, Le),
+                               "ln2": _norm_spec(cfg, Le),
                                **_attn_specs(cfg, Le), **mlp(Le)},
-                "enc_norm": ParamSpec((d,), "ones"),
-                "dec_blocks": {"ln1": ParamSpec((Ld, d), "ones"),
-                               "ln2": ParamSpec((Ld, d), "ones"),
-                               "ln3": ParamSpec((Ld, d), "ones"),
+                "enc_norm": _norm_spec(cfg),
+                "dec_blocks": {"ln1": _norm_spec(cfg, Ld),
+                               "ln2": _norm_spec(cfg, Ld),
+                               "ln3": _norm_spec(cfg, Ld),
                                **_attn_specs(cfg, Ld),
                                **{f"x_{k}": v for k, v in _attn_specs(
                                    cfg, Ld, cross=True).items()},
@@ -724,10 +765,10 @@ class EncDecModel(BaseModel):
         L, kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.hd
         shape = (L, batch, capacity, kv, hd)
         xshape = (L, batch, cfg.encoder_seq, kv, hd)
-        return {"k": ParamSpec(shape, "zeros"),
-                "v": ParamSpec(shape, "zeros"),
-                "xk": ParamSpec(xshape, "zeros"),
-                "xv": ParamSpec(xshape, "zeros")}
+        return {"k": ParamSpec(shape, "zeros", axes=KV_AXES),
+                "v": ParamSpec(shape, "zeros", axes=KV_AXES),
+                "xk": ParamSpec(xshape, "zeros", axes=CROSS_AXES),
+                "xv": ParamSpec(xshape, "zeros", axes=CROSS_AXES)}
 
     def _enc_block(self, x, wl: dict, cim):
         cfg = self.cfg
@@ -873,16 +914,14 @@ class ZambaModel(BaseModel):
 
     def _param_specs(self) -> dict:
         cfg = self.cfg
-        L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
+        L = cfg.num_layers
         return {**_embed_specs(cfg),
-                "mamba_ln": ParamSpec((L, d), "ones"),
+                "mamba_ln": _norm_spec(cfg, L),
                 "mamba": ssm.mamba2_defs(cfg, L),
-                "shared_ln": ParamSpec((d,), "ones"),
+                "shared_ln": _norm_spec(cfg),
                 "shared_attn": _attn_specs(cfg),
-                "shared_mlp_ln": ParamSpec((d,), "ones"),
-                "shared_mlp": {"w1": ParamSpec((d, f)),
-                               "w2": ParamSpec((f, d)),
-                               "w3": ParamSpec((d, f))}}
+                "shared_mlp_ln": _norm_spec(cfg),
+                "shared_mlp": _mlp_specs(cfg)}
 
     def matmul_leaf(self, path: tuple) -> bool:
         if path[0] == "mamba":
@@ -897,10 +936,13 @@ class ZambaModel(BaseModel):
         d_inner, heads, hd, st, groups, conv_dim = ssm.mamba2_dims(cfg)
         kv = (ng, batch, capacity, cfg.num_kv_heads, cfg.hd)
         return {"h": ParamSpec((L, batch, heads, hd, st), "zeros",
-                               torch.float32),
-                "conv": ParamSpec((L, batch, 3, conv_dim), "zeros"),
-                "k": ParamSpec(kv, "zeros"),
-                "v": ParamSpec(kv, "zeros")}
+                               torch.float32,
+                               axes=("layers", "batch", "heads", "none",
+                                     "none")),
+                "conv": ParamSpec((L, batch, 3, conv_dim), "zeros",
+                                  axes=("layers", "batch", "none", "inner")),
+                "k": ParamSpec(kv, "zeros", axes=KV_AXES),
+                "v": ParamSpec(kv, "zeros", axes=KV_AXES)}
 
     def _mamba(self, x, params, i, state, cim):
         """Mamba2 layer i, its carried state updated in place."""
@@ -1020,8 +1062,8 @@ class XLSTMModel(BaseModel):
         cfg = self.cfg
         n = self.n_pairs
         return {**_embed_specs(cfg),
-                "m_ln": ParamSpec((n, cfg.d_model), "ones"),
-                "s_ln": ParamSpec((n, cfg.d_model), "ones"),
+                "m_ln": _norm_spec(cfg, n),
+                "s_ln": _norm_spec(cfg, n),
                 "mlstm": ssm.mlstm_defs(cfg, n),
                 "slstm": ssm.slstm_defs(cfg, n)}
 
@@ -1036,13 +1078,17 @@ class XLSTMModel(BaseModel):
         d_up, heads, hd = ssm.xlstm_dims(cfg)
         sh, shd = cfg.num_heads, cfg.d_model // cfg.num_heads
         f32 = torch.float32
-        return {"m_C": ParamSpec((n, batch, heads, hd, hd), "zeros", f32),
-                "m_n": ParamSpec((n, batch, heads, hd), "zeros", f32),
-                "m_m": ParamSpec((n, batch, heads), "zeros", f32),
-                "s_c": ParamSpec((n, batch, sh, shd), "zeros", f32),
-                "s_n": ParamSpec((n, batch, sh, shd), "ones", f32),
-                "s_m": ParamSpec((n, batch, sh), "zeros", f32),
-                "s_h": ParamSpec((n, batch, sh, shd), "zeros", f32)}
+        ax4 = ("layers", "batch", "heads", "none", "none")
+        ax3 = ("layers", "batch", "heads", "none")
+        ax2 = ("layers", "batch", "heads")
+        return {"m_C": ParamSpec((n, batch, heads, hd, hd), "zeros", f32,
+                                 ax4),
+                "m_n": ParamSpec((n, batch, heads, hd), "zeros", f32, ax3),
+                "m_m": ParamSpec((n, batch, heads), "zeros", f32, ax2),
+                "s_c": ParamSpec((n, batch, sh, shd), "zeros", f32, ax3),
+                "s_n": ParamSpec((n, batch, sh, shd), "ones", f32, ax3),
+                "s_m": ParamSpec((n, batch, sh), "zeros", f32, ax2),
+                "s_h": ParamSpec((n, batch, sh, shd), "zeros", f32, ax3)}
 
     def _pair_train(self, x, wl: dict, cim):
         """An (mLSTM, sLSTM) pair of the training forward, from the zero

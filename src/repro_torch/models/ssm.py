@@ -63,14 +63,22 @@ def mamba2_defs(cfg: ModelConfig, layers: int) -> dict:
     d_inner, heads, hd, state, groups, conv_dim = mamba2_dims(cfg)
     L = (layers,)
     in_dim = 2 * d_inner + 2 * groups * state + heads   # z, x, B, C, dt
-    return {"in_proj": ParamSpec(L + (d, in_dim)),
-            "conv_w": ParamSpec(L + (4, conv_dim)),
-            "conv_b": ParamSpec(L + (conv_dim,), "zeros"),
-            "a_log": ParamSpec(L + (heads,), "zeros"),
-            "dt_bias": ParamSpec(L + (heads,), "zeros"),
-            "d_skip": ParamSpec(L + (heads,), "ones"),
-            "norm": ParamSpec(L + (d_inner,), "ones"),
-            "out_proj": ParamSpec(L + (d_inner, d))}
+    return {"in_proj": ParamSpec(L + (d, in_dim),
+                                 axes=("layers", "embed", "inner")),
+            "conv_w": ParamSpec(L + (4, conv_dim),
+                                axes=("layers", "none", "inner")),
+            "conv_b": ParamSpec(L + (conv_dim,), "zeros",
+                                axes=("layers", "inner")),
+            "a_log": ParamSpec(L + (heads,), "zeros",
+                               axes=("layers", "none")),
+            "dt_bias": ParamSpec(L + (heads,), "zeros",
+                                 axes=("layers", "none")),
+            "d_skip": ParamSpec(L + (heads,), "ones",
+                                axes=("layers", "none")),
+            "norm": ParamSpec(L + (d_inner,), "ones",
+                              axes=("layers", "inner")),
+            "out_proj": ParamSpec(L + (d_inner, d),
+                                  axes=("layers", "inner", "embed"))}
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -225,13 +233,20 @@ def mlstm_defs(cfg: ModelConfig, layers: int) -> dict:
     d = cfg.d_model
     d_up, heads, hd = xlstm_dims(cfg)
     L = (layers,)
-    return {"up": ParamSpec(L + (d, 2 * d_up)),
-            "wq": ParamSpec(L + (d_up, d_up)),
-            "wk": ParamSpec(L + (d_up, d_up)),
-            "wv": ParamSpec(L + (d_up, d_up)),
-            "wif": ParamSpec(L + (d_up, 2 * heads)),
-            "norm": ParamSpec(L + (d_up,), "ones"),
-            "down": ParamSpec(L + (d_up, d))}
+    return {"up": ParamSpec(L + (d, 2 * d_up),
+                            axes=("layers", "embed", "inner")),
+            "wq": ParamSpec(L + (d_up, d_up),
+                            axes=("layers", "inner", "heads")),
+            "wk": ParamSpec(L + (d_up, d_up),
+                            axes=("layers", "inner", "heads")),
+            "wv": ParamSpec(L + (d_up, d_up),
+                            axes=("layers", "inner", "heads")),
+            "wif": ParamSpec(L + (d_up, 2 * heads),
+                             axes=("layers", "inner", "none")),
+            "norm": ParamSpec(L + (d_up,), "ones",
+                              axes=("layers", "inner")),
+            "down": ParamSpec(L + (d_up, d),
+                              axes=("layers", "inner", "embed"))}
 
 
 def slstm_defs(cfg: ModelConfig, layers: int) -> dict:
@@ -239,11 +254,15 @@ def slstm_defs(cfg: ModelConfig, layers: int) -> dict:
     heads = cfg.num_heads
     hd = d // heads
     L = (layers,)
-    return {"wx": ParamSpec(L + (d, 4 * d)),
-            "wr": ParamSpec(L + (heads, hd, 4 * hd)),
-            "norm": ParamSpec(L + (d,), "ones"),
-            "up1": ParamSpec(L + (d, 4 * d // 3)),
-            "up2": ParamSpec(L + (4 * d // 3, d))}
+    return {"wx": ParamSpec(L + (d, 4 * d),
+                            axes=("layers", "embed", "inner")),
+            "wr": ParamSpec(L + (heads, hd, 4 * hd),
+                            axes=("layers", "none", "none", "none")),
+            "norm": ParamSpec(L + (d,), "ones", axes=("layers", "embed")),
+            "up1": ParamSpec(L + (d, 4 * d // 3),
+                             axes=("layers", "embed", "mlp")),
+            "up2": ParamSpec(L + (4 * d // 3, d),
+                             axes=("layers", "mlp", "embed"))}
 
 
 def _mlstm_chunked(q, k, v, logi, logf, chunk: int = CHUNK):

@@ -9,14 +9,17 @@ keeps each leaf's quantization residual in f32 and adds it to the next
 step's gradient.
 
 ``int8_allgather_sync`` is the reference's shard_map over a mesh's
-data axes.  The port runs on one card, where it reduces to its no-axes
-branch: error feedback, then return.  ``mesh`` is a mapping of axis name
-to size; an axis of more than one device raises (multi-GPU training is
-ROADMAP queue 1 item 8).
+data axes, on a ``DeviceMesh``: each rank quantizes its gradient of a
+leaf to int8 with one f32 scale, the int8 bytes and the scales are
+all-gathered over the data axes of more than one rank, and every rank
+dequantizes and takes the mean in the reference's order.  With no such
+axis (one card, or ``mesh`` a mapping of axis sizes, the one-card
+paths' form) it reduces to the no-axes branch: error feedback, then
+return.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any
 
 import torch
 
@@ -57,17 +60,52 @@ def ef_compress_grads(grads: Any, residual: Any) -> tuple[Any, Any]:
             tree.map_leaves(lambda _, pr: pr[1], grads, pairs))
 
 
-def int8_allgather_sync(grads: Any, mesh: Optional[Mapping[str, int]] = None,
+def int8_allgather_sync(grads: Any, mesh: Any = None,
                         axes: tuple = ("data",),
                         residual: Any | None = None):
-    """The int8 data-parallel gradient sync on one card: error feedback
-    where a residual is given, and nothing to gather.  Returns (grads,
+    """Sync data-parallel gradients with int8 on the wire: quantize each
+    rank's gradient of a leaf (whole tensors), all-gather the bytes and
+    the scales over the ``axes`` of ``mesh`` that have more than one
+    rank, dequantize and take the mean, ``sum(q_i * s_i) / N`` over the
+    ranks in the axes' order (outer first).  Equivalent to the mean of
+    the grads up to int8 rounding; with ``residual`` the rounding error
+    is fed back first, as in the reference.  ``mesh`` is a DeviceMesh,
+    or a mapping of axis sizes, where an axis of more than one device
+    raises (a mapping has no process group).  Returns (synced grads,
     new residual)."""
-    multi = tuple(a for a in axes if mesh and int(mesh.get(a, 1)) > 1)
-    if multi:
+    from ..dist.runtime import is_mesh
+    if is_mesh(mesh):
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    else:
+        sizes = {a: int(v) for a, v in dict(mesh or {}).items()}
+    multi = tuple(a for a in axes if sizes.get(a, 1) > 1)
+    if multi and not is_mesh(mesh):
         raise NotImplementedError(
-            f"int8 gradient sync over {multi} of mesh {dict(mesh)}: "
-            f"multi-GPU training is not ported (ROADMAP queue 1 item 8)")
+            f"int8 gradient sync over {multi} of {sizes}: a mapping of "
+            f"axis sizes has no process group; pass a DeviceMesh "
+            f"(dist.make_mesh; multi-GPU training, ROADMAP queue 1 item 8)")
     if residual is not None:
         grads, residual = ef_compress_grads(grads, residual)
-    return grads, residual
+    if not multi:
+        return grads, residual
+    groups = [mesh.get_group(mesh.mesh_dim_names.index(a)) for a in multi]
+
+    def gather(x: torch.Tensor) -> torch.Tensor:
+        """(N,) + x.shape over the axes, the outer axis outermost."""
+        import torch.distributed as dist
+        for g in reversed(groups):
+            parts = [torch.empty_like(x)
+                     for _ in range(dist.get_world_size(g))]
+            dist.all_gather(parts, x.contiguous(), group=g)
+            x = torch.stack(parts)
+        return x.reshape((-1,) + tuple(x.shape[len(groups):]))
+
+    def one(g):
+        q, s = compress_int8(g)
+        qs, ss = gather(q), gather(s)
+        n = qs.shape[0]
+        ss = ss.reshape((n,) + (1,) * g.dim())
+        total = torch.sum(qs.to(torch.float32) * ss, dim=0)
+        return (total / total.new_full((), float(n))).to(g.dtype)
+
+    return tree.map_leaves(one, grads), residual

@@ -16,8 +16,15 @@ an f32 power.  The leaves are visited in the reference's order
 
 ``state_defs`` maps the model's ``ParamSpec`` tree to the state's, as
 the reference maps its ``ParamDef`` tree: AdamW's moments and SGD's
-momentum take the parameter's shape, Adafactor's factored moments drop
-one of the last two dims.
+momentum take the parameter's shape and axes, Adafactor's factored
+moments drop one of the last two dims.
+
+On a mesh (``dist.runtime``) the params, grads and state are DTensors of
+one placement per leaf.  AdamW's and SGD's updates are elementwise, so
+they run on each rank's local pieces; ``global_norm`` adds each rank's
+local sums (a piece replicated over a mesh dim counted once) and sums
+them over the mesh.  Adafactor's factored moments reduce over the last
+two dims and raise on a DTensor (ROADMAP queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .. import tree
+from ..dist import runtime as dist_rt
 from ..models.config import ParamSpec
 
 
@@ -91,11 +99,23 @@ def _parts(x: torch.Tensor) -> list:
 
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the f32 sums of squares, added leaf by leaf in the
-    reference's order (a sliced leaf's slices in turn)."""
+    reference's order (a sliced leaf's slices in turn).  DTensor leaves
+    add this rank's piece where it owns it (``dist.runtime.owns``), and
+    the total is summed over the mesh."""
     total = 0
+    mesh = None
     for g in tree.leaves(grads):
+        if dist_rt.is_dtensor(g):
+            mesh = g.device_mesh
+            if not dist_rt.owns(g):
+                continue
+            g = g.to_local()
         for i in _parts(g):
             total = total + torch.sum(torch.square(g[i].to(torch.float32)))
+    if mesh is not None:           # (a rank may own no piece at all)
+        device = dist_rt.local(tree.leaves(grads)[0]).device
+        total = dist_rt.world_sum(torch.as_tensor(
+            total, dtype=torch.float32, device=device), mesh)
     return torch.sqrt(total)
 
 
@@ -104,7 +124,7 @@ def clip_by_global_norm(grads, max_norm: float):
     and the norm before clipping."""
     g = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp_min(g, 1e-12), max=1.0)
-    for x in tree.leaves(grads):
+    for x in map(dist_rt.local, tree.leaves(grads)):
         # in f32, then rounded to x's dtype: on the card x.mul_(scale)
         # would round the 0-d f32 scale to a bf16 x's dtype first
         for i in _parts(x):
@@ -139,13 +159,16 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.999,
                 "nu": tree.map_leaves(zero, params)}
 
     def state_defs(param_specs):
-        like = lambda d: ParamSpec(d.shape, "zeros", state_dtype)
+        like = lambda d: ParamSpec(d.shape, "zeros", state_dtype, d.axes)
         return {"mu": tree.map_specs(like, param_specs),
                 "nu": tree.map_specs(like, param_specs)}
 
     @torch.no_grad()
     def update(grads, state, params, step):
         gnorm = _norm_and_clip(grads, max_grad_norm)
+        out = (params, state)
+        grads, state, params = map(dist_rt.local_tree,
+                                   (grads, state, params))
         step = _step_on(step, params)
         t = _f32(step) + 1.0
         c1 = 1.0 - b1 ** t
@@ -163,7 +186,7 @@ def adamw(lr: Callable | float, b1: float = 0.9, b2: float = 0.999,
                 _apply(p[i], lr_t, upd)
 
         tree.map_leaves(leaf, params, grads, state["mu"], state["nu"])
-        return params, state, {"grad_norm": gnorm, "lr": lr_t}
+        return out + ({"grad_norm": gnorm, "lr": lr_t},)
 
     return Optimizer(init, state_defs, update)
 
@@ -193,16 +216,23 @@ def adafactor(lr: Callable | float, decay: float = 0.8, eps: float = 1e-30,
 
     def state_defs(param_specs):
         def leaf(d: ParamSpec):
-            shape = tuple(d.shape)
+            shape, axes = tuple(d.shape), tuple(d.axes)
             if _factored(shape):
-                return {"r": ParamSpec(shape[:-1], "zeros", torch.float32),
+                return {"r": ParamSpec(shape[:-1], "zeros", torch.float32,
+                                       axes[:-1]),
                         "c": ParamSpec(shape[:-2] + shape[-1:], "zeros",
-                                       torch.float32)}
-            return {"v": ParamSpec(shape, "zeros", torch.float32)}
+                                       torch.float32,
+                                       axes[:-2] + axes[-1:])}
+            return {"v": ParamSpec(shape, "zeros", torch.float32, axes)}
         return tree.map_specs(leaf, param_specs)
 
     @torch.no_grad()
     def update(grads, state, params, step):
+        if any(map(dist_rt.is_dtensor, tree.leaves(params))):
+            raise NotImplementedError(
+                "Adafactor on a mesh: its factored moments reduce over "
+                "the last two dims, which the placements may split "
+                "(ROADMAP queue 1 item 8); use adamw or sgd")
         gnorm = _norm_and_clip(grads, max_grad_norm)
         step = _step_on(step, params)
         t = _f32(step) + 1.0
@@ -272,13 +302,17 @@ def sgd(lr: Callable | float, momentum: float = 0.0,
     def state_defs(param_specs):
         if momentum:
             return {"m": tree.map_specs(
-                lambda d: ParamSpec(d.shape, "zeros", torch.float32),
+                lambda d: ParamSpec(d.shape, "zeros", torch.float32,
+                                    d.axes),
                 param_specs)}
         return {}
 
     @torch.no_grad()
     def update(grads, state, params, step):
         gnorm = _norm_and_clip(grads, max_grad_norm)
+        out = (params, state)
+        grads, state, params = map(dist_rt.local_tree,
+                                   (grads, state, params))
         lr_t = lr_fn(_step_on(step, params))
         if momentum:
             def leaf(p, g, m):
@@ -289,6 +323,6 @@ def sgd(lr: Callable | float, momentum: float = 0.0,
             def leaf(p, g):
                 p.copy_(p.to(torch.float32) - lr_t * g.to(torch.float32))
             tree.map_leaves(leaf, params, grads)
-        return params, state, {"grad_norm": gnorm, "lr": lr_t}
+        return out + ({"grad_norm": gnorm, "lr": lr_t},)
 
     return Optimizer(init, state_defs, update)

@@ -19,6 +19,19 @@ Two decode loops give identical tokens:
 ``host_transfers`` counts device-to-host syncs, so the one-transfer-per-
 bucket contract is testable.
 
+On a DeviceMesh (``ServeEngine(rules=, mesh=)``, the on-device loop,
+dense models; ``dist.runtime``) the params are DTensors placed by
+``rules_for(cfg, "serve")``; each rank prefills and decodes its rows of
+the bucket (the batch folded over the DP axes), each call on the
+params' compute view (packed weights run tensor-parallel over
+``model``).  The decode state is plain rank-local rows at every
+position, the same on every rank of ``model``: it is not placed by its
+``cache_specs`` (sharding its positions over ``model`` needs an
+attention read that combines the ranks' partial softmax, ROADMAP queue
+1 item 8).  The rows' token buffers are gathered before the bucket's
+one transfer.  On a one-card mesh nothing moves: the kernels, their
+launches and the tokens are the unmeshed engine's.
+
 ``extra_inputs`` (every engine) maps a ``prefill`` keyword to a function
 of the batch size that gives that input for the batch: whisper's
 ``frames`` and the VLM's ``patches``, (B, positions, d_model).  Each
@@ -77,8 +90,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from .. import faults, resolve_device
+from .. import faults, resolve_device, tree
 from ..core import prng
+from ..dist import runtime as dist_rt
+from ..dist import sharding as shd
 from ..kernels.plan import rows_as_calls
 from ..models import paged_kv
 
@@ -232,10 +247,49 @@ class _EngineBase:
 class ServeEngine(_EngineBase):
     def __init__(self, model, params, capacity: int = 512,
                  max_batch: int = 8, cim=None, on_device_loop: bool = True,
-                 device="cuda", extra_inputs=None):
+                 device="cuda", extra_inputs=None, rules=None, mesh=None):
         super().__init__(model, params, capacity, cim, device, extra_inputs)
         self.max_batch = max_batch
         self.on_device_loop = on_device_loop
+        self.mesh = mesh
+        self.rules = None
+        if mesh is not None:
+            dist_rt.check_mesh_request(model, self.cim, "the bucket engine")
+            if not on_device_loop or self.extra_inputs:
+                raise NotImplementedError(
+                    "on a mesh the bucket engine runs the on-device loop "
+                    "without extra inputs (ROADMAP queue 1 item 8)")
+            self.rules = rules or shd.rules_for(model.cfg, "serve")
+            if not any(dist_rt.is_dtensor(getattr(x, "data", x))
+                       for x in tree.leaves(params)):
+                self.params = dist_rt.place_tree(
+                    params, model.param_specs, self.rules, mesh)
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a bucket-wide tensor (as it is off-mesh)."""
+        if self.mesh is None:
+            return x
+        return dist_rt.shard_rows(x, self.rules, self.mesh)
+
+    def _prefill(self, reqs: list[Request]):
+        if self.mesh is None:
+            return super()._prefill(reqs)
+        tokens = self._rows(self._upload(torch.stack([
+            torch.as_tensor(np.asarray(r.prompt), dtype=torch.int32)
+            for r in reqs])))
+        with shd.activation_context(self.rules, self.mesh):
+            logits, state = self.model.prefill(
+                dist_rt.param_view(self.params), tokens, self.capacity,
+                cim=self.cim_prefill)
+        return greedy_sample(logits), state
+
+    def _decode(self, tok: torch.Tensor, state: dict):
+        if self.mesh is None:
+            return self.model.decode(self.params, tok[:, None], state,
+                                     cim=self.cim)
+        with shd.activation_context(self.rules, self.mesh):
+            return self.model.decode(dist_rt.param_view(self.params),
+                                     tok[:, None], state, cim=self.cim)
 
     def _next_bucket(self) -> list[Request]:
         """Pop up to max_batch queued requests sharing one prompt length."""
@@ -264,28 +318,34 @@ class ServeEngine(_EngineBase):
         width = self.buffer_width(max_new)
         # copied up before the prefill is queued, so the copies wait on
         # nothing
-        max_new_row = self._upload(torch.tensor([r.max_new for r in reqs],
-                                                dtype=torch.int32))
-        eos_row = self._upload(torch.tensor([r.eos_id for r in reqs],
-                                            dtype=torch.int32))
+        max_new_row = self._rows(self._upload(torch.tensor(
+            [r.max_new for r in reqs], dtype=torch.int32)))
+        eos_row = self._rows(self._upload(torch.tensor(
+            [r.eos_id for r in reqs], dtype=torch.int32)))
         tok, state = self._prefill(reqs)
         self.steps_run += 1
-        buf = torch.zeros((b, width), dtype=torch.int32, device=dev)
+        rows = tok.shape[0]
+        buf = torch.zeros((rows, width), dtype=torch.int32, device=dev)
         buf[:, 0] = tok
-        counts = torch.ones((b,), dtype=torch.int32, device=dev)
+        counts = torch.ones((rows,), dtype=torch.int32, device=dev)
         live = (counts < max_new_row) & (tok != eos_row)
         steps = torch.zeros((), dtype=torch.int32, device=dev)
         for step in range(max_new - 1):
             steps += live.any().to(torch.int32)
-            logits, state = self.model.decode(self.params, tok[:, None],
-                                              state, cim=self.cim)
+            logits, state = self._decode(tok, state)
             tok = greedy_sample(logits)
             buf[:, step + 1] = torch.where(live, tok, buf[:, step + 1])
             counts += live.to(torch.int32)
             live = live & (counts < max_new_row) & (tok != eos_row)
-        out = self._device_get(torch.cat(
-            [buf, counts[:, None], steps.expand(b)[:, None]], dim=1))
-        self.steps_run += int(out[0, -1])
+        out = torch.cat([buf, counts[:, None], steps.expand(rows)[:, None]],
+                        dim=1)
+        if self.mesh is not None:
+            out = dist_rt.gather_rows(out, (b, width + 2), self.rules,
+                                      self.mesh)
+        out = self._device_get(out)
+        # a rank's steps count its own rows; live rows stay live in a
+        # prefix of the steps, so the bucket's count is the largest
+        self.steps_run += int(out[:, -1].max())
         for r, row in zip(reqs, out):
             r.out_tokens.extend(int(t) for t in row[: int(row[width])])
 

@@ -19,6 +19,12 @@ from a ``torch.Generator`` seeded with ``seed``), as in the reference:
 a checkpoint the reference wrote starts the port from the same state.
 The step counter stays on the device; the runner keeps the host's copy
 and moves each step's three metrics to the host in one transfer.
+
+On a DeviceMesh (``rules=``, ``mesh=``) the fresh state is drawn whole
+on every rank from the same seed and placed (``step.place_state``), a
+checkpoint is restored straight onto the mesh's placements
+(``checkpoint.restore(placements=)``), and a save gathers the leaves and
+the first rank writes: a checkpoint of one mesh restarts on another.
 """
 from __future__ import annotations
 
@@ -35,7 +41,10 @@ from .. import checkpoint as ckpt_lib
 from .. import resolve_device, tree
 from ..data import DataConfig, batch_for
 from ..optim import Optimizer
-from .step import TrainState, init_state, make_train_step
+from ..dist import runtime as dist_rt
+from ..dist import sharding as shd
+from .step import (TrainState, init_state, make_abstract_state,
+                   make_train_step, place_state)
 
 METRICS = ("loss", "grad_norm", "lr")
 
@@ -82,7 +91,7 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, model, optimizer: Optimizer, data_cfg: DataConfig,
-                 cfg: TrainerConfig, cim=None, mesh=None,
+                 cfg: TrainerConfig, cim=None, rules=None, mesh=None,
                  failure_plan: Optional[FailurePlan] = None,
                  step_time_fn: Optional[Callable] = None, device="cuda"):
         self.model = model
@@ -94,9 +103,13 @@ class Trainer:
         self.step_time_fn = step_time_fn        # test hook: fake durations
         self.manager = ckpt_lib.CheckpointManager(
             cfg.ckpt_dir, cfg.ckpt_interval, cfg.ckpt_keep)
+        self.mesh = mesh if dist_rt.is_mesh(mesh) else None
+        if self.mesh is not None:
+            rules = rules or shd.rules_for(model.cfg, "train")
+        self.rules = rules
         self._step_fn = make_train_step(model, optimizer, cim=cim,
                                         microbatches=cfg.microbatches,
-                                        mesh=mesh)
+                                        rules=rules, mesh=mesh)
         self.history: list[dict] = []
         self.restarts = 0
         self.straggler_events = 0
@@ -106,8 +119,12 @@ class Trainer:
     # ------------------------------------------------------------------
     def _fresh_state(self) -> TrainState:
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
-        return init_state(self.model, self.optimizer, gen, self.device,
-                          error_feedback=self.cfg.error_feedback)
+        state = init_state(self.model, self.optimizer, gen, self.device,
+                           error_feedback=self.cfg.error_feedback)
+        if self.mesh is None:
+            return state
+        return place_state(state, self.model, self.optimizer, self.rules,
+                           self.mesh)
 
     def _target(self) -> TrainState:
         """The state's structure, for restore (nothing is allocated)."""
@@ -119,8 +136,15 @@ class Trainer:
                           params if self.cfg.error_feedback else None)
 
     def _restore_or_init(self) -> TrainState:
-        got = self.manager.restore_or_none(target=self._target(),
-                                           device=self.device)
+        target = self._target()
+        placements = None
+        if self.mesh is not None:
+            placements = make_abstract_state(
+                self.model, self.optimizer, self.rules,
+                self.mesh)._replace(ef_residual=target.ef_residual)
+        got = self.manager.restore_or_none(target=target,
+                                           device=self.device,
+                                           placements=placements)
         if got is None:
             return self._fresh_state()
         return got[0]

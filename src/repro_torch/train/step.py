@@ -12,9 +12,24 @@ the reference's ``repro.train.step``.
 * **Gradients** are taken with respect to detached aliases of the params
   (sharing their storage), so the params stay plain tensors.
 * **Compression** follows the reference's gate: with ``compress_grads``
-  and a mesh the grads go through ``int8_allgather_sync`` (error
-  feedback on one card; a mesh axis of more devices raises), without a
-  mesh nothing is compressed.
+  and a mesh the grads go through ``int8_allgather_sync`` over
+  ``("pod", "data")``, without a mesh nothing is compressed.
+* **On a DeviceMesh** (``rules=``, ``mesh=``; ``dist.runtime``) the
+  params and the optimizer state are DTensors placed by the train rules
+  (:func:`place_state`); each step cuts this rank's rows of the global
+  batch (``("batch", "none", ...)``), gathers every param whole on every
+  rank before the forward (``param_view``), takes this rank's whole
+  gradient with the unmeshed code, averages it over the DP shards into
+  each leaf's placement (a reduce-scatter, or the int8 all-gather with
+  ``compress_grads``), and updates each rank's pieces in place.  This is
+  not FSDP or tensor parallelism: the mesh shards the state at rest
+  only (like ZeRO-1), each rank's peak holds the whole params and
+  gradients besides its shards, so no model that misses one card trains
+  this way, and the ranks along ``model`` compute the same rows with
+  the same weights (redundant compute).  Per-layer gathers and real TP
+  of the float matmuls are ROADMAP queue 1 item 8.  The loss is the
+  mean of the ranks' losses.  On a one-card mesh nothing moves and the
+  step is the unmeshed step, op for op.
 * **Ternary mode cannot train.** The ternary matmul kernels have no
   backward (the CUDA extension call carries no autograd formula, so
   every gradient before it would silently be missing); the reference's
@@ -26,16 +41,19 @@ the reference's ``repro.train.step``.
   quantization scales (the MAC's integer codes carry none).
 
 The metrics are ``{loss, grad_norm, lr}``, 0-d tensors on the device.
-``make_abstract_state`` and the sharded ``jit_train_step`` are XLA and
-mesh tooling (ROADMAP queue 1 item 8).
+``make_abstract_state`` gives the state's placements as meta DTensors
+(nothing is allocated); the reference's ``jit_train_step`` is XLA
+tooling with no counterpart.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple
 
 import torch
 
 from .. import resolve_device, tree
+from ..dist import runtime as dist_rt
+from ..dist import sharding as shd
 from ..kernels.ops import PackedTernary
 from ..optim import Optimizer, ef_init, int8_allgather_sync
 
@@ -61,6 +79,33 @@ def init_state(model, optimizer: Optimizer, generator: torch.Generator,
     return TrainState(params, optimizer.init(params),
                       torch.zeros((), dtype=torch.int32, device=device),
                       ef_init(params) if error_feedback else None)
+
+
+def make_abstract_state(model, optimizer: Optimizer, rules, mesh,
+                        dtype=None) -> TrainState:
+    """The state's placements on ``mesh`` under ``rules``: params and
+    optimizer state as storage-free meta DTensors of each leaf's global
+    shape, dtype and placements, built from the ParamSpecs alone."""
+    specs = model.param_specs
+    params = dist_rt.placement_tree(specs, rules, mesh,
+                                    dtype or model.cfg.dtype)
+    opt = dist_rt.placement_tree(optimizer.state_defs(specs), rules, mesh)
+    return TrainState(params, opt,
+                      torch.empty((), dtype=torch.int32, device="meta"))
+
+
+def place_state(state: TrainState, model, optimizer: Optimizer, rules,
+                mesh) -> TrainState:
+    """A state held whole on every rank (the same on each) placed on
+    ``mesh``: params and optimizer state by their specs' axes, each rank
+    keeping its pieces.  The step counter and the error-feedback
+    residuals (each rank's own) stay plain tensors."""
+    specs = model.param_specs
+    return TrainState(
+        dist_rt.place_tree(state.params, specs, rules, mesh),
+        dist_rt.place_tree(state.opt_state, optimizer.state_defs(specs),
+                           rules, mesh),
+        state.step, state.ef_residual)
 
 
 def refuse_ternary(cim=None, params=None) -> None:
@@ -95,15 +140,20 @@ def value_and_grad(model, params, batch, cim=None):
 
 
 def make_train_step(model, optimizer: Optimizer, cim=None,
-                    microbatches: int = 1,
-                    mesh: Optional[Mapping[str, int]] = None,
+                    microbatches: int = 1, rules=None, mesh=None,
                     compress_grads: bool = False) -> Callable:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
     ``batch`` leaves have a leading dim of the global batch, which
-    ``microbatches`` must divide.  ``mesh`` maps axis names to sizes
-    (``{"data": 1}`` is one card)."""
+    ``microbatches`` must divide (each rank's rows, on a mesh).
+    ``mesh`` is a DeviceMesh (``rules`` default to the model's train
+    rules; the state must be placed, :func:`place_state`), or a mapping
+    of axis names to sizes (``{"data": 1}`` is one card)."""
     refuse_ternary(cim)
+    meshed = dist_rt.is_mesh(mesh)
+    if meshed:
+        dist_rt.check_mesh_request(model, cim, "training")
+        rules = rules or shd.rules_for(model.cfg, "train")
 
     def compute_grads(params, batch):
         if microbatches <= 1:
@@ -122,13 +172,36 @@ def make_train_step(model, optimizer: Optimizer, cim=None,
         tree.map_leaves(lambda a: a.mul_(inv), acc)
         return loss_acc * inv, acc
 
-    def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
-        refuse_ternary(params=state.params)
-        loss, grads = compute_grads(state.params, batch)
+    def meshed_grads(state: TrainState, batch):
+        """(mean loss, grads placed as the params, new residual)."""
+        rows = next(iter(batch.values())).shape[0]
+        local = {k: dist_rt.shard_rows(v, rules, mesh)
+                 for k, v in batch.items()}
+        with shd.activation_context(rules, mesh):
+            loss, grads = compute_grads(dist_rt.param_view(state.params),
+                                        local)
         residual = state.ef_residual
-        if compress_grads and mesh is not None:
+        if compress_grads:
             grads, residual = int8_allgather_sync(
                 grads, mesh, axes=("pod", "data"), residual=residual)
+            grads = tree.map_leaves(dist_rt.distribute_like, grads,
+                                    state.params)
+        else:
+            grads = dist_rt.reduce_grads(grads, state.params, rules, mesh,
+                                         rows)
+        return dist_rt.mean_over_rows(loss, rules, mesh, rows), grads, \
+            residual
+
+    def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        refuse_ternary(params=state.params)
+        if meshed:
+            loss, grads, residual = meshed_grads(state, batch)
+        else:
+            loss, grads = compute_grads(state.params, batch)
+            residual = state.ef_residual
+            if compress_grads and mesh is not None:
+                grads, residual = int8_allgather_sync(
+                    grads, mesh, axes=("pod", "data"), residual=residual)
         params, opt_state, om = optimizer.update(
             grads, state.opt_state, state.params, state.step)
         return (TrainState(params, opt_state, state.step + 1, residual),

@@ -58,6 +58,16 @@ bitwise, float 1e-5), a refused plan raising before any launch, the
 tracked table steering the cuda backend; the smoke model's four engines
 under ``analysis.sanitize`` on the card (one transfer per chunk, no other
 sync, no new plan, no build), and a hidden sync caught.
+The sharding layer (``-k mesh``) on a one-card NCCL mesh (1, 1): the
+bucket engine's tokens, launches and routes equal to the unmeshed
+engine's (base3 and trit2), two AdamW steps bitwise equal to unmeshed
+ones, and a meshed checkpoint restored unmeshed and onto a fresh mesh
+going on bitwise; the tensor-parallel route without a second rank: a
+full-width internlm2-1.8b w1 cut in two along N and a w2 (and a trit2
+K = 2046, whose last shard pads its input) cut along K, each shard
+through ``cim_linear.linear``'s planned kernel on its local shape, the
+parts joined as the collective joins them, within 1e-5 of max|y| of
+the unsharded kernel (gemv at M = 8, mma at M = 1024, bf16 x).
 """
 import dataclasses
 
@@ -1905,3 +1915,143 @@ def test_sanitize_catches_a_hidden_sync_on_the_card(dev):
     with pytest.raises(RuntimeError, match="synchroniz"):
         with sanitize():
             t.sum().item()
+
+
+# ------------------------------------------------------ the one-card mesh
+
+@pytest.fixture(scope="module")
+def card_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the mesh runs over NCCL")
+    from repro_torch.dist import mesh as mesh_lib
+    mesh_lib.init_process_group("cuda")
+    try:
+        yield mesh_lib.make_mesh(
+            mesh_lib.MeshSpec((1, 1), ("data", "model")), "cuda")
+    finally:
+        mesh_lib.destroy_process_group()
+
+
+def _mesh_smoke():
+    cfg = dataclasses.replace(configs.smoke("internlm2-1.8b"),
+                              dtype=torch.float32)
+    return cfg, registry.build(cfg)
+
+
+@pytest.mark.parametrize("packing", ["base3", "trit2"])
+def test_mesh_bucket_engine_on_one_card(card_mesh, packing):
+    from repro_torch.dist import sharding as shd
+    cfg, model = _mesh_smoke()
+    cim = CIMConfig(mode="ternary", packing=packing)
+    params = ternarize_params(model.init(
+        torch.Generator("cuda").manual_seed(0), "cuda"), cim)
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 12)).astype(np.int32)
+    got = {}
+    for meshed in (False, True):
+        kw = dict(rules=shd.rules_for(cfg, "serve"),
+                  mesh=card_mesh) if meshed else {}
+        eng = ServeEngine(model, params, capacity=32, max_batch=4, cim=cim,
+                          device="cuda", **kw)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p.tolist(), max_new=6))
+        tm.reset_launches()
+        done = eng.run()
+        got[meshed] = ([r.out_tokens for r in done], dict(tm.LAUNCHES),
+                       dict(tm.ROUTES), eng.host_transfers)
+    assert got[True] == got[False]
+    assert got[True][1]["ternary_matmul"] > 0 and got[True][3] == 1
+
+
+def _mesh_train_setup(card_mesh):
+    from repro_torch.data import DataConfig, batch_for
+    from repro_torch.dist import sharding as shd
+    from repro_torch.optim import adamw
+    from repro_torch.train import init_state, make_train_step, place_state
+    cfg, model = _mesh_smoke()
+    opt = adamw(1e-3)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4,
+                      seed=0)
+    rules = shd.rules_for(cfg, "train")
+
+    def fresh():
+        return init_state(model, opt, torch.Generator("cuda").manual_seed(0),
+                          "cuda")
+
+    def run(state, fn, start, stop):
+        losses = []
+        for step in range(start, stop):
+            state, m = fn(state, batch_for(cfg, data, step, device="cuda"))
+            losses.append(float(m["loss"]))
+        return state, losses
+    ref, ref_losses = run(fresh(), make_train_step(model, opt), 0, 2)
+    placed = place_state(fresh(), model, opt, rules, card_mesh)
+    fn = make_train_step(model, opt, rules=rules, mesh=card_mesh)
+    return model, opt, rules, ref, ref_losses, placed, fn, run
+
+
+def _bitwise(a, b) -> bool:
+    from repro_torch import tree
+    from repro_torch.dist import runtime as rt
+    return all(torch.equal(rt.full(x), y)
+               for x, y in zip(tree.leaves(a), tree.leaves(b)))
+
+
+def test_mesh_train_step_on_one_card_is_bitwise(card_mesh):
+    model, opt, rules, ref, ref_losses, state, fn, run = \
+        _mesh_train_setup(card_mesh)
+    state, losses = run(state, fn, 0, 2)
+    assert losses == ref_losses
+    assert _bitwise(state.params, ref.params)
+    assert _bitwise(state.opt_state, ref.opt_state)
+
+
+def test_mesh_elastic_restore_on_one_card(card_mesh, tmp_path):
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import tree
+    from repro_torch.dist import mesh as mesh_lib
+    from repro_torch.train import (TrainState, make_abstract_state,
+                                   make_train_step)
+    model, opt, rules, ref, ref_losses, state, fn, run = \
+        _mesh_train_setup(card_mesh)
+    state, _ = run(state, fn, 0, 1)
+    ckpt.save(str(tmp_path), 1, state)
+    skeleton = lambda specs: tree.map_specs(lambda _: 0, specs)  # noqa
+    target = TrainState(skeleton(model.param_specs),
+                        skeleton(opt.state_defs(model.param_specs)), 0)
+    fresh_mesh = mesh_lib.make_mesh(
+        mesh_lib.MeshSpec((1, 1), ("data", "model")), "cuda")
+    for placements, step_fn in (
+            (None, make_train_step(model, opt)),
+            (make_abstract_state(model, opt, rules, fresh_mesh),
+             make_train_step(model, opt, rules=rules, mesh=fresh_mesh))):
+        got, _ = ckpt.restore(str(tmp_path), 1, target=target,
+                              device="cuda", placements=placements)
+        got, last = run(got, step_fn, 1, 2)
+        assert last == ref_losses[1:]
+        assert _bitwise(got.params, ref.params)
+        assert _bitwise(got.opt_state, ref.opt_state)
+
+
+@pytest.mark.parametrize("packing", ["base3", "trit2"])
+@pytest.mark.parametrize("m", [8, 1024])
+@pytest.mark.parametrize("k,n,split", [(2048, 8192, "col"),
+                                       (8192, 2048, "row"),
+                                       (2046, 2048, "row")])
+def test_mesh_tensor_parallel_shards_on_the_card(dev, packing, m, k, n,
+                                                 split):
+    from _torch_mesh_worker import tp_linear
+    from repro_torch.core.cim_linear import linear
+    g = torch.Generator(dev).manual_seed(k + n)
+    w = ops.pack_weights(torch.randn(k, n, generator=g, device=dev),
+                         packing)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    cim = CIMConfig(mode="ternary", packing=packing)
+    want = linear(x, w, cim)
+    tm.reset_launches()
+    got = tp_linear(x, w, split, 2, cim)
+    assert tm.LAUNCHES["ternary_matmul"] == 2
+    assert tm.ROUTES["gemv" if m == 8 else "mma"] == 2
+    assert got.shape == want.shape == (m, n)
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max())

@@ -70,7 +70,11 @@ def test_importing_the_port_loads_no_jax_and_no_reference():
                 "repro_torch.analysis.blockmap",
                 "repro_torch.analysis.autotune_table",
                 "repro_torch.analysis.sanitizer",
-                "repro_torch.analysis.frontend"):
+                "repro_torch.analysis.frontend",
+                "repro_torch.analysis.abscache",
+                "repro_torch.analysis.shardspec", "repro_torch.dist",
+                "repro_torch.dist.mesh", "repro_torch.dist.sharding",
+                "repro_torch.dist.variants", "repro_torch.dist.runtime"):
         assert mod in report["modules"]
 
 
