@@ -153,7 +153,8 @@ Phases, each of which raises on failure:
               CPU under measured_fault_model(seed=0, drift_rate=0.001):
               bitwise with variation off; with variation on and ADC
               noise 0.5 (per_row, as the dense Scheduler calls it) at
-              most 1% of the outputs differ.  Then, under that campaign, the
+              most 1% of the outputs differ.  Then, under that campaign,
+              at full width and 8 of the 24 layers, the
               dense Scheduler and the fused PagedScheduler (4 requests x
               128 prompt tokens x 16 new, 2 slots, chunk 4, scrub_every
               2, capacity 256), each exact and then device: counts zeroed
@@ -200,7 +201,8 @@ Phases, each of which raises on failure:
               one-time fill, tok/s, and the greedy-token agreement with
               the float-mode model.
 11. models  - glm4-9b, phi3-mini-3.8b and qwen3-14b, one at a time, each
-              freed before the next, at full width and full depth:
+              freed before the next, at full width (glm4-9b and
+              qwen3-14b at 10 of their 40 layers, SERVE_LAYERS):
               seeded random bf16 weights on the card, packed to base3
               (a stacked weight one layer at a time), then the bucket
               ServeEngine on 8 requests x 128 prompt tokens x 16 new
@@ -216,7 +218,8 @@ Phases, each of which raises on failure:
               requests), held as the sched phase holds it.
 
 12. frontend - the serving front-end (``repro_torch.frontend``) over
-              internlm2-1.8b and qwen3-14b at full width and depth (bf16
+              internlm2-1.8b and qwen3-14b at full width (qwen3 at 10
+              of its 40 layers, SERVE_LAYERS; bf16
               float weights from seeded torch generators; paged pools of
               4 slots, chunk 4, capacity 256, pages of 16) behind one
               FrontendServer.  Eight records at t=0 (prompts of 96 and
@@ -242,9 +245,9 @@ Phases, each of which raises on failure:
               card at full width (internlm2-1.8b, f32 as its registry's
               default): 8 x 128 tokens, 16 new, --admission slo,
               host_transfers == chunks in its JSON.
-13. moe     - mixtral-8x7b (32 layers, d_model 4096, 32/8 heads, 8
-              experts of d_ff 14336, top 2, window 4096, vocab 32000)
-              at full width and depth: seeded random bf16 weights drawn
+13. moe     - mixtral-8x7b (d_model 4096, 32/8 heads, 8 experts of
+              d_ff 14336, top 2, window 4096, vocab 32000) at full width
+              and 8 of its 32 layers: seeded random bf16 weights drawn
               and packed to base3 one layer at a time
               (``init_packed``; the 93 GB float tree never exists),
               printing the seconds and the peak device memory.  The
@@ -291,9 +294,9 @@ Phases, each of which raises on failure:
               207,618,048 bytes against the float pool's 402,653,184.
               Runs after the sync-free chunk; ``--int8-kv-only`` runs it
               alone on its own draw of the weights.
-15. recurrent - zamba2-7b (81 Mamba2 layers, 13 shared-block
+15. recurrent - zamba2-7b (27 of its 81 Mamba2 layers: 4 shared-block
               invocations, a tail of 3) and xlstm-125m (6 mLSTM/sLSTM
-              pairs) at full width and depth, base3/float, one at a time:
+              pairs, full depth) at full width, base3/float, one at a time:
               the default packing predicate's faults named (stacked norms
               of 81 layers; sLSTM's wr) and the launcher's xlstm-125m
               --packed base3 served (2 x 32 + 8: wr kept float, one
@@ -316,10 +319,10 @@ Phases, each of which raises on failure:
               the worst printed), zamba2 on its first 7 layers (one
               invocation, a tail of 1), xlstm at full depth.
               ``--recurrent-only`` runs these alone.
-16. cross   - whisper-large-v3 (32 encoder and 32 decoder layers, 1500
-              frames; base3/float) and llama-3.2-vision-90b (100 layers,
-              20 gated cross blocks over 1601 patches; trit2/float, 22.4
-              GB of packed weights) at full width and depth, one at a
+16. cross   - whisper-large-v3 (8 of its 32 encoder and 32 decoder
+              layers, 1500 frames; base3/float) and llama-3.2-vision-90b
+              (20 of its 100 layers: 4 gated cross blocks over 1601
+              patches; trit2/float) at full width, one at a
               time, drawn and packed a layer at a time through
               pack_predicate (the VLM's default-predicate faults exactly
               blocks.ln1 and blocks.ln2); seeded N(0, 1) bf16 frames or
@@ -393,10 +396,10 @@ Phases, each of which raises on failure:
 18. train-families - the other four families trained, each a
               row of TRAIN_RUNS through the same train_run and
               train_parity as phase 17: xlstm-125m (AdamW, remat 'none',
-              4 steps) and whisper-large-v3 (AdamW, 32 + 32 layers, 6
-              steps) at full width and depth, zamba2-7b (Adafactor, 81
-              layers, 6 steps, peak lr 3e-4) and llama-3.2-vision-90b at
-              full width and 10 of its 100 layers (two groups;
+              4 of its 12 layers, 4 steps) and whisper-large-v3 (AdamW,
+              8 + 8 of its 32 + 32 layers, 6 steps), zamba2-7b
+              (Adafactor, 27 of its 81 layers, 6 steps, peak lr 3e-4)
+              and llama-3.2-vision-90b (10 of its 100 layers: two groups;
               Adafactor, 6 steps), with 8 x 1500 frames or 8 x 1601
               patches of bf16 normals drawn through threefry (49
               launches a step).  Checks: (a) every loss and grad norm
@@ -425,7 +428,8 @@ Phases, each of which raises on failure:
               mesh=)``: the tokens, ``ternary_matmul``'s launches and
               routes equal, one host transfer per bucket; prefill ms and
               decode ms a step of both.  (b) 3 AdamW steps of the train
-              phase's run (bf16, remat full, 8 x 256 tokens) unmeshed and
+              phase's run (bf16, remat full, 8 x 256 tokens; full width,
+              4 of its 24 layers) unmeshed and
               on the mesh (``make_train_step(rules=, mesh=)`` on placed
               state): losses and every param and moment bitwise equal;
               ms a step of both.  (c) a checkpoint of the meshed state
@@ -446,7 +450,42 @@ Phases, each of which raises on failure:
               ``launches_mesh``.  (The ``shard`` pass runs in
               phase 7's analysis CLI.)  ``--mesh-only`` runs this phase
               alone.
+20. dryrun  - the dry run's roofline (``repro_torch.launch.dryrun``,
+              ``repro_torch.roofline``) held to the card.  (a) Three cells
+              of internlm2-1.8b at full width: the bucket's decode step
+              (8 slots, capacity 256, base3/float), its prefill (8 x 128,
+              base3/float) and an AdamW train step (8 x 256, bf16, remat
+              full), each dry-run on a fake one-rank (1, 1) mesh, then
+              run for real.  It fails where the predicted ternary-matmul
+              calls or routes differ from ``LAUNCHES`` / ``ROUTES`` of the
+              real call, where the train step's predicted bf16 and f32
+              product operations differ from ``step_ops`` on the real
+              step, where the predicted live-bytes peak is more than
+              DRYRUN_PEAK_TOL off the real one (``max_memory_allocated``
+              after ``reset_peak_memory_stats``, counted from the call's
+              inputs), where the roofline time (the largest of its three
+              terms) exceeds the profiled device busy time, and where the
+              decode step's packed-matmul bytes differ from the packed
+              weights the bytes floor reads.  Each cell prints busy /
+              bound and the bounding term, beside ``train_bound`` and the
+              decode bytes floor.  (b) The production cell through the
+              CLI, ``python -m repro_torch.launch.dryrun --arch
+              internlm2-1.8b --shape train_4k`` on the 16x16 fake mesh,
+              in a subprocess started with (a) (it needs no card) into
+              ``chiprun_out/dryrun_torch`` and read as the phase
+              ``dryrun-cli``: exit 0 and a report with the reference's
+              keys.  In a whole run (a) runs before the train phases;
+              (b) starts after the build, niced on one thread, and is
+              read after them, so the host traces while the card
+              serves.  ``--dryrun-only`` runs this phase alone.
 
+A whole run does the card-vs-CPU checks of phases 8 (the device-MAC
+layer) and 17-18 (train_parity) in a parity worker, a process of its own
+started after the build (``--parity-worker``): it runs every card part
+while the main process runs phase 7's analysis CLI (``parity-card``
+waits for it), then the CPU parts on 5 of the host's cores, niced, while
+the main process goes on with the card; ``parity-cpu`` reads its records
+at the end.  Phase 20's CLI cell traces beside the whole run as well.
 Each phase prints its seconds, torch.cuda.max_memory_allocated() and the
 bytes still allocated when it began (after a gc.collect()).
 The last two lines are a JSON object of per-kernel numbers and
@@ -461,12 +500,14 @@ The last two lines are a JSON object of per-kernel numbers and
     python3 chip_smoke.py --train-families-only
     python3 chip_smoke.py --autotune-only --sanitize-only
     python3 chip_smoke.py --mesh-only
+    python3 chip_smoke.py --dryrun-only
 """
 from __future__ import annotations
 
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -475,6 +516,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_IMPORT = time.monotonic()
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, data sheet
 PEAK_OPS_PER_S = {"float": 989e12,         # bf16 tensor cores, dense
                   "int8": 1979e12}         # int8 tensor cores, dense
@@ -497,7 +539,13 @@ CHAIN_TOL = 1e-5              # float mma route vs an f64 sum, the same
 MODEL_FLOAT_TOL = 0.1         # logits, relative to max|logit|
 SPIN_CYCLES = 2_000_000       # ~1 ms at the H100's 1.98 GHz clock
 EXACT_NEW = 16               # new tokens per request in the exact phase
-# the models phase: the other dense models at full width and depth
+# the depth the other models serve at, each at full width: the script's
+# time limit cuts depth first (internlm2-1.8b, the main path, phi3-mini
+# and xlstm-125m keep theirs); whisper cuts its encoder alike
+SERVE_LAYERS = {"glm4-9b": 10, "qwen3-14b": 10, "mixtral-8x7b": 8,
+                "zamba2-7b": 27, "whisper-large-v3": 8,
+                "llama-3.2-vision-90b": 20}
+# the models phase: the other dense models at full width
 MODEL_ARCHS = ("glm4-9b", "phi3-mini-3.8b", "qwen3-14b")
 MODELS_NEW = 16              # new tokens per request
 PARITY_LAYERS = 4            # depth of the models' cuda-vs-torch check
@@ -513,6 +561,8 @@ FLASH_TOL = 1e-5             # flash vs direct in f32, relative to max|v|
 # the fidelity phase (internlm2-1.8b, base3/float, the launcher's campaign)
 FID_REQUESTS, FID_NEW, FID_SLOTS, FID_CHUNK = 4, 16, 2, 4
 FID_SCRUB_EVERY, FID_CAPACITY, FID_PAGE = 2, 256, 16
+FID_LAYERS = 8               # the served depth, of 24: the plain device MAC
+                             # takes ~0.75 s a decode step at 24
 FID_VAR_SHARE = 0.01         # device MAC with variation: outputs that may
                              # differ between card and CPU (f32 counts
                              # summed in another order)
@@ -533,7 +583,7 @@ FE_TIGHT, FE_FLOOR = 0.6, 0.1  # deadline, shedding floor: x the parity
 FE_LAUNCHER_ARGS = ["--frontend", "--requests", "8", "--prompt-len", "128",
                     "--max-new", "16", "--admission", "slo",
                     "--deadline-s", "30"]
-# the moe phase: mixtral-8x7b at full width and depth, base3, drawn and
+# the moe phase: mixtral-8x7b at full width (SERVE_LAYERS), base3, drawn and
 # packed one layer at a time; kernel cases at its expert weights, at the
 # bucket's decode M (8 rows, one group: capacity 2; the window run's 2
 # slots, a group each of capacity 1, make M = 2 as well), its prefill M
@@ -563,7 +613,7 @@ RECURRENT_SHAPES = [("zamba2-7b", "mamba in_proj", 3584, 14576),
                     ("zamba2-7b", "mamba out_proj", 7168, 3584),
                     ("xlstm-125m", "mlstm wif", 1536, 8)]
 # the cross phase: whisper-large-v3 (base3) and llama-3.2-vision-90b
-# (trit2, all 100 layers) at full width and depth; the bucket engine on
+# (trit2) at full width (SERVE_LAYERS); the bucket engine on
 # 8 x prompt + new, the dense Scheduler on 6 prompts; the cut parity's
 # layers; the matmuls of one prefill and one decode step (asserted
 # against cross_forward_matmuls) and the cross keys and values a slot
@@ -573,13 +623,13 @@ CROSS = {
     "whisper-large-v3": dict(
         packing="base3", prompt=64, new=32, capacity=128,
         sched_capacity=128, sched_prompts=[64, 40, 64, 24, 80, 48],
-        parity_layers=4, faults=[], per_prefill=513, per_step=257,
-        cross_slot=245_760_000),
+        parity_layers=4, faults=[], per_prefill=129, per_step=65,
+        cross_slot=61_440_000),
     "llama-3.2-vision-90b": dict(
         packing="trit2", prompt=128, new=16, capacity=144,
         sched_capacity=256, sched_prompts=[128, 96, 200, 128, 64, 160],
         parity_layers=10, faults=["blocks.ln1", "blocks.ln2"],
-        per_prefill=781, per_step=741, cross_slot=131_153_920)}
+        per_prefill=157, per_step=149, cross_slot=26_230_784)}
 # kernel cases at their widest weights: (arch, weight, K, N, packing, Ms)
 CROSS_SHAPES = [("whisper-large-v3", "w1", 1280, 5120, "base3", (8, 1500)),
                 ("llama-3.2-vision-90b", "w1,w3", 8192, 28672, "trit2",
@@ -601,7 +651,8 @@ TRAIN_REPLAY = dict(total=16, interval=4, crash_at=(5, 11),
 # bf16, remat from the config, the launcher's warmup_cosine(lr, max(steps
 # // 20, 5), steps) at peak ``lr`` (TRAIN_LR by default), TRAIN_BATCH x
 # TRAIN_SEQ tokens a step from batch_for: ``layers`` cuts the depth (the
-# VLM: two groups of 5 self layers and their cross block, of 100 layers),
+# VLM: two groups of 5 self layers and their cross block, of 100 layers;
+# whisper its encoder alike),
 # the mean of the last ``fall`` losses must be below the first, ``twice``
 # holds one batch's loss and grads bitwise over two runs, ``parity`` is
 # the rows x positions of the cut's card-vs-CPU step (train_parity) and
@@ -616,13 +667,15 @@ TRAIN_REPLAY = dict(total=16, interval=4, crash_at=(5, 11),
 TRAIN_RUNS = {
     TRAIN_ARCH: dict(optimizer="adamw", steps=20, fall=5, twice=True,
                      parity=(2, 128), share=1e-4),
-    "xlstm-125m": dict(optimizer="adamw", steps=4, fall=2, parity=(2, 64)),
-    "whisper-large-v3": dict(optimizer="adamw", steps=6, fall=2,
+    "xlstm-125m": dict(layers=4, optimizer="adamw", steps=4, fall=2,
+                       parity=(2, 64)),
+    "whisper-large-v3": dict(layers=8, optimizer="adamw", steps=6, fall=2,
                              parity=(2, 64)),
-    "zamba2-7b": dict(optimizer="adafactor", steps=6, fall=2, lr=3e-4,
-                      parity=(2, 64)),
+    "zamba2-7b": dict(layers=27, optimizer="adafactor", steps=6, fall=2,
+                      lr=3e-4, parity=(2, 64)),
     "llama-3.2-vision-90b": dict(layers=10, optimizer="adafactor", steps=6,
                                  fall=2, parity=(2, 64))}
+VLM_ARCH = "llama-3.2-vision-90b"
 FAM_PEAK_LIMIT = 70e9        # the VLM's peak bytes at two groups
 FAM_DRAW = (8, 1601, 8192)   # the VLM's patches, a step's largest draw
 THREEFRY_REPLACES = "src/repro/faults/scrub.py:85"
@@ -1912,7 +1965,7 @@ def cut_depth(cfg, params, layers):
 
 
 def phase_model(torch, np, arch):
-    """One of the other dense models at full width and full depth: seeded
+    """One of the other dense models at full width (SERVE_LAYERS): seeded
     random bf16 weights on the card packed to base3, the bucket
     ServeEngine on 8 requests x 128 prompt tokens x MODELS_NEW new ones
     (counts zeroed just before the run and read just after), per-phase
@@ -1920,14 +1973,13 @@ def phase_model(torch, np, arch):
     first PARITY_LAYERS layers, and for SCHED_ARCH the PagedScheduler,
     fused against gather, on the first SCHED_CUT requests of the bursty
     trace.  The model is freed before the next one."""
-    from repro_torch import configs
     from repro_torch.core.cim_linear import (CIMConfig, hbm_bytes,
                                              ternarize_params)
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ternary_matmul as tm
     from repro_torch.models import registry
     from repro_torch.serve import Request, ServeEngine
-    cfg = configs.get(arch)
+    cfg = serve_cfg(arch)
     model = registry.build(cfg)
     cim = CIMConfig(mode="ternary", packing="base3", domain="float")
     t = time.monotonic()
@@ -2254,7 +2306,7 @@ def routing_flips(torch, calls_a, calls_b):
 
 
 def phase_moe(torch, np):
-    """mixtral-8x7b at full width and depth: seeded random bf16 weights
+    """mixtral-8x7b at full width (SERVE_LAYERS): seeded random bf16 weights
     drawn and packed to base3 one layer at a time (init_packed), the
     bucket ServeEngine on 8 x 128 x MOE_NEW (counts zeroed just before
     and read just after: moe_forward_matmuls a forward, prefill on mma
@@ -2265,12 +2317,11 @@ def phase_moe(torch, np):
     capacity 4224: the cache rolls at the window of 4096) and the
     cuda-vs-torch parity on the first PARITY_LAYERS layers of the same
     packed params."""
-    from repro_torch import configs
     from repro_torch.core.cim_linear import CIMConfig, hbm_bytes
     from repro_torch.kernels import ternary_matmul as tm
     from repro_torch.models import registry
     from repro_torch.serve import ServeEngine
-    cfg = configs.get(MOE_ARCH)
+    cfg = serve_cfg(MOE_ARCH)
     model = registry.build(cfg)
     cim = CIMConfig(mode="ternary", packing="base3", domain="float")
     torch.cuda.reset_peak_memory_stats()
@@ -2721,7 +2772,7 @@ def recurrent_parity(torch, np, cfg, model, params, tag):
 
 
 def phase_recurrent(torch, np, arch):
-    """One recurrent model at full width and depth, base3/float: the
+    """One recurrent model at full width (SERVE_LAYERS), base3/float: the
     default packing predicate's faults named (the launcher refuses
     xlstm-125m --packed base3), the weights drawn and packed a layer at
     a time (init_packed) through the model's pack_predicate; the
@@ -2742,10 +2793,12 @@ def phase_recurrent(torch, np, arch):
     from repro_torch.serve import PagedScheduler, Request, Scheduler, \
         ServeEngine
     tag = f"recurrent {arch}"
-    cfg = configs.get(arch)
+    cfg = serve_cfg(arch)
     model = registry.build(cfg)
     cim = CIMConfig(mode="ternary", packing="base3", domain="float")
-    faults = model.packing_faults()
+    # the default predicate's faults, of the full-depth config: a stacked
+    # norm packs at 64 layers or more
+    faults = registry.build(configs.get(arch)).packing_faults()
     check(faults, f"{arch}: the default predicate packs no leaf read "
                   f"outside the matmuls")
     launcher = None
@@ -3004,7 +3057,7 @@ def cross_launcher(arch, packing):
 
 
 def phase_cross(torch, np, arch):
-    """One cross-attending model at full width and depth (whisper-large-
+    """One cross-attending model at full width (SERVE_LAYERS; whisper-large-
     v3 base3/float, llama-3.2-vision-90b trit2/float), drawn and packed
     a layer at a time through its pack_predicate; seeded N(0, 1) bf16
     frames or patches, one tensor that extra_inputs expands to the
@@ -3027,11 +3080,13 @@ def phase_cross(torch, np, arch):
         ServeEngine
     spec = CROSS[arch]
     tag = f"cross {arch}"
-    cfg = configs.get(arch)
+    cfg = serve_cfg(arch)
     model = registry.build(cfg)
     key = "frames" if cfg.family == "audio" else "patches"
     cim = CIMConfig(mode="ternary", packing=spec["packing"], domain="float")
-    faults = model.packing_faults()
+    # the default predicate's faults, of the full-depth config (the
+    # launcher's): a stacked norm packs at 64 layers or more
+    faults = registry.build(configs.get(arch)).packing_faults()
     check(faults == spec["faults"],
           f"{arch}: the default predicate's faults {faults}")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -3251,15 +3306,17 @@ def phase_cross(torch, np, arch):
 
 
 def frontend_registry():
-    """The front-end's two models at full width and depth, bf16, one
-    paged pool each, built on their first request."""
+    """The front-end's two models at full width (SERVE_LAYERS), bf16,
+    one paged pool each, built on their first request."""
     from repro_torch.frontend import ModelRegistry, ModelSpec
     reg = ModelRegistry(device="cuda")
     for name in FE_MODELS:
         reg.register(ModelSpec(
             name=name, arch=name, smoke=False, kind="paged",
             capacity=FE_CAPACITY, slots=FE_SLOTS, chunk=FE_CHUNK,
-            page_size=FE_PAGE, dtype="bfloat16"))
+            page_size=FE_PAGE, dtype="bfloat16",
+            overrides=(("num_layers", SERVE_LAYERS[name]),)
+            if name in SERVE_LAYERS else ()))
     return reg
 
 
@@ -3672,7 +3729,7 @@ def threefry_record(ms, plain_ms, n):
                 gbps=4 * n / ms / 1e6)
 
 
-def phase_fidelity(torch, np, cfg, model, params, card):
+def phase_fidelity(torch, np, cfg, params, card, layer=True):
     """Device-fidelity serving (``repro_torch.faults``): the threefry
     kernel against its plain version, one full-width layer of the device
     MAC on the card against the CPU, then the dense Scheduler and the
@@ -3683,10 +3740,10 @@ def phase_fidelity(torch, np, cfg, model, params, card):
     from repro_torch.core import prng
     from repro_torch.core.cim_linear import CIMConfig
     from repro_torch.core.error_injection import expected_trit_error_rate
-    from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ternary_matmul as tm
     from repro_torch.kernels import threefry
+    from repro_torch.models import registry
     from repro_torch.serve import PagedScheduler, Request, Scheduler
     dev = torch.device("cuda")
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
@@ -3717,50 +3774,16 @@ def phase_fidelity(torch, np, cfg, model, params, card):
     print("[fidelity] threefry " + json.dumps(rec))
 
     # -- one full-width w1 layer: the device MAC on the card vs the CPU
+    # (a whole run has the parity worker hold it, beside the card)
+    if layer:
+        out["layer"] = fid_layer_cpu(torch, fid_layer_card(torch, np, cfg,
+                                                           card))
     fm = faults.measured_fault_model(seed=0, drift_rate=0.001)
-    rng = np.random.default_rng(31)
-    x = torch.from_numpy(rng.standard_normal(
-        (8, cfg.d_model)).astype(np.float32))
-    w = ops.pack_weights(torch.randn(
-        (cfg.d_model, cfg.d_ff), generator=torch.Generator().manual_seed(4)),
-        "base3")
-    planes = faults.weight_trit_planes(w)
-    layer = {}
-    for tag, model_f, per_row in (
-            ("variation off", fm, False),
-            ("variation on, adc noise 0.5",
-             dataclasses.replace(fm, variation=True, adc_noise_sigma=0.5),
-             True)):
-        t = time.monotonic()
-        yc, loc, hic = faults.device_ternary_mac(
-            x, planes, w.scale, model_f, with_stats=True, per_row=per_row)
-        cpu_s = time.monotonic() - t
-        xd, pd, sd = x.to(dev), planes.to(dev), w.scale.to(dev)
-        yd, lod, hid = faults.device_ternary_mac(
-            xd, pd, sd, model_f, with_stats=True, per_row=per_row)
-        yd = yd.cpu()
-        differ = float((yd != yc).float().mean())
-        if model_f.variation:
-            check(differ <= FID_VAR_SHARE,
-                  f"device MAC ({tag}): {differ:.4f} of the outputs differ "
-                  f"between the card and the CPU (bar {FID_VAR_SHARE})")
-        else:
-            check(torch.equal(yd, yc) and (int(lod), int(hid)) == (
-                int(loc), int(hic)),
-                  f"device MAC ({tag}) differs between the card and the CPU")
-        ms = time_ms(torch, lambda: faults.device_ternary_mac(
-            xd, pd, sd, model_f, per_row=per_row), 3, flush)
-        layer[tag] = dict(share_differing=differ,
-                          max_abs_err=float((yd - yc).abs().max()),
-                          clip_lo=int(lod), clip_hi=int(hid), card_ms=ms,
-                          cpu_s=cpu_s, per_row=per_row, card=card)
-        print(f"[fidelity] layer {tag} " + json.dumps(layer[tag]))
-    out["layer"] = layer
-    del xd, pd, sd
-    faults.model.clear_code_cache()
 
-    # -- serving under the launcher's campaign
+    # -- serving under the launcher's campaign, at FID_LAYERS of the depth
     faults.set_fault_model(fm)
+    cfg, params = cut_depth(cfg, params, FID_LAYERS)
+    model = registry.build(cfg)
     bound = 3.0 * expected_trit_error_rate(fm.restore_yield,
                                            (1 / 3, 1 / 3, 1 / 3))
     rng = np.random.default_rng(41)
@@ -3850,6 +3873,78 @@ def phase_fidelity(torch, np, cfg, model, params, card):
         torch.cuda.empty_cache()
     out["serve"] = runs
     return out
+
+
+def fid_layer_card(torch, np, cfg, card):
+    """Phase 8's device-MAC layer, the card's part: one full-width w1
+    layer (2048 x 8192, M = 8) through device_ternary_mac on the card
+    under measured_fault_model(seed=0, drift_rate=0.001), variation off,
+    then on with ADC noise 0.5 (per_row), each timed; the inputs and
+    outputs kept on the CPU for fid_layer_cpu."""
+    import dataclasses
+    from repro_torch import faults
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+    fm = faults.measured_fault_model(seed=0, drift_rate=0.001)
+    rng = np.random.default_rng(31)
+    x = torch.from_numpy(rng.standard_normal(
+        (8, cfg.d_model)).astype(np.float32))
+    w = ops.pack_weights(torch.randn(
+        (cfg.d_model, cfg.d_ff), generator=torch.Generator().manual_seed(4)),
+        "base3")
+    planes = faults.weight_trit_planes(w)
+    xd, pd, sd = x.to(dev), planes.to(dev), w.scale.to(dev)
+    runs = []
+    for tag, model_f, per_row in (
+            ("variation off", fm, False),
+            ("variation on, adc noise 0.5",
+             dataclasses.replace(fm, variation=True, adc_noise_sigma=0.5),
+             True)):
+        yd, lod, hid = faults.device_ternary_mac(
+            xd, pd, sd, model_f, with_stats=True, per_row=per_row)
+        ms = time_ms(torch, lambda: faults.device_ternary_mac(
+            xd, pd, sd, model_f, per_row=per_row), 3, flush)
+        runs.append(dict(tag=tag, model=model_f, per_row=per_row,
+                         y=yd.cpu(), lo=int(lod), hi=int(hid), ms=ms))
+    del xd, pd, sd, flush
+    faults.model.clear_code_cache()
+    torch.cuda.empty_cache()
+    return dict(x=x, planes=planes, scale=w.scale, runs=runs, card=card)
+
+
+def fid_layer_cpu(torch, job):
+    """Phase 8's device-MAC layer, the CPU's part and the checks: bitwise
+    with variation off; with variation on at most FID_VAR_SHARE of the
+    outputs differ (f32 counts summed in another order)."""
+    from repro_torch import faults
+    layer = {}
+    for run in job["runs"]:
+        tag, model_f = run["tag"], run["model"]
+        t = time.monotonic()
+        yc, loc, hic = faults.device_ternary_mac(
+            job["x"], job["planes"], job["scale"], model_f, with_stats=True,
+            per_row=run["per_row"])
+        cpu_s = time.monotonic() - t
+        yd = run["y"]
+        differ = float((yd != yc).float().mean())
+        if model_f.variation:
+            check(differ <= FID_VAR_SHARE,
+                  f"device MAC ({tag}): {differ:.4f} of the outputs differ "
+                  f"between the card and the CPU (bar {FID_VAR_SHARE})")
+        else:
+            check(torch.equal(yd, yc) and (run["lo"], run["hi"]) == (
+                int(loc), int(hic)),
+                  f"device MAC ({tag}) differs between the card and the CPU")
+        layer[tag] = dict(share_differing=differ,
+                          max_abs_err=float((yd - yc).abs().max()),
+                          clip_lo=run["lo"], clip_hi=run["hi"],
+                          card_ms=run["ms"], cpu_s=cpu_s,
+                          per_row=run["per_row"], card=job["card"])
+        print(f"[fidelity] layer {tag} " + json.dumps(layer[tag]),
+              flush=True)
+    faults.model.clear_code_cache()
+    return layer
 
 
 def fid_times(torch, np, eng, model, prompt):
@@ -4633,12 +4728,22 @@ def train_run(torch, np, arch, card):
 
 
 def train_cfg(arch, layers=None):
-    """The arch's full-width config, cut to ``layers`` where given."""
+    """The arch's full-width config, cut to ``layers`` where given
+    (whisper: its encoder too)."""
     import dataclasses
     from repro_torch import configs
     cfg = configs.get(arch)
-    return cfg if layers is None else dataclasses.replace(cfg,
-                                                          num_layers=layers)
+    if layers is None:
+        return cfg
+    cut = dict(num_layers=layers)
+    if cfg.family == "audio":
+        cut["encoder_layers"] = layers
+    return dataclasses.replace(cfg, **cut)
+
+
+def serve_cfg(arch):
+    """The arch's full-width config at its SERVE_LAYERS depth."""
+    return train_cfg(arch, SERVE_LAYERS.get(arch))
 
 
 def train_parity(torch, np, arch):
@@ -4656,13 +4761,49 @@ def train_parity(torch, np, arch):
     Adafactor: lr g over its factored RMS, RMS-clipped), so the two
     updates are held within 1e-3 of lr but for the run's ``share`` of
     the weights (those whose AdamW gradient is of eps's size, where
-    g / (|g| + eps) turns on any difference), and all within 2 lr."""
+    g / (|g| + eps) turns on any difference), and all within 2 lr.
+    The card's part (parity_card) and the CPU's (parity_cpu) may run
+    apart in time: a whole run has the parity worker run them."""
+    return parity_cpu(torch, np, parity_offload(
+        torch, parity_card(torch, np, arch)))
+
+
+def parity_step(torch, model, spec, p, batch, dev):
+    """One step of ``spec``'s optimizer (unscheduled, PARITY_PIECE) from
+    params ``p`` on ``dev``: its seconds, metrics, and the params and
+    moments after it (on ``dev``)."""
+    from repro_torch import tree
+    from repro_torch.optim import optimizers
+    from repro_torch.train import TrainState, make_train_step
+    piece = optimizers.PIECE
+    optimizers.PIECE = PARITY_PIECE
+    try:
+        opt = train_optimizer(spec, schedule=False)
+        state = TrainState(p, opt.init(p), torch.zeros(
+            (), dtype=torch.int32, device=dev))
+        t = time.monotonic()
+        new, m = make_train_step(model, opt)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        m = {k: float(v) for k, v in m.items()}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        s = time.monotonic() - t
+        del state
+        return dict(s=s, metrics=m, params=tree.leaves(new.params),
+                    moments=tree.leaves(new.opt_state))
+    finally:
+        optimizers.PIECE = piece
+
+
+def parity_card(torch, np, arch):
+    """train_parity's card part: the cut's params drawn on the card, a
+    copy of them for the CPU's step, the batch, and the card's step; the
+    copy and the step's results stay on the card (parity_offload moves
+    them)."""
     import dataclasses
     from repro_torch import tree
     from repro_torch.data import DataConfig, batch_for
     from repro_torch.models import registry
-    from repro_torch.optim import optimizers
-    from repro_torch.train import TrainState, make_train_step
     spec = TRAIN_RUNS[arch]
     cfg = train_cfg(arch)
     cut = dict(num_layers=2)
@@ -4684,31 +4825,36 @@ def train_parity(torch, np, arch):
     batch = batch_for(cfg, DataConfig(vocab_size=cfg.vocab_size,
                                       seq_len=seq, global_batch=rows,
                                       seed=2), 0, device="cuda")
+    # the card's step on its params; the CPU's on `start`, in place
+    start = tree.map_leaves(lambda x: x.clone(), params)
+    g = parity_step(torch, model, spec, params, batch, "cuda")
+    del params
+    return dict(arch=arch, spec=spec, cut=cut, model=model, start=start,
+                batch={k: v.cpu() for k, v in batch.items()},
+                sliced=sliced, rows=rows, seq=seq, card=g)
+
+
+def parity_offload(torch, job):
+    """Move a card part's params copy and results to the CPU, freeing
+    the card; returns ``job``."""
+    from repro_torch import tree
+    job["start"] = tree.map_leaves(lambda x: x.cpu(), job["start"])
+    g = job["card"]
+    g["params"] = [x.cpu() for x in g["params"]]
+    g["moments"] = [x.cpu() for x in g["moments"]]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return job
+
+
+def parity_cpu(torch, np, job):
+    """train_parity's CPU part: the CPU's step from ``job``'s start and
+    the checks against the card's."""
+    arch, spec, model = job["arch"], job["spec"], job["model"]
     lr = spec.get("lr", TRAIN_LR)
-    # the card's step on a copy; the CPU's on `start`, in place
-    start = tree.map_leaves(lambda x: x.to("cpu", copy=True), params)
-    piece = optimizers.PIECE
-    optimizers.PIECE = PARITY_PIECE
-    try:
-        out = {}
-        for dev, p in (("cuda", params), ("cpu", start)):
-            opt = train_optimizer(spec, schedule=False)
-            state = TrainState(p, opt.init(p), torch.zeros(
-                (), dtype=torch.int32, device=dev))
-            t = time.monotonic()
-            new, m = make_train_step(model, opt)(
-                state, {k: v.to(dev) for k, v in batch.items()})
-            m = {k: float(v) for k, v in m.items()}
-            if dev == "cuda":
-                torch.cuda.synchronize()
-            out[dev] = dict(s=time.monotonic() - t, metrics=m,
-                            params=[x.cpu() for x in tree.leaves(new.params)],
-                            moments=[x.cpu() for x in
-                                     tree.leaves(new.opt_state)])
-            del state, new
-    finally:
-        optimizers.PIECE = piece
-    g, c = out["cuda"], out["cpu"]
+    g = job.pop("card")
+    c = parity_step(torch, model, spec, job.pop("start"), job["batch"],
+                    "cpu")
     rel = {k: abs(g["metrics"][k] - c["metrics"][k]) / abs(c["metrics"][k])
            for k in ("loss", "grad_norm")}
     mom = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
@@ -4723,9 +4869,10 @@ def train_parity(torch, np, arch):
         total += d.numel()
         worst = max(worst, float(d.max()))
     share = past / total
-    rec = dict(arch=arch, cut=cut, optimizer=spec["optimizer"], lr=lr,
-               params=model.param_count(), sliced_leaves=sliced,
-               piece=PARITY_PIECE, rows=rows, seq=seq,
+    sliced = job["sliced"]
+    rec = dict(arch=arch, cut=job["cut"], optimizer=spec["optimizer"],
+               lr=lr, params=model.param_count(), sliced_leaves=sliced,
+               piece=PARITY_PIECE, rows=job["rows"], seq=job["seq"],
                loss_cuda=g["metrics"]["loss"], loss_cpu=c["metrics"]["loss"],
                grad_norm_cuda=g["metrics"]["grad_norm"],
                grad_norm_cpu=c["metrics"]["grad_norm"],
@@ -4733,7 +4880,7 @@ def train_parity(torch, np, arch):
                moments_rel_err=mom, update_share_past_1e3_lr=share,
                update_max_abs_err=worst, update_max_abs_err_over_lr=worst
                / lr, cuda_s=g["s"], cpu_s=c["s"])
-    print("[train] parity " + json.dumps(rec))
+    print("[train] parity " + json.dumps(rec), flush=True)
     check(sliced > 0, f"{arch}: no leaf took the sliced optimizer path")
     check(np.isfinite(g["metrics"]["grad_norm"])
           and rel["loss"] <= TRAIN_PARITY_TOL
@@ -4942,9 +5089,10 @@ def fam_draw(torch):
     return rec
 
 
-def phase_train_families(torch, np, card):
+def phase_train_families(torch, np, card, parity=True):
     """The training forward of the other four families (see the module
-    docstring, phase 18)."""
+    docstring, phase 18).  Without ``parity`` the parity worker holds
+    each cut to the CPU (attach_parity)."""
     fams = {}
     for arch in TRAIN_RUNS:
         if arch == TRAIN_ARCH:
@@ -4956,10 +5104,11 @@ def phase_train_families(torch, np, card):
         gc.collect()
         torch.cuda.empty_cache()
         rec["train_s"] = time.monotonic() - t
-        rec["parity"] = train_parity(torch, np, arch)
+        if parity:
+            rec["parity"] = train_parity(torch, np, arch)
         rec["wall_s"] = time.monotonic() - t
         print(f"[train-families] {arch}: {rec['train_s']:.1f} s trained, "
-              f"{rec['wall_s']:.1f} s with the parity")
+              f"{rec['wall_s']:.1f} s in all")
         fams[arch] = rec
     check(fams["llama-3.2-vision-90b"]["peak_bytes"] <= FAM_PEAK_LIMIT,
           "llama-3.2-vision-90b: peak past the limit at two groups")
@@ -4992,15 +5141,16 @@ def train_families_summary(fam):
             for arch, r in fam["families"].items()}
 
 
-def phase_train(torch, np, card):
-    """The training path (see the module docstring, phase 17)."""
+def phase_train(torch, np, card, parity=True):
+    """The training path (see the module docstring, phase 17).  Without
+    ``parity`` the parity worker holds (c) (attach_parity)."""
     full = train_run(torch, np, TRAIN_ARCH, card)
     gc.collect()
     torch.cuda.empty_cache()
     launcher = train_launcher(torch, np)
     gc.collect()
     torch.cuda.empty_cache()
-    parity = train_parity(torch, np, TRAIN_ARCH)
+    parity = train_parity(torch, np, TRAIN_ARCH) if parity else None
     replay = train_replay(torch)
     exact = train_exact(torch, np)
     return dict(full=full, launcher=launcher, parity=parity, replay=replay,
@@ -5034,7 +5184,9 @@ def autotune_summary(tuned):
 
 
 MESH_SHAPE = ((1, 1), ("data", "model"))
-MESH_TRAIN = dict(optimizer="adamw", steps=3)   # train_optimizer's spec
+# train_optimizer's spec; the train phase's run cut to 4 of its 24 layers
+# (the checkpoint written and read twice is 6.3 GB, not 19)
+MESH_TRAIN = dict(optimizer="adamw", steps=3, layers=4)
 MESH_SAVE_AT = 2                   # the meshed checkpoint, after step 2
 MESH_TP_TOL = 1e-5       # (d): sharded vs whole kernel, of max|y| (f32)
 
@@ -5141,7 +5293,7 @@ def mesh_train(torch, np, mesh_lib, mesh, card):
     from repro_torch.train import (TrainState, init_state,
                                    make_abstract_state, make_train_step,
                                    place_state)
-    cfg = train_cfg(TRAIN_ARCH)
+    cfg = train_cfg(TRAIN_ARCH, MESH_TRAIN["layers"])
     model = registry.build(cfg)
     opt = train_optimizer(MESH_TRAIN)
     rules = shd.rules_for(cfg, "train")
@@ -5308,6 +5460,302 @@ def mesh_summary(mesh):
                      for c in mesh["tensor_parallel"]))
 
 
+DRYRUN_PEAK_TOL = 0.10        # predicted live-bytes peak vs the card's
+DRYRUN_CLI_TIMEOUT = 900      # seconds for the CLI's production cell
+DRYRUN_REPORT_KEYS = (        # the reference's report keys
+    "arch", "shape", "mesh", "packed", "lower_s", "compile_s", "chips",
+    "flops_per_device", "bytes_per_device", "wire_bytes_per_device",
+    "t_compute", "t_memory", "t_collective", "bottleneck",
+    "model_flops_total", "useful_ratio", "peak_fraction", "collectives",
+    "memory_stats")
+
+
+def dryrun_cell(torch, tm, name, fn, inputs, cell, **kwargs):
+    """One calibration cell: the dry run's prediction on a fake (1, 1)
+    mesh, then ``fn`` on the card (warmed up before): its launches and
+    routes, its peak counted from its inputs, its profiled busy time;
+    the checks of phase 20 (a)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline.op_cost import storage_bytes
+    pred = dryrun.run_cell(ARCH, cell, mesh_shape=(1, 1), **kwargs)
+    c = pred["collectives"]
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tm.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - before
+            + storage_bytes(inputs))
+    launches = {k: v for k, v in tm.LAUNCHES.items() if v}
+    routes = {k: v for k, v in tm.ROUTES.items() if v}
+    del out
+    busy, kernels, _ = device_busy(torch, fn)
+    terms = {"compute": pred["t_compute"], "memory": pred["t_memory"],
+             "collective": pred["t_collective"]}
+    bound_ms = max(terms.values()) * 1e3
+    pred_peak = pred["memory_stats"]["peak_bytes"]
+    rec = dict(cell=name, predicted_calls=c["kernels"],
+               launches=launches, predicted_routes=c["routes"],
+               routes=routes, predicted_peak=pred_peak, peak=peak,
+               peak_ratio=pred_peak / peak,
+               peak_by_category=pred["memory_stats"]["peak_by_category"],
+               busy_ms=busy, kernels=kernels, bound_ms=bound_ms,
+               bound_by=pred["bottleneck"],
+               terms_ms={k: v * 1e3 for k, v in terms.items()},
+               busy_over_bound=busy / bound_ms,
+               products=c["products"],
+               packed_weight_bytes=c["packed_weight_bytes"],
+               bytes_per_device=pred["bytes_per_device"],
+               trace_s=pred["lower_s"])
+    print("[dryrun] " + json.dumps(rec))
+    check(c["kernels"] == launches and c["routes"] == routes,
+          f"dryrun {name}: predicted calls {c['kernels']} on "
+          f"{c['routes']}, the card launched {launches} on {routes}")
+    check(abs(pred_peak - peak) <= DRYRUN_PEAK_TOL * peak,
+          f"dryrun {name}: predicted peak {pred_peak} B, the card's "
+          f"{peak} B")
+    check(bound_ms <= busy, f"dryrun {name}: roofline {bound_ms:.3f} ms "
+                            f"above the device busy {busy:.3f} ms")
+    return rec
+
+
+def dryrun_cli(src):
+    """The CLI's production cell, started in the background: it traces
+    on fake tensors and needs no card."""
+    env = dict(os.environ, PYTHONPATH=str(src), OMP_NUM_THREADS="1")
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", ARCH,
+         "--shape", "train_4k", "--out-dir",
+         str(ROOT / "chiprun_out" / "dryrun_torch")],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, preexec_fn=lambda: os.nice(10))
+
+
+def stop(proc):
+    """End a background process that is still running."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def phase_dryrun(torch, np, cfg, model):
+    """20 (a). The dry run's roofline against the card (see the
+    docstring); the CLI's cell (b) runs beside it."""
+    from repro_torch import optim
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.core.cim_linear import CIMConfig, ternarize_params
+    from repro_torch.data import DataConfig, batch_for
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.kernels.ops import PackedTernary
+    from repro_torch.roofline.op_cost import storage_bytes
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch import tree
+    cells = {}
+    params = ternarize_params(
+        model.init(torch.Generator(device="cuda").manual_seed(0),
+                   device="cuda"), CIMConfig(mode="ternary",
+                                             packing="base3"))
+    cim = CIMConfig(mode="ternary", packing="base3").resolve("cuda")
+    rng = np.random.default_rng(29)
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (BATCH, PROMPT)), dtype=torch.int32,
+        device="cuda")
+
+    def prefill():
+        return model.prefill(params, tokens, CAPACITY, cim=cim)
+    prefill()
+    cells["prefill"] = dryrun_cell(
+        torch, tm, "prefill", prefill, {"p": params, "t": tokens},
+        ShapeCell("bucket_prefill", PROMPT, BATCH, "prefill"),
+        packed="base3", capacity=CAPACITY)
+    logits, state = prefill()
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    del logits
+
+    def decode():
+        return model.decode(params, tok, state, cim=cim)
+    decode()
+    cells["decode"] = dryrun_cell(
+        torch, tm, "decode", decode,
+        {"p": params, "t": tok,
+         "s": {k: v for k, v in state.items() if k != "pos"}},
+        ShapeCell("bucket_decode", CAPACITY, BATCH, "decode"),
+        packed="base3")
+    packed = sum(x.data.numel() + 4 * x.scale.numel()
+                 for x in tree.leaves(params)
+                 if isinstance(x, PackedTernary))
+    floor = storage_bytes({k: v for k, v in params.items()
+                           if k != "embed"})
+    check(cells["decode"]["packed_weight_bytes"] == packed,
+          f"dryrun decode: the roofline's packed-matmul bytes "
+          f"{cells['decode']['packed_weight_bytes']} are not the "
+          f"floor's packed weights {packed}")
+    cells["decode"]["floor_ms"] = floor / HBM_BYTES_PER_S * 1e3
+    del params, state, tok, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    opt = optim.adamw(optim.warmup_cosine(3e-4, 1000, 100_000))
+    tstate = init_state(model, opt, torch.Generator(
+        device="cuda").manual_seed(0), "cuda")
+    batch = batch_for(cfg, DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=0), 0, device="cuda")
+    step_fn = make_train_step(model, opt)
+
+    def train():
+        return step_fn(tstate, batch)
+    train()
+    distinct = int(torch.unique(batch["tokens"]).numel())
+    ops = step_ops(torch, train)
+    cells["train"] = dryrun_cell(
+        torch, tm, "train", train,
+        {"p": tstate.params, "o": tstate.opt_state, "s": tstate.step,
+         "b": batch},
+        ShapeCell("train_step", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        opt_name="adamw", unique_count=lambda n: distinct)
+    got = cells["train"]["products"]
+    check(got["bf16"] == ops["bf16"] and got["f32"] == ops["f32"],
+          f"dryrun train: predicted products {got}, step_ops {ops}")
+    cells["train"]["step_ops"] = ops
+    cells["train"]["train_bound_ms"] = train_bound(
+        torch, model, ops, "adamw")[0]
+    return cells
+
+
+def dryrun_cli_report(cli):
+    """20 (b). The CLI's production cell, started with phase 20 (a):
+    its exit code and its report's keys."""
+    out_dir = ROOT / "chiprun_out" / "dryrun_torch"
+    stdout, stderr = cli.communicate(timeout=DRYRUN_CLI_TIMEOUT)
+    print(stdout.strip())
+    check(cli.returncode == 0, f"dryrun CLI exit {cli.returncode}: "
+                               f"{stderr[-2000:]}")
+    with open(out_dir / f"{ARCH}__train_4k__16x16.json") as f:
+        report = json.load(f)
+    missing = [k for k in DRYRUN_REPORT_KEYS if k not in report]
+    check(not missing, f"dryrun CLI report lacks {missing}")
+    cli_rec = {k: report[k] for k in (
+        "mesh", "chips", "flops_per_device", "bytes_per_device",
+        "wire_bytes_per_device", "t_compute", "t_memory", "t_collective",
+        "bottleneck", "useful_ratio", "fits", "lower_s")}
+    cli_rec["peak_bytes"] = report["memory_stats"]["peak_bytes"]
+    print("[dryrun cli] " + json.dumps(cli_rec))
+    return cli_rec
+
+
+def dryrun_summary(dr):
+    c = dr["cells"]
+    return dict(
+        busy_over_bound={k: c[k]["busy_over_bound"] for k in c},
+        bound_by={k: c[k]["bound_by"] for k in c},
+        peak_ratio={k: c[k]["peak_ratio"] for k in c},
+        calls={k: c[k]["launches"] for k in c},
+        train_bound_ms=c["train"]["train_bound_ms"],
+        decode_floor_ms=c["decode"]["floor_ms"],
+        cli_s=dr["cli"]["lower_s"], cli_fits=dr["cli"]["fits"])
+
+
+# the parity worker: the card-vs-CPU checks of phases 8 and 17-18 in a
+# process of its own (``--parity-worker``), started after the build; it
+# does every card part first (the VLM's, the largest, first), keeping
+# what they leave on the card, writes PARITY_READY, moves it all to the
+# host, then does the CPU parts on PARITY_THREADS of the host's cores
+# (in TRAIN_RUNS's order, the VLM's last) while the main process goes
+# on with the card, and writes PARITY_OUT
+PARITY_DIR = ROOT / "chiprun_out" / "parity_worker"
+PARITY_READY = PARITY_DIR / "ready"
+PARITY_OUT = PARITY_DIR / "result.json"
+PARITY_LOG = PARITY_DIR / "log.txt"
+PARITY_THREADS = 5
+PARITY_READY_TIMEOUT = 300     # seconds for the card parts
+PARITY_TIMEOUT = 900           # seconds for the whole worker
+
+
+def parity_worker(torch, np, cfg, card):
+    """The worker's body (see PARITY_DIR): phase 8's device-MAC layer
+    (fid_layer_card, fid_layer_cpu) and train_parity of every row of
+    TRAIN_RUNS.  Raises as the phases would."""
+    jobs = {arch: parity_card(torch, np, arch)
+            for arch in sorted(TRAIN_RUNS, key=lambda a: a != VLM_ARCH)}
+    layer = fid_layer_card(torch, np, cfg, card)
+    torch.cuda.synchronize()
+    PARITY_READY.write_text(json.dumps(dict(
+        seconds=time.monotonic() - T_IMPORT,
+        max_memory_allocated=torch.cuda.max_memory_allocated())))
+    os.nice(10)             # the main process's host thread comes first
+    for job in jobs.values():
+        parity_offload(torch, job)
+    torch.set_num_threads(PARITY_THREADS)
+    out = dict(layer=fid_layer_cpu(torch, layer), train={})
+    del layer
+    for arch in TRAIN_RUNS:
+        out["train"][arch] = parity_cpu(torch, np, jobs.pop(arch))
+        gc.collect()
+    out["seconds"] = time.monotonic() - T_IMPORT
+    PARITY_OUT.write_text(json.dumps(out))
+
+
+def parity_start(src):
+    """Start the parity worker on ``src``; its output goes to
+    PARITY_LOG."""
+    PARITY_DIR.mkdir(parents=True, exist_ok=True)
+    for path in (PARITY_READY, PARITY_OUT):
+        path.unlink(missing_ok=True)
+    with open(PARITY_LOG, "w") as log:
+        return subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--parity-worker",
+             "--src", str(src)], cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT)
+
+
+def parity_wait(proc, path, timeout):
+    """Wait for the worker to write ``path``; fail with its log's end if
+    it exits without or takes past ``timeout`` seconds."""
+    t = time.monotonic()
+    while not path.exists():
+        done = proc.poll() is not None
+        if done and not path.exists():
+            check(False, f"parity worker exited {proc.returncode} "
+                         f"without {path.name}: "
+                         f"{PARITY_LOG.read_text()[-3000:]}")
+        check(time.monotonic() - t < timeout,
+              f"parity worker: no {path.name} after {timeout} s")
+        time.sleep(0.2)
+    return time.monotonic() - t
+
+
+def parity_ready(proc):
+    """The worker's card parts are done: the card is the main process's
+    again.  Returns the seconds waited and the worker's own report."""
+    waited = parity_wait(proc, PARITY_READY, PARITY_READY_TIMEOUT)
+    return dict(waited_s=waited, **json.loads(PARITY_READY.read_text()))
+
+
+def parity_result(proc):
+    """The worker's records, once it has exited 0."""
+    waited = parity_wait(proc, PARITY_OUT, PARITY_TIMEOUT)
+    proc.wait(timeout=60)
+    for line in PARITY_LOG.read_text().splitlines():
+        if line.startswith("["):
+            print(line)
+    check(proc.returncode == 0, f"parity worker exited {proc.returncode}: "
+                                f"{PARITY_LOG.read_text()[-3000:]}")
+    out = json.loads(PARITY_OUT.read_text())
+    out["waited_s"] = waited
+    return out
+
+
+def attach_parity(par, fid, train, families):
+    """Put the worker's records where the in-process phases put them."""
+    fid["layer"] = par["layer"]
+    train["parity"] = par["train"][TRAIN_ARCH]
+    for arch, rec in families["families"].items():
+        rec["parity"] = par["train"][arch]
+
+
 def parse_args(argv):
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5334,6 +5782,11 @@ def parse_args(argv):
     ap.add_argument("--mesh-only", action="store_true",
                     help="build, then run only the mesh phase (on its own "
                          "draw of internlm2-1.8b's base3 weights)")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="build, then run only the dryrun phase")
+    ap.add_argument("--parity-worker", action="store_true",
+                    help="the whole run's parity worker (see PARITY_DIR): "
+                         "started by the whole run itself")
     ap.add_argument("--src", type=Path, default=ROOT / "src",
                     help="the tree holding the repro_torch package to run "
                          "(with --paged-only: another checkout's, to time "
@@ -5384,6 +5837,9 @@ def main(argv=None) -> int:
         phases.append(rec)
         return result
 
+    if args.parity_worker:
+        parity_worker(torch, np, configs.get(ARCH), card_line())
+        return 0
     run("build", phase_build)
     card = card_line()
     print(f"[card] {card}")
@@ -5443,6 +5899,22 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if args.dryrun_only:
+        cli = dryrun_cli(src)
+        try:
+            cells = run("dryrun", phase_dryrun, torch, np, cfg,
+                        registry.build(cfg))
+            dr = dict(cells=cells, cli=run("dryrun-cli", dryrun_cli_report,
+                                           cli))
+        finally:
+            stop(cli)
+        print(f"[done] {time.monotonic() - t_start:.1f} s")
+        print("[dryrun] summary " + json.dumps(dryrun_summary(dr)))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if args.mesh_only:
         model = registry.build(cfg)
         params = ternarize_params(
@@ -5481,58 +5953,75 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
-    cases, floor_ms = run("kernels", phase_kernels, torch, cfg)
-    print_matmul_sums(cases, floor_ms)
-    paged = run("paged-kernel", phase_paged_kernel, torch, np, cfg)
+    # beside the card's phases: the CLI's cell traces on the host, and the
+    # parity worker does its card parts (the analysis CLI beside them),
+    # then its CPU parts
+    cli = dryrun_cli(src)
+    worker = parity_start(src)
+    try:
+        analysis = run("analysis", phase_analysis, torch)
+        parity_card_s = run("parity-card", parity_ready, worker)
+        cases, floor_ms = run("kernels", phase_kernels, torch, cfg)
+        print_matmul_sums(cases, floor_ms)
+        paged = run("paged-kernel", phase_paged_kernel, torch, np, cfg)
 
-    model = registry.build(cfg)
+        model = registry.build(cfg)
 
-    def init_packed():
+        def init_packed():
+            params = model.init(torch.Generator(
+                device="cuda").manual_seed(0), device="cuda")
+            return {p: ternarize_params(params, CIMConfig(
+                mode="ternary", packing=p)) for p in ("base3", "trit2")}
+        packed = run("init", init_packed)
+        tuned = run("autotune", phase_autotune, torch, np, cfg, model,
+                    packed["base3"], card)
+        runs = run("serve", phase_serve, torch, np, cfg, model, packed)
+        parity = run("parity", phase_parity, torch, np, cfg, model,
+                     packed["base3"])
+        del packed["trit2"]
+        sched, sched_parity = run("sched", phase_sched, torch, np, cfg,
+                                  model, packed["base3"])
+        sanitized = run("sanitize", phase_sanitize, torch, np, cfg, model,
+                        packed["base3"])
+        mesh = run("mesh", phase_mesh, torch, np, cfg, model,
+                   packed["base3"], card)
+        int8kv = run("int8-kv", phase_int8_kv, torch, np, cfg, model,
+                     packed["base3"])
+        long = run("long", phase_long, torch, np, cfg, model,
+                   packed["base3"])
+        fid = run("fidelity", phase_fidelity, torch, np, cfg,
+                  packed["base3"], card, layer=False)
+        del packed
+        torch.cuda.empty_cache()
+        cim_cases = run("cim-kernel", phase_cim_kernel, torch, cfg)
+        # the float weights of the same seeded init, for the exact mode
         params = model.init(torch.Generator(device="cuda").manual_seed(0),
                             device="cuda")
-        return {p: ternarize_params(params, CIMConfig(mode="ternary",
-                                                      packing=p))
-                for p in ("base3", "trit2")}
-    packed = run("init", init_packed)
-    tuned = run("autotune", phase_autotune, torch, np, cfg, model,
-                packed["base3"], card)
-    runs = run("serve", phase_serve, torch, np, cfg, model, packed)
-    parity = run("parity", phase_parity, torch, np, cfg, model,
-                 packed["base3"])
-    del packed["trit2"]
-    sched, sched_parity = run("sched", phase_sched, torch, np, cfg, model,
-                              packed["base3"])
-    sanitized = run("sanitize", phase_sanitize, torch, np, cfg, model,
-                    packed["base3"])
-    analysis = run("analysis", phase_analysis, torch)
-    mesh = run("mesh", phase_mesh, torch, np, cfg, model, packed["base3"],
-               card)
-    int8kv = run("int8-kv", phase_int8_kv, torch, np, cfg, model,
-                 packed["base3"])
-    long = run("long", phase_long, torch, np, cfg, model, packed["base3"])
-    fid = run("fidelity", phase_fidelity, torch, np, cfg, model,
-              packed["base3"], card)
-    del packed
-    torch.cuda.empty_cache()
-    cim_cases = run("cim-kernel", phase_cim_kernel, torch, cfg)
-    # the float weights of the same seeded init, for the exact mode
-    params = model.init(torch.Generator(device="cuda").manual_seed(0),
-                        device="cuda")
-    exact = run("exact", phase_exact, torch, np, cfg, model, params,
-                cim_cases)
-    del params
-    torch.cuda.empty_cache()
-    models = {arch: run(f"models {arch}", phase_model, torch, np, arch)
-              for arch in MODEL_ARCHS}
-    frontend = run("frontend", phase_frontend, torch, np)
-    torch.cuda.empty_cache()
-    moe = run("moe", phase_moe, torch, np)
-    recurrent = {arch: run(f"recurrent {arch}", phase_recurrent, torch, np,
-                           arch) for arch in REC_ARCHS}
-    cross = {arch: run(f"cross {arch}", phase_cross, torch, np, arch)
-             for arch in CROSS_ARCHS}
-    train = run("train", phase_train, torch, np, card)
-    families = run("train-families", phase_train_families, torch, np, card)
+        exact = run("exact", phase_exact, torch, np, cfg, model, params,
+                    cim_cases)
+        del params
+        torch.cuda.empty_cache()
+        models = {arch: run(f"models {arch}", phase_model, torch, np,
+                            arch) for arch in MODEL_ARCHS}
+        frontend = run("frontend", phase_frontend, torch, np)
+        torch.cuda.empty_cache()
+        moe = run("moe", phase_moe, torch, np)
+        recurrent = {arch: run(f"recurrent {arch}", phase_recurrent, torch,
+                               np, arch) for arch in REC_ARCHS}
+        cross = {arch: run(f"cross {arch}", phase_cross, torch, np, arch)
+                 for arch in CROSS_ARCHS}
+        cells = run("dryrun", phase_dryrun, torch, np, cfg, model)
+        train = run("train", phase_train, torch, np, card, parity=False)
+        families = run("train-families", phase_train_families, torch, np,
+                       card, parity=False)
+        dr = dict(cells=cells, cli=run("dryrun-cli", dryrun_cli_report,
+                                       cli))
+        par = run("parity-cpu", parity_result, worker)
+    finally:
+        stop(cli)
+        stop(worker)
+    par["card"] = parity_card_s
+    attach_parity(par, fid, train, families)
 
     details = dict(card=card, device=torch.cuda.get_device_name(0),
                    harness_floor_ms=floor_ms, cases=cases, serve=runs,
@@ -5543,7 +6032,8 @@ def main(argv=None) -> int:
                    recurrent=recurrent, cross=cross, train=train,
                    train_families=families, autotune=tuned,
                    sanitize=sanitized, analysis=analysis, mesh=mesh,
-                   phases=phases,
+                   dryrun=dr, parity_worker={k: par[k] for k in (
+                       "card", "seconds", "waited_s")}, phases=phases,
                    seconds=time.monotonic() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -5599,6 +6089,7 @@ def main(argv=None) -> int:
         {k: [r["transfers"], r["chunks"], r["new_plans"], r["builds"]]
          for k, r in sanitized.items()}))
     print("[mesh] summary " + json.dumps(mesh_summary(mesh)))
+    print("[dryrun] summary " + json.dumps(dryrun_summary(dr)))
     kernels = (kernel_summary(cases, runs, cfg, models, moe, int8kv,
                               recurrent, cross)
                + [kernel_summary_paged(paged, sched, models, long,

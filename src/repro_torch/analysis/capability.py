@@ -56,10 +56,13 @@ def _cell(name, op, domain, packing, kv_layout, fidelity, platform):
 
 
 def eval_operands(op: str, packing: str, device: str, shape=EVAL_SHAPE):
-    """Seeded operands of one execution at ``shape`` on ``device``."""
+    """Seeded operands of one execution at ``shape`` on ``device`` (the
+    ``abstract`` platform's are meta tensors)."""
     import torch
     from ..kernels import ops
     m, k, n = shape
+    if device == "abstract":
+        device = "meta"
     gen = torch.Generator().manual_seed(0)
     if op == "attention":
         from ..kernels.paged_attention import PagedAttentionKV

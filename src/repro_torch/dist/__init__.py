@@ -2,7 +2,8 @@
 rules variants, and the DTensor placement of trees on a DeviceMesh."""
 from . import mesh, runtime, sharding, variants               # noqa: F401
 from .mesh import (MULTI_POD, SINGLE_POD, MeshSpec,           # noqa: F401
-                   destroy_process_group, init_process_group, make_mesh,
+                   destroy_process_group, init_fake_process_group,
+                   init_process_group, make_mesh,
                    spec_for)
 from .sharding import (Rules, UnknownLogicalAxisError,        # noqa: F401
                        activation_context, constrain, constrain_act,

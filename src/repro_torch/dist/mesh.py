@@ -6,7 +6,9 @@ reasoned about without any process group: the ``shard`` analysis pass
 and the sharding tests resolve rules against specs long before a card
 exists.  ``make_mesh`` turns a spec into a ``torch.distributed``
 ``DeviceMesh`` over an initialised process group; ``init_process_group``
-starts that group (NCCL on the cards, gloo on the CPU for tests).
+starts that group (NCCL on the cards, gloo on the CPU for tests), and
+``init_fake_process_group`` a fake one of any size, whose collectives
+move nothing (the dry run's).
 
 Axis conventions (shared with dist.sharding):
 
@@ -116,6 +118,21 @@ def init_process_group(device_type: str = "cuda", rank: Optional[int] = None,
                             rank=rank, world_size=world_size,
                             timeout=datetime.timedelta(seconds=timeout_s),
                             **kw)
+
+
+def init_fake_process_group(world_size: int) -> None:
+    """Start a fake default group of ``world_size`` ranks, this process
+    rank 0 (``torch.distributed``'s ``fake`` backend on a ``FakeStore``):
+    its collectives return at once and move nothing, so one process can
+    trace what a rank of a production mesh runs (``launch/dryrun.py``).
+    Raises when a group is already up."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already up; destroy it "
+                           "before starting a fake one")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
 
 
 def destroy_process_group() -> None:

@@ -116,22 +116,29 @@ def place_tree(tree: Any, specs: Any, rules: shd.Rules, mesh) -> Any:
     return place_leaf(tree, specs, rules, mesh)
 
 
+def abstract(shape: tuple, axes: tuple, dtype, rules: shd.Rules, mesh,
+             device="meta"):
+    """A storage-free DTensor of the global ``shape`` placed by its
+    logical ``axes``: a meta piece, or a fake one under an active
+    ``FakeTensorMode`` (the dry run's, on ``device``)."""
+    spec = shd.logical_to_spec(tuple(axes), tuple(shape), rules, mesh)
+    want = shd.placements(spec, mesh)
+    local = list(shape)
+    for i, p in enumerate(want):
+        if p.is_shard():
+            local[p.dim] //= mesh.size(i)
+    piece = torch.empty(local, dtype=dtype, device=device)
+    return _from_local(piece, mesh, want, shape)
+
+
 def placement_tree(specs: Any, rules: shd.Rules, mesh,
-                   dtype=torch.float32) -> Any:
-    """ParamSpec tree -> tree of storage-free (meta) DTensors with each
-    leaf's global shape, dtype (``dtype`` where the spec has none) and
-    placements: the abstract state."""
-    def leaf(d):
-        spec = shd.logical_to_spec(tuple(d.axes), tuple(d.shape), rules,
-                                   mesh)
-        want = shd.placements(spec, mesh)
-        local = list(d.shape)
-        for i, p in enumerate(want):
-            if p.is_shard():
-                local[p.dim] //= mesh.size(i)
-        piece = torch.empty(local, dtype=d.dtype or dtype, device="meta")
-        return _from_local(piece, mesh, want, d.shape)
-    return tree_lib.map_specs(leaf, specs)
+                   dtype=torch.float32, device="meta") -> Any:
+    """ParamSpec tree -> tree of storage-free DTensors (:func:`abstract`)
+    with each leaf's global shape, dtype (``dtype`` where the spec has
+    none) and placements: the abstract state."""
+    return tree_lib.map_specs(
+        lambda d: abstract(d.shape, d.axes, d.dtype or dtype, rules, mesh,
+                           device), specs)
 
 
 def distribute_like(x: torch.Tensor, like):

@@ -9,6 +9,14 @@
           cuda, priority 50.  ``auto`` picks it on the CPU; on the card it
           runs only when named.
   ref   - the oracles (kernels/ref.py), priority 10; ternary op only.
+  abstract - the dry run's (``launch/dryrun.py``), platform abstract
+          (fake and meta tensors), priority 100; ternary op only.  It
+          runs the cuda backend's tensor ops around the kernel and,
+          in place of the launch, an empty output of the kernel's shape
+          and dtype, and charges the active roll-up
+          (``roofline.op_cost.charge``) the kernel's cost: 2·M·N·K at
+          the rate of x's dtype, the packed data, scale, x and y each
+          moved once, and one call on the route the card would take.
 
 A cim plan (the macro-exact mode) quantizes the activations per call
 (per row inside :func:`~.plan.rows_as_calls`, where each row stands for a
@@ -180,6 +188,34 @@ def _run_cuda(plan, x, w):
     return y.reshape(*lead, w.data.shape[-1])
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _run_abstract(plan, x, w):
+    from ..roofline import op_cost
+    if w.data.dim() != 2:
+        raise ValueError(f"the abstract backend takes 2-D packed weights; "
+                         f"got {tuple(w.data.shape)} (slice the layer "
+                         f"stack)")
+    lead = x.shape[:-1]
+    if plan.domain == "int8":
+        xi, x_scale = ops.quantize_acts_int8(x)
+        x2 = _pad_k(xi.reshape(-1, xi.shape[-1]), w).contiguous()
+        moved, rate, kernel = _nbytes(x_scale), "int8", "ternary_matmul_int8"
+    else:
+        x2 = _pad_k(x.reshape(-1, x.shape[-1]), w).contiguous()
+        moved, kernel = 0, "ternary_matmul"
+        rate = "f32" if x2.dtype == torch.float32 else "bf16"
+    m, k = x2.shape
+    n = w.data.shape[-1]
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    weight = _nbytes(w.data) + _nbytes(w.scale)
+    op_cost.charge(2.0 * m * k * n, weight + _nbytes(x2) + _nbytes(y) + moved,
+                   rate, kernel, tm.route(m, x2.dtype), weight)
+    return y.reshape(*lead, n)
+
+
 def _run_torch(plan, x, w):
     if plan.op == "cim":
         return _run_cim(plan, x, w, cm.cim_mac_torch)
@@ -210,6 +246,10 @@ register_backend(BackendSpec(name="torch",
                              ops=frozenset({"ternary", "cim"}), **_ALL))
 register_backend(BackendSpec(name="ref", platforms=frozenset({"cpu", "cuda"}),
                              priority=10, runner=_run_ref,
+                             ops=frozenset({"ternary"}), **_ALL))
+register_backend(BackendSpec(name="abstract",
+                             platforms=frozenset({"abstract"}),
+                             priority=100, runner=_run_abstract,
                              ops=frozenset({"ternary"}), **_ALL))
 
 

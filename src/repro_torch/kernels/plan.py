@@ -12,7 +12,11 @@ The platform is the operand's device type (``cpu`` or ``cuda``), passed
 in by the caller: there is no global probe.  On a CUDA tensor ``auto``
 resolves to a hand-written kernel only (``cuda`` for the ternary and cim
 ops, ``paged_attn`` for attention); the plain versions run there only
-when named.
+when named.  A fake or meta tensor (the dry run's, which holds no
+storage) is on the ``abstract`` platform: only the ``abstract`` backend
+serves it, returning the output's shape and dtype and charging the
+kernel's cost to the active roll-up (``roofline.op_cost``), and no
+backend of a real platform matches it.
 
 ``kv_layout`` names the KV-cache layout the serving loop feeds a plan
 from (``dense`` slot caches or the ``paged`` page pool); backends
@@ -48,10 +52,12 @@ import dataclasses
 import functools
 from typing import Any, Callable, Optional
 
+import torch
+
 OPS = ("ternary", "cim", "attention")
 DOMAINS = ("float", "int8")
 PACKINGS = ("base3", "trit2")
-PLATFORMS = ("cpu", "cuda")
+PLATFORMS = ("cpu", "cuda", "abstract")
 KV_LAYOUTS = ("dense", "paged")
 PHASES = ("auto", "decode", "prefill")
 FIDELITIES = ("exact", "device")
@@ -99,7 +105,7 @@ class ExecutionPlan:
     m: int
     k: int
     n: int
-    platform: str                 # cpu | cuda
+    platform: str                 # cpu | cuda | abstract
     kv_layout: str = "dense"      # dense | paged
     adc_bits: Optional[int] = None    # cim and device plans: ADC bits
     num_trits: Optional[int] = None   # cim and device plans: trits
@@ -176,9 +182,18 @@ def get_backend(name: str) -> BackendSpec:
     return _REGISTRY[name]
 
 
+def is_abstract(x) -> bool:
+    """Whether ``x`` holds no storage: a FakeTensor or a meta tensor."""
+    if type(x) is torch.Tensor:     # no subclass, so no fake: one check
+        return x.is_meta            # on the serving path's every call
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(x) or x.is_meta
+
+
 def platform_of(x) -> str:
-    """The plan platform of a tensor: its device type."""
-    platform = x.device.type
+    """The plan platform of a tensor: ``abstract`` for a fake or meta
+    tensor, else its device type."""
+    platform = "abstract" if is_abstract(x) else x.device.type
     check_choice("platform", platform, PLATFORMS)
     return platform
 

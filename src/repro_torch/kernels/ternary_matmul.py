@@ -332,8 +332,13 @@ def _check(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
 
 
 def _check_cuda(*tensors: torch.Tensor) -> None:
+    from .plan import is_abstract
     dev = tensors[0].device
     for t in tensors:
+        if is_abstract(t):
+            raise ValueError("a fake or meta tensor holds no storage for "
+                             "the kernel to read; the abstract backend "
+                             "serves it")
         if t.device != dev:
             raise ValueError(f"operands on {t.device} and {dev}")
         if not t.is_contiguous():

@@ -68,6 +68,25 @@ class ModelConfig:
     def n_ssm_heads(self) -> int:
         return self.ssm_heads or max(1, self.d_model // 64)
 
+    def param_count(self) -> int:
+        """Total parameters (the roofline's 6ND bookkeeping)."""
+        from . import registry
+        return registry.build(self).param_count()
+
+    def active_param_count(self) -> int:
+        """Parameters a token runs through (MoE: only its routed
+        experts count)."""
+        from . import registry
+        model = registry.build(self)
+        total = model.param_count()
+        if not self.num_experts:
+            return total
+        expert = sum(math.prod(spec.shape) for _, spec in
+                     registry._walk(model.param_specs)
+                     if "expert" in spec.axes)
+        frac = self.experts_per_token / self.num_experts
+        return int(total - expert + expert * frac)
+
 
 class ParamSpec(NamedTuple):
     """A parameter's shape, init style (normal | zeros | ones | embed),

@@ -244,6 +244,32 @@ class _EngineBase:
         return self.completed
 
 
+def device_decode_loop(decode, tok: torch.Tensor, state: dict,
+                       max_new_row: torch.Tensor, eos_row: torch.Tensor,
+                       max_new: int, width: int) -> torch.Tensor:
+    """The bucket engine's on-device decode loop, from the prefill's
+    sampled ``tok`` (rows,) and decode ``state``: ``max_new - 1`` steps
+    of ``decode(tok, state) -> (logits, state)`` with no host sync.
+    Returns (rows, width + 2) int32: each row's token buffer, its token
+    count and the steps that had a live row."""
+    dev = tok.device
+    rows = tok.shape[0]
+    buf = torch.zeros((rows, width), dtype=torch.int32, device=dev)
+    buf[:, 0] = tok
+    counts = torch.ones((rows,), dtype=torch.int32, device=dev)
+    live = (counts < max_new_row) & (tok != eos_row)
+    steps = torch.zeros((), dtype=torch.int32, device=dev)
+    for step in range(max_new - 1):
+        steps += live.any().to(torch.int32)
+        logits, state = decode(tok, state)
+        tok = greedy_sample(logits)
+        buf[:, step + 1] = torch.where(live, tok, buf[:, step + 1])
+        counts += live.to(torch.int32)
+        live = live & (counts < max_new_row) & (tok != eos_row)
+    return torch.cat([buf, counts[:, None], steps.expand(rows)[:, None]],
+                     dim=1)
+
+
 class ServeEngine(_EngineBase):
     def __init__(self, model, params, capacity: int = 512,
                  max_batch: int = 8, cim=None, on_device_loop: bool = True,
@@ -312,7 +338,6 @@ class ServeEngine(_EngineBase):
 
     def _run_bucket_device(self, reqs: list[Request]):
         """Prefill, the on-device decode loop, and ONE host transfer."""
-        dev = self.device
         b = len(reqs)
         max_new = max(r.max_new for r in reqs)
         width = self.buffer_width(max_new)
@@ -324,21 +349,8 @@ class ServeEngine(_EngineBase):
             [r.eos_id for r in reqs], dtype=torch.int32)))
         tok, state = self._prefill(reqs)
         self.steps_run += 1
-        rows = tok.shape[0]
-        buf = torch.zeros((rows, width), dtype=torch.int32, device=dev)
-        buf[:, 0] = tok
-        counts = torch.ones((rows,), dtype=torch.int32, device=dev)
-        live = (counts < max_new_row) & (tok != eos_row)
-        steps = torch.zeros((), dtype=torch.int32, device=dev)
-        for step in range(max_new - 1):
-            steps += live.any().to(torch.int32)
-            logits, state = self._decode(tok, state)
-            tok = greedy_sample(logits)
-            buf[:, step + 1] = torch.where(live, tok, buf[:, step + 1])
-            counts += live.to(torch.int32)
-            live = live & (counts < max_new_row) & (tok != eos_row)
-        out = torch.cat([buf, counts[:, None], steps.expand(rows)[:, None]],
-                        dim=1)
+        out = device_decode_loop(self._decode, tok, state, max_new_row,
+                                 eos_row, max_new, width)
         if self.mesh is not None:
             out = dist_rt.gather_rows(out, (b, width + 2), self.rules,
                                       self.mesh)

@@ -82,16 +82,19 @@ def init_state(model, optimizer: Optimizer, generator: torch.Generator,
 
 
 def make_abstract_state(model, optimizer: Optimizer, rules, mesh,
-                        dtype=None) -> TrainState:
+                        dtype=None, device="meta") -> TrainState:
     """The state's placements on ``mesh`` under ``rules``: params and
-    optimizer state as storage-free meta DTensors of each leaf's global
-    shape, dtype and placements, built from the ParamSpecs alone."""
+    optimizer state as storage-free DTensors of each leaf's global
+    shape, dtype and placements, built from the ParamSpecs alone (meta
+    pieces, or fake ones on ``device`` under a ``FakeTensorMode``: the
+    dry run's)."""
     specs = model.param_specs
     params = dist_rt.placement_tree(specs, rules, mesh,
-                                    dtype or model.cfg.dtype)
-    opt = dist_rt.placement_tree(optimizer.state_defs(specs), rules, mesh)
+                                    dtype or model.cfg.dtype, device)
+    opt = dist_rt.placement_tree(optimizer.state_defs(specs), rules, mesh,
+                                 device=device)
     return TrainState(params, opt,
-                      torch.empty((), dtype=torch.int32, device="meta"))
+                      torch.empty((), dtype=torch.int32, device=device))
 
 
 def place_state(state: TrainState, model, optimizer: Optimizer, rules,

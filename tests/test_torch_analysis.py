@@ -98,8 +98,9 @@ def test_cli_capability_drift_exits_nonzero(tmp_path):
 
 
 def test_capability_executes_every_declared_cpu_cell(monkeypatch):
-    """Each declared cpu cell runs once through ``execute`` (and the
-    trit2 refusal once more); no cuda cell runs without a card."""
+    """Each declared cpu cell, and each abstract one (on meta tensors),
+    runs once through ``execute`` (and the trit2 refusal once more); no
+    cuda cell runs without a card."""
     import repro_torch.kernels as kernels
     ran = []
     orig = kernels.execute
@@ -110,13 +111,13 @@ def test_capability_executes_every_declared_cpu_cell(monkeypatch):
     monkeypatch.setattr(kernels, "execute", counted)
     assert capability.run(run_cuda=False) == []
     declared = sum(
-        s.supports(op, d, p, "cpu", kv, f)
+        s.supports(op, d, p, platform, kv, f)
         for s in capability._registry().values()
-        for op, d, p, kv, f in itertools.product(
+        for op, d, p, kv, f, platform in itertools.product(
             plan_mod.OPS, plan_mod.DOMAINS, plan_mod.PACKINGS,
-            plan_mod.KV_LAYOUTS, plan_mod.FIDELITIES))
+            plan_mod.KV_LAYOUTS, plan_mod.FIDELITIES, ("cpu", "abstract")))
     assert len(ran) == declared + 1
-    assert all(platform == "cpu" for _, _, platform in ran)
+    assert all(platform in ("cpu", "abstract") for _, _, platform in ran)
 
 
 def test_capability_flags_an_unregistered_capability(monkeypatch):

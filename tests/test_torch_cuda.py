@@ -68,6 +68,10 @@ K = 2046, whose last shard pads its input) cut along K, each shard
 through ``cim_linear.linear``'s planned kernel on its local shape, the
 parts joined as the collective joins them, within 1e-5 of max|y| of
 the unsharded kernel (gemv at M = 8, mma at M = 1024, bf16 x).
+The dry run (``-k dryrun``): on two full-width layers of internlm2-1.8b,
+base3, the prefill and a decode step predicted on a fake (1, 1) mesh
+name the card's ternary_matmul calls and routes, and the predicted
+live-bytes peak is within 10% of the card's.
 """
 import dataclasses
 
@@ -2055,3 +2059,74 @@ def test_mesh_tensor_parallel_shards_on_the_card(dev, packing, m, k, n,
     assert got.shape == want.shape == (m, n)
     err = float((got - want).abs().max())
     assert err <= 1e-5 * float(want.abs().max())
+
+
+# ------------------------------------------------- the dry run (slice 14)
+
+def _card_peak(fn, inputs):
+    """(result, peak bytes of one call counted from its inputs, the
+    ternary_matmul launches and routes it made): the card's side of the
+    dry run's prediction (each input storage once, in 512-byte blocks,
+    as the roll-up counts it)."""
+    import gc
+    from repro_torch.roofline.op_cost import storage_bytes
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tm.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before + storage_bytes(inputs)
+    return (out, peak, {k: v for k, v in tm.LAUNCHES.items() if v},
+            {k: v for k, v in tm.ROUTES.items() if v})
+
+
+@pytest.mark.parametrize("phase", ["decode", "prefill"])
+def test_dryrun_predicts_two_full_width_layers(dev, phase):
+    """internlm2-1.8b at full width on two layers, base3/float, 8 rows of
+    128 tokens into a capacity of 256: the dry run's prediction on a fake
+    (1, 1) mesh names the calls and routes the card launches, and its
+    live-bytes peak is within 10% of the card's."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import dryrun
+    cfg = dataclasses.replace(configs.get("internlm2-1.8b"), num_layers=2)
+    model = registry.build(cfg)
+    params = ternarize_params(
+        model.init(torch.Generator(device="cuda").manual_seed(0),
+                   device="cuda"), CIMConfig(mode="ternary", packing="base3"))
+    cim = CIMConfig(mode="ternary", packing="base3").resolve("cuda")
+    tokens = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (8, 128)), dtype=torch.int32, device=dev)
+
+    def prefill():
+        return model.prefill(params, tokens, 256, cim=cim)
+    prefill()
+    if phase == "prefill":
+        _, peak, launches, routes = _card_peak(
+            prefill, {"p": params, "t": tokens})
+        cell = ShapeCell("prefill", 128, 8, "prefill")
+        kw = dict(capacity=256)
+    else:
+        logits, state = prefill()
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        del logits
+
+        def decode():
+            return model.decode(params, tok, state, cim=cim)
+        decode()
+        _, peak, launches, routes = _card_peak(decode, {
+            "p": params, "t": tok,
+            "s": {k: v for k, v in state.items() if k != "pos"}})
+        cell = ShapeCell("decode", 256, 8, "decode")
+        kw = {}
+    pred = dryrun.run_cell("internlm2-1.8b", cell, mesh_shape=(1, 1),
+                           layers=2, packed="base3", **kw)
+    calls = 2 * 7 + 1
+    assert launches == {"ternary_matmul": calls}
+    assert pred["collectives"]["kernels"] == launches
+    assert pred["collectives"]["routes"] == routes
+    assert routes == ({"gemv": calls} if phase == "decode"
+                      else {"mma": calls - 1, "gemv": 1})
+    got = pred["memory_stats"]["peak_bytes"]
+    assert abs(got - peak) <= 0.10 * peak, (got, peak)
