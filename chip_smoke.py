@@ -261,7 +261,11 @@ Phases, each of which raises on failure:
               14336 is split by the float chain cap); prefill ms, decode
               ms/step, tok/s, a profiled decode step (device ms, kernels,
               idle share) beside the bytes floor (every expert is read
-              each step).  Then the window run: the dense Scheduler, 2
+              each step).  Expert parallelism's join on one card: layer
+              0's MoE block with its experts in two halves, each half's
+              products on every group's capacity rows, joined along E,
+              bitwise the block at 8 x 128 and 8 x 1 rows.  Then the
+              window run: the dense Scheduler, 2
               slots, chunk 8, capacity 4224 (the pool holds the window,
               4096 positions, and its bytes are checked), on a
               4160-token prompt (its prefill rolls) and a 4064-token one
@@ -443,11 +447,30 @@ Phases, each of which raises on failure:
               planned kernel on its local shape (``ShardedPacked.
               partial``), the parts joined as the collective joins them,
               within MESH_TP_TOL of max|y| of the unsharded kernel, at
-              M = 8 (gemv) and M = 1024 (mma), bf16 x.  The counts are
-              zeroed just before the meshed runs of (a) and (b) and read
-              just after: ``ternary_matmul`` and ``threefry`` must have
-              launched; they join the kernels line as
-              ``launches_mesh``.  (The ``shard`` pass runs in
+              M = 8 (gemv) and M = 1024 (mma), bf16 x; in the int8
+              domain w2's and the (2046, 2048) weight's two K shards
+              through the kernel's int32 epilogue
+              (``ShardedPacked.partial_int32`` on x quantized over its
+              whole row), added in int32, then the epilogue once:
+              bitwise the unsplit ``ternary_matmul_int8``.  (e) The dense
+              Scheduler and the PagedScheduler's gather read on the
+              bursty trace's first SCHED_CUT requests, unmeshed and with
+              ``rules=, mesh=`` (phase 5's runs and checks each): tokens,
+              launches and routes equal, one transfer per chunk, ms a
+              decode step of both; then both meshed schedulers under
+              ``analysis.sanitize`` (one transfer per chunk, no other
+              sync).  (f) The int8 bucket (base3, 8 x 128 + 8) and the
+              exact bucket (float weights of the same seed, 8 x 32 + 4),
+              unmeshed and meshed, after a warm-up bucket: tokens,
+              launches and routes equal, the engine's own prefill and
+              decode logits bitwise, no code-weight fill after the
+              warm-up.  The counts are zeroed just before the meshed runs
+              of (a), (b), (e) and (f) and read just after:
+              ``ternary_matmul``, ``ternary_matmul_int8``, ``cim_mac``
+              and ``threefry`` must have launched, ``paged_attention``
+              not (the meshed pool reads through the gather); they join
+              the kernels line as ``launches_mesh`` (and
+              ``launches_mesh_sched``).  (The ``shard`` pass runs in
               phase 7's analysis CLI.)  ``--mesh-only`` runs this phase
               alone.
 20. dryrun  - the dry run's roofline (``repro_torch.launch.dryrun``,
@@ -468,8 +491,11 @@ Phases, each of which raises on failure:
               decode step's packed-matmul bytes differ from the packed
               weights the bytes floor reads.  Each cell prints busy /
               bound and the bounding term, beside ``train_bound`` and the
-              decode bytes floor.  (b) The production cell through the
-              CLI, ``python -m repro_torch.launch.dryrun --arch
+              decode bytes floor.  Beside them one chunk of the
+              Scheduler (8 slots at capacity 512, 8 steps; ``--continuous``
+              on the fake mesh, then a warm chunk on the card): its
+              predicted calls and routes are the card's.  (b) The
+              production cell through the CLI, ``python -m repro_torch.launch.dryrun --arch
               internlm2-1.8b --shape train_4k`` on the 16x16 fake mesh,
               in a subprocess started with (a) (it needs no card) into
               ``chiprun_out/dryrun_torch`` and read as the phase
@@ -1501,15 +1527,19 @@ def sched_requests(np, cfg, seed):
     return specs
 
 
-def make_scheduler(kind, model, params, cim, capacity=SCHED_CAPACITY):
+def make_scheduler(kind, model, params, cim, capacity=SCHED_CAPACITY,
+                   **mesh_kw):
+    """A scheduler of ``kind`` (dense, gather, fused) on the card;
+    ``mesh_kw`` (``rules=, mesh=``) puts it on a mesh."""
     from repro_torch.serve import PagedScheduler, Scheduler
     if kind == "dense":
         return Scheduler(model, params, capacity=capacity,
-                         slots=SLOTS, chunk=CHUNK, cim=cim, device="cuda")
+                         slots=SLOTS, chunk=CHUNK, cim=cim, device="cuda",
+                         **mesh_kw)
     return PagedScheduler(model, params, capacity=capacity,
                           slots=SLOTS, chunk=CHUNK, page_size=PAGE, cim=cim,
                           fused_attn="auto" if kind == "fused" else False,
-                          device="cuda")
+                          device="cuda", **mesh_kw)
 
 
 def first_divergence(torch, model, params, cim, prompt, want, got,
@@ -1531,10 +1561,11 @@ def first_divergence(torch, model, params, cim, prompt, want, got,
 
 def phase_sched(torch, np, cfg, model, params, specs=None,
                 kinds=("dense", "gather", "fused"), capacity=SCHED_CAPACITY,
-                tag="sched"):
+                tag="sched", mesh_kw=None):
     """Schedulers of `kinds` (dense, gather, fused) on one trace (by
-    default the bursty trace); returns records and the fused-vs-gather
-    parity (without a fused run: every run's tokens)."""
+    default the bursty trace), on a mesh with ``mesh_kw``; returns
+    records and the fused-vs-gather parity (without a fused run: every
+    run's tokens)."""
     from repro_torch.core.cim_linear import CIMConfig
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ternary_matmul as tm
@@ -1544,7 +1575,8 @@ def phase_sched(torch, np, cfg, model, params, specs=None,
         specs = sched_requests(np, cfg, seed=21)
     runs, tokens = {}, {}
     for kind in kinds:
-        eng = make_scheduler(kind, model, params, cim, capacity)
+        eng = make_scheduler(kind, model, params, cim, capacity,
+                             **(mesh_kw or {}))
         if kind == "fused":
             check(eng.attn_plan is not None
                   and eng.attn_plan.backend == "paged_attn",
@@ -1583,7 +1615,7 @@ def phase_sched(torch, np, cfg, model, params, specs=None,
             kv_bytes_pool=eng.kv_bytes(),
             kv_bytes_resident_peak=(eng.kv_bytes_resident_peak if paged
                                     else eng.kv_bytes()),
-            pages_in_use_peak=eng.allocator.peak_in_use if paged else None,
+            pages_in_use_peak=eng.pages_in_use_peak if paged else None,
             prefix_hit_rate=eng.prefix_hit_rate if paged else None,
             attn_backend=(eng.attn_plan.backend
                           if paged and eng.attn_plan else None),
@@ -1879,14 +1911,16 @@ def step_sums(cfg, timed):
     return out
 
 
-def phase_sanitize(torch, np, cfg, model, params):
+def phase_sanitize(torch, np, cfg, model, params, kinds=None, mesh_kw=None,
+                   tag="sanitize"):
     """The four engines at full width (base3 / float) under
     ``repro_torch.analysis.sanitize``: the bucket ServeEngine, the dense
     Scheduler and the PagedScheduler's gather and fused reads, each
     warmed on 8 requests and then serving 8 more of the same lengths with
     ``set_sync_debug_mode('error')`` on everywhere but the transfer
     chokepoint: one transfer per chunk (per bucket), no other sync, no
-    new plan and no build."""
+    new plan and no build.  ``kinds`` picks engines, ``mesh_kw`` (``rules=,
+    mesh=``) puts the schedulers on a mesh."""
     from repro_torch.analysis import sanitizer
     from repro_torch.core.cim_linear import CIMConfig
     from repro_torch.serve import Request, ServeEngine
@@ -1899,20 +1933,21 @@ def phase_sanitize(torch, np, cfg, model, params):
             0, cfg.vocab_size, size=n).astype(np.int32), max_new=16)
             for i, n in enumerate(lens)]
     out = {}
-    for kind in sanitizer.ENGINES:
+    for kind in kinds or sanitizer.ENGINES:
         if kind == "bucket":        # one bucket: one prompt length
             eng = ServeEngine(model, params, capacity=SCHED_CAPACITY,
                               max_batch=BATCH, cim=cim, device="cuda")
             lens = [PROMPT] * BATCH
         else:
-            eng = make_scheduler(kind, model, params, cim)
+            eng = make_scheduler(kind, model, params, cim,
+                                 **(mesh_kw or {}))
             lens = ragged
         warm, measured = reqs(0, lens), reqs(100, lens)
         counts = {}
         findings = sanitizer.check_engine(eng, kind, warm, measured,
                                           counts=counts)
         rec = dict(kind=kind, findings=[str(f) for f in findings], **counts)
-        print("[sanitize] " + json.dumps(rec))
+        print(f"[{tag}] " + json.dumps(rec))
         check(not findings, f"{kind}: {findings}")
         check(counts["sync_guard"] and counts["transfers"] == counts["chunks"]
               and counts["new_plans"] == 0 and counts["builds"] == 0,
@@ -2440,6 +2475,7 @@ def phase_moe(torch, np):
         matmul_shapes_prefill={str(k): v for k, v in pre_shapes.items()},
         matmul_shapes_decode={str(k): v for k, v in dec_shapes.items()})
     print("[moe bucket] " + json.dumps(bucket))
+    halves = moe_expert_halves(torch, cfg, packed, cim)
 
     prompts = [np.random.default_rng(29 + i).integers(
         0, cfg.vocab_size, n).astype(np.int32)
@@ -2482,7 +2518,47 @@ def phase_moe(torch, np):
                 init_peak_bytes=init_peak,
                 bf16_weight_bytes=model.param_bytes(),
                 packed_weight_bytes=packed_bytes, bucket=bucket,
-                window_run=window, parity=parity, launches=launches)
+                window_run=window, parity=parity, launches=launches,
+                expert_halves=halves)
+
+
+def moe_expert_halves(torch, cfg, packed, cim):
+    """Expert parallelism's join on one card: layer 0's MoE block with
+    its experts computed in two halves (each half's products on every
+    group's capacity rows, the unsplit M) and the outputs joined along
+    E, bitwise ``moe_block``'s, at a prefill's (8 x 128) and a decode
+    step's (8 x 1) rows.  Comparison launches: counted by no main-path
+    read."""
+    from repro_torch.models import moe
+    wl = {k: v[0] for k, v in packed["blocks"].items()}
+    e_l = cfg.num_experts // 2
+    recs = []
+    for s_len in (PROMPT, 1):
+        g = torch.Generator(device="cuda").manual_seed(s_len)
+        x = torch.randn(BATCH, s_len, cfg.d_model, generator=g,
+                        device="cuda").to(cfg.dtype)
+        want, _ = moe.moe_block(x, wl, cfg, cim)
+        t = BATCH * s_len
+        grp = min(moe.MOE_GROUP, t)
+        pad = -t % grp
+        xg = torch.nn.functional.pad(x.reshape(1, t, -1),
+                                     (0, 0, 0, pad)).reshape(-1, grp,
+                                                             cfg.d_model)
+        dispatch, combine, _, _ = moe.route(xg, wl["router"], cfg, x.dtype)
+        xe = torch.einsum("ngec,ngd->necd", dispatch, xg)
+        ye = torch.cat([moe._experts(
+            xe[:, h * e_l:(h + 1) * e_l].contiguous(),
+            {k: wl[k][h * e_l:(h + 1) * e_l] for k in ("w1", "w2", "w3")},
+            cim) for h in range(2)], dim=1)
+        got = torch.einsum("ngec,necd->ngd", combine, ye).reshape(
+            1, t + pad, -1)[:, :t].reshape(x.shape)
+        rec = dict(rows=t, bitwise=bool(torch.equal(got, want)))
+        print("[moe halves] " + json.dumps(rec))
+        check(rec["bitwise"], f"{MOE_ARCH}: the experts in two halves, "
+                              f"joined along E, differ from the block at "
+                              f"{t} rows")
+        recs.append(rec)
+    return recs
 
 
 def profile_kernels(torch, tag, what, fn, host=True):
@@ -5189,6 +5265,8 @@ MESH_SHAPE = ((1, 1), ("data", "model"))
 MESH_TRAIN = dict(optimizer="adamw", steps=3, layers=4)
 MESH_SAVE_AT = 2                   # the meshed checkpoint, after step 2
 MESH_TP_TOL = 1e-5       # (d): sharded vs whole kernel, of max|y| (f32)
+# (f): the int8 and exact buckets, (batch, prompt tokens, new tokens)
+MESH_DOMAIN_BUCKET = {"int8": (BATCH, PROMPT, 8), "exact": (BATCH, 32, 4)}
 
 
 def mesh_serve(torch, np, cfg, model, params, mesh, card):
@@ -5374,6 +5452,172 @@ def mesh_train(torch, np, mesh_lib, mesh, card):
     return out
 
 
+def mesh_sched(torch, np, cfg, model, params, mesh, card):
+    """(e) The dense Scheduler and the PagedScheduler's gather read on the
+    first SCHED_CUT requests of the bursty trace, unmeshed and with
+    ``rules=, mesh=`` (phase 5's runs and checks each, counts zeroed just
+    before and read just after every run): tokens, launches and routes
+    equal, one transfer per chunk, ms a decode step of both; then both
+    meshed schedulers under ``analysis.sanitize``."""
+    from repro_torch.dist import sharding as shd
+    specs = sched_requests(np, cfg, seed=21)[:SCHED_CUT]
+    kw = dict(rules=shd.rules_for(cfg, "serve"), mesh=mesh)
+    runs = {}
+    for tag, mesh_kw in (("unmeshed", None), ("meshed", kw)):
+        recs, tokens = phase_sched(torch, np, cfg, model, params, specs=specs,
+                                   kinds=("dense", "gather"),
+                                   tag=f"mesh sched {tag}", mesh_kw=mesh_kw)
+        runs[tag] = dict(records=recs, tokens=tokens)
+    out = {}
+    for kind in ("dense", "gather"):
+        a, b = (runs[t]["records"][kind] for t in ("unmeshed", "meshed"))
+        check(runs["unmeshed"]["tokens"][kind]
+              == runs["meshed"]["tokens"][kind],
+              f"mesh sched {kind}: meshed tokens differ from unmeshed")
+        check(a["launches"] == b["launches"] and a["routes"] == b["routes"],
+              f"mesh sched {kind}: launches {b['launches']} / routes "
+              f"{b['routes']} meshed, {a['launches']} / {a['routes']} "
+              f"unmeshed")
+        check(b["attn_backend"] is None,
+              f"mesh sched {kind}: the meshed read took "
+              f"{b['attn_backend']}, not the gather path")
+        out[kind] = {t: {k: runs[t]["records"][kind][k] for k in (
+            "decode_ms_per_step", "wall_s", "chunks", "host_transfers",
+            "decode_steps", "launches", "routes", "pages_in_use_peak",
+            "prefix_hit_rate")} for t in runs}
+        out[kind]["card"] = card
+    out["sanitize"] = phase_sanitize(torch, np, cfg, model, params,
+                                     kinds=("dense", "gather"), mesh_kw=kw,
+                                     tag="mesh sanitize")
+    print("[mesh] sched " + json.dumps(
+        {k: v for k, v in out.items() if k != "sanitize"}))
+    return out
+
+
+def mesh_domains(torch, np, cfg, model, params, mesh, card):
+    """(f) The int8 domain on the packed weights and exact mode on float
+    weights of the same seeded init, each a bucket engine unmeshed and on
+    the mesh: a warm-up bucket, then the counted bucket (counts zeroed
+    just before, read just after), then the engine's own prefill and one
+    decode step: tokens, launches and routes equal, logits bitwise, no
+    code-weight fill after the warm-up."""
+    from repro_torch.core.cim_linear import CIMConfig
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import backends
+    from repro_torch.kernels import cim_mac as cm
+    from repro_torch.kernels import ternary_matmul as tm
+    from repro_torch.serve import Request, ServeEngine
+    floats = model.init(torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    out = {}
+    for domain, (batch, prompt, new) in MESH_DOMAIN_BUCKET.items():
+        if domain == "int8":
+            cim, weights = CIMConfig(mode="ternary", packing="base3",
+                                     domain="int8"), params
+        else:
+            cim, weights = CIMConfig(mode="exact"), floats
+        rng = np.random.default_rng(31)
+        prompts = rng.integers(0, cfg.vocab_size, (batch, prompt))
+        got = {}
+        for tag, kw in (("unmeshed", {}),
+                        ("meshed", dict(rules=shd.rules_for(cfg, "serve"),
+                                        mesh=mesh))):
+            eng = ServeEngine(model, weights, capacity=CAPACITY,
+                              max_batch=batch, cim=cim, device="cuda", **kw)
+            for i, p in enumerate(prompts):
+                eng.submit(Request(uid=i, prompt=p, max_new=2))
+            eng.run()
+            fills = backends.CODE_WEIGHTS.fills
+            for i, p in enumerate(prompts):
+                eng.submit(Request(uid=100 + i, prompt=p, max_new=new))
+            tm.reset_launches()
+            cm.reset_launches()
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            done = [r for r in eng.run() if r.uid >= 100]
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t
+            launches = {k: v for k, v in {**tm.LAUNCHES, **cm.LAUNCHES}
+                        .items() if v}
+            routes = {k: v for k, v in {**tm.ROUTES, **cm.ROUTES}.items()
+                      if v}
+            tok, state = eng._prefill([Request(uid=i, prompt=p)
+                                       for i, p in enumerate(prompts)])
+            logits, _ = eng._decode(tok, state)
+            got[tag] = dict(tokens={r.uid: r.out_tokens for r in done},
+                            launches=launches, routes=routes,
+                            host_transfers=eng.host_transfers,
+                            fills=backends.CODE_WEIGHTS.fills - fills,
+                            backend=eng.cim.backend, wall_s=wall,
+                            tok=tok, logits=logits)
+            del eng, state
+        a, b = got["unmeshed"], got["meshed"]
+        check(a["tokens"] == b["tokens"],
+              f"mesh {domain}: meshed tokens differ from unmeshed")
+        check(a["launches"] == b["launches"] and a["routes"] == b["routes"]
+              and b["launches"], f"mesh {domain}: launches {b['launches']} "
+              f"/ routes {b['routes']} meshed, {a['launches']} / "
+              f"{a['routes']} unmeshed")
+        bitwise = (torch.equal(a["tok"], b["tok"])
+                   and torch.equal(a["logits"], b["logits"]))
+        check(bitwise, f"mesh {domain}: meshed logits not bitwise")
+        check(b["fills"] == 0 and a["fills"] == 0,
+              f"mesh {domain}: {b['fills']} code-weight fills after the "
+              f"warm-up")
+        out[domain] = {t: {k: v for k, v in got[t].items()
+                           if k not in ("tok", "logits", "tokens")}
+                       for t in got}
+        out[domain].update(bitwise=bitwise, card=card)
+        print(f"[mesh] {domain} " + json.dumps(out[domain]))
+    del floats
+    return out
+
+
+def mesh_int8_rows(torch, cfg):
+    """(d, int8) The int8 domain's row split: w2's (8192, 2048) and a
+    (2046, 2048) weight cut in two along K, each shard's int32 sums
+    through the kernel's int32 epilogue (``ShardedPacked.partial_int32``
+    on x quantized over its whole row), added in int32, then the
+    epilogue once: bitwise the unsplit ``ternary_matmul_int8``, at M = 8
+    and 1024.  Comparison launches: counted by no main-path read."""
+    from repro_torch.core.cim_linear import CIMConfig, linear
+    from repro_torch.dist.runtime import ShardedPacked
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ternary_matmul as tm
+    d, f = cfg.d_model, cfg.d_ff
+    cases = []
+    for packing in ("base3", "trit2"):
+        cim = CIMConfig(mode="ternary", packing=packing, domain="int8")
+        for k, n in ((f, d), (d - 2, d)):
+            g = torch.Generator("cuda").manual_seed(k + n + 1)
+            w = ops.pack_weights(torch.randn(k, n, generator=g,
+                                             device="cuda"), packing)
+            shards = [ShardedPacked(part.contiguous(), w.scale, packing,
+                                    None, "row")
+                      for part in w.data.chunk(2, dim=-2)]
+            for m in (BATCH, 1024):
+                x = torch.randn(m, k, generator=g, device="cuda").to(
+                    torch.bfloat16)
+                want = linear(x, w, cim)
+                tm.reset_launches()
+                parts = [sh.partial_int32(x, i) for i, sh in
+                         enumerate(shards)]
+                got = shards[0].epilogue(parts[0][0] + parts[1][0],
+                                         parts[0][1], (m,))
+                routes = {r: c for r, c in tm.ROUTES.items() if c}
+                rec = dict(packing=packing, k=k, n=n, m=m, routes=routes,
+                           bitwise=bool(torch.equal(got, want)))
+                print("[mesh] int8 rows " + json.dumps(rec))
+                check(tm.LAUNCHES["ternary_matmul_int8"] == 2,
+                      f"mesh int8 rows {packing} {k}x{n} M={m}: "
+                      f"{tm.LAUNCHES} for 2 shards")
+                check(rec["bitwise"], f"mesh int8 rows {packing} {k}x{n} "
+                                      f"M={m}: not bitwise the unsplit "
+                                      f"kernel")
+                cases.append(rec)
+    return cases
+
+
 def mesh_tensor_parallel(torch, cfg):
     """(d) Two model-axis shards of a packed weight, each through
     ``linear``'s planned kernel on its local shape, joined as the mesh's
@@ -5440,12 +5684,16 @@ def phase_mesh(torch, np, cfg, model, params, card):
     try:
         mesh = mesh_lib.make_mesh(mesh_lib.MeshSpec(*MESH_SHAPE), "cuda")
         serve = mesh_serve(torch, np, cfg, model, params, mesh, card)
+        sched = mesh_sched(torch, np, cfg, model, params, mesh, card)
+        domains = mesh_domains(torch, np, cfg, model, params, mesh, card)
         train = mesh_train(torch, np, mesh_lib, mesh, card)
     finally:
         mesh_lib.destroy_process_group()
     tp = mesh_tensor_parallel(torch, cfg)
+    rows = mesh_int8_rows(torch, cfg)
     return dict(mesh=list(MESH_SHAPE), backend="nccl", serve=serve,
-                train=train, tensor_parallel=tp)
+                sched=sched, domains=domains, train=train,
+                tensor_parallel=tp, int8_rows=rows)
 
 
 def mesh_summary(mesh):
@@ -5453,6 +5701,13 @@ def mesh_summary(mesh):
     return dict(
         prefill_ms={k: s[k]["prefill_ms"] for k in s},
         decode_step_ms={k: s[k]["decode_step_ms"] for k in s},
+        sched_ms_per_step={
+            kind: {t: mesh["sched"][kind][t]["decode_ms_per_step"]
+                   for t in ("unmeshed", "meshed")}
+            for kind in ("dense", "gather")},
+        domains_bitwise={d: mesh["domains"][d]["bitwise"]
+                         for d in mesh["domains"]},
+        int8_rows_bitwise=all(c["bitwise"] for c in mesh["int8_rows"]),
         train_step_ms={"unmeshed": t["ref_step_ms_median"],
                        "meshed": t["step_ms_median"]},
         save_s=t["save_s"], bitwise=t["bitwise"],
@@ -5518,6 +5773,50 @@ def dryrun_cell(torch, tm, name, fn, inputs, cell, **kwargs):
           f"{peak} B")
     check(bound_ms <= busy, f"dryrun {name}: roofline {bound_ms:.3f} ms "
                             f"above the device busy {busy:.3f} ms")
+    return rec
+
+
+def dryrun_chunk(torch, np, tm, cfg, model, params, cim):
+    """20 (a) one chunk of the Scheduler: SLOTS slots at capacity
+    SCHED_CAPACITY, CHUNK decode steps, predicted (``--continuous``) on a
+    fake (1, 1) mesh, then run on the card after a warm-up chunk (the
+    counts zeroed just before and read just after): the predicted
+    ternary-matmul calls and routes are the card's."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.serve import Request, Scheduler
+    pred = dryrun.run_cell(
+        ARCH, ShapeCell("sched_chunk", SCHED_CAPACITY, SLOTS, "decode"),
+        mesh_shape=(1, 1), packed="base3", continuous=SLOTS,
+        decode_loop=CHUNK, capacity=SCHED_CAPACITY)
+    c = pred["collectives"]
+    eng = Scheduler(model, params, capacity=SCHED_CAPACITY, slots=SLOTS,
+                    chunk=CHUNK, cim=cim, device="cuda")
+    rng = np.random.default_rng(30)
+    for i in range(SLOTS):
+        eng.try_admit(Request(uid=i, prompt=rng.integers(
+            0, cfg.vocab_size, PROMPT).astype(np.int32),
+            max_new=2 * CHUNK + 1))
+    eng._run_chunk()
+    tm.reset_launches()
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    eng._run_chunk()
+    torch.cuda.synchronize()
+    ms = (time.monotonic() - t) * 1e3
+    launches = {k: v for k, v in tm.LAUNCHES.items() if v}
+    routes = {k: v for k, v in tm.ROUTES.items() if v}
+    rec = dict(cell="chunk", slots=SLOTS, chunk=CHUNK,
+               predicted_calls=c["kernels"], launches=launches,
+               predicted_routes=c["routes"], routes=routes, chunk_ms=ms,
+               bound_ms=max(pred["t_compute"], pred["t_memory"],
+                            pred["t_collective"]) * 1e3,
+               bound_by=pred["bottleneck"], trace_s=pred["lower_s"])
+    print("[dryrun] " + json.dumps(rec))
+    check(c["kernels"] == launches and c["routes"] == routes,
+          f"dryrun chunk: predicted calls {c['kernels']} on {c['routes']}, "
+          f"the card launched {launches} on {routes}")
+    del eng
     return rec
 
 
@@ -5593,7 +5892,9 @@ def phase_dryrun(torch, np, cfg, model):
           f"{cells['decode']['packed_weight_bytes']} are not the "
           f"floor's packed weights {packed}")
     cells["decode"]["floor_ms"] = floor / HBM_BYTES_PER_S * 1e3
-    del params, state, tok, tokens
+    del state, tok, tokens
+    cells["chunk"] = dryrun_chunk(torch, np, tm, cfg, model, params, cim)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5647,12 +5948,13 @@ def dryrun_cli_report(cli):
 
 
 def dryrun_summary(dr):
-    c = dr["cells"]
+    c = {k: v for k, v in dr["cells"].items() if k != "chunk"}
     return dict(
         busy_over_bound={k: c[k]["busy_over_bound"] for k in c},
         bound_by={k: c[k]["bound_by"] for k in c},
         peak_ratio={k: c[k]["peak_ratio"] for k in c},
-        calls={k: c[k]["launches"] for k in c},
+        calls={k: v["launches"] for k, v in dr["cells"].items()},
+        chunk_ms=dr["cells"]["chunk"]["chunk_ms"],
         train_bound_ms=c["train"]["train_bound_ms"],
         decode_floor_ms=c["decode"]["floor_ms"],
         cli_s=dr["cli"]["lower_s"], cli_fits=dr["cli"]["fits"])
@@ -6101,6 +6403,19 @@ def main(argv=None) -> int:
         if k["name"] == "ternary_matmul":
             k["launches_mesh"] = mesh["serve"]["meshed"]["launches"][
                 "ternary_matmul"]
+            k["launches_mesh_sched"] = {
+                kind: mesh["sched"][kind]["meshed"]["launches"][
+                    "ternary_matmul"] for kind in ("dense", "gather")}
+        if k["name"] == "ternary_matmul_int8":
+            k["launches_mesh"] = mesh["domains"]["int8"]["meshed"][
+                "launches"]["ternary_matmul_int8"]
+        if k["name"] == "cim_mac":
+            k["launches_mesh"] = mesh["domains"]["exact"]["meshed"][
+                "launches"]["cim_mac"]
+        if k["name"] == "paged_attention":
+            # the meshed PagedScheduler reads through the gather path
+            k["launches_mesh"] = mesh["sched"]["gather"]["meshed"][
+                "launches"]["paged_attention"]
         if k["name"] == "threefry":
             k["launches_mesh"] = mesh["train"]["threefry_launches"]
     print(json.dumps({"kernels": kernels}))

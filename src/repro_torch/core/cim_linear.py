@@ -87,11 +87,10 @@ def linear(x: torch.Tensor, w: Any, cfg: CIMConfig = CIMConfig()
             return execute(plan, xl, wl)
         if getattr(pw, "split", None) is not None:
             # a model-axis shard (dist.runtime.ShardedPacked): the planned
-            # kernel on the local shape, then the collective
-            if cfg.domain != "float":
-                raise NotImplementedError(
-                    f"the {cfg.domain} domain on a mesh is not ported "
-                    f"(ROADMAP queue 1 item 8)")
+            # kernel on the local shape, then the collective; an int8 row
+            # shard adds int32 sums and applies the epilogue after them
+            if cfg.domain == "int8":
+                return pw.apply(x, run, "int8")
             return pw.apply(x, run)
         return run(x, pw)
     if cfg.mode == "float":

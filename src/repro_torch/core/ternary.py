@@ -52,10 +52,15 @@ class QuantResult(NamedTuple):
     scale: torch.Tensor    # x ~= values * scale
 
 
-def symmetric_scale(x: torch.Tensor, bound: int, axis=None) -> torch.Tensor:
+def symmetric_scale(x: torch.Tensor, bound: int, axis=None,
+                    amax=None) -> torch.Tensor:
     """The scale of :func:`quantize_symmetric`: max(amax |x|, 1e-12) /
-    bound, in x's dtype."""
-    if axis is None:
+    bound, in x's dtype.  ``amax`` (per-tensor only) replaces x's own:
+    the whole call's, where x holds one mesh rank's rows of it."""
+    if amax is not None:
+        if axis is not None:
+            raise ValueError("a given amax is per tensor (axis None)")
+    elif axis is None:
         amax = x.abs().amax()
     else:
         amax = x.abs().amax(dim=axis, keepdim=True)
@@ -63,16 +68,16 @@ def symmetric_scale(x: torch.Tensor, bound: int, axis=None) -> torch.Tensor:
 
 
 def quantize_symmetric(x: torch.Tensor, bound: int,
-                       axis=None) -> QuantResult:
+                       axis=None, amax=None) -> QuantResult:
     """Symmetric linear quantization of float x to [-bound, bound], in
     x's dtype."""
-    scale = symmetric_scale(x, bound, axis)
+    scale = symmetric_scale(x, bound, axis, amax)
     q = torch.clamp(torch.round(x / scale), -bound, bound).to(torch.int32)
     return QuantResult(q, scale)
 
 
-def quantize_8b(x: torch.Tensor, axis=None) -> QuantResult:
-    return quantize_symmetric(x, 127, axis=axis)
+def quantize_8b(x: torch.Tensor, axis=None, amax=None) -> QuantResult:
+    return quantize_symmetric(x, 127, axis=axis, amax=amax)
 
 
 def quantize_5t_direct(x: torch.Tensor, num_trits: int = TRITS_DEFAULT,
@@ -82,9 +87,9 @@ def quantize_5t_direct(x: torch.Tensor, num_trits: int = TRITS_DEFAULT,
 
 
 def quantize_8b_truncate_5t(x: torch.Tensor, num_trits: int = TRITS_DEFAULT,
-                            axis=None) -> QuantResult:
+                            axis=None, amax=None) -> QuantResult:
     """Quantize to 8-bit, then clip the codes into the trit range."""
-    q8 = quantize_8b(x, axis=axis)
+    q8 = quantize_8b(x, axis=axis, amax=amax)
     lim = trit_range(num_trits)
     return QuantResult(torch.clamp(q8.values, -lim, lim), q8.scale)
 
@@ -117,10 +122,10 @@ def ternarize(x: torch.Tensor, num_trits: int = TRITS_DEFAULT, axis=None,
 
 
 def encode_inputs(x: torch.Tensor, num_trits: int = TRITS_DEFAULT,
-                  axis=None) -> TernaryTensor:
+                  axis=None, amax=None) -> TernaryTensor:
     """The macro's ternary input encoding: float activations -> 5-trit
     codes with the truncating flow, in x's dtype."""
-    q = quantize_8b_truncate_5t(x, num_trits, axis=axis)
+    q = quantize_8b_truncate_5t(x, num_trits, axis=axis, amax=amax)
     return TernaryTensor(to_balanced_ternary(q.values, num_trits), q.scale)
 
 

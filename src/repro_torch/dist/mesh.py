@@ -136,10 +136,41 @@ def init_fake_process_group(world_size: int) -> None:
 
 
 def destroy_process_group() -> None:
-    """Tear the default group down (a no-op when none is up)."""
+    """Tear the default group down (a no-op when none is up), with the
+    host group made beside it."""
     import torch.distributed as dist
+    _HOST_GROUPS.clear()
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+_HOST_GROUPS: dict = {}
+
+
+def host_group(mesh):
+    """A process group for the host schedulers' agreement on their
+    clock: the world on gloo, a gloo group beside an NCCL world, made
+    once per world (None when the mesh has one rank)."""
+    import torch.distributed as dist
+    if mesh.size() == 1:
+        return None
+    world = dist.group.WORLD
+    if dist.get_backend() == "gloo":
+        return world
+    if world not in _HOST_GROUPS:
+        _HOST_GROUPS[world] = dist.new_group(backend="gloo")
+    return _HOST_GROUPS[world]
+
+
+def agree_max(value: float, group) -> float:
+    """The largest of every rank's host ``value`` (a host collective on
+    ``group``, no device sync); ``value`` itself without a group."""
+    import torch.distributed as dist
+    if group is None:
+        return value
+    t = torch.tensor([value], dtype=torch.float64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return float(t[0])
 
 
 def _free_port() -> int:

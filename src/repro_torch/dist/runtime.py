@@ -32,7 +32,9 @@ unmeshed path on the same tensors.
 """
 from __future__ import annotations
 
-from typing import Any
+import contextlib
+import functools
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -182,24 +184,49 @@ def gather_tree(tree: Any) -> Any:
     return tree_lib.map_leaves(full, tree)
 
 
-class ShardedPacked(PackedTernary):
-    """The rank-local shard of a packed weight split over the model axis:
-    ``split`` 'col' (N sharded, output columns all-gathered) or 'row' (K
-    sharded, partial products summed) over the process group ``group``."""
+class ExpertSplit(NamedTuple):
+    """How a stacked expert weight's E dim is split: over mesh dim
+    ``dim`` (process group ``group``), ``count`` ranks, this rank's
+    experts ``[index * E_local, (index + 1) * E_local)``."""
+    mesh: Any
+    dim: int
+    group: Any
+    index: int
+    count: int
 
-    def __init__(self, data, scale, mode, group, split: str):
+
+class ShardedPacked(PackedTernary):
+    """The rank-local shard of a packed weight split over the mesh:
+    ``split`` 'col' (N sharded over ``group``, output columns
+    all-gathered), 'row' (K sharded, partial products summed) or None
+    (K and N whole), and ``ep`` the :class:`ExpertSplit` of a stacked
+    expert weight's E dim (None where E is whole), which
+    ``models.moe`` consumes."""
+
+    def __init__(self, data, scale, mode, group, split, ep=None):
         super().__init__(data, scale, mode)
         self.group = group
         self.split = split
+        self.ep = ep
 
     def __getitem__(self, i) -> "ShardedPacked":
         return ShardedPacked(self.data[i], self.scale[i], self.mode,
-                             self.group, self.split)
+                             self.group, self.split, self.ep)
 
     def __repr__(self):
         return (f"ShardedPacked(mode={self.mode!r}, split={self.split!r}, "
+                f"ep={None if self.ep is None else self.ep.count}, "
                 f"data={tuple(self.data.shape)}, "
                 f"scale={tuple(self.scale.shape)})")
+
+    def _rows(self, x: torch.Tensor, index: int) -> torch.Tensor:
+        """The K range of ``x (..., K)`` this row shard multiplies, zero
+        past K (trit2's rows cover a multiple of 4)."""
+        kl = self.kdim
+        xl = x[..., index * kl:(index + 1) * kl]
+        if xl.shape[-1] < kl:
+            xl = torch.nn.functional.pad(xl, (0, kl - xl.shape[-1]))
+        return xl.contiguous()
 
     def partial(self, x: torch.Tensor, run, index: int) -> torch.Tensor:
         """This shard's part of ``x (..., K) @ w`` through ``run(x_local,
@@ -208,17 +235,43 @@ class ShardedPacked(PackedTernary):
         columns ('col'), or the partial product of its K rows ('row')."""
         if self.split == "col":
             return run(x, self).contiguous()
-        kl = self.kdim
-        xl = x[..., index * kl:(index + 1) * kl]
-        if xl.shape[-1] < kl:            # trit2 rows past K: zero input
-            xl = torch.nn.functional.pad(xl, (0, kl - xl.shape[-1]))
-        return run(xl.contiguous(), self).contiguous()
+        return run(self._rows(x, index), self).contiguous()
 
-    def apply(self, x: torch.Tensor, run) -> torch.Tensor:
+    def partial_int32(self, x: torch.Tensor, index: int) -> tuple:
+        """A row shard's part in the int8 domain: ``x`` quantized per
+        row over its whole K (the scale ``amax / 127`` must see every
+        column), this shard's K range of the codes through the int32
+        sums (``ternary_matmul.matmul_int32``).  Returns (int32 sums
+        (M, N), the rows' scales (M,))."""
+        from ..kernels import ops
+        from ..kernels import ternary_matmul as tm
+        xi, x_scale = ops.quantize_acts_int8(x)
+        xl = self._rows(xi, index)
+        acc = tm.matmul_int32(xl.reshape(-1, xl.shape[-1]), self.data,
+                              self.mode)
+        return acc, x_scale.reshape(-1)
+
+    def epilogue(self, acc: torch.Tensor, x_scale: torch.Tensor,
+                 lead: tuple) -> torch.Tensor:
+        """``acc * x_scale * scale`` in f32, in that order (the int8
+        routes' epilogue), on the sums of every row shard."""
+        y = acc.float() * x_scale.float()[:, None] * self.scale.float()
+        return y.reshape(*lead, y.shape[-1])
+
+    def apply(self, x: torch.Tensor, run, domain: str = "float"
+              ) -> torch.Tensor:
         """``x (..., K) @ self``: this rank's :meth:`partial` and the
-        model-axis collective that completes it."""
+        model-axis collective that completes it.  In the int8 domain a
+        column split is the planned kernel on whole rows (bitwise the
+        unsplit product's columns); a row split adds the ranks' int32
+        sums, which is exact, and applies the epilogue once."""
         import torch.distributed as dist
-        y = self.partial(x, run, dist.get_rank(self.group))
+        index = dist.get_rank(self.group)
+        if self.split == "row" and domain == "int8":
+            acc, x_scale = self.partial_int32(x, index)
+            dist.all_reduce(acc, group=self.group)
+            return self.epilogue(acc, x_scale, tuple(x.shape[:-1]))
+        y = self.partial(x, run, index)
         if self.split == "col":
             parts = [torch.empty_like(y)
                      for _ in range(dist.get_world_size(self.group))]
@@ -229,31 +282,42 @@ class ShardedPacked(PackedTernary):
 
 
 def _packed_view(w: PackedTernary) -> PackedTernary:
-    """A packed leaf gathered over every mesh dim but the one that
-    shards its N or K dim over a non-DP axis, which stays split: a
-    ``ShardedPacked`` where that dim has more than one rank."""
+    """A packed leaf gathered over every mesh dim but those that split
+    its N or K dim over a non-DP axis, or its expert dim over any axis,
+    which stay split: a ``ShardedPacked`` where such a dim has more than
+    one rank (tensor parallelism on K or N, expert parallelism on E)."""
     data, scale = w.data, w.scale
     mesh = data.device_mesh
     names = tuple(mesh.mesh_dim_names)
     nd = data.ndim
-    split, tp_dim = None, None
+    split, tp_dim, ep_dim = None, None, None
     for i, p in enumerate(data.placements):
-        if (p.is_shard() and names[i] not in mesh_lib.DP_AXES
-                and mesh.size(i) > 1):
-            if p.dim not in (nd - 1, nd - 2):
-                raise NotImplementedError(
-                    f"packed weight {tuple(data.shape)} is split over "
-                    f"{names[i]!r} on dim {p.dim}: only the K and N dims "
-                    f"run tensor-parallel (expert parallelism on a mesh "
-                    f"is ROADMAP queue 1 item 8)")
+        if not p.is_shard() or mesh.size(i) == 1:
+            continue
+        if nd >= 4 and p.dim == nd - 3:
+            ep_dim = i                       # a stacked expert weight's E
+        elif names[i] in mesh_lib.DP_AXES:
+            continue
+        elif p.dim in (nd - 1, nd - 2):
             split = "col" if p.dim == nd - 1 else "row"
             tp_dim = i
-    local = _view(data, lambda i, p: i == tp_dim)
-    local_scale = _view(scale, lambda i, p: i == tp_dim and split == "col")
-    if split is None:
+        else:
+            raise NotImplementedError(
+                f"packed weight {tuple(data.shape)} is split over "
+                f"{names[i]!r} on dim {p.dim}: only the K, N and expert "
+                f"dims stay split on a mesh (ROADMAP queue 1 item 8)")
+    local = _view(data, lambda i, p: i in (tp_dim, ep_dim))
+    local_scale = _view(scale, lambda i, p: i == ep_dim or (
+        i == tp_dim and split == "col"))
+    if split is None and ep_dim is None:
         return PackedTernary(local, local_scale, w.mode)
+    ep = None
+    if ep_dim is not None:
+        ep = ExpertSplit(mesh, ep_dim, mesh.get_group(ep_dim),
+                         mesh.get_coordinate()[ep_dim], mesh.size(ep_dim))
     return ShardedPacked(local, local_scale, w.mode,
-                         mesh.get_group(tp_dim), split)
+                         None if tp_dim is None else mesh.get_group(tp_dim),
+                         split, ep)
 
 
 def param_view(params: Any) -> Any:
@@ -272,62 +336,99 @@ def param_view(params: Any) -> Any:
 
 # -------------------------------------------------------- batch rows
 
-def row_placements(x_shape: tuple, rules: shd.Rules, mesh,
-                   axis: str = "batch", dim: int = 0) -> tuple:
-    """Placements of a tensor whose dim ``dim`` is the batch: that dim
-    folded over the DP axes, everything else replicated."""
-    axes = ["none"] * len(x_shape)
-    axes[dim] = axis
-    spec = shd.logical_to_spec(tuple(axes), tuple(x_shape), rules, mesh)
-    return shd.placements(spec, mesh)
+def batch_split(rules: shd.Rules, mesh, rows: int,
+                axis: str = "batch") -> Optional[shd.RowSplit]:
+    """How a call of ``rows`` rows on the logical ``axis`` ('batch' or
+    'slot') splits over the mesh: the :class:`~.sharding.RowSplit` of the
+    mesh dims of more than one rank that shard it (the DP axes the rule
+    folds the rows over, where they divide), or None where every rank
+    holds them all."""
+    spec = shd.logical_to_spec((axis,), (rows,), rules, mesh)
+    dims = tuple(i for i, p in enumerate(shd.placements(spec, mesh))
+                 if p.is_shard() and mesh.size(i) > 1)
+    return shd.RowSplit(mesh, dims) if dims else None
 
 
-def shard_rows(x: torch.Tensor, rules: shd.Rules, mesh, dim: int = 0
+def split_count(split: Optional[shd.RowSplit]) -> int:
+    """How many row blocks ``split`` cuts a call into (1 without one)."""
+    return split.count if split is not None else 1
+
+
+def shard_rows(x: torch.Tensor, split: Optional[shd.RowSplit]
                ) -> torch.Tensor:
-    """This rank's rows of ``x`` (the whole batch, the same on every
-    rank), cut locally: every rank draws the same global batch and keeps
-    its shard."""
-    return _local_chunk(x, row_placements(tuple(x.shape), rules, mesh,
-                                          dim=dim), mesh)
+    """This rank's block of the rows of ``x`` (the whole call, the same
+    on every rank), cut locally: every rank draws the same global batch
+    and keeps its block."""
+    if split is None:
+        return x
+    n = x.shape[0] // split.count
+    return x.narrow(0, split.index * n, n).contiguous()
 
 
-def gather_rows(x_local: torch.Tensor, full_shape: tuple,
-                rules: shd.Rules, mesh, dim: int = 0) -> torch.Tensor:
-    """The whole batch from each rank's rows (an all-gather over the DP
-    axes; a rank's own tensor on a one-card mesh)."""
-    want = row_placements(tuple(full_shape), rules, mesh, dim=dim)
-    if all(mesh.size(i) == 1 or not p.is_shard()
-           for i, p in enumerate(want)):
-        return x_local
-    return full(_from_local(x_local.contiguous(), mesh, want, full_shape))
+def gather_split(x: torch.Tensor, split: Optional[shd.RowSplit]
+                 ) -> torch.Tensor:
+    """The whole call's rows from each rank's block (an all-gather over
+    the split's dims, in their order; ``x`` itself without a split)."""
+    if split is None:
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = split.mesh
+    place_ = tuple(Shard(0) if i in split.dims else Replicate()
+                   for i in range(mesh.ndim))
+    shape = (x.shape[0] * split.count,) + tuple(x.shape[1:])
+    return full(_from_local(x.contiguous(), mesh, place_, shape))
 
 
-def dp_count(rules: shd.Rules, mesh, rows: int) -> int:
-    """How many distinct row shards a batch of ``rows`` has."""
-    n = 1
-    for i, p in enumerate(row_placements((rows,), rules, mesh)):
-        if p.is_shard():
-            n *= mesh.size(i)
-    return n
+def reduce_split(x: torch.Tensor, split: Optional[shd.RowSplit],
+                 op: str = "sum", skip: tuple = ()) -> torch.Tensor:
+    """``x`` all-reduced (``op`` 'sum' or 'max') over the split's dims
+    but those in ``skip``, in place where it reduces."""
+    import torch.distributed as dist
+    if split is None:
+        return x
+    red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
+    for i in split.dims:
+        if i not in skip:
+            dist.all_reduce(x, op=red, group=split.mesh.get_group(i))
+    return x
 
 
-def reduce_grads(grads: Any, like: Any, rules: shd.Rules, mesh,
-                 rows: int) -> Any:
+def _max_over(amax: torch.Tensor, split: shd.RowSplit) -> torch.Tensor:
+    out = amax.float().clone()
+    return reduce_split(out, split, "max").to(amax.dtype)
+
+
+@contextlib.contextmanager
+def row_block(split: Optional[shd.RowSplit]):
+    """Within the block, the model's rows are this rank's block of a call
+    split by ``split`` (None: the rows are the whole call): the MoE
+    router routes the whole call's groups (``sharding.row_split``), and
+    the exact plans' per-call input scale is the max over the split's
+    ranks (``kernels.plan.call_amax_reducer``)."""
+    from ..kernels.plan import call_amax_reducer
+    reduce = (None if split is None
+              else functools.partial(_max_over, split=split))
+    with shd.row_split(split), call_amax_reducer(reduce):
+        yield
+
+
+def reduce_grads(grads: Any, like: Any, mesh,
+                 split: Optional[shd.RowSplit]) -> Any:
     """Each rank's gradient of its rows (whole tensors) -> the mean over
-    the DP shards, placed as the DTensor leaves of ``like``: a
-    reduce-scatter where a DP dim has more than one rank, a local cut
-    elsewhere (none on a one-card mesh)."""
+    the row blocks of ``split``, placed as the DTensor leaves of
+    ``like``: a reduce-scatter where a DP dim has more than one rank, a
+    local cut elsewhere (none on a one-card mesh)."""
     from torch.distributed.tensor import Partial, Replicate
-    rp = row_placements((rows,), rules, mesh)
-    n = dp_count(rules, mesh, rows)
+    n = split_count(split)
+    dims = split.dims if split is not None else ()
 
     def leaf(g, p):
         if n > 1:
             g = g / n
-        src = tuple(Partial() if q.is_shard() and mesh.size(i) > 1
+        src = tuple(Partial() if i in dims
                     else (p.placements[i] if mesh.size(i) == 1
                           else Replicate())
-                    for i, q in enumerate(rp))
+                    for i in range(mesh.ndim))
         d = _from_local(g, mesh, src, p.shape)
         if src != tuple(p.placements):
             d = d.redistribute(mesh, tuple(p.placements))
@@ -335,21 +436,13 @@ def reduce_grads(grads: Any, like: Any, rules: shd.Rules, mesh,
     return tree_lib.map_leaves(leaf, grads, like)
 
 
-def mean_over_rows(x: torch.Tensor, rules: shd.Rules, mesh,
-                   rows: int) -> torch.Tensor:
-    """The mean of a per-rank scalar over the DP shards (as it is on a
-    one-card mesh)."""
-    import torch.distributed as dist
-    n = dp_count(rules, mesh, rows)
-    if n == 1:
+def mean_over_rows(x: torch.Tensor, split: Optional[shd.RowSplit]
+                   ) -> torch.Tensor:
+    """The mean of a per-rank scalar over the row blocks of ``split`` (as
+    it is without one)."""
+    if split is None:
         return x
-    groups = [mesh.get_group(i) for i, p in
-              enumerate(row_placements((rows,), rules, mesh))
-              if p.is_shard() and mesh.size(i) > 1]
-    y = x.clone()
-    for g in groups:
-        dist.all_reduce(y, group=g)
-    return y / n
+    return reduce_split(x.clone(), split, "sum") / split.count
 
 
 def owns(x) -> bool:
@@ -385,20 +478,38 @@ def world_sum(x: torch.Tensor, mesh) -> torch.Tensor:
     return y
 
 
-def check_mesh_request(model, cim=None, what: str = "this path") -> None:
-    """Raise for what does not run on a mesh yet."""
-    if model.cfg.family != "dense":
+SERVE_FAMILIES = ("dense", "moe")
+
+
+def check_mesh_request(model, cim=None, what: str = "this path",
+                       path: str = "train") -> None:
+    """Raise for what ``path`` ('serve': the engines; 'train': the train
+    step) does not run on a mesh yet.  Serving takes the dense and MoE
+    families, both domains and exact mode; training the dense family's
+    float and bf16 steps."""
+    if path not in ("serve", "train"):
+        raise ValueError(f"path must be 'serve' or 'train', got {path!r}")
+    fams = SERVE_FAMILIES if path == "serve" else ("dense",)
+    if model.cfg.family not in fams:
         raise NotImplementedError(
-            f"{what} on a mesh runs the dense family; {model.cfg.name} "
+            f"{what} on a mesh runs the {' and '.join(fams)} "
+            f"famil{'ies' if len(fams) > 1 else 'y'}; {model.cfg.name} "
             f"(family {model.cfg.family!r}) on a mesh is ROADMAP queue 1 "
             f"item 8")
-    if cim is not None and cim.mode == "exact":
+    if cim is None:
+        return
+    if cim.fidelity == "device":
         raise NotImplementedError(
-            "exact mode on a mesh is not ported (ROADMAP queue 1 item 8)")
-    if cim is not None and cim.domain == "int8":
-        raise NotImplementedError(
-            "the int8 domain on a mesh is not ported (ROADMAP queue 1 "
+            "device fidelity on a mesh is not ported (ROADMAP queue 1 "
             "item 8)")
+    if path == "train" and cim.mode == "exact":
+        raise NotImplementedError(
+            "exact-mode training on a mesh is not ported (ROADMAP queue 1 "
+            "item 8)")
+    if path == "train" and cim.domain == "int8":
+        raise NotImplementedError(
+            "the int8 domain's training on a mesh is not ported (ROADMAP "
+            "queue 1 item 8)")
 
 
 def rank() -> int:

@@ -31,10 +31,16 @@ mesh dims, in the spec's order.
 ``activation_context`` installs the (rules, mesh) pair that
 ``constrain_act`` resolves against for the length of a meshed call;
 with no context, or for a plain (local) tensor, it is a no-op.
+``row_split`` installs the mesh dims a meshed call's activation rows are
+split over (:class:`RowSplit`), for the MoE block's routing groups,
+which depend on the whole call and not on a row
+(``runtime.row_block`` installs it beside the exact mode's per-call
+input scale).
 """
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Any, Optional
@@ -301,3 +307,56 @@ def constrain_act(x, axes: Optional[tuple] = None):
     if axes is None:
         axes = ("batch", "seq") + ("none",) * (x.ndim - 2)
     return constrain(x, axes, rules, mesh)
+
+
+# ---------------------------------------------------------------------
+# row splits
+# ---------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RowSplit:
+    """The mesh dims (indices, outermost first) that split a meshed
+    call's activation rows into equal contiguous blocks, one per rank of
+    their product: the batch of the bucket engine, the slot pool of the
+    schedulers.  Rank ``index`` (its coordinates on ``dims``, outermost
+    first) holds rows ``[index * rows, (index + 1) * rows)`` of the
+    whole call, where ``rows`` is its local count."""
+    mesh: Any
+    dims: tuple
+
+    @property
+    def sizes(self) -> tuple:
+        return tuple(self.mesh.size(i) for i in self.dims)
+
+    @property
+    def count(self) -> int:
+        return math.prod(self.sizes)
+
+    def coords(self) -> tuple:
+        coord = self.mesh.get_coordinate()
+        return tuple(coord[i] for i in self.dims)
+
+    @property
+    def index(self) -> int:
+        out = 0
+        for c, n in zip(self.coords(), self.sizes):
+            out = out * n + c
+        return out
+
+
+_ROW_SPLIT = contextvars.ContextVar("row_split", default=None)
+
+
+@contextlib.contextmanager
+def row_split(split: Optional[RowSplit]):
+    """Within the block, the model's rows are this rank's block of a
+    call split by ``split`` (None: the rows are the whole call)."""
+    token = _ROW_SPLIT.set(split)
+    try:
+        yield
+    finally:
+        _ROW_SPLIT.reset(token)
+
+
+def get_row_split() -> Optional[RowSplit]:
+    return _ROW_SPLIT.get()

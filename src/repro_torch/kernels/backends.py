@@ -59,7 +59,8 @@ from . import cim_mac as cm
 from . import ops, ref
 from . import paged_attention as pa
 from . import ternary_matmul as tm
-from .plan import BackendSpec, register_backend, rows_are_calls
+from .plan import (BackendSpec, call_amax, register_backend,
+                   rows_are_calls)
 
 
 def _pad_k(x2: torch.Tensor, w: ops.PackedTernary) -> torch.Tensor:
@@ -94,8 +95,9 @@ def _run_cim(plan, x, w, mac):
     PackedTernary through the CIM MAC ``mac(x_trits, w_trits, adc_bits)``
     -> (..., N) f32."""
     lead = x.shape[:-1]
-    xt = encode_inputs(x.reshape(-1, x.shape[-1]), plan.num_trits,
-                       axis=_input_axis())
+    x2 = x.reshape(-1, x.shape[-1])
+    xt = encode_inputs(x2, plan.num_trits, axis=_input_axis(),
+                       amax=call_amax(x2))
     w_trits, w_scale = _weight_trits(w, plan.num_trits)
     y = mac(xt.trits, w_trits, plan.adc_bits).to(torch.float32)
     return (y * xt.scale * w_scale).reshape(*lead, w_trits.shape[-1])
@@ -152,8 +154,9 @@ def _run_cim_codes(plan, x, w):
     """The cuda backend's cim plan at the code route: x quantized to
     5-trit codes (the scale of ``encode_inputs``), the cached weight."""
     lead = x.shape[:-1]
-    q = quantize_8b_truncate_5t(x.reshape(-1, x.shape[-1]), plan.num_trits,
-                                axis=_input_axis())
+    x2 = x.reshape(-1, x.shape[-1])
+    q = quantize_8b_truncate_5t(x2, plan.num_trits, axis=_input_axis(),
+                                amax=call_amax(x2))
     cw, w_scale = CODE_WEIGHTS.get(w, plan.num_trits)
     if (torch.is_grad_enabled() and isinstance(w, torch.Tensor)
             and w.requires_grad):

@@ -42,7 +42,10 @@ not part of a plan: it follows from how the caller batches.  The
 schedulers batch slots that the reference decodes one slot per call;
 inside the context, the backends whose result depends on the call's
 extent (the exact cim plans' input scale, the device MAC's input scale
-and ADC noise) treat every row of x as its own call.
+and ADC noise) treat every row of x as its own call.  Nor is the mesh
+a call is split over: inside :func:`call_amax_reducer` x holds one
+rank's rows of a call, and the exact cim plans take the whole call's
+activation amax from :func:`call_amax`.
 """
 from __future__ import annotations
 
@@ -86,6 +89,32 @@ def rows_as_calls(on: bool = True):
 def rows_are_calls() -> bool:
     """Whether the current context runs each row as its own call."""
     return _ROWS_AS_CALLS.get()
+
+
+_CALL_AMAX = contextvars.ContextVar("call_amax", default=None)
+
+
+@contextlib.contextmanager
+def call_amax_reducer(reduce: Optional[Callable]):
+    """Within the block, x holds one mesh rank's rows of a call, and
+    ``reduce(amax)`` makes the rank's activation amax the whole call's
+    (the meshed engines install the max over the ranks that split the
+    call's rows).  None: the rows are the whole call."""
+    token = _CALL_AMAX.set(reduce)
+    try:
+        yield
+    finally:
+        _CALL_AMAX.reset(token)
+
+
+def call_amax(x2):
+    """The activation amax of the whole call that ``x2`` holds rows of,
+    where a reducer is installed and the call is one call (not
+    :func:`rows_as_calls`); else None: the quantizer takes x2's own."""
+    reduce = _CALL_AMAX.get()
+    if reduce is None or rows_are_calls():
+        return None
+    return reduce(x2.abs().amax())
 
 
 def check_choice(kind: str, value: Any, choices) -> None:

@@ -531,3 +531,33 @@ def matmul_int8(x_int: torch.Tensor, x_scale: torch.Tensor,
     LAUNCHES["ternary_matmul_int8"] += 1
     ROUTES[path] += 1
     return out
+
+
+def matmul_int32(x_int: torch.Tensor, data: torch.Tensor,
+                 mode: str) -> torch.Tensor:
+    """(M, K) int8 @ packed (K | K/4, N) -> (M, N) int32: the int8
+    routes' exact sums with no epilogue, for a row shard whose partial
+    sums are added over the model axis before the scales apply
+    (``dist.runtime.ShardedPacked``).  On the card it launches the int32
+    epilogue of the route M picks (``launch_int32``, on the rule's plan)
+    and counts one ``ternary_matmul_int8`` launch, as the unsplit
+    product would; on the CPU it is the plain version's integer dot."""
+    if x_int.dtype != torch.int8 or x_int.dim() != 2 or data.dim() != 2:
+        raise ValueError(f"need int8 x (M, K) and packed w (K', N); got "
+                         f"{x_int.dtype} {tuple(x_int.shape)}, "
+                         f"{tuple(data.shape)}")
+    m, k, n = _check(x_int, data, torch.empty(data.shape[1]), mode,
+                     (torch.int8,))
+    if x_int.device.type == "cpu":
+        wd = ops.decode_weight(ops.PackedTernary(data, None, mode),
+                               torch.float64)[:k]
+        return torch.matmul(x_int.to(torch.float64), wd).to(torch.int32)
+    if x_int.device.type != "cuda":
+        raise ValueError(f"unsupported device {x_int.device}")
+    _check_cuda(x_int, data)
+    out = torch.empty((m, n), dtype=torch.int32, device=x_int.device)
+    _raise_on(launch_int32(x_int, data, mode, out),
+              f"ternary_matmul_int8 ({route(m, x_int.dtype)}, int32)")
+    LAUNCHES["ternary_matmul_int8"] += 1
+    ROUTES[route(m, x_int.dtype)] += 1
+    return out

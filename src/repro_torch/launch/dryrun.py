@@ -19,7 +19,14 @@ tensors) and runs, under ``FakeTensorMode`` and the cost roll-up
 * ``decode``: one ``model.decode`` step, or with ``--decode-loop N`` the
   bucket engine's device loop (``serve.engine.device_decode_loop``) for
   N - 1 steps, on a rank-local decode state (the rank's rows at every
-  position: the port does not shard the cache over ``model``).
+  position: the port does not shard the cache over ``model``); with
+  ``--continuous SLOTS`` one chunk of the meshed ``Scheduler`` (or, with
+  ``--kv paged``, ``PagedScheduler``) loop instead: ``--decode-loop``
+  steps (8 by default) of the rank's slots (``serve.engine.chunk_loop``
+  over the schedulers' own decode step), its slot lanes and page table
+  cut from ``launch.input_specs``' slot and page pool specs, its pool
+  rank-local (the slots' stripe of pages), then the chunk's all-gather
+  of the token buffer (``serve.engine.round_buffer``).
 
 Packed weights (``--packed``) resolve to the ``abstract`` kernel backend,
 which charges each ternary matmul its kernel's own cost.  The numbers
@@ -31,9 +38,10 @@ card.  A cell the reference skips (``runnable``) has its ``skipped``
 reason; a cell whose path the port refuses on a mesh (a family other
 than dense in training, Adafactor on a mesh, packed experts split over
 ``model``; ternary training anywhere) has the refusal under ``refused``
-(``skipped`` for ternary training) in place of the roofline.  The flags of paths
-not ported to a mesh (``--continuous``, ``--kv paged``, ``--fidelity
-device``, ``--ep data``) raise.
+(``skipped`` for ternary training) in place of the roofline.
+``--ep data`` applies the ``ep-data`` rules variant (packed experts over
+``data``, their tokens moved by ``all_to_all``).  ``--fidelity device``
+raises: device fidelity on a mesh is not ported.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-14b --shape train_4k
@@ -90,23 +98,16 @@ def cell_filename(arch: str, shape: str, multi_pod,
 
 
 def refuse(continuous: int = 0, kv_layout: str = "dense",
-           fidelity: str = "exact", ep: str = "model") -> None:
-    """Raise for what the port cannot run on a mesh yet."""
-    if continuous:
-        raise NotImplementedError(
-            f"--continuous: the slot-pool Scheduler on a mesh is not "
-            f"ported ({PART3})")
-    if kv_layout == "paged":
-        raise NotImplementedError(
-            f"--kv paged: the PagedScheduler on a mesh is not ported "
-            f"({PART3})")
+           fidelity: str = "exact") -> None:
+    """Raise for a request the dry run cannot trace: the paged pool
+    without the slot pool it is a layout of, and device fidelity, which
+    the port does not run on a mesh yet."""
+    if kv_layout == "paged" and not continuous:
+        raise ValueError("--kv paged requires --continuous SLOTS (the paged "
+                         "pool is a continuous-batching slot-pool layout)")
     if fidelity == "device":
         raise NotImplementedError(
             f"--fidelity device: device fidelity on a mesh is not ported "
-            f"({PART3})")
-    if ep == "data":
-        raise NotImplementedError(
-            f"--ep data: MoE expert parallelism on a mesh is not ported "
             f"({PART3})")
 
 
@@ -147,7 +148,7 @@ def run_cell(arch: str, shape, *, multi_pod: bool = False,
     positions (default the cell's ``seq_len``); ``unique_count(n)``
     overrides the distinct tokens the embedding gradient sees among
     ``n`` (default: those expected of uniform draws)."""
-    refuse(continuous, kv_layout, fidelity, ep)
+    refuse(continuous, kv_layout, fidelity)
     cfg = (configs.smoke if smoke else configs.get)(arch)
     cell = SHAPES[shape] if isinstance(shape, str) else shape
     meta = {"arch": arch, "shape": cell.name,
@@ -170,6 +171,9 @@ def run_cell(arch: str, shape, *, multi_pod: bool = False,
         meta["kv_cache"] = "int8"
     rules = shd.rules_for(cfg, "train" if cell.kind == "train" else "serve",
                           fsdp=fsdp)
+    if ep == "data":
+        rules = variants.apply_override(rules, "ep-data")
+        meta["ep"] = ep
     for on, name in ((pure_dp, "pure-dp"), (sp, "sp")):
         if on:
             rules = variants.apply_override(rules, name)
@@ -187,8 +191,8 @@ def run_cell(arch: str, shape, *, multi_pod: bool = False,
     mesh = _mesh(multi_pod, mesh_shape)
     try:
         chips, name = mesh.size(), mesh_name(mesh)
-        rows = cell.global_batch // dist_rt.dp_count(rules, mesh,
-                                                     cell.global_batch)
+        split = dist_rt.batch_split(rules, mesh, cell.global_batch)
+        rows = cell.global_batch // dist_rt.split_count(split)
         # the DeviceMesh's own rank table is a real tensor
         with FakeTensorMode(allow_non_fake_inputs=True):
             if cell.kind == "train":
@@ -197,9 +201,9 @@ def run_cell(arch: str, shape, *, multi_pod: bool = False,
                     unique_count, meta)
             else:
                 cost, tokens, t_trace = _serve(
-                    cell, model, rules, mesh, rows, packed, cim,
+                    cell, model, rules, mesh, split, packed, cim,
                     decode_loop, capacity or cell.seq_len, unique_count,
-                    meta)
+                    meta, continuous, kv_layout, page_size)
     except NotImplementedError as e:
         # the port refuses this cell's path on a mesh (its message names
         # the ROADMAP item): reported, not traced
@@ -249,21 +253,28 @@ def _train(cell, model, rules, mesh, rows, opt_name, microbatches,
     return cost, cell.global_batch * cell.seq_len, time.monotonic() - t0
 
 
-def _serve(cell, model, rules, mesh, rows, packed, cim, decode_loop,
-           capacity, unique_count, meta):
-    """(roll-up, tokens, seconds) of a prefill, a decode step or the
-    bucket engine's decode loop, traced under the caller's
-    FakeTensorMode on the params' gathered view and the rank's rows."""
+def _serve(cell, model, rules, mesh, split, packed, cim, decode_loop,
+           capacity, unique_count, meta, continuous=0, kv_layout="dense",
+           page_size=16):
+    """(roll-up, tokens, seconds) of a prefill, a decode step, the
+    bucket engine's decode loop or a scheduler's chunk, traced under the
+    caller's FakeTensorMode on the params' gathered view and the rank's
+    rows."""
     params = specs.abstract_model_params(model, rules, mesh, packed)
     cost = OpCost(unique_count)
     cost.register(params, "params")
+    if cell.kind != "prefill" and continuous:
+        return _chunk(cell, model, rules, mesh, params, cim, decode_loop,
+                      capacity, cost, meta, continuous, kv_layout,
+                      page_size)
     if cell.kind == "prefill":
         batch = {k: specs.global_tensor(v) for k, v in specs.
                  prefill_batch_specs(model.cfg, cell, rules, mesh).items()}
         cost.register(batch, "temporaries")
         t0 = time.monotonic()
-        with cost, shd.activation_context(rules, mesh):
-            local = {k: dist_rt.shard_rows(v, rules, mesh)
+        with (cost, shd.activation_context(rules, mesh),
+              dist_rt.row_block(split)):
+            local = {k: dist_rt.shard_rows(v, split)
                      for k, v in batch.items()}
             tokens = local.pop("tokens")
             logits, _ = model.prefill(dist_rt.param_view(params), tokens,
@@ -276,13 +287,15 @@ def _serve(cell, model, rules, mesh, rows, packed, cim, decode_loop,
                          "buffer is the prefill token passed in, so a "
                          "1-token loop runs no decode step")
     # a rank-local state: the rank's rows at every position
+    rows = cell.global_batch // dist_rt.split_count(split)
     steps = max(decode_loop - 1, 1)
     state = model.init_cache(rows, capacity, specs.DEVICE)
     state["pos"] = max(capacity - steps, 0)
     cost.register({k: v for k, v in state.items() if k != "pos"}, "state")
     token = torch.empty((rows,), dtype=torch.int32, device=specs.DEVICE)
     t0 = time.monotonic()
-    with cost, shd.activation_context(rules, mesh):
+    with (cost, shd.activation_context(rules, mesh),
+          dist_rt.row_block(split)):
         view = dist_rt.param_view(params)
 
         def decode(tok, st):
@@ -298,6 +311,59 @@ def _serve(cell, model, rules, mesh, rows, packed, cim, decode_loop,
             logits, _ = decode(token, state)
             logits[:, -1].argmax(-1).to(torch.int32)
     return cost, cell.global_batch * steps, time.monotonic() - t0
+
+
+def _chunk(cell, model, rules, mesh, params, cim, decode_loop, capacity,
+           cost, meta, slots, kv_layout, page_size):
+    """One chunk of the meshed ``Scheduler`` / ``PagedScheduler`` loop on
+    this rank's slots: the schedulers' pool geometry and decode step in
+    ``chunk_loop``, then the chunk's all-gathered transfer buffer."""
+    from ..kernels.plan import rows_as_calls
+    from ..models import paged_kv
+    from ..serve import engine
+    chunk = decode_loop if decode_loop >= 1 else 8
+    split = dist_rt.batch_split(rules, mesh, slots, axis="slot")
+    local, _ = engine.slot_block(slots, split)
+    meta.update(continuous_slots=slots, chunk=chunk)
+    if kv_layout == "paged":
+        per_slot = -(-capacity // page_size)
+        num_pages, stripe = engine.stripe_pages(slots, local, per_slot)
+        meta.update(kv_layout="paged", page_size=page_size,
+                    num_pages=num_pages)
+        (_, table, pos, tok, live, made, fresh, max_new,
+         eos) = specs.paged_pool_specs(model, cell, rules, mesh, slots,
+                                       page_size, num_pages)
+        pool = paged_kv.init_page_pool(model.cfg, stripe, page_size,
+                                       specs.DEVICE)
+        table = dist_rt.local(table)
+    else:
+        (pool, tok, live, made, fresh, max_new,
+         eos) = specs.slot_pool_specs(model, cell, rules, mesh, slots)
+        pos = pool["pos"]
+        cache = model.init_cache(local, capacity, specs.DEVICE)
+        pool = {k: v for k, v in cache.items() if k != "pos"}
+    tok, live, made, fresh, max_new, eos = (
+        dist_rt.local(x) for x in (tok, live, made, fresh, max_new, eos))
+    carry = dict(pool=pool, pos=dist_rt.local(pos))
+    cost.register(pool, "state")
+    t0 = time.monotonic()
+    with (cost, shd.activation_context(rules, mesh),
+          dist_rt.row_block(split), rows_as_calls(True)):
+        view = dist_rt.param_view(params)
+
+        def step(t, lv):
+            if kv_layout == "paged":
+                t, carry["pos"] = engine.paged_decode_step(
+                    model, view, cim, None, carry["pool"], table,
+                    carry["pos"], t, lv)
+            else:
+                t, carry["pool"], carry["pos"] = engine.slot_decode_step(
+                    model, view, cim, carry["pool"], carry["pos"], t)
+            return t
+        buf, cnt, steps, occ, _, live, _ = engine.chunk_loop(
+            step, tok, live, made, fresh, max_new, eos, chunk)
+        engine.round_buffer(buf, cnt, live, steps, occ, (), split)
+    return cost, slots * chunk, time.monotonic() - t0
 
 
 def save_result(result: dict, out_dir: str, tag: str | None = None) -> str:
@@ -441,9 +507,11 @@ def main(argv=None):
                    help="decode cells: trace the bucket engine's device "
                         "loop with this max-new budget instead of one step")
     p.add_argument("--continuous", type=int, default=0, metavar="SLOTS",
-                   help=f"the slot-pool Scheduler (raises: {PART3})")
+                   help="decode cells: one chunk (--decode-loop steps, "
+                        "default 8) of the meshed slot-pool Scheduler")
     p.add_argument("--kv", default="dense", choices=("dense", "paged"),
-                   help=f"slot-pool KV layout (paged raises: {PART3})")
+                   help="slot-pool KV layout (paged: the PagedScheduler, "
+                        "with --continuous)")
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--fidelity", default="exact",
                    choices=("exact", "device"),
@@ -465,7 +533,7 @@ def main(argv=None):
     if args.kv == "paged" and not args.continuous:
         p.error("--kv paged requires --continuous SLOTS (the paged "
                 "pool is a continuous-batching slot-pool layout)")
-    refuse(args.continuous, args.kv, args.fidelity, args.ep)
+    refuse(args.continuous, args.kv, args.fidelity)
 
     if args.all:
         fails = sweep(args.out_dir, multi_pod_too=not args.single_pod_only,

@@ -331,7 +331,7 @@ def main(argv=None) -> dict:
             out.update(page_size=eng.page_size, num_pages=eng.num_pages,
                        attn_backend=(eng.attn_plan.backend
                                      if eng.attn_plan else "gather"),
-                       pages_in_use_peak=eng.allocator.peak_in_use,
+                       pages_in_use_peak=eng.pages_in_use_peak,
                        kv_bytes_pool=eng.kv_bytes(),
                        kv_bytes_resident_peak=eng.kv_bytes_resident_peak,
                        prefix_hit_rate=eng.prefix_hit_rate)

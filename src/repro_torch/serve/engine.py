@@ -19,18 +19,31 @@ Two decode loops give identical tokens:
 ``host_transfers`` counts device-to-host syncs, so the one-transfer-per-
 bucket contract is testable.
 
-On a DeviceMesh (``ServeEngine(rules=, mesh=)``, the on-device loop,
-dense models; ``dist.runtime``) the params are DTensors placed by
-``rules_for(cfg, "serve")``; each rank prefills and decodes its rows of
-the bucket (the batch folded over the DP axes), each call on the
-params' compute view (packed weights run tensor-parallel over
-``model``).  The decode state is plain rank-local rows at every
-position, the same on every rank of ``model``: it is not placed by its
-``cache_specs`` (sharding its positions over ``model`` needs an
-attention read that combines the ranks' partial softmax, ROADMAP queue
-1 item 8).  The rows' token buffers are gathered before the bucket's
-one transfer.  On a one-card mesh nothing moves: the kernels, their
-launches and the tokens are the unmeshed engine's.
+On a DeviceMesh (``ServeEngine``, ``Scheduler`` and ``PagedScheduler``
+with ``rules=, mesh=``; the dense and MoE families, both domains and
+exact mode; ``dist.runtime``) the params are DTensors placed by
+``rules_for(cfg, "serve")``, and every call runs on their compute view,
+built once per engine (packed weights tensor-parallel over ``model``,
+packed experts split over their expert axis).  Each rank prefills and
+decodes its rows: the bucket folded over the DP axes, or the slot
+pool's slots split over them (``dist.sharding.slot_spmd_axes``; a pool
+that does not divide is replicated, as in the reference).  The decode
+state is plain rank-local rows at every position, the same on every rank
+of ``model``: it is not placed by its ``cache_specs`` (sharding its
+positions over ``model`` needs an attention read that combines the
+ranks' partial softmax, ROADMAP queue 1 item 8).  The calls run inside
+``dist.runtime.row_block``, so MoE routing groups and the exact mode's
+per-call input scale are the whole call's.  The rows' token buffers are
+gathered before the bucket's or the chunk's one transfer.  Every rank
+of a scheduler runs the same host scheduler: the arrival pump agrees on
+its clock over a host (gloo) group, admission is FIFO, and a slot's
+prefill and admission write run on the DP group that owns the slot (on
+every rank where the experts lie on a DP axis the slots split over:
+``ep-data``).  The paged pool stripes its pages over the slots' DP
+ranks, each stripe with its own null page, allocator and prefix
+registry, so prefixes are shared within a stripe.  On a one-card mesh
+nothing moves: the kernels, their launches and the tokens are the
+unmeshed engine's.
 
 ``extra_inputs`` (every engine) maps a ``prefill`` keyword to a function
 of the batch size that gives that input for the batch: whisper's
@@ -82,6 +95,7 @@ engine's batch is one group, as the fused paged read's slots are.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import time
@@ -92,6 +106,7 @@ import torch
 
 from .. import faults, resolve_device, tree
 from ..core import prng
+from ..dist import mesh as mesh_lib
 from ..dist import runtime as dist_rt
 from ..dist import sharding as shd
 from ..kernels.plan import rows_as_calls
@@ -180,6 +195,39 @@ class _EngineBase:
         self.completed: list[Request] = []
         self.steps_run = 0
         self.host_transfers = 0
+        self.mesh = None
+        self.rules = None
+        self._view = None
+        self._split = None
+
+    def _setup_mesh(self, rules, mesh, what: str) -> None:
+        """Serve on ``mesh``: the request checked, the params placed by
+        ``rules`` (the model's serve rules by default) unless they are,
+        and their compute view built once (a collective: every rank
+        constructs the engine)."""
+        dist_rt.check_mesh_request(self.model, self.cim, what, "serve")
+        self.mesh = mesh
+        self.rules = rules or shd.rules_for(self.model.cfg, "serve")
+        if not any(dist_rt.is_dtensor(getattr(x, "data", x))
+                   for x in tree.leaves(self.params)):
+            self.params = dist_rt.place_tree(
+                self.params, self.model.param_specs, self.rules, mesh)
+        self._view = dist_rt.param_view(self.params)
+
+    @property
+    def _cparams(self):
+        """The params the model runs on: the compute view on a mesh."""
+        return self.params if self.mesh is None else self._view
+
+    def _meshed(self, split=None):
+        """The activation context and the row split ``split`` of a meshed
+        call (nothing off-mesh)."""
+        stack = contextlib.ExitStack()
+        if self.mesh is not None:
+            stack.enter_context(shd.activation_context(self.rules,
+                                                       self.mesh))
+            stack.enter_context(dist_rt.row_block(split))
+        return stack
 
     def submit(self, req: Request):
         self.queue.append(req)
@@ -212,25 +260,27 @@ class _EngineBase:
         tokens = self._upload(torch.stack([
             torch.as_tensor(np.asarray(r.prompt), dtype=torch.int32)
             for r in reqs]))
-        logits, state = self.model.prefill(self.params, tokens,
-                                           self.capacity,
-                                           cim=self.cim_prefill,
-                                           **self._batch_inputs(len(reqs)))
+        with self._meshed():
+            logits, state = self.model.prefill(
+                self._cparams, tokens, self.capacity, cim=self.cim_prefill,
+                **self._batch_inputs(len(reqs)))
         return greedy_sample(logits), state
 
-    def _arrival_pump(self, clock, sleep, try_admit, busy, serve_round):
+    def _arrival_pump(self, clock, sleep, try_admit, busy, serve_round,
+                      agree=None):
         """The arrival loop of trace serving, shared by every driver:
         sort the queue by (arrival_s, uid), offer arrived requests to
         ``try_admit(req, now)`` (False defers, e.g. no free slot), sleep
         to the next arrival when nothing is ``busy()``, otherwise run one
         ``serve_round(elapsed)``, which stamps ``latency_s`` as
-        ``elapsed() - arrival_s`` (queue wait included)."""
+        ``elapsed() - arrival_s`` (queue wait included).  ``agree(now)``
+        makes the ranks of a mesh admit against one clock reading."""
         pending = sorted(self.queue, key=lambda r: (r.arrival_s, r.uid))
         self.queue = []
         t0 = clock()
         elapsed = lambda: clock() - t0     # noqa: E731
         while pending or busy():
-            now = elapsed()
+            now = elapsed() if agree is None else agree(elapsed())
             while pending and pending[0].arrival_s <= now:
                 if not try_admit(pending[0], now):
                     break
@@ -270,6 +320,97 @@ def device_decode_loop(decode, tok: torch.Tensor, state: dict,
                      dim=1)
 
 
+def chunk_loop(decode_step, tok: torch.Tensor, live: torch.Tensor,
+               made: torch.Tensor, fresh: torch.Tensor,
+               max_new_row: torch.Tensor, eos_row: torch.Tensor,
+               chunk: int) -> tuple:
+    """The schedulers' chunk on the device, with no host sync:
+    ``chunk`` steps of ``decode_step(tok, live) -> tok`` over the pool's
+    (local) slots.  Fresh slots emit their prefill token at buf[:, 0];
+    live slots append at buf[slot, cnt[slot]].  Returns (buf (slots,
+    chunk+1), cnt, steps, occ, tok, live, made): ``steps`` counts the
+    steps that began with a live slot, ``occ`` the live slot-steps."""
+    p, dev = tok.shape[0], tok.device
+    buf = torch.zeros((p, chunk + 1), dtype=torch.int32, device=dev)
+    buf[:, 0] = torch.where(fresh, tok, 0)
+    cnt = fresh.to(torch.int32)
+    steps = torch.zeros((), dtype=torch.int32, device=dev)
+    occ = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(chunk):
+        steps += live.any().to(torch.int32)
+        occ += live.sum(dtype=torch.int32)
+        tok = decode_step(tok, live)
+        at = cnt[:, None].long()
+        buf.scatter_(1, at, torch.where(
+            live, tok, buf.gather(1, at)[:, 0])[:, None])
+        step = live.to(torch.int32)
+        cnt = cnt + step
+        made = made + step
+        live = live & (made < max_new_row) & (tok != eos_row)
+    return buf, cnt, steps, occ, tok, live, made
+
+
+def round_buffer(buf, cnt, live, steps, occ, extras=(), split=None
+                 ) -> torch.Tensor:
+    """What a chunk's one transfer carries, per slot: the token buffer,
+    the count, the live flag, the chunk's steps and occupancy and any
+    fidelity extras, (slots, chunk + 5 + extras) int32; on a mesh every
+    block's rows, all-gathered over the slot split.  Live slots stay live
+    in a prefix of the chunk's steps, so the chunk's steps are the
+    largest block's, its occupancy the blocks' sum."""
+    p = buf.shape[0]
+    return dist_rt.gather_split(torch.cat(
+        [buf, cnt[:, None], live[:, None].to(torch.int32),
+         steps.expand(p)[:, None], occ.expand(p)[:, None]]
+        + [e.to(torch.int32).expand(p)[:, None] for e in extras], dim=1),
+        split)
+
+
+def slot_block(slots: int, split) -> tuple:
+    """(local slots, first global slot) of this rank's block of a pool of
+    ``slots`` slots split by the ``RowSplit`` ``split`` (or None)."""
+    local = slots // dist_rt.split_count(split)
+    return local, (split.index * local if split is not None else 0)
+
+
+def stripe_pages(slots: int, local_slots: int, pages_per_slot: int,
+                 num_pages: Optional[int] = None) -> tuple:
+    """(num_pages, pages a stripe) of a paged pool whose slots split into
+    ``slots // local_slots`` blocks, a stripe of pages each; by default
+    every stripe holds its null page and each of its slots' pages."""
+    blocks = slots // local_slots
+    if num_pages is None:
+        num_pages = blocks * (1 + local_slots * pages_per_slot)
+    return num_pages, num_pages // blocks
+
+
+def slot_decode_step(model, params, cim, pool: dict, pos: torch.Tensor,
+                     tok: torch.Tensor) -> tuple:
+    """One batched decode step of a dense slot pool, every slot at its
+    own position: (sampled tokens, the new pool, the new positions)."""
+    logits, state = model.decode(params, tok[:, None], dict(pool, pos=pos),
+                                 cim=cim)
+    return greedy_sample(logits), {k: state[k] for k in pool}, state["pos"]
+
+
+def paged_decode_step(model, params, cim, attn_plan, pool, table,
+                      pos: torch.Tensor, tok: torch.Tensor,
+                      live: torch.Tensor) -> tuple:
+    """One batched decode step of a paged pool through ``attn_plan``'s
+    fused read (None: the gather read), the new K/V appended in place
+    (dead slots write to the null page): (sampled tokens, the new
+    positions)."""
+    if attn_plan is not None:
+        logits, kts, vts = model.decode_paged_fused(
+            params, tok, pool, table, pos, cim=cim, attn_plan=attn_plan)
+    else:
+        logits, kts, vts = model.decode_paged(params, tok[:, None], pool,
+                                              table, pos, cim=cim)
+    paged_kv.append_tokens(pool, kts.transpose(0, 1), vts.transpose(0, 1),
+                           table, pos, live)
+    return greedy_sample(logits), pos + 1
+
+
 class ServeEngine(_EngineBase):
     def __init__(self, model, params, capacity: int = 512,
                  max_batch: int = 8, cim=None, on_device_loop: bool = True,
@@ -277,25 +418,18 @@ class ServeEngine(_EngineBase):
         super().__init__(model, params, capacity, cim, device, extra_inputs)
         self.max_batch = max_batch
         self.on_device_loop = on_device_loop
-        self.mesh = mesh
-        self.rules = None
         if mesh is not None:
-            dist_rt.check_mesh_request(model, self.cim, "the bucket engine")
             if not on_device_loop or self.extra_inputs:
                 raise NotImplementedError(
                     "on a mesh the bucket engine runs the on-device loop "
                     "without extra inputs (ROADMAP queue 1 item 8)")
-            self.rules = rules or shd.rules_for(model.cfg, "serve")
-            if not any(dist_rt.is_dtensor(getattr(x, "data", x))
-                       for x in tree.leaves(params)):
-                self.params = dist_rt.place_tree(
-                    params, model.param_specs, self.rules, mesh)
+            self._setup_mesh(rules, mesh, "the bucket engine")
 
     def _rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a bucket-wide tensor (as it is off-mesh)."""
         if self.mesh is None:
             return x
-        return dist_rt.shard_rows(x, self.rules, self.mesh)
+        return dist_rt.shard_rows(x, self._split)
 
     def _prefill(self, reqs: list[Request]):
         if self.mesh is None:
@@ -303,19 +437,15 @@ class ServeEngine(_EngineBase):
         tokens = self._rows(self._upload(torch.stack([
             torch.as_tensor(np.asarray(r.prompt), dtype=torch.int32)
             for r in reqs])))
-        with shd.activation_context(self.rules, self.mesh):
+        with self._meshed(self._split):
             logits, state = self.model.prefill(
-                dist_rt.param_view(self.params), tokens, self.capacity,
-                cim=self.cim_prefill)
+                self._view, tokens, self.capacity, cim=self.cim_prefill)
         return greedy_sample(logits), state
 
     def _decode(self, tok: torch.Tensor, state: dict):
-        if self.mesh is None:
-            return self.model.decode(self.params, tok[:, None], state,
+        with self._meshed(self._split):
+            return self.model.decode(self._cparams, tok[:, None], state,
                                      cim=self.cim)
-        with shd.activation_context(self.rules, self.mesh):
-            return self.model.decode(dist_rt.param_view(self.params),
-                                     tok[:, None], state, cim=self.cim)
 
     def _next_bucket(self) -> list[Request]:
         """Pop up to max_batch queued requests sharing one prompt length."""
@@ -343,6 +473,8 @@ class ServeEngine(_EngineBase):
         width = self.buffer_width(max_new)
         # copied up before the prefill is queued, so the copies wait on
         # nothing
+        if self.mesh is not None:
+            self._split = dist_rt.batch_split(self.rules, self.mesh, b)
         max_new_row = self._rows(self._upload(torch.tensor(
             [r.max_new for r in reqs], dtype=torch.int32)))
         eos_row = self._rows(self._upload(torch.tensor(
@@ -352,8 +484,7 @@ class ServeEngine(_EngineBase):
         out = device_decode_loop(self._decode, tok, state, max_new_row,
                                  eos_row, max_new, width)
         if self.mesh is not None:
-            out = dist_rt.gather_rows(out, (b, width + 2), self.rules,
-                                      self.mesh)
+            out = dist_rt.gather_split(out, self._split)
         out = self._device_get(out)
         # a rank's steps count its own rows; live rows stay live in a
         # prefix of the steps, so the bucket's count is the largest
@@ -452,12 +583,23 @@ class Scheduler(_EngineBase):
     device-fidelity config the served weights drift per chunk and are
     restore-scrubbed every ``scrub_every`` chunks (``None`` or 0: never;
     see the module docstring).
+
+    With ``rules=, mesh=`` the pool's slot dim is split over
+    ``dist.sharding.slot_spmd_axes`` (replicated where ``slots`` does
+    not divide): each rank holds ``local_slots`` slots, from global slot
+    ``first_slot`` on, decodes them every step, and the chunk's token
+    buffer and counts are all-gathered over the split before the
+    chunk's one transfer, so ``host_transfers == chunks_run`` on every
+    rank and the counts are the unmeshed ones.  A caller that owns the
+    arrival loop on a mesh must offer every rank the same requests in
+    the same order.
     """
 
     def __init__(self, model, params, capacity: int = 512, slots: int = 8,
                  chunk: int = 8, cim=None, clock=time.monotonic,
                  sleep=time.sleep, device="cuda",
-                 scrub_every: Optional[int] = 8, extra_inputs=None):
+                 scrub_every: Optional[int] = 8, extra_inputs=None,
+                 rules=None, mesh=None):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if chunk < 1:
@@ -467,17 +609,32 @@ class Scheduler(_EngineBase):
         self.chunk = chunk
         self._clock = clock
         self._sleep = sleep
+        self._host_group = None
+        self._prefill_all = False
+        if mesh is not None:
+            self._setup_mesh(rules, mesh, f"the {type(self).__name__}")
+            self._split = dist_rt.batch_split(self.rules, mesh, slots,
+                                              axis="slot")
+            self._host_group = mesh_lib.host_group(mesh)
+            # experts on a DP dim the slots split over: the owner's DP
+            # group alone does not hold them, so every rank prefills
+            self._prefill_all = self._split is not None and any(
+                getattr(x, "ep", None) is not None
+                and x.ep.dim in self._split.dims
+                for x in tree.leaves(self._view))
+        self.local_slots, self.first_slot = slot_block(slots, self._split)
         self._init_fidelity(scrub_every)
         dev = self.device
         i32 = dict(dtype=torch.int32, device=dev)
+        ls = self.local_slots
         # control lanes, shared by the dense and paged pools
-        self.tok = torch.zeros((slots,), **i32)
-        self.live = torch.zeros((slots,), dtype=torch.bool, device=dev)
-        self.made = torch.zeros((slots,), **i32)
-        self.fresh = torch.zeros((slots,), dtype=torch.bool, device=dev)
-        self.max_new_row = torch.ones((slots,), **i32)
-        self.eos_row = torch.full((slots,), -1, **i32)
-        self.pos = torch.zeros((slots,), **i32)
+        self.tok = torch.zeros((ls,), **i32)
+        self.live = torch.zeros((ls,), dtype=torch.bool, device=dev)
+        self.made = torch.zeros((ls,), **i32)
+        self.fresh = torch.zeros((ls,), dtype=torch.bool, device=dev)
+        self.max_new_row = torch.ones((ls,), **i32)
+        self.eos_row = torch.full((ls,), -1, **i32)
+        self.pos = torch.zeros((ls,), **i32)
         # host bookkeeping
         self._slot_req: list[Optional[Request]] = [None] * slots
         self.chunks_run = 0
@@ -490,9 +647,18 @@ class Scheduler(_EngineBase):
         ``init_cache`` but ``pos`` is a lane with the slot at dim 1 (KV
         and, for int8, its scales; a recurrent model's carries; the
         cross keys and values of the frames or patches)."""
-        cache = self.model.init_cache(self.slots, self.capacity,
+        cache = self.model.init_cache(self.local_slots, self.capacity,
                                       self.device)
         self.pool = {k: v for k, v in cache.items() if k != "pos"}
+
+    def owns(self, slot: int) -> bool:
+        """Whether global slot ``slot`` is in this rank's block."""
+        return self.first_slot <= slot < self.first_slot + self.local_slots
+
+    def _prefills(self, slot: int) -> bool:
+        """Whether this rank runs the prefill of an admission to
+        ``slot``."""
+        return self._prefill_all or self.owns(slot)
 
     # --------------------------------------------------- device fidelity
 
@@ -571,11 +737,12 @@ class Scheduler(_EngineBase):
 
     def _arm_slot(self, slot: int, req: Request, tok0: torch.Tensor,
                   pos: int) -> None:
-        """Arm a slot's control lanes for a freshly prefilled request, on
-        the device (tok0 is emitted by the next chunk's prologue).  The
-        initial-liveness rule is the bucket loop's: tok0 is token 1.  The
-        host's values go up in one non-blocking upload: a Python scalar
-        written into a device tensor is a blocking copy."""
+        """Arm a local slot's control lanes for a freshly prefilled
+        request, on the device (tok0 is emitted by the next chunk's
+        prologue).  The initial-liveness rule is the bucket loop's: tok0
+        is token 1.  The host's values go up in one non-blocking upload:
+        a Python scalar written into a device tensor is a blocking
+        copy."""
         made, max_new, eos, at = self._upload(torch.tensor(
             [1, req.max_new, req.eos_id, pos], dtype=torch.int32))
         self.tok[slot] = tok0[0]
@@ -589,12 +756,15 @@ class Scheduler(_EngineBase):
     def _admit(self, req: Request, slot: int) -> bool:
         """Prefill one request and overwrite slot `slot` of the pool with
         its state: the whole slot, so nothing of the last occupant
-        remains."""
-        tok0, st = self._prefill([req])
+        remains (on a mesh, on the ranks that hold the slot)."""
+        if self._prefills(slot):
+            tok0, st = self._prefill([req])
+            if self.owns(slot):
+                at = slot - self.first_slot
+                for name, lane in self.pool.items():
+                    lane[:, at] = st[name][:, 0]
+                self._arm_slot(at, req, tok0, len(req.prompt))
         self.steps_run += 1
-        for name, lane in self.pool.items():
-            lane[:, slot] = st[name][:, 0]
-        self._arm_slot(slot, req, tok0, len(req.prompt))
         self._slot_req[slot] = req
         return True
 
@@ -609,42 +779,22 @@ class Scheduler(_EngineBase):
 
     def _decode_step(self, tok: torch.Tensor, live: torch.Tensor
                      ) -> torch.Tensor:
-        """One batched decode step of every slot at its own position;
-        returns the sampled tokens (slots,)."""
-        state = dict(self.pool, pos=self.pos)
-        logits, state = self.model.decode(self.params, tok[:, None], state,
-                                          cim=self.cim)
-        self.pool = {k: state[k] for k in self.pool}
-        self.pos = state["pos"]
-        return greedy_sample(logits)
+        """One batched decode step of every local slot at its own
+        position; returns the sampled tokens (local slots,)."""
+        tok, self.pool, self.pos = slot_decode_step(
+            self.model, self._cparams, self.cim, self.pool, self.pos, tok)
+        return tok
 
     def _run_chunk(self) -> tuple:
-        """Advance the pool one chunk on the device, with no host sync;
-        returns (buf (slots, chunk+1), cnt, steps, occ) device tensors.
-        Fresh slots emit their prefill token at buf[:, 0]; live slots
-        append at buf[slot, cnt[slot]]."""
-        p, dev = self.slots, self.device
-        buf = torch.zeros((p, self.chunk + 1), dtype=torch.int32,
-                          device=dev)
-        buf[:, 0] = torch.where(self.fresh, self.tok, 0)
-        cnt = self.fresh.to(torch.int32)
-        steps = torch.zeros((), dtype=torch.int32, device=dev)
-        occ = torch.zeros((), dtype=torch.int32, device=dev)
-        tok, live, made = self.tok, self.live, self.made
-        with rows_as_calls(self.decode_per_slot):
-            for _ in range(self.chunk):
-                steps += live.any().to(torch.int32)
-                occ += live.sum(dtype=torch.int32)
-                tok = self._decode_step(tok, live)
-                at = cnt[:, None].long()
-                buf.scatter_(1, at, torch.where(
-                    live, tok, buf.gather(1, at)[:, 0])[:, None])
-                step = live.to(torch.int32)
-                cnt = cnt + step
-                made = made + step
-                live = (live & (made < self.max_new_row)
-                        & (tok != self.eos_row))
-        self.tok, self.live, self.made = tok, live, made
+        """Advance the local slots one chunk on the device, with no host
+        sync (:func:`chunk_loop`); returns (buf (local slots, chunk+1),
+        cnt, steps, occ) device tensors."""
+        with rows_as_calls(self.decode_per_slot), self._meshed(self._split):
+            (buf, cnt, steps, occ, self.tok, self.live,
+             self.made) = chunk_loop(self._decode_step, self.tok, self.live,
+                                     self.made, self.fresh,
+                                     self.max_new_row, self.eos_row,
+                                     self.chunk)
         return buf, cnt, steps, occ
 
     def _retire_slot(self, slot: int) -> None:
@@ -662,18 +812,16 @@ class Scheduler(_EngineBase):
         self._pre_chunk()
         buf, cnt, steps, occ = self._run_chunk()
         self.fresh = torch.zeros_like(self.fresh)
-        p, c = self.slots, self.chunk + 1
-        extras = [e.to(torch.int32).expand(p)[:, None]
-                  for e in self._round_extras()]
-        out = self._device_get(torch.cat(
-            [buf, cnt[:, None], self.live[:, None].to(torch.int32),
-             steps.expand(p)[:, None], occ.expand(p)[:, None]] + extras,
-            dim=1))
+        p, c = self.local_slots, self.chunk + 1
+        out = self._device_get(round_buffer(
+            buf, cnt, self.live, steps, occ, self._round_extras(),
+            self._split))
         self._absorb_round_extras(out[0, c + 4:])
         self.chunks_run += 1
-        self.decode_steps += int(out[0, c + 2])
-        self.steps_run += int(out[0, c + 2])
-        self.occupied_slot_steps += int(out[0, c + 3])
+        steps_run = int(out[::p, c + 2].max())
+        self.decode_steps += steps_run
+        self.steps_run += steps_run
+        self.occupied_slot_steps += int(out[::p, c + 3].sum())
         done_t = elapsed()
         for s in occupied:
             req = self._slot_req[s]
@@ -712,9 +860,14 @@ class Scheduler(_EngineBase):
 
     def run(self) -> list[Request]:
         """Serve the whole queue continuously through the shared arrival
-        pump; returns completed requests."""
+        pump; returns completed requests.  On a mesh the ranks admit
+        against the latest of their clock readings."""
+        agree = None
+        if self._host_group is not None:
+            def agree(now):
+                return mesh_lib.agree_max(now, self._host_group)
         return self._arrival_pump(self._clock, self._sleep, self.try_admit,
-                                  self.is_busy, self._serve_round)
+                                  self.is_busy, self._serve_round, agree)
 
     @property
     def slot_occupancy(self) -> float:
@@ -766,6 +919,18 @@ class PagedScheduler(Scheduler):
     so are the VLM and the encoder-decoder (their cross keys and values
     are per-slot state the page pool does not hold), as in the
     reference.
+
+    On a mesh (``rules=, mesh=``) the read is the gather path: ``'auto'``
+    resolves to it and ``True`` raises, as the reference does for its
+    spmd-sharded slot pool.  Where the slots split over the DP axes the
+    page pool is striped over the same ranks (the ``page`` rule): each
+    rank holds ``num_pages / blocks`` pages (default: one null page and
+    every local slot's worth), with its own null page, allocator and
+    prefix registry, and a slot takes pages from its owner's stripe.  A
+    prompt page is therefore shared only between slots of one stripe.
+    ``pages_in_use_peak``, ``kv_bytes_resident_peak`` and
+    ``prefix_hit_rate`` are summed over the stripes;
+    :meth:`stripe_stats` gives each stripe's.
     """
 
     def __init__(self, model, params, capacity: int = 512, slots: int = 8,
@@ -773,7 +938,8 @@ class PagedScheduler(Scheduler):
                  num_pages: Optional[int] = None, cim=None,
                  clock=time.monotonic, sleep=time.sleep,
                  fused_attn="auto", device="cuda",
-                 scrub_every: Optional[int] = 8, extra_inputs=None):
+                 scrub_every: Optional[int] = 8, extra_inputs=None,
+                 rules=None, mesh=None):
         if not model.supports_paged_kv:
             raise ValueError(f"{type(model).__name__} (family "
                              f"{model.cfg.family!r}) does not support "
@@ -786,15 +952,14 @@ class PagedScheduler(Scheduler):
         capacity = -(-capacity // page_size) * page_size
         self.page_size = page_size
         self.pages_per_slot = capacity // page_size
-        self.num_pages = (1 + slots * self.pages_per_slot
-                          if num_pages is None else num_pages)
+        self.num_pages = num_pages
         self.fused_attn = fused_attn
         if cim is not None:
             cim = dataclasses.replace(cim, kv_layout="paged")
         super().__init__(model, params, capacity=capacity, slots=slots,
                          chunk=chunk, cim=cim, clock=clock, sleep=sleep,
                          device=device, scrub_every=scrub_every,
-                         extra_inputs=extra_inputs)
+                         extra_inputs=extra_inputs, rules=rules, mesh=mesh)
 
     def _resolve_attn_plan(self):
         """The attention plan for this pool's geometry and device, or
@@ -808,6 +973,16 @@ class PagedScheduler(Scheduler):
             return None
         from ..kernels import plan_matmul
         cfg = self.model.cfg
+        if self.mesh is not None:
+            why = "spmd-sharded slot pool"
+            if self.fused_attn is True:
+                raise ValueError(f"fused_attn=True but the fused "
+                                 f"paged-attention read is unavailable: "
+                                 f"{why}")
+            _LOG.info("PagedScheduler: fused paged-attention read "
+                      "unavailable (%s); serving through the slot_view "
+                      "gather path", why)
+            return None
         if cfg.kv_cache_dtype == "int8":
             why = ("int8 KV pool (scale pages the fused read does not "
                    "consume)")
@@ -838,38 +1013,89 @@ class PagedScheduler(Scheduler):
 
     def _init_pool(self) -> None:
         self.attn_plan = self._resolve_attn_plan()
-        self.pool = paged_kv.init_page_pool(self.model.cfg, self.num_pages,
+        blocks = self.slots // self.local_slots
+        self.num_pages, self.stripe_pages = stripe_pages(
+            self.slots, self.local_slots, self.pages_per_slot,
+            self.num_pages)
+        if blocks > 1:
+            axes = shd.slot_spmd_axes(self.rules, self.mesh, self.slots)
+            if (self.num_pages % blocks or shd.page_spmd_axes(
+                    self.rules, self.mesh, self.num_pages) != axes):
+                raise ValueError(
+                    f"num_pages={self.num_pages} must stripe over the DP "
+                    f"axes {axes} the {self.slots} slots split over (a "
+                    f"multiple of {blocks} that the 'page' rule folds "
+                    f"over them)")
+        self.pool = paged_kv.init_page_pool(self.model.cfg,
+                                            self.stripe_pages,
                                             self.page_size, self.device)
-        self.allocator = paged_kv.PageAllocator(self.num_pages,
-                                                self.page_size)
-        # host page tables; entries past a slot's reservation stay 0 (the
-        # null page, masked by position)
+        # one allocator per stripe, each on every rank: the host
+        # scheduler's decisions are the same everywhere
+        self.allocators = [paged_kv.PageAllocator(self.stripe_pages,
+                                                  self.page_size)
+                           for _ in range(blocks)]
+        # host page tables (stripe-local page ids); entries past a slot's
+        # reservation stay 0 (its stripe's null page, masked by position)
         self._page_table = np.zeros((self.slots, self.pages_per_slot),
                                     np.int32)
         self._page_table_dev = None
         self._slot_pages: list[list] = [[] for _ in range(self.slots)]
 
+    @property
+    def allocator(self) -> paged_kv.PageAllocator:
+        """The pool's one allocator; a pool striped over a mesh has one
+        a stripe (``allocators``), and its counts are the engine's
+        (``pages_in_use_peak``, ``prefix_hit_rate``)."""
+        if len(self.allocators) != 1:
+            raise ValueError(f"the pool has {len(self.allocators)} "
+                             f"stripes, one allocator each: read "
+                             f"allocators or the engine's counts")
+        return self.allocators[0]
+
+    def _allocator_of(self, slot: int) -> paged_kv.PageAllocator:
+        return self.allocators[slot // self.local_slots]
+
     # ------------------------------------------------------- accounting
 
     def kv_bytes(self) -> int:
-        """Allocated device bytes of the page pool."""
+        """Allocated device bytes of the page pool (this rank's
+        stripe)."""
         return self.pool.nbytes
 
     def kv_bytes_resident(self) -> int:
-        """Bytes of the pages currently holding live KV."""
-        return self.allocator.pages_in_use * self.pool.page_bytes
-
-    @property
-    def kv_bytes_resident_peak(self) -> int:
-        return self.allocator.peak_in_use * self.pool.page_bytes
+        """Bytes of the pages currently holding live KV, every stripe."""
+        return self.pages_in_use * self.pool.page_bytes
 
     @property
     def pages_in_use(self) -> int:
-        return self.allocator.pages_in_use
+        return sum(a.pages_in_use for a in self.allocators)
+
+    @property
+    def pages_in_use_peak(self) -> int:
+        """Each stripe's peak of pages in use, summed."""
+        return sum(a.peak_in_use for a in self.allocators)
+
+    @property
+    def kv_bytes_resident_peak(self) -> int:
+        return self.pages_in_use_peak * self.pool.page_bytes
 
     @property
     def prefix_hit_rate(self) -> float:
-        return self.allocator.prefix_hit_rate
+        """Prefix hits over lookups, every stripe."""
+        lookups = sum(a.prefix_lookups for a in self.allocators)
+        hits = sum(a.prefix_hits for a in self.allocators)
+        return hits / lookups if lookups else 0.0
+
+    def stripe_stats(self) -> list:
+        """Per stripe (a DP rank's pages; one stripe off a mesh): its
+        pages-in-use peak, resident-KV peak and prefix hit rate."""
+        return [dict(pages_in_use_peak=a.peak_in_use,
+                     kv_bytes_resident_peak=(a.peak_in_use
+                                             * self.pool.page_bytes),
+                     prefix_hits=a.prefix_hits,
+                     prefix_lookups=a.prefix_lookups,
+                     prefix_hit_rate=a.prefix_hit_rate)
+                for a in self.allocators]
 
     # -------------------------------------------------------- admission
 
@@ -886,14 +1112,16 @@ class PagedScheduler(Scheduler):
                 f"request uid={req.uid} needs {n_total} pages (prompt "
                 f"{s_len} + max_new {req.max_new}) but capacity "
                 f"{self.capacity} holds {self.pages_per_slot} per slot")
-        if n_total > self.num_pages - 1:
+        if n_total > self.stripe_pages - 1:
             # deferring would spin forever: even an empty pool cannot
             # satisfy this reservation
             raise ValueError(
                 f"request uid={req.uid} needs {n_total} pages but the pool "
-                f"holds {self.num_pages - 1} usable pages (num_pages="
-                f"{self.num_pages}, page 0 reserved); size num_pages to "
-                f"cover one worst-case request")
+                f"holds {self.stripe_pages - 1} usable pages (num_pages="
+                f"{self.num_pages}, page 0 of each of "
+                f"{len(self.allocators)} stripes reserved); size num_pages "
+                f"to cover one worst-case request")
+        alloc = self._allocator_of(slot)
         prompt_np = np.asarray(req.prompt, dtype=np.int32)
         n_share = s_len // ps                  # full prompt pages
         pages: list = [None] * n_total
@@ -901,34 +1129,37 @@ class PagedScheduler(Scheduler):
                 for j in range(n_share)]
         shared = []
         for j, key in enumerate(keys):
-            pid = self.allocator.lookup_prefix(key)
+            pid = alloc.lookup_prefix(key)
             if pid is not None:
                 pages[j] = pid
                 shared.append(j)
         missing = [j for j in range(n_total) if pages[j] is None]
-        fresh_ids = self.allocator.alloc(len(missing))
+        fresh_ids = alloc.alloc(len(missing))
         if fresh_ids is None:
             # pool exhausted: roll back the prefix references and their
             # statistics (the deferred retry looks them up again)
-            self.allocator.release([pages[j] for j in shared])
-            self.allocator.prefix_hits -= len(shared)
-            self.allocator.prefix_lookups -= n_share
+            alloc.release([pages[j] for j in shared])
+            alloc.prefix_hits -= len(shared)
+            alloc.prefix_lookups -= n_share
             return False
         for j, pid in zip(missing, fresh_ids):
             pages[j] = pid
             if j < n_share:
-                self.allocator.register_prefix(keys[j], pid)
-        tok0, st = self._prefill([req])
+                alloc.register_prefix(keys[j], pid)
+        if self._prefills(slot):
+            tok0, st = self._prefill([req])
         self.steps_run += 1
-        hit = set(shared)
-        write_src = [j for j in range(-(-s_len // ps)) if j not in hit]
-        if write_src:
-            paged_kv.write_prompt_pages(
-                self.pool, st,
-                self._upload(torch.tensor([pages[j] for j in write_src],
-                                          dtype=torch.int32)),
-                self._upload(torch.tensor(write_src, dtype=torch.int32)))
-        self._arm_slot(slot, req, tok0, s_len)
+        if self.owns(slot):
+            hit = set(shared)
+            write_src = [j for j in range(-(-s_len // ps)) if j not in hit]
+            if write_src:
+                paged_kv.write_prompt_pages(
+                    self.pool, st,
+                    self._upload(torch.tensor(
+                        [pages[j] for j in write_src], dtype=torch.int32)),
+                    self._upload(torch.tensor(write_src,
+                                              dtype=torch.int32)))
+            self._arm_slot(slot - self.first_slot, req, tok0, s_len)
         self._page_table[slot] = 0
         self._page_table[slot, :n_total] = pages
         self._page_table_dev = None
@@ -942,8 +1173,9 @@ class PagedScheduler(Scheduler):
         """Copy the host page table to the device if an admission or a
         retire edited it since the last upload."""
         if self._page_table_dev is None:
+            first = self.first_slot
             self._page_table_dev = self._upload(torch.from_numpy(
-                self._page_table.copy()))
+                self._page_table[first:first + self.local_slots].copy()))
 
     @property
     def decode_per_slot(self) -> bool:
@@ -953,27 +1185,17 @@ class PagedScheduler(Scheduler):
 
     def _decode_step(self, tok: torch.Tensor, live: torch.Tensor
                      ) -> torch.Tensor:
-        table = self._page_table_dev
-        if self.attn_plan is not None:
-            logits, kts, vts = self.model.decode_paged_fused(
-                self.params, tok, self.pool, table, self.pos, cim=self.cim,
-                attn_plan=self.attn_plan)
-        else:
-            logits, kts, vts = self.model.decode_paged(
-                self.params, tok[:, None], self.pool, table, self.pos,
-                cim=self.cim)
-        # dead slots write to the null page
-        paged_kv.append_tokens(self.pool, kts.transpose(0, 1),
-                               vts.transpose(0, 1), table, self.pos, live)
-        self.pos = self.pos + 1
-        return greedy_sample(logits)
+        tok, self.pos = paged_decode_step(
+            self.model, self._cparams, self.cim, self.attn_plan, self.pool,
+            self._page_table_dev, self.pos, tok, live)
+        return tok
 
     def _run_chunk(self) -> tuple:
         self._upload_page_table()
         return super()._run_chunk()
 
     def _retire_slot(self, slot: int) -> None:
-        self.allocator.release(self._slot_pages[slot])
+        self._allocator_of(slot).release(self._slot_pages[slot])
         self._slot_pages[slot] = []
         self._page_table[slot] = 0
         self._page_table_dev = None

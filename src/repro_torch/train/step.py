@@ -177,9 +177,9 @@ def make_train_step(model, optimizer: Optimizer, cim=None,
 
     def meshed_grads(state: TrainState, batch):
         """(mean loss, grads placed as the params, new residual)."""
-        rows = next(iter(batch.values())).shape[0]
-        local = {k: dist_rt.shard_rows(v, rules, mesh)
-                 for k, v in batch.items()}
+        split = dist_rt.batch_split(rules, mesh,
+                                    next(iter(batch.values())).shape[0])
+        local = {k: dist_rt.shard_rows(v, split) for k, v in batch.items()}
         with shd.activation_context(rules, mesh):
             loss, grads = compute_grads(dist_rt.param_view(state.params),
                                         local)
@@ -190,10 +190,8 @@ def make_train_step(model, optimizer: Optimizer, cim=None,
             grads = tree.map_leaves(dist_rt.distribute_like, grads,
                                     state.params)
         else:
-            grads = dist_rt.reduce_grads(grads, state.params, rules, mesh,
-                                         rows)
-        return dist_rt.mean_over_rows(loss, rules, mesh, rows), grads, \
-            residual
+            grads = dist_rt.reduce_grads(grads, state.params, mesh, split)
+        return dist_rt.mean_over_rows(loss, split), grads, residual
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
         refuse_ternary(params=state.params)

@@ -203,12 +203,12 @@ def case_serve(out, mesh22):
         placed = rt.place_tree(params, model.param_specs, rules, mesh22)
         view = rt.param_view(placed)
         kinds = sorted({type(v).__name__ for v in view["blocks"].values()})
-        local = rt.shard_rows(tokens, rules, mesh22)
+        split = rt.batch_split(rules, mesh22, tokens.shape[0])
+        local = rt.shard_rows(tokens, split)
         logits, state = model.prefill(view, local, 32, cim=cim)
         nxt, _ = model.decode(view, logits[:, -1].argmax(-1, keepdim=True)
                               .int(), state, cim=cim)
-        full = lambda x: rt.gather_rows(x.contiguous(), (4,) +  # noqa
-                                        tuple(x.shape[1:]), rules, mesh22)
+        full = lambda x: rt.gather_split(x, split)  # noqa: E731
         runs["logit_err"] = max(_max_err(full(logits), ref_logits),
                                 _max_err(full(nxt), ref_next))
         runs["view_kinds"] = kinds
@@ -234,10 +234,10 @@ def case_refusals(out, mesh22):
         except (NotImplementedError, ValueError) as e:
             got[name] = str(e)
     params = model.init(torch.Generator("cpu").manual_seed(0), "cpu")
-    int8 = CIMConfig(mode="ternary", packing="base3", domain="int8")
-    refused("int8", lambda: ServeEngine(model, ternarize_params(params, int8),
-                                        cim=int8, device="cpu",
-                                        mesh=mesh22))
+    device = CIMConfig(mode="ternary", packing="base3", fidelity="device")
+    refused("fidelity", lambda: ServeEngine(
+        model, ternarize_params(params, device), cim=device, device="cpu",
+        mesh=mesh22))
     refused("exact", lambda: make_train_step(
         model, adamw(1e-3), cim=CIMConfig(mode="exact"), mesh=mesh22))
     moe = registry.build(configs.smoke("mixtral-8x7b"))

@@ -67,7 +67,15 @@ full-width internlm2-1.8b w1 cut in two along N and a w2 (and a trit2
 K = 2046, whose last shard pads its input) cut along K, each shard
 through ``cim_linear.linear``'s planned kernel on its local shape, the
 parts joined as the collective joins them, within 1e-5 of max|y| of
-the unsharded kernel (gemv at M = 8, mma at M = 1024, bf16 x).
+the unsharded kernel (gemv at M = 8, mma at M = 1024, bf16 x).  Serving
+on the mesh: the meshed Scheduler and PagedScheduler (gather read)
+equal to the unmeshed ones in tokens, launches, routes and transfers;
+the int8-domain and exact-mode buckets' logits bitwise to the unmeshed
+engines' (no code-weight fill after a warm-up); the int8 row split's two
+shards through the kernel's int32 epilogue, added in int32, then the
+epilogue, bitwise to the unsplit int8 kernel; and smoke mixtral's MoE
+block with its experts in two halves joined along E bitwise to the
+block.
 The dry run (``-k dryrun``): on two full-width layers of internlm2-1.8b,
 base3, the prefill and a decode step predicted on a fake (1, 1) mesh
 name the card's ternary_matmul calls and routes, and the predicted
@@ -2059,6 +2067,110 @@ def test_mesh_tensor_parallel_shards_on_the_card(dev, packing, m, k, n,
     assert got.shape == want.shape == (m, n)
     err = float((got - want).abs().max())
     assert err <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_mesh_schedulers_on_one_card(card_mesh, kind):
+    from repro_torch.dist import sharding as shd
+    cfg, model = _mesh_smoke()
+    cim = CIMConfig(mode="ternary", packing="base3")
+    params = ternarize_params(model.init(
+        torch.Generator("cuda").manual_seed(0), "cuda"), cim)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (8, 12, 6, 10, 9)]
+    got = {}
+    for meshed in (False, True):
+        kw = dict(rules=shd.rules_for(cfg, "serve"),
+                  mesh=card_mesh) if meshed else {}
+        if kind == "paged":
+            eng = PagedScheduler(model, params, capacity=32, slots=3,
+                                 chunk=3, page_size=4, cim=cim,
+                                 fused_attn=False, device="cuda", **kw)
+        else:
+            eng = Scheduler(model, params, capacity=32, slots=3, chunk=3,
+                            cim=cim, device="cuda", **kw)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p, max_new=4 + i % 3))
+        tm.reset_launches()
+        pa.reset_launches()
+        done = eng.run()
+        assert eng.host_transfers == eng.chunks_run
+        got[meshed] = ({r.uid: r.out_tokens for r in done},
+                       dict(tm.LAUNCHES), dict(tm.ROUTES), dict(pa.LAUNCHES),
+                       eng.chunks_run, eng.decode_steps)
+    assert got[True] == got[False]
+    assert got[True][1]["ternary_matmul"] > 0
+    assert got[True][3]["paged_attention"] == 0
+
+
+@pytest.mark.parametrize("domain", ["int8", "exact"])
+def test_mesh_domains_on_one_card_are_bitwise(card_mesh, domain):
+    from repro_torch.dist import sharding as shd
+    cfg, model = _mesh_smoke()
+    weights = model.init(torch.Generator("cuda").manual_seed(0), "cuda")
+    if domain == "int8":
+        cim = CIMConfig(mode="ternary", packing="base3", domain="int8")
+        weights = ternarize_params(weights, cim)
+    else:
+        cim = CIMConfig(mode="exact")
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(0, cfg.vocab_size, (4, 12)).astype(np.int32)
+    got = {}
+    for meshed in (False, True):
+        kw = dict(rules=shd.rules_for(cfg, "serve"),
+                  mesh=card_mesh) if meshed else {}
+        eng = ServeEngine(model, weights, capacity=32, max_batch=4,
+                          cim=cim, device="cuda", **kw)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(uid=i, prompt=p.tolist(), max_new=3))
+        eng.run()
+        fills = backends.CODE_WEIGHTS.fills
+        tok, state = eng._prefill([Request(uid=i, prompt=p.tolist())
+                                   for i, p in enumerate(prompts)])
+        logits, _ = eng._decode(tok, state)
+        got[meshed] = (tok, logits, backends.CODE_WEIGHTS.fills - fills,
+                       eng.cim.backend)
+    assert torch.equal(got[True][0], got[False][0])
+    assert torch.equal(got[True][1], got[False][1])
+    assert got[True][2] == got[False][2] == 0
+    assert got[True][3] == "cuda"
+
+
+@pytest.mark.parametrize("packing", ["base3", "trit2"])
+@pytest.mark.parametrize("m", [8, 1024])
+@pytest.mark.parametrize("k,n", [(8192, 2048), (2046, 2048)])
+def test_mesh_int8_row_shards_on_the_card(dev, packing, m, k, n):
+    from _torch_mesh_serve_worker import int8_row_shards
+    from repro_torch.core.cim_linear import linear
+    g = torch.Generator(dev).manual_seed(k + n)
+    w = ops.pack_weights(torch.randn(k, n, generator=g, device=dev),
+                         packing)
+    x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    want = linear(x, w, CIMConfig(mode="ternary", packing=packing,
+                                  domain="int8"))
+    tm.reset_launches()
+    got = int8_row_shards(x, w, 2)
+    assert tm.LAUNCHES["ternary_matmul_int8"] == 2
+    assert tm.ROUTES["gemv" if m == 8 else "mma"] == 2
+    assert torch.equal(got, want)
+
+
+def test_mesh_expert_halves_on_the_card(dev):
+    from _torch_mesh_serve_worker import expert_halves
+    from repro_torch.models import moe
+    cfg = configs.smoke("mixtral-8x7b")
+    model = registry.build(cfg)
+    cim = CIMConfig(mode="ternary", packing="base3")
+    params = ternarize_params(model.init(
+        torch.Generator(dev).manual_seed(0), dev), cim)
+    wl = {k: v[0] for k, v in params["blocks"].items()}
+    for s_len in (16, 1):
+        x = torch.randn(4, s_len, cfg.d_model, device=dev,
+                        generator=torch.Generator(dev).manual_seed(s_len)
+                        ).to(cfg.dtype)
+        want, _ = moe.moe_block(x, wl, cfg, cim)
+        assert torch.equal(expert_halves(x, wl, cfg, cim), want)
 
 
 # ------------------------------------------------- the dry run (slice 14)

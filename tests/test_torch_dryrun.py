@@ -19,7 +19,13 @@ CPU:
     trace short; xlstm-125m's ``prefill_32k`` is left out: its sLSTM
     steps through the 32,768 positions one at a time, some ten minutes
     of trace (its decode cells are in);
-  * each unported flag raises, naming ROADMAP queue 1 item 8, part 3;
+  * the meshed schedulers' cells on the fake (4, 4) mesh, held to the
+    reference's report and meta keys: one chunk of the ``Scheduler``
+    (``--continuous 8``) and of the ``PagedScheduler`` (``--kv paged``)
+    on smoke internlm2-1.8b base3, whose predicted kernel calls are
+    ``chunk`` times a one-step chunk's, and ``--ep data`` on smoke
+    mixtral-8x7b;
+  * ``--fidelity device`` raises, naming ROADMAP queue 1 item 8, part 3;
   * the ``abstract`` backend serves fake and meta tensors only, and a
     fake tensor never reaches a kernel's launcher.
 """
@@ -61,6 +67,23 @@ def _env(**extra):
     return env
 
 
+# the meshed schedulers' and ep-data cells: key -> (arch, run_cell kw)
+_SLOTS = dict(packed="base3", continuous=8)
+MESH_CELLS = {
+    "chunk8": ("internlm2-1.8b", _SLOTS),
+    "chunk1": ("internlm2-1.8b", dict(_SLOTS, decode_loop=1)),
+    "paged8": ("internlm2-1.8b", dict(_SLOTS, kv_layout="paged")),
+    "ep-data": ("mixtral-8x7b", dict(ep="data")),
+    "ep-data-chunk": ("mixtral-8x7b", dict(ep="data", continuous=8)),
+}
+
+
+def _mesh_cells():
+    return [[f"mesh|{key}", arch, "decode_32k",
+             dict(kw, smoke=True, mesh_shape=[4, 4])]
+            for key, (arch, kw) in MESH_CELLS.items()]
+
+
 def _cells():
     out = []
     for arch in ARCHS:
@@ -91,7 +114,8 @@ def runs(tmp_path_factory):
             text=True),
         **{f"cells{i}": subprocess.Popen(
             [sys.executable, WORKER, "port-cells",
-             str(tmp / f"cells{i}.json"), json.dumps(_cells()[i::2])],
+             str(tmp / f"cells{i}.json"),
+             json.dumps(_cells()[i::2] + _mesh_cells()[i::2])],
             env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True) for i in range(2)}}
     out = {}
@@ -183,11 +207,14 @@ def test_cli_writes_report(tmp_path):
     assert "[ok]" in r.stdout
 
 
-@pytest.mark.parametrize("flag", [dict(continuous=4),
-                                  dict(kv_layout="paged"),
-                                  dict(fidelity="device"),
-                                  dict(ep="data")])
+@pytest.mark.parametrize("flag", [dict(fidelity="device"),
+                                  dict(fidelity="device", continuous=4),
+                                  dict(fidelity="device", continuous=4,
+                                       kv_layout="paged"),
+                                  dict(fidelity="device", ep="data")])
 def test_unported_flags_raise(flag):
+    """Device fidelity on a mesh raises, alone and beside the flags the
+    meshed schedulers and ep-data serve."""
     from repro_torch.launch import dryrun
     with pytest.raises(NotImplementedError,
                        match="ROADMAP queue 1 item 8, part 3"):
@@ -199,7 +226,51 @@ def test_cli_refuses_unported_flag():
     from repro_torch.launch import dryrun
     with pytest.raises(NotImplementedError, match="part 3"):
         dryrun.main(["--arch", "internlm2-1.8b", "--shape", "decode_32k",
-                     "--continuous", "4"])
+                     "--fidelity", "device"])
+
+
+def test_paged_needs_the_slot_pool():
+    from repro_torch.launch import dryrun
+    with pytest.raises(ValueError, match="requires --continuous"):
+        dryrun.run_cell("internlm2-1.8b", "decode_32k", smoke=True,
+                        mesh_shape=(2, 2), kv_layout="paged")
+
+
+# the reference's meta keys of a scheduler cell (launch/dryrun.py)
+CHUNK_KEYS = {"continuous_slots", "chunk"}
+PAGED_KEYS = CHUNK_KEYS | {"kv_layout", "page_size", "num_pages"}
+
+
+@pytest.mark.parametrize("key", list(MESH_CELLS))
+def test_meshed_serving_cells_report(runs, key):
+    rep = runs["cells"][f"mesh|{key}"]
+    assert "error" not in rep and "refused" not in rep, rep
+    assert REPORT_KEYS <= set(rep), REPORT_KEYS - set(rep)
+    assert rep["chips"] == 16 and rep["mesh"] == "4x4"
+    assert rep["memory_stats"]["peak_bytes"] > 0
+    kw = MESH_CELLS[key][1]
+    if kw.get("continuous"):
+        assert (PAGED_KEYS if kw.get("kv_layout") == "paged"
+                else CHUNK_KEYS) <= set(rep)
+        assert rep["continuous_slots"] == 8
+        assert rep["chunk"] == kw.get("decode_loop", 8)
+        # the chunk's all-gather of the token buffer over data = 4
+        assert rep["collectives"]["counts"]["all-gather"] > 0
+    if kw.get("kv_layout") == "paged":
+        # each of data = 4 stripes: a null page and 2 slots x 2048 pages
+        assert (rep["kv_layout"], rep["page_size"], rep["num_pages"]) == \
+            ("paged", 16, 4 * (1 + 2 * 2048))
+    if kw.get("ep"):
+        assert rep["ep"] == "data"
+    if rep["packed"]:
+        chunk = rep["collectives"]
+        one = runs["cells"]["mesh|chunk1"]["collectives"]
+        # 8 decode steps of the rank's 2 slots: 8 x one step's calls, on
+        # the gemv route
+        assert chunk["routes"] == {"gemv": chunk["kernels"][
+            "ternary_matmul"]}
+        assert chunk["kernels"]["ternary_matmul"] == \
+            rep["chunk"] * one["kernels"]["ternary_matmul"] > 0
 
 
 def test_expected_distinct():

@@ -18,7 +18,10 @@ internlm2-1.8b in f32, and each case here asserts on its results:
     domain) on ``(2, 2)``: the unmeshed engine's greedy tokens, one host
     transfer per bucket, prefill and decode logits within 1e-5 of their
     max |value|;
-  * what does not run on a mesh yet raises, naming the ROADMAP item.
+  * what does not run on a mesh yet raises, naming the ROADMAP item:
+    device fidelity in serving, and exact mode, MoE and Adafactor in
+    training (the int8 domain, exact mode and MoE serve on a mesh:
+    ``tests/test_torch_mesh_serve.py``).
 
 Every case ran at least one collective (``CommDebugMode``).  The
 unmeshed port is held against ``repro`` by ``tests/test_torch_serve.py``
@@ -118,7 +121,7 @@ def test_meshed_bucket_engine_matches_unmeshed(results, packing):
     assert "ShardedPacked" in r["view_kinds"]
 
 
-@pytest.mark.parametrize("what", ["int8", "exact", "moe", "legacy",
+@pytest.mark.parametrize("what", ["fidelity", "exact", "moe", "legacy",
                                   "adafactor"])
 def test_unported_mesh_paths_raise(results, what):
     msg = results["refusals"][what]
