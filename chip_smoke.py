@@ -464,13 +464,23 @@ Phases, each of which raises on failure:
               unmeshed and meshed, after a warm-up bucket: tokens,
               launches and routes equal, the engine's own prefill and
               decode logits bitwise, no code-weight fill after the
-              warm-up.  The counts are zeroed just before the meshed runs
-              of (a), (b), (e) and (f) and read just after:
+              warm-up.  (g) Every family's training on the mesh
+              (MESH_FAMILIES, full width, cut depth), each beside an
+              unmeshed run from the same init and batches, losses and
+              every param and optimizer-state leaf bitwise: internlm2-
+              1.8b with Adafactor (3 steps, 4 layers), exact mode (2
+              steps, 2 layers, f32; cim_mac on its codes route),
+              mixtral-8x7b (one Adafactor step, 2 of 32 layers), and one
+              step each of zamba2-7b (7 layers), xlstm-125m (4),
+              whisper-large-v3 (4 + 4) and the VLM (one group of 5).
+              The counts are zeroed just before the meshed runs of (a),
+              (b), (e), (f) and (g) and read just after:
               ``ternary_matmul``, ``ternary_matmul_int8``, ``cim_mac``
               and ``threefry`` must have launched, ``paged_attention``
               not (the meshed pool reads through the gather); they join
               the kernels line as ``launches_mesh`` (and
-              ``launches_mesh_sched``).  (The ``shard`` pass runs in
+              ``launches_mesh_sched``, ``cim_mac``'s
+              ``launches_mesh_train``).  (The ``shard`` pass runs in
               phase 7's analysis CLI.)  ``--mesh-only`` runs this phase
               alone.
 20. dryrun  - the dry run's roofline (``repro_torch.launch.dryrun``,
@@ -5267,6 +5277,28 @@ MESH_SAVE_AT = 2                   # the meshed checkpoint, after step 2
 MESH_TP_TOL = 1e-5       # (d): sharded vs whole kernel, of max|y| (f32)
 # (f): the int8 and exact buckets, (batch, prompt tokens, new tokens)
 MESH_DOMAIN_BUCKET = {"int8": (BATCH, PROMPT, 8), "exact": (BATCH, 32, 4)}
+# (g): training on the mesh for every family, each at full width and cut
+# depth, TRAIN_BATCH x TRAIN_SEQ tokens a step (exact mode: f32 at
+# TRAIN_PARITY_BATCH), its optimizer at a constant lr (TRAIN_LR unless
+# named): internlm2-1.8b with Adafactor, exact mode through cim_mac,
+# mixtral-8x7b (3.16e9 params at 2 of 32 layers), and the recurrent and
+# cross families below the train-families phase's depths (zamba2-7b one
+# shared-block invocation and a tail, whisper 4 + 4, the VLM one group)
+MESH_FAMILIES = (
+    dict(tag="adafactor", arch=TRAIN_ARCH, layers=4, optimizer="adafactor",
+         steps=3),
+    dict(tag="exact", arch=TRAIN_ARCH, layers=2, optimizer="adamw",
+         steps=2, exact=True),
+    dict(tag="moe", arch="mixtral-8x7b", layers=2, optimizer="adafactor",
+         steps=1),
+    dict(tag="zamba2", arch="zamba2-7b", layers=ZAMBA_PARITY_LAYERS,
+         optimizer="adafactor", steps=1, lr=3e-4),
+    dict(tag="xlstm", arch="xlstm-125m", layers=4, optimizer="adamw",
+         steps=1),
+    dict(tag="whisper", arch="whisper-large-v3", layers=4,
+         optimizer="adamw", steps=1),
+    dict(tag="vlm", arch="llama-3.2-vision-90b", layers=5,
+         optimizer="adafactor", steps=1))
 
 
 def mesh_serve(torch, np, cfg, model, params, mesh, card):
@@ -5449,6 +5481,93 @@ def mesh_train(torch, np, mesh_lib, mesh, card):
                ref_step_ms_median=statistics.median(ref_ms[1:]),
                bitwise=True)
     print("[mesh] train " + json.dumps(out))
+    return out
+
+
+def mesh_family_run(torch, mesh, spec, card):
+    """One run of MESH_FAMILIES (see there): ``steps`` steps of the cut
+    config unmeshed and then on the mesh, each from the same seeded
+    init on the card and the same batches; the counts zeroed just
+    before the meshed steps and read just after.  Losses and every
+    param and optimizer-state leaf must be bitwise equal."""
+    import dataclasses
+    from repro_torch.core.cim_linear import CIMConfig
+    from repro_torch.data import DataConfig, batch_for
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import cim_mac as cm
+    from repro_torch.kernels import threefry
+    from repro_torch.models import registry
+    from repro_torch.train import init_state, make_train_step, place_state
+    cfg = train_cfg(spec["arch"], spec["layers"])
+    cim = None
+    rows, seq = TRAIN_BATCH, TRAIN_SEQ
+    if spec.get("exact"):
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        cim = CIMConfig(mode="exact")
+        rows, seq = TRAIN_PARITY_BATCH
+    model = registry.build(cfg)
+    opt = train_optimizer(spec, schedule=False)
+    rules = shd.rules_for(cfg, "train")
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                      global_batch=rows, seed=0)
+    batches = [batch_for(cfg, data, i, device="cuda")
+               for i in range(spec["steps"])]
+    fresh = lambda: init_state(model, opt, torch.Generator(  # noqa: E731
+        device="cuda").manual_seed(0), "cuda")
+
+    def run(state, step_fn):
+        losses, ms = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t = time.monotonic()
+            state, m = step_fn(state, b)
+            losses.append(float(m["loss"]))
+            ms.append((time.monotonic() - t) * 1e3)
+        return state, losses, ms
+
+    ref, ref_losses, ref_ms = run(fresh(),
+                                  make_train_step(model, opt, cim=cim))
+    state = place_state(fresh(), model, opt, rules, mesh)
+    step_fn = make_train_step(model, opt, cim=cim, rules=rules, mesh=mesh)
+    cm.reset_launches()
+    threefry.reset_launches()
+    state, losses, ms = run(state, step_fn)
+    torch.cuda.synchronize()
+    rec = dict(arch=spec["arch"], layers=spec["layers"],
+               optimizer=spec["optimizer"], steps=spec["steps"],
+               rows=rows, seq=seq, params=cfg.param_count(),
+               losses=losses, ref_losses=ref_losses, step_ms=ms,
+               ref_step_ms=ref_ms,
+               launches={"cim_mac": cm.LAUNCHES["cim_mac"],
+                         "threefry": threefry.LAUNCHES["threefry"]},
+               routes=dict(cm.ROUTES), card=card)
+    bad = (_tree_bitwise(torch, state.params, ref.params)
+           + _tree_bitwise(torch, state.opt_state, ref.opt_state))
+    rec["bitwise"] = losses == ref_losses and not bad
+    print(f"[mesh] train-families {spec['tag']} " + json.dumps(rec))
+    check(all(map(math.isfinite, losses)),
+          f"mesh (g) {spec['tag']}: non-finite loss {losses}")
+    check(losses == ref_losses,
+          f"mesh (g) {spec['tag']}: meshed losses {losses} != unmeshed "
+          f"{ref_losses}")
+    check(not bad, f"mesh (g) {spec['tag']}: {len(bad)} leaves differ "
+                   f"from the unmeshed run: {bad[:4]}")
+    if spec.get("exact"):
+        check(rec["launches"]["cim_mac"] > 0
+              and rec["routes"].get("codes") == rec["launches"]["cim_mac"],
+              f"mesh (g) exact: cim_mac launches {rec['launches']} routes "
+              f"{rec['routes']} (want every call on codes)")
+    return rec
+
+
+def mesh_train_families(torch, mesh, card):
+    """(g) Every family's training on the mesh, one MESH_FAMILIES run at
+    a time (the card's memory freed between them)."""
+    out = {}
+    for spec in MESH_FAMILIES:
+        out[spec["tag"]] = mesh_family_run(torch, mesh, spec, card)
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -5687,13 +5806,15 @@ def phase_mesh(torch, np, cfg, model, params, card):
         sched = mesh_sched(torch, np, cfg, model, params, mesh, card)
         domains = mesh_domains(torch, np, cfg, model, params, mesh, card)
         train = mesh_train(torch, np, mesh_lib, mesh, card)
+        families = mesh_train_families(torch, mesh, card)
     finally:
         mesh_lib.destroy_process_group()
     tp = mesh_tensor_parallel(torch, cfg)
     rows = mesh_int8_rows(torch, cfg)
     return dict(mesh=list(MESH_SHAPE), backend="nccl", serve=serve,
                 sched=sched, domains=domains, train=train,
-                tensor_parallel=tp, int8_rows=rows)
+                train_families=families, tensor_parallel=tp,
+                int8_rows=rows)
 
 
 def mesh_summary(mesh):
@@ -5711,6 +5832,10 @@ def mesh_summary(mesh):
         train_step_ms={"unmeshed": t["ref_step_ms_median"],
                        "meshed": t["step_ms_median"]},
         save_s=t["save_s"], bitwise=t["bitwise"],
+        train_families={k: dict(bitwise=r["bitwise"],
+                                step_ms=r["step_ms"],
+                                ref_step_ms=r["ref_step_ms"])
+                        for k, r in mesh["train_families"].items()},
         tp_worst=max(c["max_abs_err"] / c["max_abs_y"]
                      for c in mesh["tensor_parallel"]))
 
@@ -6411,6 +6536,8 @@ def main(argv=None) -> int:
                 "launches"]["ternary_matmul_int8"]
         if k["name"] == "cim_mac":
             k["launches_mesh"] = mesh["domains"]["exact"]["meshed"][
+                "launches"]["cim_mac"]
+            k["launches_mesh_train"] = mesh["train_families"]["exact"][
                 "launches"]["cim_mac"]
         if k["name"] == "paged_attention":
             # the meshed PagedScheduler reads through the gather path

@@ -368,15 +368,12 @@ def shard_rows(x: torch.Tensor, split: Optional[shd.RowSplit]
 def gather_split(x: torch.Tensor, split: Optional[shd.RowSplit]
                  ) -> torch.Tensor:
     """The whole call's rows from each rank's block (an all-gather over
-    the split's dims, in their order; ``x`` itself without a split)."""
+    the split's dims, in their order; ``x`` itself without a split).
+    Under grad its backward keeps this rank's block of the gradient
+    summed over the split (:class:`_GatherRows`)."""
     if split is None:
         return x
-    from torch.distributed.tensor import Replicate, Shard
-    mesh = split.mesh
-    place_ = tuple(Shard(0) if i in split.dims else Replicate()
-                   for i in range(mesh.ndim))
-    shape = (x.shape[0] * split.count,) + tuple(x.shape[1:])
-    return full(_from_local(x.contiguous(), mesh, place_, shape))
+    return _GatherRows.apply(x, split)
 
 
 def reduce_split(x: torch.Tensor, split: Optional[shd.RowSplit],
@@ -393,9 +390,115 @@ def reduce_split(x: torch.Tensor, split: Optional[shd.RowSplit],
     return x
 
 
-def _max_over(amax: torch.Tensor, split: shd.RowSplit) -> torch.Tensor:
-    out = amax.float().clone()
-    return reduce_split(out, split, "max").to(amax.dtype)
+def _max_over(t: torch.Tensor, split: shd.RowSplit) -> torch.Tensor:
+    """The max of ``t`` over the whole call: this rank's max, all-reduced
+    over the split in f32 (gloo has no bf16 max)."""
+    out = t.amax().float().clone()
+    return reduce_split(out, split, "max").to(t.dtype)
+
+
+# ------------------------------------- collectives that carry gradients
+#
+# The meshed train step runs its forward and backward on this rank's
+# rows (``row_block``) and sums each rank's gradient over the split
+# (``reduce_grads``): its objective is the sum of the ranks' losses
+# (over the split's count).  A value every rank holds alike, made from
+# the rows of every rank, then sends each rank's loss gradient back to
+# the rows it came from: a collective's backward sums the incoming
+# gradient over the split.
+
+
+def _summed(g: torch.Tensor, split: shd.RowSplit, skip: tuple = ()
+            ) -> torch.Tensor:
+    """``g`` summed over the split's dims (but ``skip``), in f32 and
+    back in g's dtype."""
+    return reduce_split(g.float().contiguous().clone(), split, "sum",
+                        skip).to(g.dtype)
+
+
+class _SumRows(torch.autograd.Function):
+    """The sum of ``x`` over the split's ranks; its backward sums the
+    gradient over them."""
+
+    @staticmethod
+    def forward(ctx, x, split, skip):
+        ctx.split, ctx.skip = split, skip
+        return reduce_split(x.clone(memory_format=torch.contiguous_format),
+                            split, "sum", skip)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.split, ctx.skip), None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """The whole call's rows from each rank's block; its backward keeps
+    this rank's block of the gradient summed over the split (a
+    reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, split):
+        from torch.distributed.tensor import Replicate, Shard
+        ctx.split = split
+        mesh = split.mesh
+        place_ = tuple(Shard(0) if i in split.dims else Replicate()
+                       for i in range(mesh.ndim))
+        shape = (x.shape[0] * split.count,) + tuple(x.shape[1:])
+        return full(_from_local(x.contiguous(), mesh, place_, shape))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        split = ctx.split
+        mesh = split.mesh
+        src = tuple(Partial() if i in split.dims else Replicate()
+                    for i in range(mesh.ndim))
+        want = tuple(Shard(0) if i in split.dims else Replicate()
+                     for i in range(mesh.ndim))
+        d = _from_local(g.float().contiguous(), mesh, src, g.shape)
+        return d.redistribute(mesh, want).to_local().to(g.dtype), None
+
+
+class _MaxRows(torch.autograd.Function):
+    """The max of ``t`` over the whole call; its backward gives the
+    gradient summed over the split to the elements equal to the max,
+    split evenly among them over every rank, as the reference's
+    ``jnp.max`` splits it among ties on one device (and ``amax``'s own
+    backward does within a rank)."""
+
+    @staticmethod
+    def forward(ctx, t, split):
+        m = _max_over(t, split)
+        mask = t == m
+        count = reduce_split(mask.sum().to(torch.float32), split, "sum")
+        ctx.split = split
+        ctx.save_for_backward(mask, count.to(torch.int64))
+        return m
+
+    @staticmethod
+    def backward(ctx, g):
+        mask, count = ctx.saved_tensors
+        return mask * (_summed(g, ctx.split) / count), None
+
+
+def sum_rows(x: torch.Tensor, split: Optional[shd.RowSplit]
+             ) -> torch.Tensor:
+    """:func:`reduce_split`'s sum, out of place and carrying gradients
+    (the sum over the split's ranks of the incoming gradient)."""
+    if split is None:
+        return x
+    return _SumRows.apply(x, split, ())
+
+
+def max_rows(t: torch.Tensor, split: Optional[shd.RowSplit]
+             ) -> torch.Tensor:
+    """The max of ``t`` over the whole call (a 0-d tensor), carrying
+    gradients where ``t`` needs them (:class:`_MaxRows`)."""
+    if split is None:
+        return t.amax()
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _MaxRows.apply(t, split)
+    return _max_over(t, split)
 
 
 @contextlib.contextmanager
@@ -404,10 +507,12 @@ def row_block(split: Optional[shd.RowSplit]):
     split by ``split`` (None: the rows are the whole call): the MoE
     router routes the whole call's groups (``sharding.row_split``), and
     the exact plans' per-call input scale is the max over the split's
-    ranks (``kernels.plan.call_amax_reducer``)."""
+    ranks (``kernels.plan.call_amax_reducer``).  Under grad both carry
+    gradients (:func:`gather_split`, :func:`sum_rows`, :func:`max_rows`),
+    so a train step's forward and backward run inside it."""
     from ..kernels.plan import call_amax_reducer
     reduce = (None if split is None
-              else functools.partial(_max_over, split=split))
+              else functools.partial(max_rows, split=split))
     with shd.row_split(split), call_amax_reducer(reduce):
         yield
 
@@ -485,31 +590,23 @@ def check_mesh_request(model, cim=None, what: str = "this path",
                        path: str = "train") -> None:
     """Raise for what ``path`` ('serve': the engines; 'train': the train
     step) does not run on a mesh yet.  Serving takes the dense and MoE
-    families, both domains and exact mode; training the dense family's
-    float and bf16 steps."""
+    families, both domains and exact mode; training takes every family
+    and every mode that trains (float and exact; the int8 domain routes
+    ternary mode only, so a float or exact config naming it trains as
+    its mode does).  Ternary training is refused everywhere, by the
+    train step itself, and a ``remat`` other than 'none' and 'full' by
+    the model's forward."""
     if path not in ("serve", "train"):
         raise ValueError(f"path must be 'serve' or 'train', got {path!r}")
-    fams = SERVE_FAMILIES if path == "serve" else ("dense",)
-    if model.cfg.family not in fams:
+    if path == "serve" and model.cfg.family not in SERVE_FAMILIES:
         raise NotImplementedError(
-            f"{what} on a mesh runs the {' and '.join(fams)} "
-            f"famil{'ies' if len(fams) > 1 else 'y'}; {model.cfg.name} "
-            f"(family {model.cfg.family!r}) on a mesh is ROADMAP queue 1 "
-            f"item 8")
-    if cim is None:
-        return
-    if cim.fidelity == "device":
+            f"{what} on a mesh runs the {' and '.join(SERVE_FAMILIES)} "
+            f"families; {model.cfg.name} (family {model.cfg.family!r}) on "
+            f"a mesh is ROADMAP queue 1 item 8")
+    if cim is not None and cim.fidelity == "device":
         raise NotImplementedError(
             "device fidelity on a mesh is not ported (ROADMAP queue 1 "
             "item 8)")
-    if path == "train" and cim.mode == "exact":
-        raise NotImplementedError(
-            "exact-mode training on a mesh is not ported (ROADMAP queue 1 "
-            "item 8)")
-    if path == "train" and cim.domain == "int8":
-        raise NotImplementedError(
-            "the int8 domain's training on a mesh is not ported (ROADMAP "
-            "queue 1 item 8)")
 
 
 def rank() -> int:

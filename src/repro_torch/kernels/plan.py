@@ -97,14 +97,21 @@ _CALL_AMAX = contextvars.ContextVar("call_amax", default=None)
 @contextlib.contextmanager
 def call_amax_reducer(reduce: Optional[Callable]):
     """Within the block, x holds one mesh rank's rows of a call, and
-    ``reduce(amax)`` makes the rank's activation amax the whole call's
-    (the meshed engines install the max over the ranks that split the
-    call's rows).  None: the rows are the whole call."""
+    ``reduce(|x|)`` is the whole call's activation amax (the meshed
+    engines and train step install the max over the ranks that split
+    the call's rows, ``dist.runtime.max_rows``, which carries the
+    gradient to the maximal elements of every rank).  None: the rows
+    are the whole call."""
     token = _CALL_AMAX.set(reduce)
     try:
         yield
     finally:
         _CALL_AMAX.reset(token)
+
+
+def get_call_amax_reducer() -> Optional[Callable]:
+    """The reducer :func:`call_amax_reducer` installed (None outside)."""
+    return _CALL_AMAX.get()
 
 
 def call_amax(x2):
@@ -114,7 +121,7 @@ def call_amax(x2):
     reduce = _CALL_AMAX.get()
     if reduce is None or rows_are_calls():
         return None
-    return reduce(x2.abs().amax())
+    return reduce(x2.abs())
 
 
 def check_choice(kind: str, value: Any, choices) -> None:

@@ -35,10 +35,14 @@ the reference's keys (``lower_s`` is the trace's seconds; nothing
 compiles, so ``compile_s`` is 0) and ``memory_stats`` (the live-bytes
 peak of the traced step, by category) with ``fits`` against an 80 GB
 card.  A cell the reference skips (``runnable``) has its ``skipped``
-reason; a cell whose path the port refuses on a mesh (a family other
-than dense in training, Adafactor on a mesh, packed experts split over
-``model``; ternary training anywhere) has the refusal under ``refused``
-(``skipped`` for ternary training) in place of the roofline.
+reason; a cell whose path the port refuses on a mesh (packed experts
+split over ``model``; ternary training anywhere) has the refusal under
+``refused`` (``skipped`` for ternary training) in place of the
+roofline.  Every family trains on a mesh, with ``--opt auto`` taking
+Adafactor above 3e9 parameters: its factored moments' all-reduces, the
+MoE block's gather of the router logits and sum of the slots (forward
+and backward) and the cross-entropy's label count appear in the
+roll-up's collectives by kind.
 ``--ep data`` applies the ``ep-data`` rules variant (packed experts over
 ``data``, their tokens moved by ``all_to_all``).  ``--fidelity device``
 raises: device fidelity on a mesh is not ported.
@@ -49,6 +53,7 @@ Usage:
       --shape decode_32k --multi-pod --packed base3
   python -m repro_torch.launch.dryrun --all   # subprocess per cell,
                                               # resumable
+  python -m repro_torch.launch.dryrun --train-table   # train_4k rows
 """
 from __future__ import annotations
 
@@ -193,17 +198,17 @@ def run_cell(arch: str, shape, *, multi_pod: bool = False,
         chips, name = mesh.size(), mesh_name(mesh)
         split = dist_rt.batch_split(rules, mesh, cell.global_batch)
         rows = cell.global_batch // dist_rt.split_count(split)
-        # the DeviceMesh's own rank table is a real tensor
-        with FakeTensorMode(allow_non_fake_inputs=True):
-            if cell.kind == "train":
-                cost, tokens, t_trace = _train(
-                    cell, model, rules, mesh, rows, opt_name, microbatches,
-                    unique_count, meta)
-            else:
-                cost, tokens, t_trace = _serve(
-                    cell, model, rules, mesh, split, packed, cim,
-                    decode_loop, capacity or cell.seq_len, unique_count,
-                    meta, continuous, kv_layout, page_size)
+        def trace():
+            # the DeviceMesh's own rank table is a real tensor
+            with FakeTensorMode(allow_non_fake_inputs=True):
+                if cell.kind == "train":
+                    return _train(cell, model, rules, mesh, rows, opt_name,
+                                  microbatches, unique_count, meta)
+                return _serve(cell, model, rules, mesh, split, packed, cim,
+                              decode_loop, capacity or cell.seq_len,
+                              unique_count, meta, continuous, kv_layout,
+                              page_size)
+        cost, tokens, t_trace = _on_deep_stack(trace)
     except NotImplementedError as e:
         # the port refuses this cell's path on a mesh (its message names
         # the ROADMAP item): reported, not traced
@@ -220,6 +225,35 @@ def run_cell(arch: str, shape, *, multi_pod: bool = False,
         memory_stats=mem)
     return {**meta, "lower_s": round(t_trace, 2), "compile_s": 0.0,
             **report.to_dict(), "fits": mem["fits"]}
+
+
+TRACE_STACK = 1 << 30       # bytes of C stack for a cell's trace
+
+
+def _on_deep_stack(fn):
+    """``fn()`` on a thread of TRACE_STACK bytes of C stack, its exception
+    raised here.  Releasing a traced step's autograd graph frees its
+    fake tensors one inside another: xlstm-125m's ``train_4k`` (4096
+    sLSTM steps) went past the main thread's 8 MiB and crashed the
+    process."""
+    import threading
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:        # re-raised in the caller
+            out["error"] = e
+    old = threading.stack_size(TRACE_STACK)
+    try:
+        worker = threading.Thread(target=run)
+        worker.start()
+    finally:
+        threading.stack_size(old)
+    worker.join()
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
 
 
 def _train(cell, model, rules, mesh, rows, opt_name, microbatches,
@@ -480,6 +514,42 @@ def table(out_dir: str, mesh: str = "16x16") -> str:
     return "\n".join(rows)
 
 
+def train_table(out_dir: str, mesh: str = "16x16",
+                shape: str = "train_4k") -> str:
+    """A markdown table of the float ``shape`` reports in ``out_dir`` on
+    ``mesh``, one row per arch: its optimizer, TFLOP, GB and wire GB a
+    rank by collective kind, the live-bytes peak, ``fits`` and the trace
+    seconds; a cell without a trace is listed by why.  Reckoned on the
+    data sheet, not measured."""
+    kinds = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all")
+    rows = ["| arch | optimizer | TFLOP/dev | GB/dev | wire GB/dev: "
+            + ", ".join(kinds) + " | peak GB | fits | trace s |",
+            "|" + " --- |" * 8]
+    untraced = []
+    for arch in configs.ARCHS:
+        path = os.path.join(out_dir, cell_filename(arch, shape, mesh, None))
+        if not os.path.exists(path):
+            untraced.append(f"{arch} (missing)")
+            continue
+        with open(path) as f:
+            rep = json.load(f)
+        if "bottleneck" not in rep:
+            why = rep.get("skipped") or rep.get("refused")
+            untraced.append(f"{arch} ({why})")
+            continue
+        wire = " / ".join(f"{rep['collectives'][k] / 1e9:.4g}"
+                          for k in kinds)
+        rows.append(
+            f"| {arch} | {rep.get('optimizer', '-')} | "
+            f"{rep['flops_per_device'] / 1e12:.4g} | "
+            f"{rep['bytes_per_device'] / 1e9:.4g} | {wire} | "
+            f"{rep['memory_stats']['peak_bytes'] / 1e9:.4g} | "
+            f"{str(rep['fits']).lower()} | {rep['lower_s']} |")
+    if untraced:
+        rows.append("\nuntraced: " + ", ".join(untraced))
+    return "\n".join(rows)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(
         description=__doc__.splitlines()[0],
@@ -526,9 +596,15 @@ def main(argv=None):
     p.add_argument("--table", action="store_true",
                    help="print the markdown table of the reports in "
                         "--out-dir and exit")
+    p.add_argument("--train-table", action="store_true",
+                   help="print the train_4k reports' table (optimizer, "
+                        "wire bytes by kind) and exit")
     args = p.parse_args(argv)
     if args.table:
         print(table(args.out_dir))
+        return
+    if args.train_table:
+        print(train_table(args.out_dir))
         return
     if args.kv == "paged" and not args.continuous:
         p.error("--kv paged requires --continuous SLOTS (the paged "

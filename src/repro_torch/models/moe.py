@@ -46,6 +46,17 @@ products and the combine run on the unmeshed M, so the block's output
 is bitwise the unmeshed one's wherever the router's product gives a
 rank's rows the bits it gives them among all rows (on the CPU, from two
 rows a rank: one row takes BLAS's matrix-vector kernel and its order).
+The auxiliary loss's two means run over the whole call's probabilities
+and choices, which every rank holds, so every rank's loss carries the
+unmeshed aux.
+
+Under grad (the meshed train step, which installs the row split) the
+gather of the logits and the slots' sum carry gradients
+(``dist.runtime.gather_split``, ``sum_rows``): each backward sums the
+ranks' loss gradients and sends each rank the part of its own rows, so
+the step's mean over the ranks' losses has the unmeshed loss's
+gradient, aux included.  Training holds float experts, whole on every
+rank (no expert split).
 """
 from __future__ import annotations
 
@@ -253,8 +264,7 @@ def moe_block_sharded(x: torch.Tensor, w: dict, cfg: ModelConfig, cim,
         xe_own = recv.reshape(ep.count, e_l, ng, cap, d).sum(dim=0)
         xe_own = xe_own.transpose(0, 1)
     else:
-        xe_own = xe[:, lo:lo + e_l].contiguous()
-        dist_rt.reduce_split(xe_own, split, "sum")
+        xe_own = dist_rt.sum_rows(xe[:, lo:lo + e_l], split)
     ye_own = _experts(xe_own, w, cim)                           # (G,El,C,d)
     if ep is None:
         ye = ye_own

@@ -79,6 +79,8 @@ which is what the serving pools copy and pass.
 """
 from __future__ import annotations
 
+import contextlib
+
 import math
 from typing import Any, Optional
 
@@ -130,8 +132,26 @@ def _maybe_remat(fn, cfg: ModelConfig):
         if not torch.is_grad_enabled():
             return fn(*args)
         return torch.utils.checkpoint.checkpoint(
-            fn, *args, use_reentrant=False, preserve_rng_state=False)
+            fn, *args, use_reentrant=False, preserve_rng_state=False,
+            context_fn=_recompute_context)
     return remat
+
+
+def _recompute_context():
+    """``checkpoint``'s contexts: the forward as it is, and for the
+    backward's re-forward the forward's row split and per-call amax
+    reducer (a meshed step's, ``dist.runtime.row_block``) entered again:
+    the re-forward may run on the autograd engine's device thread, where
+    the forward's context variables are unset."""
+    from ..dist.sharding import get_row_split, row_split
+    from ..kernels.plan import call_amax_reducer, get_call_amax_reducer
+    split, reduce = get_row_split(), get_call_amax_reducer()
+
+    @contextlib.contextmanager
+    def again():
+        with row_split(split), call_amax_reducer(reduce):
+            yield
+    return contextlib.nullcontext(), again()
 
 
 def _per_layer(tree: dict, n: int) -> list:
@@ -148,6 +168,22 @@ def _walk(tree: dict, path: tuple = ()):
             yield from _walk(v, path + (k,))
         else:
             yield path + (k,), v
+
+
+def _label_count(mask: torch.Tensor) -> torch.Tensor:
+    """The cross-entropy's divisor: the labels counted (at least one).
+    Where the rows are one rank's block of a meshed step's batch
+    (``dist.sharding.row_split``), the whole batch's count over the
+    split's ranks, so the step's mean over the ranks' losses is the
+    mean over every label of the batch, however the masked labels fall
+    among the ranks."""
+    from ..dist.sharding import get_row_split
+    split = get_row_split()
+    if split is None:
+        return torch.clamp_min(mask.sum(), 1.0)
+    from ..dist.runtime import reduce_split
+    total = reduce_split(mask.sum().detach().clone(), split, "sum")
+    return torch.clamp_min(total, 1.0) / split.count
 
 
 class BaseModel:
@@ -191,8 +227,7 @@ class BaseModel:
         gold = torch.gather(logits, -1,
                             labels.clamp_min(0)[..., None])[..., 0]
         mask = (labels >= 0).to(torch.float32)
-        ce = torch.sum((logz - gold) * mask) / torch.clamp_min(mask.sum(),
-                                                               1.0)
+        ce = torch.sum((logz - gold) * mask) / _label_count(mask)
         return ce + aux
 
     def init(self, generator: torch.Generator, device="cuda",

@@ -23,8 +23,12 @@ On a mesh (``dist.runtime``) the params, grads and state are DTensors of
 one placement per leaf.  AdamW's and SGD's updates are elementwise, so
 they run on each rank's local pieces; ``global_norm`` adds each rank's
 local sums (a piece replicated over a mesh dim counted once) and sums
-them over the mesh.  Adafactor's factored moments reduce over the last
-two dims and raise on a DTensor (ROADMAP queue 1 item 8).
+them over the mesh.  Adafactor's factored moments are means over the
+last two dims, which the train rules split: each is a local sum
+all-reduced over the mesh dims that split its dim, over the dim's global
+extent, and its RMS clip sums squares over the whole leaf as
+``global_norm`` does.  A leaf no mesh dim of more than one rank splits
+(every leaf on one card) takes the unmeshed arithmetic, op for op.
 """
 from __future__ import annotations
 
@@ -197,12 +201,105 @@ def _factored(shape) -> bool:
     return len(shape) >= 2 and shape[-1] >= 2 and shape[-2] >= 2
 
 
+class _Split:
+    """How a DTensor leaf is split over its mesh, for Adafactor's
+    reductions: the process groups of the mesh dims (of more than one
+    rank) that split each of its last two dims, its global numel, and
+    whether any such dim splits it at all.  A plain tensor, or a leaf no
+    mesh dim of more than one rank splits, reduces in place: the
+    unmeshed arithmetic, op for op."""
+
+    def __init__(self, x):
+        self.x = x
+        self.mesh = x.device_mesh if dist_rt.is_dtensor(x) else None
+        self.numel = x.numel()
+        self.by_dim = {}
+        if self.mesh is None:
+            return
+        nd = x.ndim
+        for i, p in enumerate(x.placements):
+            if p.is_shard() and self.mesh.size(i) > 1:
+                self.by_dim.setdefault(p.dim % nd, []).append(
+                    self.mesh.get_group(i))
+
+    @property
+    def split(self) -> bool:
+        return bool(self.by_dim)
+
+    def mean(self, y: torch.Tensor, dim: int, tensor_dim: int,
+             keepdim: bool = False) -> torch.Tensor:
+        """``y.mean(dim)`` over the whole of the leaf's ``tensor_dim``
+        (which ``dim`` of ``y``'s local piece runs along): a local sum
+        all-reduced over the mesh dims that split it, over its global
+        extent."""
+        groups = self.by_dim.get(tensor_dim % self.x.ndim)
+        if not groups:
+            return y.mean(dim=dim, keepdim=keepdim)
+        import torch.distributed as dist
+        out = y.sum(dim=dim, keepdim=keepdim)
+        for group in groups:
+            dist.all_reduce(out, group=group)
+        return out / self.x.shape[tensor_dim]
+
+    def total(self, sq: torch.Tensor) -> torch.Tensor:
+        """The whole leaf's sum from ``sq``, this rank's sum over its
+        piece: counted where the rank owns the piece
+        (``dist.runtime.owns``), summed over the mesh."""
+        if not self.split:
+            return sq
+        if not dist_rt.owns(self.x):
+            sq = torch.zeros_like(sq)
+        return dist_rt.world_sum(sq, self.mesh)
+
+    def moments(self, s: dict) -> tuple:
+        """(the moment leaves' local pieces aligned with the leaf's piece,
+        a function writing them back): ``r`` keeps the leaf's split of
+        its leading dims (its last dim is the leaf's rows), ``c`` the
+        leaf's split of every dim but the rows, ``v`` the leaf's; a
+        moment placed otherwise is redistributed to that and back."""
+        if self.mesh is None:
+            return s, lambda: None
+        from torch.distributed.tensor import Replicate, Shard
+        nd = self.x.ndim
+
+        def want(drop):
+            out = []
+            for p in self.x.placements:
+                d = p.dim % nd if p.is_shard() else None
+                if d is None or d == drop:
+                    out.append(Replicate())
+                else:
+                    out.append(Shard(d - 1 if drop is not None and d > drop
+                                     else d))
+            return tuple(out)
+        wants = {"r": want(nd - 1), "c": want(nd - 2), "v": want(None)}
+        local, back = {}, []
+        for k, m in s.items():
+            w = wants[k]
+            same = all(self.mesh.size(i) == 1 or a == b
+                       for i, (a, b) in enumerate(zip(m.placements, w)))
+            if same:
+                local[k] = m.to_local()
+                continue
+            moved = m.redistribute(self.mesh, w)
+            local[k] = moved.to_local()
+            back.append((m, moved))
+
+        def write_back():
+            for m, moved in back:
+                m.to_local().copy_(moved.redistribute(
+                    self.mesh, tuple(m.placements)).to_local())
+        return local, write_back
+
+
 def adafactor(lr: Callable | float, decay: float = 0.8, eps: float = 1e-30,
               clip_threshold: float = 1.0, max_grad_norm: float = 1.0,
               min_dim_size_to_factor: int = 2) -> Optimizer:
     """Factored second moments (Shazeer & Stern, 2018): a matrix keeps a
     row vector ``r`` and a column vector ``c`` in f32, anything else a
-    full ``v``; the update is clipped to an RMS of ``clip_threshold``."""
+    full ``v``; the update is clipped to an RMS of ``clip_threshold``.
+    On a mesh the means over the last two dims and the RMS run over the
+    whole leaf (:class:`_Split`)."""
     lr_fn = lr if callable(lr) else constant_lr(lr)
 
     def init(params):
@@ -228,32 +325,28 @@ def adafactor(lr: Callable | float, decay: float = 0.8, eps: float = 1e-30,
 
     @torch.no_grad()
     def update(grads, state, params, step):
-        if any(map(dist_rt.is_dtensor, tree.leaves(params))):
-            raise NotImplementedError(
-                "Adafactor on a mesh: its factored moments reduce over "
-                "the last two dims, which the placements may split "
-                "(ROADMAP queue 1 item 8); use adamw or sgd")
         gnorm = _norm_and_clip(grads, max_grad_norm)
-        step = _step_on(step, params)
+        step = _step_on(step, dist_rt.local_tree(params))
         t = _f32(step) + 1.0
         beta = 1.0 - t ** (-decay)
         lr_t = lr_fn(step)
 
-        def unclipped(g, s, i, first: bool):
+        def unclipped(g, s, i, first: bool, sp: _Split):
             """The update of part i of a leaf before the RMS clip; the
             first pass over a part updates its moments."""
             g32 = g[i].to(torch.float32)
+            nd = sp.x.ndim
             if "r" in s:
                 r, c = s["r"][i], s["c"][i]
                 if first:
                     g2 = torch.square(g32) + eps
-                    r.copy_(beta * r + (1 - beta) * g2.mean(dim=-1))
-                    c.copy_(beta * c + (1 - beta) * g2.mean(dim=-2))
+                    r.copy_(beta * r + (1 - beta) * sp.mean(g2, -1, nd - 1))
+                    c.copy_(beta * c + (1 - beta) * sp.mean(g2, -2, nd - 2))
                     del g2
                 # rank-1 reconstruction of the second moment
                 denom = (r[..., None] / torch.clamp_min(
-                    r.mean(dim=-1, keepdim=True), eps)[..., None]) * \
-                    c[..., None, :]
+                    sp.mean(r, -1, nd - 2, keepdim=True), eps)[..., None]) \
+                    * c[..., None, :]
                 return g32 * torch.rsqrt(torch.clamp_min(denom, eps))
             v = s["v"][i]
             if first:
@@ -261,23 +354,34 @@ def adafactor(lr: Callable | float, decay: float = 0.8, eps: float = 1e-30,
             return g32 * torch.rsqrt(torch.clamp_min(v, eps))
 
         def leaf(p, g, s):
+            sp = _Split(p)
+            p, g = dist_rt.local(p), dist_rt.local(g)
+            s, write_back = sp.moments(s)
             parts = _parts(p)
             # update clipping (RMS)
-            if len(parts) == 1:
-                upd = unclipped(g, s, parts[0], True)
+            if len(parts) == 1 and not sp.split:
+                upd = unclipped(g, s, parts[0], True, sp)
                 rms = torch.sqrt(torch.mean(torch.square(upd)) + 1e-12)
                 _apply(p, lr_t, upd / torch.clamp_min(rms / clip_threshold,
                                                        1.0))
-                return
-            # a sliced leaf: the sum of squares over its slices, then each
-            # slice's update again, clipped
-            sq = 0
-            for i in parts:
-                sq = sq + torch.sum(torch.square(unclipped(g, s, i, True)))
-            rms = torch.sqrt(sq / p.numel() + 1e-12)
-            scale = torch.clamp_min(rms / clip_threshold, 1.0)
-            for i in parts:
-                _apply(p[i], lr_t, unclipped(g, s, i, False) / scale)
+            elif len(parts) == 1:
+                upd = unclipped(g, s, parts[0], True, sp)
+                rms = torch.sqrt(sp.total(torch.sum(torch.square(upd)))
+                                 / sp.numel + 1e-12)
+                _apply(p, lr_t, upd / torch.clamp_min(rms / clip_threshold,
+                                                       1.0))
+            else:
+                # a sliced leaf: the sum of squares over its slices, then
+                # each slice's update again, clipped
+                sq = 0
+                for i in parts:
+                    sq = sq + torch.sum(torch.square(
+                        unclipped(g, s, i, True, sp)))
+                rms = torch.sqrt(sp.total(sq) / sp.numel + 1e-12)
+                scale = torch.clamp_min(rms / clip_threshold, 1.0)
+                for i in parts:
+                    _apply(p[i], lr_t, unclipped(g, s, i, False, sp) / scale)
+            write_back()
 
         # the state holds a dict where the params hold a leaf
         tree.map_leaves(leaf, params, grads, state)

@@ -191,14 +191,17 @@ def _group_size(func, args, kwargs) -> int:
     return dist.get_world_size()
 
 
+_SSM_MARK = "repro_torch.ssm"      # the autograd node metadata's key
+
+
 class _Mark(TorchFunctionMode):
     """Marks the autograd nodes a torch call from ``models/ssm.py`` adds
     to the graph (those between its outputs and its inputs), so the
-    backward pass places their products as the forward did."""
-
-    def __init__(self, marked: set):
-        super().__init__()
-        self.marked = marked
+    backward pass places their products as the forward did.  The mark
+    lives in each node's ``metadata``: holding the nodes here would keep
+    a long recurrence's whole graph alive past its backward, and
+    releasing it at once overflowed the C stack (xlstm-125m's
+    ``train_4k``, 4096 sLSTM steps)."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
@@ -211,9 +214,10 @@ class _Mark(TorchFunctionMode):
             todo = [x.grad_fn for x in _tensors(out)]
             while todo:
                 node = todo.pop()
-                if node is None or node in stop or node in self.marked:
+                if (node is None or node in stop
+                        or node.metadata.get(_SSM_MARK)):
                     continue
-                self.marked.add(node)
+                node.metadata[_SSM_MARK] = True
                 todo.extend(n for n, _ in node.next_functions)
         return out
 
@@ -235,8 +239,7 @@ class OpCost(TorchDispatchMode):
         self.kernel_bytes = 0.0
         self.weight_bytes = 0.0
         self.ops = 0
-        self._marked: set = set()
-        self._mark = _Mark(self._marked)
+        self._mark = _Mark()
         self._live: dict = {}            # storage id -> (ref, bytes, cat)
         self.live = dict.fromkeys(CATEGORIES, 0)
         self.peak = 0
@@ -312,7 +315,6 @@ class OpCost(TorchDispatchMode):
         out = super().__exit__(*exc)
         self._mark.__exit__(*exc)
         _ACTIVE.reset(self._token)
-        self._marked.clear()
         return out
 
     @staticmethod
@@ -342,7 +344,8 @@ class OpCost(TorchDispatchMode):
         if site is None:
             node = torch._C._current_autograd_node()
             if node is not None:
-                site = ("ssm.py", "") if node in self._marked else ("", "")
+                site = (("ssm.py", "") if node.metadata.get(_SSM_MARK)
+                        else ("", ""))
         if site is None:
             self.products["unplaced"] += n
             rate = "f32" if f32 else "bf16"

@@ -21,7 +21,12 @@ the reference's ``repro.train.step``.
   rank before the forward (``param_view``), takes this rank's whole
   gradient with the unmeshed code, averages it over the DP shards into
   each leaf's placement (a reduce-scatter, or the int8 all-gather with
-  ``compress_grads``), and updates each rank's pieces in place.  This is
+  ``compress_grads``), and updates each rank's pieces in place.  The
+  forward and backward run inside ``dist.runtime.row_block``: what
+  couples rows across ranks sees the whole call through collectives
+  that carry gradients (the exact mode's per-call input amax, the MoE
+  router's groups and aux loss, the cross-entropy's label count), so
+  every family, Adafactor and exact mode train as unmeshed.  This is
   not FSDP or tensor parallelism: the mesh shards the state at rest
   only (like ZeRO-1), each rank's peak holds the whole params and
   gradients besides its shards, so no model that misses one card trains
@@ -142,6 +147,18 @@ def value_and_grad(model, params, batch, cim=None):
     return loss.detach(), tree.unflatten_like(params, grads)
 
 
+def _local_rows(x: torch.Tensor, split, microbatches: int) -> torch.Tensor:
+    """This rank's rows of the global batch ``x``: its block of each
+    global microbatch, in microbatch order, so that the rank's i-th
+    microbatch holds its rows of the unmeshed step's i-th (the calls
+    whose rows couple, the MoE groups and the exact scale, are then the
+    unmeshed ones).  With one microbatch, its block of the batch."""
+    if split is None or microbatches <= 1:
+        return dist_rt.shard_rows(x, split)
+    parts = x.reshape((microbatches, -1) + tuple(x.shape[1:]))
+    return torch.cat([dist_rt.shard_rows(m, split) for m in parts])
+
+
 def make_train_step(model, optimizer: Optimizer, cim=None,
                     microbatches: int = 1, rules=None, mesh=None,
                     compress_grads: bool = False) -> Callable:
@@ -179,8 +196,9 @@ def make_train_step(model, optimizer: Optimizer, cim=None,
         """(mean loss, grads placed as the params, new residual)."""
         split = dist_rt.batch_split(rules, mesh,
                                     next(iter(batch.values())).shape[0])
-        local = {k: dist_rt.shard_rows(v, split) for k, v in batch.items()}
-        with shd.activation_context(rules, mesh):
+        local = {k: _local_rows(v, split, microbatches)
+                 for k, v in batch.items()}
+        with shd.activation_context(rules, mesh), dist_rt.row_block(split):
             loss, grads = compute_grads(dist_rt.param_view(state.params),
                                         local)
         residual = state.ef_residual

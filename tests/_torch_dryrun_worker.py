@@ -278,10 +278,15 @@ def port_specs(out_path: str) -> None:
 
 def port_cells(out_path: str, cells_json: str) -> None:
     """Run each (arch, shape, kwargs) of ``cells_json`` through
-    ``run_cell``; write {key: report or the exception's repr}."""
+    ``run_cell``; write {key: report or the exception's repr}.  A shape
+    is a ``SHAPES`` name or a ``[name, seq_len, global_batch, kind]``
+    cell of its own."""
+    from repro_torch.configs.shapes import ShapeCell
     from repro_torch.launch import dryrun
     out = {}
     for key, arch, shape, kwargs in json.loads(cells_json):
+        if isinstance(shape, list):
+            shape = ShapeCell(*shape)
         kw = dict(kwargs)
         if "mesh_shape" in kw:
             kw["mesh_shape"] = tuple(kw["mesh_shape"])

@@ -220,10 +220,10 @@ def case_refusals(out, mesh22):
     from repro_torch import configs
     from repro_torch.core.cim_linear import CIMConfig, ternarize_params
     from repro_torch.models import registry
-    from repro_torch.optim import adafactor, adamw
+    from repro_torch.optim import adamw
+    from repro_torch.dist import sharding as shd
     from repro_torch.serve import ServeEngine
     from repro_torch.train import init_state, make_train_step, place_state
-    from repro_torch.dist import sharding as shd
     cfg, model = _smoke()
     got = {}
 
@@ -238,21 +238,23 @@ def case_refusals(out, mesh22):
     refused("fidelity", lambda: ServeEngine(
         model, ternarize_params(params, device), cim=device, device="cpu",
         mesh=mesh22))
-    refused("exact", lambda: make_train_step(
-        model, adamw(1e-3), cim=CIMConfig(mode="exact"), mesh=mesh22))
-    moe = registry.build(configs.smoke("mixtral-8x7b"))
-    refused("moe", lambda: make_train_step(moe, adamw(1e-3), mesh=mesh22))
     refused("legacy", lambda: ServeEngine(model, params, device="cpu",
                                           on_device_loop=False,
                                           mesh=mesh22))
-    opt = adafactor(1e-3)
-    rules = shd.rules_for(cfg, "train")
-    state = place_state(init_state(model, opt, torch.Generator(
-        "cpu").manual_seed(0), "cpu"), model, opt, rules, mesh22)
+    for arch in ("zamba2-7b", "whisper-large-v3"):
+        other = registry.build(configs.smoke(arch))
+        refused(f"serve {arch}", lambda: ServeEngine(
+            other, other.init(torch.Generator("cpu").manual_seed(0), "cpu"),
+            device="cpu", mesh=mesh22))
+    dots = registry.build(dataclasses.replace(cfg, remat="dots"))
+    opt = adamw(1e-3)
+    state = place_state(init_state(dots, opt, torch.Generator(
+        "cpu").manual_seed(0), "cpu"), dots, opt,
+        shd.rules_for(cfg, "train"), mesh22)
     batch = {"tokens": torch.zeros((4, 8), dtype=torch.int32),
              "labels": torch.zeros((4, 8), dtype=torch.int32)}
-    step = make_train_step(model, opt, rules=rules, mesh=mesh22)
-    refused("adafactor", lambda: step(state, batch))
+    step = make_train_step(dots, opt, mesh=mesh22)
+    refused("remat dots", lambda: step(state, batch))
     out["refusals"] = got
 
 

@@ -61,8 +61,9 @@ sync, no new plan, no build), and a hidden sync caught.
 The sharding layer (``-k mesh``) on a one-card NCCL mesh (1, 1): the
 bucket engine's tokens, launches and routes equal to the unmeshed
 engine's (base3 and trit2), two AdamW steps bitwise equal to unmeshed
-ones, and a meshed checkpoint restored unmeshed and onto a fresh mesh
-going on bitwise; the tensor-parallel route without a second rank: a
+ones, two Adafactor steps, two exact-mode steps (cim_mac on its code
+route) and two of smoke mixtral bitwise too, and a meshed checkpoint
+restored unmeshed and onto a fresh mesh going on bitwise; the tensor-parallel route without a second rank: a
 full-width internlm2-1.8b w1 cut in two along N and a w2 (and a trit2
 K = 2046, whose last shard pads its input) cut along K, each shard
 through ``cim_linear.linear``'s planned kernel on its local shape, the
@@ -2016,6 +2017,49 @@ def test_mesh_train_step_on_one_card_is_bitwise(card_mesh):
     assert losses == ref_losses
     assert _bitwise(state.params, ref.params)
     assert _bitwise(state.opt_state, ref.opt_state)
+
+
+@pytest.mark.parametrize("case", ["adafactor", "exact", "moe"])
+def test_mesh_train_families_on_one_card_are_bitwise(card_mesh, case):
+    """Two steps on the one-card mesh, bitwise the unmeshed ones:
+    Adafactor's factored moments, exact mode through cim_mac's code
+    route (launched, every call on codes), smoke mixtral's MoE block."""
+    from repro_torch.data import DataConfig, batch_for
+    from repro_torch.dist import sharding as shd
+    from repro_torch.kernels import cim_mac as cm
+    from repro_torch.optim import adafactor, adamw
+    from repro_torch.train import init_state, make_train_step, place_state
+    arch = "mixtral-8x7b" if case == "moe" else "internlm2-1.8b"
+    cfg = dataclasses.replace(configs.smoke(arch), dtype=torch.float32,
+                              remat="full")
+    model = registry.build(cfg)
+    opt = adafactor(1e-2) if case == "adafactor" else adamw(1e-3)
+    cim = CIMConfig(mode="exact") if case == "exact" else None
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4,
+                      seed=0)
+    rules = shd.rules_for(cfg, "train")
+
+    def run(state, fn):
+        losses = []
+        for step in range(2):
+            state, m = fn(state, batch_for(cfg, data, step, device="cuda"))
+            losses.append(float(m["loss"]))
+        return state, losses
+
+    def fresh():
+        return init_state(model, opt, torch.Generator("cuda").manual_seed(0),
+                          "cuda")
+    ref, ref_losses = run(fresh(), make_train_step(model, opt, cim=cim))
+    cm.reset_launches()
+    state, losses = run(place_state(fresh(), model, opt, rules, card_mesh),
+                        make_train_step(model, opt, cim=cim, rules=rules,
+                                        mesh=card_mesh))
+    assert losses == ref_losses
+    assert _bitwise(state.params, ref.params)
+    assert _bitwise(state.opt_state, ref.opt_state)
+    if case == "exact":
+        assert cm.LAUNCHES["cim_mac"] > 0
+        assert cm.ROUTES["codes"] == cm.LAUNCHES["cim_mac"]
 
 
 def test_mesh_elastic_restore_on_one_card(card_mesh, tmp_path):

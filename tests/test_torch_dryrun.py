@@ -11,14 +11,18 @@ CPU:
     specs in a subprocess with 256 host devices, the port on a fake
     process group of 256 ranks in another;
   * every arch x shape at smoke size on a fake (4, 4) mesh writes a
-    report with the reference's keys, the reference's skip reason where
-    ``runnable`` says so, or the port's refusal on a mesh (naming the
-    ROADMAP item); ``--packed base3`` on one serve cell and ``trit2`` on
-    another route every packed matmul to the ``abstract`` backend.  The
+    report with the reference's keys or the reference's skip reason
+    where ``runnable`` says so, and no cell is refused (every family
+    trains on a mesh); ``--packed base3`` on one serve cell and
+    ``trit2`` on another route every packed matmul to the ``abstract``
+    backend; ``--opt adafactor`` on smoke internlm2-1.8b's and
+    mixtral-8x7b's ``train_4k`` names the optimizer and adds its
+    all-reduces.  The
     train cells run one microbatch (``--microbatches 1``) to keep the
-    trace short; xlstm-125m's ``prefill_32k`` is left out: its sLSTM
-    steps through the 32,768 positions one at a time, some ten minutes
-    of trace (its decode cells are in);
+    trace short; xlstm-125m's ``prefill_32k`` and ``train_4k`` are left
+    out: its sLSTM steps through the positions one at a time, some ten
+    minutes of trace each (its decode cells are in, and its train step
+    at 64 positions);
   * the meshed schedulers' cells on the fake (4, 4) mesh, held to the
     reference's report and meta keys: one chunk of the ``Scheduler``
     (``--continuous 8``) and of the ``PagedScheduler`` (``--kv paged``)
@@ -45,8 +49,11 @@ SHAPE_NAMES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 ARCHS = ("internlm2-1.8b", "glm4-9b", "phi3-mini-3.8b", "qwen3-14b",
          "mixtral-8x7b", "kimi-k2-1t-a32b", "zamba2-7b", "xlstm-125m",
          "whisper-large-v3", "llama-3.2-vision-90b")
-# what the sLSTM's per-position loop makes too slow to trace here
-LEFT_OUT = {("xlstm-125m", "prefill_32k")}
+# what the sLSTM's per-position loop makes too slow to trace here (its
+# train_4k, ~10 minutes at smoke size, traces at 64 positions instead:
+# XLSTM_TRAIN)
+LEFT_OUT = {("xlstm-125m", "prefill_32k"), ("xlstm-125m", "train_4k")}
+XLSTM_TRAIN = ["train_4k", 64, 256, "train"]
 PACKED = {("internlm2-1.8b", "decode_32k"): "base3",
           ("qwen3-14b", "prefill_32k"): "trit2"}
 # the reference's report keys (launch/dryrun.py's run_cell)
@@ -78,10 +85,20 @@ MESH_CELLS = {
 }
 
 
+# Adafactor's train cells, dense and MoE: key -> arch
+ADAFACTOR_CELLS = {"ada-dense": "internlm2-1.8b", "ada-moe": "mixtral-8x7b"}
+
+
 def _mesh_cells():
     return [[f"mesh|{key}", arch, "decode_32k",
              dict(kw, smoke=True, mesh_shape=[4, 4])]
-            for key, (arch, kw) in MESH_CELLS.items()]
+            for key, (arch, kw) in MESH_CELLS.items()] + [
+        [f"mesh|{key}", arch, "train_4k",
+         dict(smoke=True, mesh_shape=[4, 4], microbatches=1,
+              opt_name="adafactor")]
+        for key, arch in ADAFACTOR_CELLS.items()] + [
+        ["mesh|xlstm-train", "xlstm-125m", XLSTM_TRAIN,
+         dict(smoke=True, mesh_shape=[4, 4], microbatches=1)]]
 
 
 def _cells():
@@ -162,12 +179,8 @@ def test_every_cell_reports(runs, key):
     if not ok:
         assert rep["skipped"] == reason
         return
-    if "refused" in rep:
-        # the port runs only the dense family's training on a mesh
-        assert SHAPES[shape].kind == "train"
-        assert configs.smoke(arch).family != "dense"
-        assert "ROADMAP queue 1 item 8" in rep["refused"]
-        return
+    # every family trains on a mesh: no cell is refused
+    assert "refused" not in rep, rep["refused"]
     assert REPORT_KEYS <= set(rep), REPORT_KEYS - set(rep)
     assert rep["chips"] == 16 and rep["mesh"] == "4x4"
     assert rep["bottleneck"] in ("compute", "memory", "collective")
@@ -239,6 +252,35 @@ def test_paged_needs_the_slot_pool():
 # the reference's meta keys of a scheduler cell (launch/dryrun.py)
 CHUNK_KEYS = {"continuous_slots", "chunk"}
 PAGED_KEYS = CHUNK_KEYS | {"kv_layout", "page_size", "num_pages"}
+
+
+def test_xlstm_train_cell_traces(runs):
+    """xlstm-125m's train step on the mesh, at 64 positions (its
+    sLSTM's loop makes the 4096 of ``train_4k`` too slow here)."""
+    rep = runs["cells"]["mesh|xlstm-train"]
+    assert "error" not in rep and "refused" not in rep, rep
+    assert REPORT_KEYS <= set(rep), REPORT_KEYS - set(rep)
+    counts = rep["collectives"]["counts"]
+    assert counts["all-gather"] > 0 and counts["reduce-scatter"] > 0
+    # the sLSTM's and mLSTM's f32 products
+    assert rep["collectives"]["products"]["f32"] > 0
+
+
+@pytest.mark.parametrize("key", list(ADAFACTOR_CELLS))
+def test_adafactor_train_cells_report(runs, key):
+    """``--opt adafactor`` on a smoke cell: the report names it, and its
+    factored moments' means and RMS clips add all-reduces to the AdamW
+    cell's (``--opt auto`` at smoke size)."""
+    rep = runs["cells"][f"mesh|{key}"]
+    arch = ADAFACTOR_CELLS[key]
+    adamw = runs["cells"][f"{arch}|train_4k"]
+    assert "error" not in rep and "refused" not in rep, rep
+    assert REPORT_KEYS <= set(rep), REPORT_KEYS - set(rep)
+    assert rep["optimizer"] == "adafactor" and adamw["optimizer"] == "adamw"
+    counts, base = (r["collectives"]["counts"] for r in (rep, adamw))
+    assert counts["all-reduce"] > base["all-reduce"]
+    assert counts["reduce-scatter"] == base["reduce-scatter"] > 0
+    assert rep["wire_bytes_per_device"] > adamw["wire_bytes_per_device"]
 
 
 @pytest.mark.parametrize("key", list(MESH_CELLS))

@@ -19,9 +19,11 @@ internlm2-1.8b in f32, and each case here asserts on its results:
     transfer per bucket, prefill and decode logits within 1e-5 of their
     max |value|;
   * what does not run on a mesh yet raises, naming the ROADMAP item:
-    device fidelity in serving, and exact mode, MoE and Adafactor in
-    training (the int8 domain, exact mode and MoE serve on a mesh:
-    ``tests/test_torch_mesh_serve.py``).
+    device fidelity and the legacy step loop in serving, the recurrent
+    and cross families' serving, and training under ``remat="dots"``
+    (the int8 domain, exact mode and MoE serve on a mesh:
+    ``tests/test_torch_mesh_serve.py``; every family, Adafactor and
+    exact mode train on one: ``tests/test_torch_mesh_train.py``).
 
 Every case ran at least one collective (``CommDebugMode``).  The
 unmeshed port is held against ``repro`` by ``tests/test_torch_serve.py``
@@ -121,8 +123,8 @@ def test_meshed_bucket_engine_matches_unmeshed(results, packing):
     assert "ShardedPacked" in r["view_kinds"]
 
 
-@pytest.mark.parametrize("what", ["fidelity", "exact", "moe", "legacy",
-                                  "adafactor"])
+@pytest.mark.parametrize("what", ["fidelity", "legacy", "serve zamba2-7b",
+                                  "serve whisper-large-v3", "remat dots"])
 def test_unported_mesh_paths_raise(results, what):
     msg = results["refusals"][what]
     assert msg is not None
